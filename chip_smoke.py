@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+Drives BASELINE config #1 — a batch of 32 NHWC float32 images of 512x768x3
+-> Lanczos resize to 256x256 -> Gaussian blur sigma=2 -> sRGB->Gray — once
+through the port's two user routes:
+
+* the fused route, ``fused_resize_pipeline`` on the flat (N*H, W*C) wire
+  layout, which runs kernel K1 (``csrc/fused_pipeline.cu``);
+* the op route, ``Image(batch).resize().gaussian_blur()
+  .transform_colorspace()``, whose blur runs kernel K3
+  (``csrc/separable_blur.cu``).
+
+Before that it builds both kernels from the sources in the checkout and
+holds each against its plain PyTorch version on the card.  It checks the
+routes against a float64 reference (>= 100 dB) and against each other
+(>= 60 dB; the op route clips after every op), then times each kernel
+against its plain version and each route end to end with CUDA events
+(median of 25 runs after a warm-up).
+
+Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
+needs one CUDA card and fails without one.  The line before the last is
+a JSON object with every kernel's launches on the main path, its largest
+error against the plain version and its times; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N, H, W, C = 32, 512, 768, 3
+HOUT = WOUT = 256
+SIGMA = 2.0
+GRAY = np.array([[0.212656, 0.715158, 0.072186]])
+TAGS = [("resize", (HOUT, WOUT, "lanczos")), ("gblur", (0.0, SIGMA, "2d")),
+        ("mix", ((0.212656, 0.715158, 0.072186),))]
+RUNS = 25
+K3_TOL = 1e-5   # float32 sums of <= 33 taps in another order
+K1_TOL = 2e-5   # float32 dot products of depth SPAN=1280 in another order
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def psnr(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    rms = math.sqrt(float(np.mean((a - b) ** 2)))
+    return 20.0 * math.log10(1.0 / max(rms, 1e-12))
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    require(a.shape == b.shape, f"shapes {a.shape} {b.shape}")
+    return float((a - b).abs().max().item())
+
+
+def gauss_taps(n: int, sigma: float) -> np.ndarray:
+    j = n // 2
+    xs = np.arange(-j, j + 1, dtype=np.float64)
+    k = np.exp(-(xs * xs) / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def median_ms(*fns):
+    """Median CUDA-event time of each fn, runs interleaved, after a warm-up."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(RUNS):
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
+                         "is False); the port's kernels run only on one")
+    from imagemagick_tpu_torch import Image, _build
+    from imagemagick_tpu_torch.ops import dispatch
+    from imagemagick_tpu_torch.ops import fused_pipeline as fp
+    from imagemagick_tpu_torch.ops import gpu_kernels as gk
+    from imagemagick_tpu_torch.ops.blur import optimal_kernel_width_2d
+
+    name_limit = card()
+    print(name_limit)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, ctypes)")
+
+    # -- K3 against its plain version -------------------------------------
+    taps15 = gauss_taps(optimal_kernel_width_2d(0.0, SIGMA), SIGMA)
+    require(len(taps15) == 15, f"{len(taps15)} taps")
+    k3_err = 0.0
+    for shape, taps in (((N, HOUT, WOUT, C), taps15),
+                        ((3, 333, 517, 3), gauss_taps(33, 5.0)),
+                        ((2, 64, 96, 1), gauss_taps(3, 0.8))):
+        x = rand(*shape)
+        err = max_err(gk.separable_blur(x, taps),
+                      gk._separable_blur_plain(x, taps))
+        torch.cuda.synchronize()
+        print(f"k3 {shape} {len(taps)} taps: max|d| {err:.3e}")
+        require(err <= K3_TOL, f"k3 max|d| {err}")
+        k3_err = max(k3_err, err)
+
+    # -- K1 against its plain version -------------------------------------
+    batch = rand(N, H, W, C)
+    flat = batch.reshape(N * H, W * C)         # the flat wire layout
+    mix_key = tuple(map(tuple, GRAY.tolist()))
+    WV, r0s, BAND, ntiles, GB, c0s, SPAN, OUT, OUTP = fp._plan(
+        H, W, C, HOUT, WOUT, "lanczos", SIGMA, mix_key, 64)
+    k1_ops = fp.plan_to_tensors(WV, GB, fp.flat_r0(r0s, N, H), dev)
+    guids = tuple(range(len(c0s)))
+
+    def k1_kernel():
+        return fp.fused_kernel(flat, k1_ops, c0s, guids, ntiles)
+
+    def k1_plain():
+        return fp._fused_plain(flat, k1_ops, c0s, guids, ntiles)
+
+    k1_err = max_err(k1_kernel(), k1_plain())
+    torch.cuda.synchronize()
+    print(f"k1 config #1 x {tuple(flat.shape)} WV {WV.shape} GB {GB.shape}: "
+          f"max|d| {k1_err:.3e}")
+    require(k1_err <= K1_TOL, f"k1 max|d| {k1_err}")
+
+    odd = rand(1, 500, 750, C)
+    got = dispatch.try_fused_batch_array(odd, TAGS)
+    plain = dispatch.try_fused_batch_array(odd.cpu(), TAGS)
+    torch.cuda.synchronize()
+    require(got is not None and got.shape == (1, HOUT, WOUT, 1),
+            "dispatch declined or misshaped")
+    err = max_err(got.cpu(), plain)
+    print(f"k1 dispatch 500x750: max|d| {err:.3e}")
+    require(err <= K1_TOL, f"k1 dispatch max|d| {err}")
+    k1_err = max(k1_err, err)
+    ref_odd = fp.reference_pipeline_f64(odd.cpu().numpy(), HOUT, WOUT,
+                                        "lanczos", SIGMA, GRAY)
+    db = psnr(got.cpu().numpy(), ref_odd)
+    print(f"dispatch 500x750 vs float64: {db:.2f} dB")
+    require(db >= 100.0, f"dispatch {db} dB")
+
+    # -- the main path, end to end ----------------------------------------
+    def fused_route():
+        return fp.fused_resize_pipeline(flat, HOUT, WOUT, "lanczos", SIGMA,
+                                        GRAY, in_shape=(N, H, W, C))
+
+    def op_route():
+        return Image(batch).resize(WOUT, HOUT, "lanczos") \
+            .gaussian_blur(0.0, SIGMA).transform_colorspace("gray").data
+
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+    fused = fused_route()
+    torch.cuda.synchronize()
+    ops = op_route()
+    torch.cuda.synchronize()
+    launches = dict(gk.LAUNCHES)
+    print(f"main path launches: {launches}")
+    require(all(n >= 1 for n in launches.values()), f"launches {launches}")
+    for out in (fused, ops):
+        require(out.shape == (N, HOUT, WOUT, 1), f"shape {out.shape}")
+        require(bool(torch.isfinite(out).all()), "non-finite output")
+    ref = fp.reference_pipeline_f64(batch[:4].cpu().numpy(), HOUT, WOUT,
+                                    "lanczos", SIGMA, GRAY)
+    db_fused = psnr(fused[:4].cpu().numpy(), ref)
+    db_routes = psnr(fused.cpu().numpy(), ops.cpu().numpy())
+    print(f"fused route vs float64 (4 images): {db_fused:.2f} dB")
+    print(f"fused route vs op route ({N} images): {db_routes:.2f} dB")
+    require(db_fused >= 100.0, f"fused route {db_fused} dB")
+    require(db_routes >= 60.0, f"routes agree at {db_routes} dB")
+
+    # -- times --------------------------------------------------------------
+    x3 = rand(N, HOUT, WOUT, C)
+    k1_ms, k1_plain_ms = median_ms(k1_kernel, k1_plain)
+    k3_ms, k3_plain_ms = median_ms(
+        lambda: gk.separable_blur(x3, taps15),
+        lambda: gk._separable_blur_plain(x3, taps15))
+    fused_ms, op_ms = median_ms(fused_route, op_route)
+    mp = N * H * W / 1e6
+    print(f"k1 config #1 (TO=64): kernel {k1_ms:.4f} ms, plain "
+          f"{k1_plain_ms:.4f} ms [{name_limit}]")
+    print(f"k3 {(N, HOUT, WOUT, C)} 15 taps: kernel {k3_ms:.4f} ms, plain "
+          f"{k3_plain_ms:.4f} ms [{name_limit}]")
+    print(f"config #1 end to end: fused route {fused_ms:.4f} ms = "
+          f"{mp / fused_ms * 1e3:.1f} MP/s, op route {op_ms:.4f} ms = "
+          f"{mp / op_ms * 1e3:.1f} MP/s (input {mp:.3f} MP/step, median of "
+          f"{RUNS}) [{name_limit}]")
+
+    kernels = [
+        {"name": "k1_fused_pipeline", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
+         "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
+         "launches": launches["k1"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "k3_separable_blur", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
+         "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
+         "launches": launches["k3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""Image: the user-facing container — a tensor plus its static spec.
+
+Port of ``imagemagick_tpu/core/image.py`` (the reference's Image struct and
+pixel cache, MagickCore/image.h:131-350, cache.c): pixels are a dense
+(H, W, C) — or batched (N, H, W, C) — float32 tensor in [0,1] (Q16-HDRI
+semantics), on whatever device the tensor lies; static semantics live in
+ImageSpec.  Op methods are thin wrappers over the functions in
+``imagemagick_tpu_torch.ops`` and return new Images.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .spec import ImageSpec, normalize_colorspace
+
+
+class Image:
+    __slots__ = ("data", "spec")
+
+    def __init__(self, data, spec: Optional[ImageSpec] = None):
+        self.data = data if isinstance(data, torch.Tensor) else \
+            torch.from_numpy(np.asarray(data, np.float32))
+        self.spec = spec or ImageSpec()
+
+    # -- basic accessors ----------------------------------------------------
+    @property
+    def height(self) -> int:
+        return self.data.shape[-3]
+
+    @property
+    def width(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def channels(self) -> int:
+        return self.data.shape[-1]
+
+    def replace(self, data=None, spec=None) -> "Image":
+        return Image(self.data if data is None else data,
+                     self.spec if spec is None else spec)
+
+    def __repr__(self):
+        shp = "x".join(str(s) for s in self.data.shape)
+        return (f"<Image {shp} {self.spec.colorspace}"
+                f"{'+alpha' if self.spec.alpha else ''} {self.data.device}>")
+
+    # layout: [color..., alpha?, meta...]
+    def color_data(self) -> torch.Tensor:
+        return self.data[..., : self.spec.color_channels]
+
+    # -- op wrappers (thin; real math in ops/) -------------------------------
+    def transform_colorspace(self, target: str) -> "Image":
+        from ..ops import colorspace as cs
+
+        tgt = normalize_colorspace(target)
+        src = self.spec.colorspace
+        if tgt == src:
+            return self
+        color = cs.convert(self.color_data(), src, tgt)
+        rest = self.data[..., self.spec.color_channels:]
+        data = torch.cat([color, rest], dim=-1) if rest.shape[-1] else color
+        return Image(data, self.spec.with_(colorspace=tgt))
+
+    def resize(self, width: int, height: int, filter_name: str = "undefined",
+               blur: float = 1.0) -> "Image":
+        from ..ops import resize as rz
+
+        data = rz.resize(self.data, height, width, filter_name, blur,
+                         has_alpha=self.spec.alpha)
+        return self.replace(data=data)
+
+    def resize_geometry(self, geometry: str,
+                        filter_name: str = "undefined") -> "Image":
+        from .geometry import parse_meta_geometry
+
+        w, h, _, _ = parse_meta_geometry(geometry, self.width, self.height)
+        if (w, h) == (self.width, self.height):
+            return self
+        return self.resize(w, h, filter_name)
+
+    def blur(self, radius: float = 0.0, sigma: float = 1.0) -> "Image":
+        from ..ops import blur as bl
+
+        return self.replace(data=bl.blur(self.data, radius, sigma))
+
+    def gaussian_blur(self, radius: float = 0.0, sigma: float = 1.0) -> "Image":
+        from ..ops import blur as bl
+
+        return self.replace(data=bl.gaussian_blur(self.data, radius, sigma))
+
+    # -- host conversion ------------------------------------------------------
+    def to_numpy(self) -> np.ndarray:
+        return self.data.detach().cpu().numpy()
+
+    @classmethod
+    def from_uint8(cls, arr: np.ndarray, spec: Optional[ImageSpec] = None
+                   ) -> "Image":
+        """An Image on the CPU; move ``.data`` to a card with ``replace``."""
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        data = torch.from_numpy(np.asarray(arr, np.float32) / 255.0)
+        if spec is None:
+            spec = _infer_spec(arr.shape[-1])
+        return cls(data, spec)
+
+
+def _infer_spec(channels: int) -> ImageSpec:
+    if channels == 1:
+        return ImageSpec(colorspace="gray", alpha=False)
+    if channels == 2:
+        return ImageSpec(colorspace="gray", alpha=True)
+    if channels == 3:
+        return ImageSpec(colorspace="srgb", alpha=False)
+    if channels == 4:
+        return ImageSpec(colorspace="srgb", alpha=True)
+    if channels == 5:
+        return ImageSpec(colorspace="cmyk", alpha=True)
+    raise ValueError(f"cannot infer spec for {channels} channels")
+
+
+def stack(images: Sequence[Image]) -> Image:
+    """Batch same-shape images along a leading axis."""
+    if not images:
+        raise ValueError("no images to stack")
+    spec = images[0].spec
+    for im in images[1:]:
+        if im.spec != spec:
+            raise ValueError("all images in a batch must share a spec")
+    return Image(torch.stack([im.data for im in images], dim=0), spec)
