@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives BASELINE config #1 — a batch of 32 NHWC float32 images of 512x768x3
--> Lanczos resize to 256x256 -> Gaussian blur sigma=2 -> sRGB->Gray — once
-through the port's two user routes:
+Drives two BASELINE pipelines, each once through the port's two user
+routes:
 
-* the fused route, ``fused_resize_pipeline`` on the flat (N*H, W*C) wire
-  layout, which runs kernel K1 (``csrc/fused_pipeline.cu``);
-* the op route, ``Image(batch).resize().gaussian_blur()
-  .transform_colorspace()``, whose blur runs kernel K3
-  (``csrc/separable_blur.cu``).
+* config #1 — a batch of 32 NHWC float32 images of 512x768x3 -> Lanczos
+  resize to 256x256 -> Gaussian blur sigma=2 -> sRGB->Gray.  The fused
+  route, ``fused_resize_pipeline`` on the flat (N*H, W*C) wire layout,
+  runs kernel K1 (``csrc/fused_pipeline.cu``); the op route,
+  ``Image(batch).resize().gaussian_blur().transform_colorspace()``, runs
+  kernel K3 (``csrc/separable_blur.cu``) for its blur.
+* config #2 — a batch of 8 images of 1080x1920x3 -> Gaussian blur 0x2 ->
+  unsharp 0x1 (gain 1, threshold 0) -> sRGB->Lab->sRGB.  The fused route,
+  ``fused_blur_unsharp_pipeline``, runs kernel K2
+  (``csrc/blur_unsharp.cu``); the op route, ``Image(batch)
+  .gaussian_blur().unsharp_mask().transform_colorspace()`` twice, runs K3
+  for both of its blurs.
 
-Before that it builds both kernels from the sources in the checkout and
-holds each against its plain PyTorch version on the card.  It checks the
-routes against a float64 reference (>= 100 dB) and against each other
-(>= 60 dB; the op route clips after every op), then times each kernel
-against its plain version and each route end to end with CUDA events
-(median of 25 runs after a warm-up).
+It builds the kernels from the sources in the checkout and holds each
+against its plain PyTorch version on the card, at the main paths' shapes
+and at shapes that do not fill a tile.  Each main path runs with every
+launch count set to 0 just before it and read just after.  It checks the
+fused routes against a float64 reference (>= 100 dB) and each pair of
+routes against each other (>= 60 dB; an op route clips after every op),
+then times each kernel against its plain version and each route end to
+end with CUDA events (median of 25 runs after a warm-up).
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
 needs one CUDA card and fails without one.  The line before the last is
@@ -45,6 +53,12 @@ TAGS = [("resize", (HOUT, WOUT, "lanczos")), ("gblur", (0.0, SIGMA, "2d")),
 RUNS = 25
 K3_TOL = 1e-5   # float32 sums of <= 33 taps in another order
 K1_TOL = 2e-5   # float32 dot products of depth SPAN=1280 in another order
+# config #2
+N2, H2, W2 = 8, 1080, 1920
+SIGMA_UNSHARP = 1.0
+GAIN = 1.0
+K2_TOL = 2e-5      # float32 sums of 15 + 9 taps in another order
+K2_LAB_TOL = 5e-5  # and powf / cbrtf against torch.pow
 
 
 def require(ok: bool, what: str) -> None:
@@ -108,7 +122,8 @@ def main() -> None:
     from imagemagick_tpu_torch.ops import dispatch
     from imagemagick_tpu_torch.ops import fused_pipeline as fp
     from imagemagick_tpu_torch.ops import gpu_kernels as gk
-    from imagemagick_tpu_torch.ops.blur import optimal_kernel_width_2d
+    from imagemagick_tpu_torch.ops.blur import (gaussian_kernel_1d,
+                                                optimal_kernel_width_2d)
 
     name_limit = card()
     print(name_limit)
@@ -193,8 +208,9 @@ def main() -> None:
     ops = op_route()
     torch.cuda.synchronize()
     launches = dict(gk.LAUNCHES)
-    print(f"main path launches: {launches}")
-    require(all(n >= 1 for n in launches.values()), f"launches {launches}")
+    print(f"config #1 main path launches: {launches}")
+    require(launches["k1"] >= 1 and launches["k3"] >= 1,
+            f"launches {launches}")
     for out in (fused, ops):
         require(out.shape == (N, HOUT, WOUT, 1), f"shape {out.shape}")
         require(bool(torch.isfinite(out).all()), "non-finite output")
@@ -224,17 +240,98 @@ def main() -> None:
           f"{mp / op_ms * 1e3:.1f} MP/s (input {mp:.3f} MP/step, median of "
           f"{RUNS}) [{name_limit}]")
 
+    # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
+    batch2 = rand(N2, H2, W2, C)
+    flat2 = batch2.reshape(N2 * H2, W2 * C)        # the flat wire layout
+    blur2, unsharp2 = fp.blur_unsharp_taps(H2, W2, SIGMA, SIGMA_UNSHARP)
+    require((len(blur2), len(unsharp2)) == (15, 9),
+            f"{len(blur2)} blur, {len(unsharp2)} unsharp taps")
+
+    # -- K3 at the config #2 op route's shapes -----------------------------
+    for taps in (taps15, gaussian_kernel_1d(0.0, SIGMA_UNSHARP)):
+        err = max_err(gk.separable_blur(batch2, taps),
+                      gk._separable_blur_plain(batch2, taps))
+        torch.cuda.synchronize()
+        print(f"k3 {tuple(batch2.shape)} {len(taps)} taps: max|d| {err:.3e}")
+        require(err <= K3_TOL, f"k3 max|d| {err}")
+        k3_err = max(k3_err, err)
+
+    # -- K2 against its plain version -------------------------------------
+    k2_err = 0.0
+    for shape, lab in (((N2, H2, W2, C), True), ((N2, H2, W2, C), False),
+                       ((2, 37, 45, 3), True), ((1, 100, 33, 1), False)):
+        x = batch2 if shape == tuple(batch2.shape) else rand(*shape)
+        err = max_err(fp.blur_unsharp_kernel(x, blur2, unsharp2, GAIN, lab),
+                      fp._blur_unsharp_plain(x, blur2, unsharp2, GAIN, lab))
+        torch.cuda.synchronize()
+        tol = K2_LAB_TOL if lab else K2_TOL
+        print(f"k2 {shape} lab={lab}: max|d| {err:.3e} (tolerance {tol})")
+        require(err <= tol, f"k2 {shape} lab={lab} max|d| {err}")
+        k2_err = max(k2_err, err)
+
+    # -- the config #2 main path, end to end -------------------------------
+    def fused2_route():
+        return fp.fused_blur_unsharp_pipeline(
+            flat2, SIGMA, SIGMA_UNSHARP, GAIN, C, in_shape=(N2, H2, W2, C),
+            lab_roundtrip=True)
+
+    def op2_route():
+        return Image(batch2).gaussian_blur(0.0, SIGMA) \
+            .unsharp_mask(0.0, SIGMA_UNSHARP, GAIN, 0.0) \
+            .transform_colorspace("lab").transform_colorspace("srgb").data
+
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+    fused2 = fused2_route()
+    torch.cuda.synchronize()
+    ops2 = op2_route()
+    torch.cuda.synchronize()
+    launches2 = dict(gk.LAUNCHES)
+    print(f"config #2 main path launches: {launches2}")
+    require(launches2["k2"] >= 1 and launches2["k3"] >= 2,
+            f"launches {launches2}")
+    for out in (fused2, ops2):
+        require(out.shape == (N2, H2, W2, C), f"shape {out.shape}")
+        require(bool(torch.isfinite(out).all()), "non-finite output")
+    ref2 = fp.reference_blur_unsharp_f64(batch2[:1].cpu().numpy(), SIGMA,
+                                         SIGMA_UNSHARP, GAIN, True)
+    db_fused2 = psnr(fused2[:1].cpu().numpy(), ref2)
+    db_routes2 = psnr(fused2.cpu().numpy(), ops2.cpu().numpy())
+    print(f"config #2 fused route vs float64 (image 0): {db_fused2:.2f} dB")
+    print(f"config #2 fused route vs op route ({N2} images): "
+          f"{db_routes2:.2f} dB")
+    require(db_fused2 >= 100.0, f"config #2 fused route {db_fused2} dB")
+    require(db_routes2 >= 60.0, f"config #2 routes agree at {db_routes2} dB")
+
+    k2_ms, k2_plain_ms = median_ms(
+        lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True),
+        lambda: fp._blur_unsharp_plain(batch2, blur2, unsharp2, GAIN, True))
+    fused2_ms, op2_ms = median_ms(fused2_route, op2_route)
+    mp2 = N2 * H2 * W2 / 1e6
+    print(f"k2 config #2 {(N2, H2, W2, C)} Lab: kernel {k2_ms:.4f} ms = "
+          f"{mp2 / k2_ms * 1e3:.1f} MP/s, plain {k2_plain_ms:.4f} ms = "
+          f"{mp2 / k2_plain_ms * 1e3:.1f} MP/s [{name_limit}]")
+    print(f"config #2 end to end: fused route {fused2_ms:.4f} ms = "
+          f"{mp2 / fused2_ms * 1e3:.1f} MP/s, op route {op2_ms:.4f} ms = "
+          f"{mp2 / op2_ms * 1e3:.1f} MP/s (input {mp2:.3f} MP/step, median "
+          f"of {RUNS}) [{name_limit}]")
+
     kernels = [
         {"name": "k1_fused_pipeline", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "k2_blur_unsharp", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/blur_unsharp.cu",
+         "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
+         "launches": launches2["k2"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "k3_separable_blur", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
-         "launches": launches["k3"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "launches": launches["k3"] + launches2["k3"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

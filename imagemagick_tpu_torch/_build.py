@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 On first use, ``load()`` compiles every ``csrc/*.cu`` with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-stores it under ``_build/`` keyed by a hash of the sources and flags, and
-loads it with ``ctypes``.  Nothing includes PyTorch's headers, so a build
-takes seconds.  Each C entry launches on the stream it is given and
-returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, links
+the objects into one shared library with a plain C interface, stores it
+under ``_build/`` keyed by a hash of the sources and flags, and loads it
+with ``ctypes``.  Nothing includes PyTorch's headers, so a build takes
+seconds.  Each C entry launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` raises when that is not 0.
 """
 
 from __future__ import annotations
@@ -21,15 +22,18 @@ _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+         "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     # r0, x, wv, gb, kr, c0s, guids, out, nprog, ntiles, nterms, nb, TO,
     # BAND, SPAN, WINC, OUTP, clip, stream
     "k1_fused_pipeline": [_P] * 8 + [_I] * 10 + [_P],
+    # x, y, taps, N, H, W, C, nblur, nunsharp, gain, lab, stream
+    "k2_blur_unsharp": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
     # x, y, taps, N, H, W, C, ntaps, stream
     "k3_separable_blur": [_P] * 3 + [_I] * 5 + [_P],
 }
@@ -45,6 +49,38 @@ def _nvcc() -> str:
                         "bin", "nvcc")
 
 
+def _compile(sources, so: Path) -> None:
+    """One nvcc per source, all started together, then one link into
+    ``so``; every step's output (ptxas's register and shared-memory
+    report included) goes to ``so``'s ``.log``."""
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [_OUT / f"{tag}.{src.stem}.o" for src in sources]
+    logs = [obj.with_suffix(".log") for obj in objs]
+    procs = []
+    for src, obj, log in zip(sources, objs, logs):
+        cmd = [_nvcc(), *FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as out:
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT)))
+    failed = [(cmd, log) for (cmd, proc), log in zip(procs, logs)
+              if proc.wait() != 0]
+    text = "".join(log.read_text() for log in logs)
+    tmp = so.with_name(f"{tag}.so.tmp")
+    link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        text += res.stdout + res.stderr
+        if res.returncode != 0:
+            failed = [(link, None)]
+    so.with_suffix(".log").write_text(text)
+    for path in objs + logs:
+        path.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            " ".join(cmd) for cmd, _ in failed) + f"\n{text}")
+    os.replace(tmp, so)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first use."""
     global _lib
@@ -57,14 +93,7 @@ def load() -> ctypes.CDLL:
     so = _OUT / f"libimtpu_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         _OUT.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, so)
+        _compile(sources, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -92,6 +92,13 @@ class Image:
 
         return self.replace(data=bl.gaussian_blur(self.data, radius, sigma))
 
+    def unsharp_mask(self, radius: float = 0.0, sigma: float = 1.0,
+                     gain: float = 1.0, threshold: float = 0.05) -> "Image":
+        from ..ops import blur as bl
+
+        return self.replace(data=bl.unsharp_mask(self.data, radius, sigma,
+                                                 gain, threshold))
+
     # -- host conversion ------------------------------------------------------
     def to_numpy(self) -> np.ndarray:
         return self.data.detach().cpu().numpy()

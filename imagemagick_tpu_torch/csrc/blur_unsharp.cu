@@ -1,0 +1,266 @@
+// K2: Gaussian blur -> unsharp mask (threshold 0) -> optional sRGB->Lab->sRGB
+//     of an NHWC float32 batch, edge-replicate borders.
+//
+// Replaces imagemagick_tpu/ops/fused_pipeline.py:_kernel with its unsharp
+// epilogue (_vpu_stage), h-pass stencil (_h_mid_stencil), column-chunk
+// interleave and Lab epilogue (_lab_roundtrip_rows), built by _build_call
+// and entered through fused_blur_unsharp_pipeline.
+//
+// Computes, for taps bt (odd, <= 33) and ut (odd, <= 17) and gain g:
+//   z = Bg(x)                 separable blur by bt, borders replicate x
+//   u = Bu(z)                 separable blur by ut, borders replicate z
+//   y = clip((1+g) z - g u)
+//   y = clip(lab_to_rgb(rgb_to_lab(y)))        when lab (C == 3)
+// The unsharp blur reads z at CLAMPED image coordinates: within ut/2
+// pixels of a border its halo holds z of the edge pixel, not a blur
+// evaluated outside the image (the Pallas kernel's Mv_ext rows and its
+// edge-pixel lane padding).
+//
+// What bounds it on an H100: device-memory traffic sets the floor (config
+// #2, 8 x 1080 x 1920 x 3: 199 MB in and 199 MB out, about 0.12 ms at
+// 3.35 TB/s), but this simple version does one shared-memory load per FMA
+// (about 75 per output value at 15 + 9 taps, with the halo recomputed
+// per tile) and nine powf/cbrtf per pixel with Lab, so shared-memory
+// bandwidth and the Lab math bind it first.
+// What the design does about it: one block per (image, T x T output
+// tile).  It loads the x tile with a halo of bt/2 + ut/2 pixels once, at
+// clamped coordinates, into shared memory, computes z on the
+// (T + ut-1)^2 window in two passes, the vertical unsharp pass over that
+// window, then the horizontal unsharp pass, the mix and the Lab round
+// trip per pixel in registers, and writes only the output: no
+// intermediate reaches device memory.  T is 32, or 16 where the 32-tile
+// windows would not fit in a block's shared memory (many channels and
+// wide taps).  The TPU kernel's banded matrix products, lane rolls and
+// lane fields serve its matrix unit and 128-lane layout and are not
+// carried over; the Lab math is the colorspace module's, with powf and
+// cbrtf in place of its exp2/log2 seed and Newton step.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_BLUR_TAPS = 33;
+constexpr int MAX_UNSHARP_TAPS = 17;
+constexpr int MAX_CHANNELS = 8;
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may use
+
+// colorspace.py's constants, rounded to float32 as PyTorch rounds them
+constexpr float kDecodeKnee = 0.0404482362771076f;
+constexpr float kEncodeKnee = 0.0031306684425005883f;
+constexpr float kInv24 = (float)(1.0 / 2.4);
+constexpr float kEps = (float)(216.0 / 24389.0);
+constexpr float kK = (float)(24389.0 / 27.0);
+constexpr float kKEps = (float)((24389.0 / 27.0) * (216.0 / 24389.0));
+
+__device__ __forceinline__ float clip01(float v) {
+  return fminf(fmaxf(v, 0.f), 1.f);
+}
+
+__device__ __forceinline__ float decode(float v) {      // sRGB -> linear
+  const float p = powf(fmaxf((v + 0.055f) / 1.055f, 1e-12f), 2.4f);
+  return v <= kDecodeKnee ? v / 12.92f : p;
+}
+
+__device__ __forceinline__ float encode(float v) {      // linear -> sRGB
+  const float p = powf(fmaxf(v, 1e-12f), kInv24);
+  return v <= kEncodeKnee ? 12.92f * v : 1.055f * p - 0.055f;
+}
+
+__device__ __forceinline__ float lab_f(float r) {
+  return r > kEps ? cbrtf(fmaxf(r, 0.f)) : (kK * r + 16.f) / 116.f;
+}
+
+__device__ __forceinline__ float lab_finv(float f) {
+  const float f3 = f * f * f;
+  return f3 > kEps ? f3 : (116.f * f - 16.f) / kK;
+}
+
+// sRGB -> Lab -> sRGB of one pixel, clipped: colorspace.py's rgb_to_lab
+// then lab_to_rgb, the out-of-gamut lift included.
+__device__ void lab_roundtrip(float& r, float& g, float& b) {
+  const float lr = decode(r), lg = decode(g), lb = decode(b);
+  const float fx = lab_f((0.4123955889674142161f * lr +
+                          0.3575834307637148171f * lg +
+                          0.1804926473817015735f * lb) / 0.95047f);
+  const float fy = lab_f(0.2125862307855955516f * lr +
+                         0.7151703037034108499f * lg +
+                         0.07220049864333622685f * lb);
+  const float fz = lab_f((0.01929721549174694484f * lr +
+                          0.1191838645808485318f * lg +
+                          0.9504971251315797660f * lb) / 1.08883f);
+  // rgb_to_lab stores L/100, a/255 + 0.5, b/255 + 0.5; lab_to_rgb undoes it
+  const float Ls = (116.f * fy - 16.f) / 100.f;
+  const float as = 500.f * (fx - fy) / 255.f + 0.5f;
+  const float bs = 200.f * (fy - fz) / 255.f + 0.5f;
+  const float L = 100.f * Ls;
+  const float A = 255.f * (as - 0.5f);
+  const float B = 255.f * (bs - 0.5f);
+  const float y = (L + 16.f) / 116.f;
+  const float X = lab_finv(y + A / 500.f) * 0.95047f;
+  const float Y = L > kKEps ? y * y * y : L / kK;
+  const float Z = lab_finv(y - B / 200.f) * 1.08883f;
+  float R = 3.240969941904521f * X - 1.537383177570093f * Y -
+            0.498610760293f * Z;
+  float G = -0.96924363628087f * X + 1.87596750150772f * Y +
+            0.041555057407175f * Z;
+  float Bl = 0.055630079696993f * X - 0.20397695888897f * Y +
+             1.056971514242878f * Z;
+  const float mn = fminf(R, fminf(G, Bl));
+  if (mn < 0.f) {
+    R -= mn;
+    G -= mn;
+    Bl -= mn;
+  }
+  r = clip01(encode(R));
+  g = clip01(encode(G));
+  b = clip01(encode(Bl));
+}
+
+__host__ __device__ __forceinline__ int tap_floats(int nb, int nu) {
+  return (nb + nu + 3) / 4 * 4;  // keep the windows 16-byte aligned
+}
+
+// floats of the x window (later the z window) and of the vertical-pass
+// buffer (later the vertical unsharp pass) for a T x T tile
+__host__ __device__ __forceinline__ int buf_a(int T, int C, int rb, int ru) {
+  const int xs = T + 2 * ru + 2 * rb, zs = T + 2 * ru;
+  return xs * xs * C > zs * zs * C ? xs * xs * C : zs * zs * C;
+}
+
+__host__ __device__ __forceinline__ int buf_b(int T, int C, int rb, int ru) {
+  const int xs = T + 2 * ru + 2 * rb, zs = T + 2 * ru;
+  return zs * xs * C > T * zs * C ? zs * xs * C : T * zs * C;
+}
+
+__global__ void __launch_bounds__(THREADS)
+blur_unsharp_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const float* __restrict__ taps, int H, int W, int C,
+                    int nb, int nu, float gain, int lab, int T) {
+  extern __shared__ __align__(16) float smem[];
+  const int rb = nb / 2, ru = nu / 2;
+  const int xs = T + 2 * ru + 2 * rb;   // x window side, pixels
+  const int zs = T + 2 * ru;            // z window side, pixels
+  const int xrow = xs * C, zrow = zs * C;
+  float* tp = smem;                     // nb blur taps, then nu unsharp taps
+  const float* up = tp + nb;
+  float* a = smem + tap_floats(nb, nu); // x window, then z window
+  float* b = a + buf_a(T, C, rb, ru);   // vertical blur, then vertical unsharp
+  const int y0 = blockIdx.y * T, x0 = blockIdx.x * T;
+  const int zy0 = y0 - ru, zx0 = x0 - ru;  // image position of z window (0, 0)
+  const size_t plane = (size_t)H * W * C;
+  const float* src = x + blockIdx.z * plane;
+  float* dst = y + blockIdx.z * plane;
+
+  for (int k = threadIdx.x; k < nb + nu; k += THREADS) tp[k] = taps[k];
+  // x window row i, pixel p: image (clamp(zy0 - rb + i), clamp(zx0 - rb + p))
+  for (int e = threadIdx.x; e < xs * xrow; e += THREADS) {
+    const int i = e / xrow;
+    const int rem = e - i * xrow;
+    const int p = rem / C;
+    const int c = rem - p * C;
+    const int gy = min(max(zy0 - rb + i, 0), H - 1);
+    const int gx = min(max(zx0 - rb + p, 0), W - 1);
+    a[e] = src[((size_t)gy * W + gx) * C + c];
+  }
+  __syncthreads();
+
+  // z window (i, j) holds z at image (clamp(zy0 + i), clamp(zx0 + j)).
+  // Its blur reads x rows clamp(zy0 + i) - rb .. + rb, which start at x
+  // window row clamp(zy0 + i) - zy0; likewise for columns.
+  // Vertical blur, over every column of the x window:
+  for (int e = threadIdx.x; e < zs * xrow; e += THREADS) {
+    const int i = e / xrow;
+    const int lane = e - i * xrow;
+    const float* col = a + (min(max(zy0 + i, 0), H - 1) - zy0) * xrow + lane;
+    float acc = tp[0] * col[0];
+    for (int k = 1; k < nb; ++k) acc = fmaf(tp[k], col[k * xrow], acc);
+    b[e] = acc;
+  }
+  __syncthreads();
+
+  // horizontal blur: a shift by one pixel is a shift by C floats
+  for (int e = threadIdx.x; e < zs * zrow; e += THREADS) {
+    const int i = e / zrow;
+    const int rem = e - i * zrow;
+    const int j = rem / C;
+    const int c = rem - j * C;
+    const float* row =
+        b + i * xrow + (min(max(zx0 + j, 0), W - 1) - zx0) * C + c;
+    float acc = tp[0] * row[0];
+    for (int k = 1; k < nb; ++k) acc = fmaf(tp[k], row[k * C], acc);
+    a[e] = acc;
+  }
+  __syncthreads();
+
+  // vertical unsharp pass: output row i reads z window rows i .. i + 2ru
+  for (int e = threadIdx.x; e < T * zrow; e += THREADS) {
+    const int i = e / zrow;
+    const int lane = e - i * zrow;
+    const float* col = a + i * zrow + lane;
+    float acc = up[0] * col[0];
+    for (int k = 1; k < nu; ++k) acc = fmaf(up[k], col[k * zrow], acc);
+    b[e] = acc;
+  }
+  __syncthreads();
+
+  // horizontal unsharp pass, the mix, Lab and the store: one pixel a thread
+  for (int p = threadIdx.x; p < T * T; p += THREADS) {
+    const int i = p / T;
+    const int j = p - i * T;
+    const int gy = y0 + i, gx = x0 + j;
+    if (gy >= H || gx >= W) continue;
+    auto sharpen = [&](int c) {
+      const float* row = b + i * zrow + j * C + c;
+      float u = up[0] * row[0];
+      for (int k = 1; k < nu; ++k) u = fmaf(up[k], row[k * C], u);
+      const float z = a[(i + ru) * zrow + (j + ru) * C + c];
+      return clip01((1.f + gain) * z - gain * u);
+    };
+    float* o = dst + ((size_t)gy * W + gx) * C;
+    if (lab) {
+      float r = sharpen(0), g = sharpen(1), bl = sharpen(2);
+      lab_roundtrip(r, g, bl);
+      o[0] = r;
+      o[1] = g;
+      o[2] = bl;
+    } else {
+      for (int c = 0; c < C; ++c) o[c] = sharpen(c);
+    }
+  }
+}
+
+size_t smem_bytes(int T, int C, int nb, int nu) {
+  return (size_t)(tap_floats(nb, nu) + buf_a(T, C, nb / 2, nu / 2) +
+                  buf_b(T, C, nb / 2, nu / 2)) * sizeof(float);
+}
+
+}  // namespace
+
+// x, y: (N, H, W, C) float32, contiguous, on the current device; C <= 8.
+// taps: nb blur taps then nu unsharp taps, float32 on the device, both
+// counts odd, nb <= 33, nu <= 17.  lab (C == 3 only): the sRGB->Lab->sRGB
+// round trip after the unsharp mix.
+extern "C" int k2_blur_unsharp(const float* x, float* y, const float* taps,
+                               int N, int H, int W, int C, int nb, int nu,
+                               float gain, int lab, void* stream) {
+  if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || C > MAX_CHANNELS ||
+      nb < 1 || nb > MAX_BLUR_TAPS || nb % 2 == 0 || nu < 1 ||
+      nu > MAX_UNSHARP_TAPS || nu % 2 == 0 || (lab && C != 3))
+    return cudaErrorInvalidValue;
+  int T = 32;
+  size_t smem = smem_bytes(T, C, nb, nu);
+  if (smem > MAX_SMEM) {
+    T = 16;
+    smem = smem_bytes(T, C, nb, nu);
+  }
+  if ((H + T - 1) / T > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      blur_unsharp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + T - 1) / T, (H + T - 1) / T, N);
+  blur_unsharp_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, y, taps, H, W, C, nb, nu, gain, lab, T);
+  return cudaGetLastError();
+}

@@ -6,6 +6,7 @@ are numpy, copied from the JAX package:
   * GetOptimalKernelWidth1D/2D (MagickCore/gem.c:262-330)
   * the "blur:" 1-D kernel (morphology.c:1140 BlurKernel)
   * GaussianBlurImage (effect.c:1709) as two separable passes
+  * UnsharpMaskImage (effect.c:4256) over BlurImage
 
 ``_separable_conv`` runs kernel K3 (``gpu_kernels.separable_blur``) for an
 odd kernel of at most 33 taps with edge padding, the envelope of the TPU
@@ -207,3 +208,14 @@ def gaussian_blur(img: torch.Tensor, radius: float = 0.0, sigma: float = 1.0,
     k /= k.sum()
     return _separable_conv(img, k.astype(np.float32),
                            virtual_pixel).clamp(0.0, 1.0)
+
+
+def unsharp_mask(img: torch.Tensor, radius: float = 0.0, sigma: float = 1.0,
+                 gain: float = 1.0, threshold: float = 0.05,
+                 virtual_pixel: str = "edge") -> torch.Tensor:
+    """UnsharpMaskImage (effect.c:4256): where |2 diff| reaches the
+    threshold, add gain times the difference from the blur."""
+    blurred = blur(img, radius, sigma, virtual_pixel)
+    diff = img - blurred
+    out = torch.where((2.0 * diff).abs() < threshold, img, img + gain * diff)
+    return out.clamp(0.0, 1.0)

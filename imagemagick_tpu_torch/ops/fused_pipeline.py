@@ -1,4 +1,4 @@
-"""Fused separable-linear pipelines as two banded block products (K1).
+"""Fused pipelines: two banded block products (K1), blur -> unsharp (K2).
 
 Port of ``imagemagick_tpu/ops/fused_pipeline.py``.  The thumbnail pipeline
 — resize (any filter), separable Gaussian blur, and any per-pixel linear
@@ -19,9 +19,16 @@ the Pallas kernel's.  Boundary semantics are exact: edge clipping and
 renormalization (resize.c:3389-3440) and the blur's edge-replicate padding
 are baked into the host-built matrices.  Arithmetic is full float32.
 
+Config #2 — Gaussian blur, unsharp mask (threshold 0), and optionally an
+sRGB->Lab->sRGB round trip — runs as kernel K2 (``csrc/blur_unsharp.cu``)
+through ``fused_blur_unsharp_pipeline``: the two blurs as stencils of the
+taps the JAX planner derives (``blur_unsharp_taps``) and the rest per
+pixel, again one read of the input and one write of the output.
+
 Reference parity: ResizeImage (MagickCore/resize.c:3761),
-GaussianBlurImage (effect.c:1709), GrayscaleImage luma
-(colorspace.c:886-901).
+GaussianBlurImage (effect.c:1709), UnsharpMaskImage (effect.c:4256),
+GrayscaleImage luma (colorspace.c:886-901), sRGBTransformImage Lab
+(colorspace.c:722).
 """
 
 from __future__ import annotations
@@ -506,3 +513,240 @@ def reference_pipeline_f64(x: np.ndarray, Hout: int, Wout: int,
     y = np.einsum("dc,nopc->nopd", np.asarray(mix, np.float64), y)
     return np.clip(y, 0.0, 1.0) if clip else y
 
+
+# ---------------------------------------------------------------------------
+# Config #2: blur -> unsharp -> optional sRGB<->Lab, kernel K2
+# ---------------------------------------------------------------------------
+
+# K2's limits on a CUDA tensor (csrc/blur_unsharp.cu)
+K2_MAX_BLUR_TAPS = 33
+K2_MAX_UNSHARP_TAPS = 17
+K2_MAX_CHANNELS = 8
+
+
+@functools.lru_cache(maxsize=32)
+def blur_unsharp_terms(n_v: int, n_w: int, sigma_blur: float,
+                       sigma_unsharp: float, gain: float = 1.0):
+    """Rank-2 term list for gaussian-blur -> unsharp (threshold 0).
+
+    Unsharp is y + gain*(y - Bu(y)) = (1+gain)*y - gain*Bu(y); composed
+    with the 2-D blur Bg this is the sum of two separable products
+    (effect.c:4256 UnsharpMaskImage over GaussianBlurImage:1709):
+
+        (1+gain) * (Bgv (x) Bgw)  -  gain * (Buv.Bgv (x) Buw.Bgw)
+
+    The gain threshold (|2 diff| < t keeps the original) is a per-pixel
+    nonlinearity and is NOT represented — callers wanting the reference's
+    default t=0.05 behavior use the op-composition path.
+    """
+    Bgv = blur_band_matrix(n_v, sigma_blur)
+    Bgw = blur_band_matrix(n_w, sigma_blur)
+    Buv = blur_band_matrix(n_v, sigma_unsharp, width_rule="1d")
+    Buw = blur_band_matrix(n_w, sigma_unsharp, width_rule="1d")
+    return [((1.0 + gain) * Bgv, Bgw),
+            (-gain * (Buv @ Bgv), Buw @ Bgw)]
+
+
+def _middle_taps(B: np.ndarray) -> Tuple[float, ...]:
+    """The non-zero run of a band operator's middle row (its pure taps
+    when that row is clear of both borders)."""
+    row = np.asarray(B[B.shape[0] // 2], np.float64)
+    nz = np.nonzero(row)[0]
+    return tuple(float(v) for v in row[nz[0]:nz[-1] + 1])
+
+
+def _edge_stencil(n: int, taps: Sequence[float]) -> np.ndarray:
+    """(n, n) operator of the odd stencil ``taps`` with edge-replicate
+    pads, summed in blur_band_matrix's order (so equal bit for bit)."""
+    j = len(taps) // 2
+    rows = np.repeat(np.arange(n), len(taps))
+    cols = np.clip(rows - j + np.tile(np.arange(len(taps)), n), 0, n - 1)
+    B = np.zeros((n, n), np.float64)
+    np.add.at(B, (rows, cols), np.tile(np.asarray(taps, np.float64), n))
+    return B
+
+
+@functools.lru_cache(maxsize=32)
+def blur_unsharp_taps(H: int, W: int, sigma_blur: float,
+                      sigma_unsharp: float
+                      ) -> Optional[Tuple[Tuple[float, ...],
+                                          Tuple[float, ...]]]:
+    """(blur taps, unsharp taps) of config #2's kernel K2.
+
+    Derived as the JAX planner derives them (``fused_blur_unsharp_pipeline``
+    :1170-1235): the unsharp taps from the middle row of the 1-D-rule
+    operator Buv (the same taps serve both axes), the blur taps from the
+    middle row of Bgw (of Bgv when H > W).  Bgv and Bgw must each be the
+    edge-replicating stencil of the blur taps, as the JAX planner's
+    interior-Toeplitz check finds them whenever that row is clear of the
+    borders; None for an image narrower than its blur on both axes.
+    """
+    Bgv = blur_band_matrix(H, sigma_blur)
+    Bgw = blur_band_matrix(W, sigma_blur)
+    Buv = blur_band_matrix(H, sigma_unsharp, width_rule="1d")
+    blur = _middle_taps(Bgw if W >= H else Bgv)
+    if len(blur) % 2 != 1 or any(
+            not np.array_equal(B, _edge_stencil(B.shape[0], blur))
+            for B in (Bgv, Bgw)):
+        return None
+    return blur, _middle_taps(Buv)
+
+
+def _blur_unsharp_plain(x: torch.Tensor, blur_taps: Sequence[float],
+                        unsharp_taps: Sequence[float], gain: float,
+                        lab: bool) -> torch.Tensor:
+    """K2's plain version: K3's plain blur twice, the unsharp mix, clip,
+    then the colorspace module's sRGB->Lab->sRGB and clip."""
+    from .colorspace import convert
+    from .gpu_kernels import _separable_blur_plain
+
+    z = _separable_blur_plain(x, blur_taps)
+    u = _separable_blur_plain(z, unsharp_taps)
+    y = ((1.0 + gain) * z - gain * u).clamp(0.0, 1.0)
+    if lab:
+        y = convert(convert(y, "srgb", "lab"), "lab", "srgb").clamp(0.0, 1.0)
+    return y
+
+
+def blur_unsharp_kernel(x: torch.Tensor, blur_taps: Sequence[float],
+                        unsharp_taps: Sequence[float], gain: float,
+                        lab: bool = False) -> torch.Tensor:
+    """K2, the counterpart of the Pallas ``_kernel`` with the unsharp,
+    h-stencil, column-chunk and Lab epilogues.
+
+    x (N, H, W, C) float32; z = blur of x by the odd ``blur_taps`` along
+    H and W, u = blur of z by the odd ``unsharp_taps``, both with
+    edge-replicate borders; returns clip((1+gain) z - gain u), then with
+    ``lab`` clip(lab_to_rgb(rgb_to_lab(.))).  On a CUDA tensor: C <= 8
+    (C == 3 with ``lab``), at most 33 blur and 17 unsharp taps.
+    """
+    bt = tuple(float(t) for t in np.asarray(blur_taps, np.float32))
+    ut = tuple(float(t) for t in np.asarray(unsharp_taps, np.float32))
+    if not on_card(x):
+        return _blur_unsharp_plain(x, bt, ut, float(gain), lab)
+    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("blur_unsharp_kernel takes a contiguous (N, H, W, "
+                         f"C) float32 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    N, H, W, C = x.shape
+    if (len(bt) % 2 != 1 or len(bt) > K2_MAX_BLUR_TAPS or
+            len(ut) % 2 != 1 or len(ut) > K2_MAX_UNSHARP_TAPS or
+            x.numel() == 0 or C > K2_MAX_CHANNELS or (lab and C != 3)):
+        raise ValueError(f"blur_unsharp_kernel: {len(bt)} blur and "
+                         f"{len(ut)} unsharp taps, lab={lab}, on "
+                         f"{tuple(x.shape)}")
+    y = torch.empty_like(x)
+    taps = constant_on(bt + ut, torch.float32, x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.k2_blur_unsharp(x.data_ptr(), y.data_ptr(),
+                                  taps.data_ptr(), N, H, W, C, len(bt),
+                                  len(ut), float(gain), int(lab),
+                                  stream_of(x))
+    _build.check(err, "k2_blur_unsharp")
+    LAUNCHES["k2"] += 1
+    return y
+
+
+def fused_blur_unsharp_pipeline(x: torch.Tensor, sigma_blur: float,
+                                sigma_unsharp: float, gain: float, C: int,
+                                in_shape: Optional[Tuple[int, int, int,
+                                                         int]] = None,
+                                lab_roundtrip: bool = False
+                                ) -> Optional[torch.Tensor]:
+    """Blur -> unsharp (threshold 0) [-> sRGB->Lab->sRGB], one launch of K2.
+
+    ``-gaussian-blur 0x{sigma_blur}`` then ``-unsharp 0x{sigma_unsharp}``
+    with ``gain`` and threshold 0, i.e. (1+g)·z − g·Bu(z) for z = Bg(x),
+    clipped; with ``lab_roundtrip`` (C == 3) the result goes through
+    sRGB->Lab->sRGB and is clipped again.  x: (N, H, W, C) float32, or
+    the flat (N*H, W*C) layout with ``in_shape=(N, H, W, C)``.  Returns
+    (N, H, W, C), or None wherever the JAX function does (not float32, a
+    flat input without its shape or a channel mismatch, W*C % 128, H % 8,
+    even unsharp taps or a radius of 0 or over 8, Lab with C != 3) and,
+    beyond it, for a blur over 33 taps, more than 8 channels or an image
+    narrower than its blur on both axes (ROADMAP Queue 3).
+    """
+    if x.dtype != torch.float32:
+        return None
+    if x.dim() == 2:
+        if in_shape is None:
+            return None
+        N, Hin, Win, Cs = in_shape
+        if Cs != C or tuple(x.shape) != (N * Hin, Win * C):
+            return None
+    elif x.dim() == 4:
+        N, Hin, Win, Cs = x.shape
+        if Cs != C:
+            return None
+    else:
+        return None
+    if (Win * C) % 128 != 0 or Hin % 8 != 0:
+        return None
+    taps = blur_unsharp_taps(Hin, Win, float(sigma_blur),
+                             float(sigma_unsharp))
+    if taps is None:
+        return None
+    blur, unsharp = taps
+    r = len(unsharp) // 2
+    if len(unsharp) % 2 != 1 or r == 0 or r > 8:
+        return None
+    if lab_roundtrip and C != 3:
+        return None
+    if len(blur) > K2_MAX_BLUR_TAPS or C > K2_MAX_CHANNELS:
+        return None
+    return blur_unsharp_kernel(x.reshape(N, Hin, Win, C).contiguous(), blur,
+                               unsharp, gain, lab_roundtrip)
+
+
+def _lab_roundtrip_f64(x: np.ndarray) -> np.ndarray:
+    """sRGB -> Lab -> sRGB in float64 on (..., 3), clipped
+    (``benchmarks.py:315-341``)."""
+    from .colorspace import CIE_EPSILON as eps, CIE_K as K, D65
+    from .colorspace import _RGB2XYZ, _XYZ2RGB
+
+    M = np.asarray(_RGB2XYZ, np.float64)
+    Mi = np.asarray(_XYZ2RGB, np.float64)
+    wp = np.asarray(D65, np.float64)
+    lin = np.where(x <= 0.0404482362771076, x / 12.92,
+                   ((x + 0.055) / 1.055) ** 2.4)
+    r = (lin @ M.T) / wp
+    fv = np.where(r > eps, np.cbrt(r), (K * r + 16) / 116)
+    L = 116 * fv[..., 1] - 16
+    a = 500 * (fv[..., 0] - fv[..., 1])
+    b = 200 * (fv[..., 1] - fv[..., 2])
+    fy = (L + 16) / 116
+    fx = fy + a / 500
+    fz = fy - b / 200
+
+    def finv(f):
+        return np.where(f ** 3 > eps, f ** 3, (116 * f - 16) / K)
+
+    Y = np.where(L > K * eps, fy ** 3, L / K)
+    rgb = (np.stack([finv(fx), Y, finv(fz)], -1) * wp) @ Mi.T
+    mn = rgb.min(-1, keepdims=True)
+    rgb = np.where(mn < 0, rgb - mn, rgb)
+    out = np.where(rgb <= 0.0031306684425005883, 12.92 * rgb,
+                   1.055 * np.maximum(rgb, 1e-300) ** (1 / 2.4) - 0.055)
+    return np.clip(out, 0.0, 1.0)
+
+
+def reference_blur_unsharp_f64(x: np.ndarray, sigma_blur: float,
+                               sigma_unsharp: float, gain: float = 1.0,
+                               lab_roundtrip: bool = False) -> np.ndarray:
+    """float64 reference of config #2 on an (N, H, W, C) batch (the
+    fidelity check of ``benchmarks.py:299-343``): the rank-2 terms of
+    ``blur_unsharp_terms`` as dense products, clip, then with
+    ``lab_roundtrip`` sRGB->Lab->sRGB in float64 and clip."""
+    x = np.asarray(x, np.float64)
+    N, H, W, C = x.shape
+    terms = blur_unsharp_terms(H, W, float(sigma_blur),
+                               float(sigma_unsharp), float(gain))
+    out = np.zeros_like(x)
+    for n in range(N):
+        for Av, Bw in terms:
+            t = (Av @ x[n].reshape(H, W * C)).reshape(H, W, C)
+            t = Bw @ t.transpose(1, 0, 2).reshape(W, H * C)
+            out[n] += t.reshape(W, H, C).transpose(1, 0, 2)
+    out = np.clip(out, 0.0, 1.0)
+    return _lab_roundtrip_f64(out) if lab_roundtrip else out

@@ -2,8 +2,8 @@
 
 Counterpart of ``imagemagick_tpu/ops/pallas_kernels.py``.  Holds K3, the
 separable blur (``csrc/separable_blur.cu``), and the launch counts of every
-kernel of the package; K1's wrapper lives in ``fused_pipeline.py`` beside
-its planner.
+kernel of the package; the wrappers of K1 and K2 live in
+``fused_pipeline.py`` beside their planners.
 
 A wrapper runs its kernel's plain PyTorch version only when the tensor it
 is given lies on the CPU.  For a CUDA tensor it launches the kernel or
@@ -21,7 +21,7 @@ import torch
 from .. import _build
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"k1": 0, "k3": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
 
 K3_MAX_TAPS = 33
 # K3 holds a (32+2r) x (32+2r) x C tile and a 32 x (32+2r) x C intermediate

@@ -73,3 +73,43 @@ def test_convolve_matches(vp):
     ref = np.asarray(jbl.convolve(jnp.asarray(x), kern, 0.01, True, vp))
     got = tbl.convolve(torch.from_numpy(x), kern, 0.01, True, vp).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("threshold", [0.05, 0.0])
+@pytest.mark.parametrize("radius,sigma,gain,shape", [
+    (0.0, 1.0, 1.0, (2, 24, 32, 3)),
+    (0.0, 0.5, 0.7, (24, 32, 1)),       # unbatched
+    (2.0, 1.5, 2.0, (1, 40, 48, 3)),
+])
+def test_unsharp_mask_matches(threshold, radius, sigma, gain, shape):
+    """UnsharpMaskImage with the reference's threshold semantics.  Pixels
+    whose |2 diff| lies within 1e-5 of the threshold are left out: the
+    two sides' blurs differ in the last bits and may pick either branch."""
+    x = _image(shape, seed=17)
+    ref = np.asarray(jbl.unsharp_mask(jnp.asarray(x), radius, sigma, gain,
+                                      threshold))
+    got = tbl.unsharp_mask(torch.from_numpy(x), radius, sigma, gain,
+                           threshold).numpy()
+    assert got.shape == ref.shape
+    diff = x - tbl.blur(torch.from_numpy(x), radius, sigma).numpy()
+    keep = np.abs(np.abs(2.0 * diff) - threshold) > 1e-5
+    assert keep.mean() > 0.9
+    if threshold:
+        assert (np.abs(2.0 * diff) < threshold).any()
+    np.testing.assert_allclose(got[keep], ref[keep], atol=1e-5)
+
+
+def test_image_unsharp_mask_runs_k3_plain():
+    """``Image.unsharp_mask`` blurs through `_separable_conv` (K3 on a
+    card); on the CPU its wrapper takes the plain version."""
+    from imagemagick_tpu.core.image import Image as JImage
+    from imagemagick_tpu_torch import Image
+
+    x = _image((2, 20, 26, 3), seed=18)
+    before = dict(gk.LAUNCHES)
+    got = Image(torch.from_numpy(x)).unsharp_mask(0.0, 1.0).to_numpy()
+    ref = np.asarray(JImage(jnp.asarray(x)).unsharp_mask(0.0, 1.0).data)
+    diff = x - tbl.blur(torch.from_numpy(x), 0.0, 1.0).numpy()
+    keep = np.abs(np.abs(2.0 * diff) - 0.05) > 1e-5
+    np.testing.assert_allclose(got[keep], ref[keep], atol=1e-5)
+    assert gk.LAUNCHES == before

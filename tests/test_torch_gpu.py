@@ -4,7 +4,9 @@ Every test skips without a card.  On a machine with one, run
 ``python -m pytest tests/test_torch_gpu.py --noconftest -q`` (this file
 imports neither JAX nor the JAX package, and the suite's conftest does).
 Tolerances: K3 sums at most 33 float32 taps in another order (1e-5); K1
-sums float32 products of depth up to SPAN in another order (2e-5).
+sums float32 products of depth up to SPAN in another order (2e-5); K2
+sums up to 33 + 17 taps in another order (2e-5), and with Lab its powf and
+cbrtf stand against torch.pow (5e-5).
 """
 
 import numpy as np
@@ -21,7 +23,8 @@ GRAY = np.array([[0.212656, 0.715158, 0.072186]])
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernels K1 and K3 run only there")
+        pytest.skip("needs a CUDA card: kernels K1, K2 and K3 run only "
+                    "there")
     return torch.device("cuda", 0)
 
 
@@ -127,3 +130,63 @@ def test_blur_beyond_k3_channels_takes_plain_path(dev):
     assert gk.LAUNCHES["k3"] == before
     ref = blur.gaussian_blur(torch.from_numpy(x), 0.0, 2.0)
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,lab,nb,nu", [
+    ((2, 64, 128, 3), True, 15, 9),
+    ((2, 64, 128, 3), False, 15, 9),
+    ((2, 37, 45, 3), True, 15, 9),     # rows, columns short of a 32-tile
+    ((1, 100, 33, 1), False, 15, 9),   # C = 1
+    ((3, 50, 70, 4), False, 7, 3),
+    ((1, 40, 50, 8), False, 33, 17),   # the largest windows: 16-tiles
+    ((1, 5, 7, 3), True, 33, 17),      # image smaller than the taps
+])
+def test_k2_matches_plain(dev, shape, lab, nb, nu):
+    x = _rand(shape, seed=5)
+    bt, ut = _taps(nb, nb / 7.0), _taps(nu, nu / 9.0)
+    before = gk.LAUNCHES["k2"]
+    got = fp.blur_unsharp_kernel(torch.from_numpy(x).to(dev), bt, ut, 1.0,
+                                 lab)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k2"] == before + 1
+    ref = fp.blur_unsharp_kernel(torch.from_numpy(x), bt, ut, 1.0, lab)
+    tol = 5e-5 if lab else 2e-5
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=tol)
+    # the border rows and columns on their own
+    got, ref = got.cpu().numpy(), ref.numpy()
+    for sl in (np.s_[:, :4], np.s_[:, -4:], np.s_[:, :, :4],
+               np.s_[:, :, -4:]):
+        np.testing.assert_allclose(got[sl], ref[sl], atol=tol)
+
+
+@pytest.mark.parametrize("lab", [False, True])
+def test_k2_fused_entry_borders_vs_float64(dev, lab):
+    """Config #2's operators on a card: the whole image and its first and
+    last 4 rows and columns alone against the float64 reference."""
+    x = _rand((2, 16, 128, 3), seed=6)
+    before = gk.LAUNCHES["k2"]
+    got = fp.fused_blur_unsharp_pipeline(torch.from_numpy(x).to(dev), 2.0,
+                                         1.0, 1.0, 3, lab_roundtrip=lab)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k2"] == before + 1
+    got = got.cpu().numpy()
+    ref = fp.reference_blur_unsharp_f64(x, 2.0, 1.0, 1.0, lab)
+    for sl in (np.s_[:], np.s_[:, :4], np.s_[:, -4:], np.s_[:, :, :4],
+               np.s_[:, :, -4:]):
+        assert float(np.abs(got[sl] - ref[sl]).max()) <= 3e-5
+
+
+def test_k2_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((1, 8, 8, 3), device=dev)
+    t9, t15 = _taps(9, 1.0), _taps(15, 2.0)
+    for bad_x, bt, ut, lab in ((x, _taps(35, 6.0), t9, False),
+                               (x, t15, _taps(19, 3.0), False),
+                               (x, np.ones(4) / 4, t9, False),
+                               (x, t15, np.ones(2) / 2, False),
+                               (x[..., :1].contiguous(), t15, t9, True),
+                               (torch.zeros((1, 8, 8, 9), device=dev), t15,
+                                t9, False),
+                               (x.double(), t15, t9, False),
+                               (x.transpose(1, 2), t15, t9, False)):
+        with pytest.raises(ValueError):
+            fp.blur_unsharp_kernel(bad_x, bt, ut, 1.0, lab)
