@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives two BASELINE pipelines, each once through the port's two user
+Drives three BASELINE pipelines, each once through the port's two user
 routes:
 
 * config #1 — a batch of 32 NHWC float32 images of 512x768x3 -> Lanczos
@@ -16,20 +16,33 @@ routes:
   (``csrc/blur_unsharp.cu``); the op route, ``Image(batch)
   .gaussian_blur().unsharp_mask().transform_colorspace()`` twice, runs K3
   for both of its blurs.
+* config #3 — a batch of 16 letter pages of 1056x816x1 -> -auto-threshold
+  otsu -> -morphology open square:1 -> -morphology close square:1 ->
+  -edge 1.  Both routes take the per-image Otsu values from one launch of
+  kernel K4 (``csrc/histogram256.cu``).  The fused route hands them to
+  ``fused_bilevel_morph_edge``, kernel K5 (``csrc/morph_edge.cu``); the op
+  route, ``models.pipelines.document_binarize()``, runs the threshold,
+  the morphology and the edge as PyTorch ops.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
 and at shapes that do not fill a tile.  Each main path runs with every
 launch count set to 0 just before it and read just after.  It checks the
-fused routes against a float64 reference (>= 100 dB) and each pair of
-routes against each other (>= 60 dB; an op route clips after every op),
+fused routes of configs #1 and #2 against a float64 reference (>= 100 dB)
+and each pair of routes against each other (>= 60 dB; an op route clips
+after every op); config #3's results are exact 0/1 images, so K4, K5 and
+the two routes are held to equality, every image's Otsu bin to a float64
+numpy Otsu, and image 0 to a numpy op chain.  It
 then times each kernel against its plain version and each route end to
-end with CUDA events (median of 25 runs after a warm-up).
+end with CUDA events (median of 25 runs after a warm-up), and computes
+each kernel's bound: the larger of its bytes over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, the H100 SXM's published peaks.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
 needs one CUDA card and fails without one.  The line before the last is
 a JSON object with every kernel's launches on the main path, its largest
-error against the plain version and its times; the last line is
+error against the plain version, its times and its bound; the last line
+is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,6 +72,11 @@ SIGMA_UNSHARP = 1.0
 GAIN = 1.0
 K2_TOL = 2e-5      # float32 sums of 15 + 9 taps in another order
 K2_LAB_TOL = 5e-5  # and powf / cbrtf against torch.pow
+# config #3
+N3, H3, W3 = 16, 1056, 816
+# the H100 SXM's published peaks (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def require(ok: bool, what: str) -> None:
@@ -91,6 +109,70 @@ def gauss_taps(n: int, sigma: float) -> np.ndarray:
     xs = np.arange(-j, j + 1, dtype=np.float64)
     k = np.exp(-(xs * xs) / (2.0 * sigma * sigma))
     return (k / k.sum()).astype(np.float32)
+
+
+def bound(nbytes: float, flops: float):
+    """The least time (ms) the card could take for work that moves
+    ``nbytes`` and does ``flops`` float32 operations, and which binds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_flops(fp) -> int:
+    """The multiply-adds of config #1's function, two operations each:
+    each axis's resize and blur as one operator at its support (its
+    nonzero taps), in the cheaper of the two separable orders, with the
+    gray mix folded into the horizontal pass.  K1's band and chunk
+    padding is not counted."""
+    nv = np.count_nonzero(fp._axis_operator(H, HOUT, "lanczos", SIGMA))
+    nw = np.count_nonzero(fp._axis_operator(W, WOUT, "lanczos", SIGMA))
+    w_first = N * H * nw * C + N * WOUT * nv
+    h_first = N * nv * W * C + N * HOUT * nw * C
+    return 2 * min(w_first, h_first)
+
+
+def otsu_bin_f64(img: np.ndarray) -> int:
+    """Otsu's bin of one image in numpy: the 256-bin histogram
+    (``clip(int(v*255 + 0.5), 0, 255)`` in float32), the between-class
+    variance in float64, its first maximum."""
+    v = img.astype(np.float32) * np.float32(255) + np.float32(0.5)
+    idx = np.clip(v.astype(np.int64), 0, 255)
+    p = np.bincount(idx.ravel(), minlength=256).astype(np.float64)
+    p /= p.sum()
+    omega = np.cumsum(p)
+    mu = np.cumsum(p * np.arange(256))
+    denom = omega * (1.0 - omega)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sigma_b = np.where(denom > 1e-12,
+                           (mu[-1] * omega - mu) ** 2 / denom, 0.0)
+    return int(np.argmax(sigma_b))
+
+
+def document_binarize_f64(img: np.ndarray) -> tuple:
+    """Config #3 on one (H, W) image in numpy: Otsu's bin, the threshold
+    bin * float32(1/255) compared in float32, then open and close by a
+    3x3 square and edge 1, each stage padding its own input by
+    replicating its border.  Returns (bin, result)."""
+    j = otsu_bin_f64(img)
+    t = np.float32(j) * np.float32(1.0 / 255)
+    y = (img > t).astype(np.float64)
+
+    def window(a, reduce):
+        pad = np.pad(a, 1, mode="edge")
+        views = [pad[dy:dy + a.shape[0], dx:dx + a.shape[1]]
+                 for dy in range(3) for dx in range(3)]
+        return reduce(views)
+
+    def mn(a):
+        return window(a, lambda vs: np.minimum.reduce(vs))
+
+    def mx(a):
+        return window(a, lambda vs: np.maximum.reduce(vs))
+
+    y = mn(mx(mx(mn(y))))
+    y = np.clip(9.0 * y - window(y, sum), 0.0, 1.0)
+    return j, y
 
 
 def median_ms(*fns):
@@ -235,6 +317,12 @@ def main() -> None:
           f"{k1_plain_ms:.4f} ms [{name_limit}]")
     print(f"k3 {(N, HOUT, WOUT, C)} 15 taps: kernel {k3_ms:.4f} ms, plain "
           f"{k3_plain_ms:.4f} ms [{name_limit}]")
+    k1_bytes = 4 * (flat.numel() + N * HOUT * WOUT + k1_ops.WV.numel() +
+                    k1_ops.GB.numel())
+    k1_bound = bound(k1_bytes, k1_flops(fp))
+    k3_bound = bound(2 * 4 * x3.numel(), 2 * 2 * len(taps15) * x3.numel())
+    print(f"k1 bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), k3 bound "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
     print(f"config #1 end to end: fused route {fused_ms:.4f} ms = "
           f"{mp / fused_ms * 1e3:.1f} MP/s, op route {op_ms:.4f} ms = "
           f"{mp / op_ms * 1e3:.1f} MP/s (input {mp:.3f} MP/step, median of "
@@ -311,9 +399,120 @@ def main() -> None:
     print(f"k2 config #2 {(N2, H2, W2, C)} Lab: kernel {k2_ms:.4f} ms = "
           f"{mp2 / k2_ms * 1e3:.1f} MP/s, plain {k2_plain_ms:.4f} ms = "
           f"{mp2 / k2_plain_ms * 1e3:.1f} MP/s [{name_limit}]")
+    # the two separable stencils' multiply-adds; Lab's powf and cbrtf are
+    # not counted
+    k2_bound = bound(2 * 4 * batch2.numel(),
+                     2 * 2 * (len(blur2) + len(unsharp2)) * batch2.numel())
+    print(f"k2 bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     print(f"config #2 end to end: fused route {fused2_ms:.4f} ms = "
           f"{mp2 / fused2_ms * 1e3:.1f} MP/s, op route {op2_ms:.4f} ms = "
           f"{mp2 / op2_ms * 1e3:.1f} MP/s (input {mp2:.3f} MP/step, median "
+          f"of {RUNS}) [{name_limit}]")
+
+    # == config #3: Otsu -> open/close square:1 -> edge 1 ==================
+    from imagemagick_tpu_torch.models import pipelines
+    from imagemagick_tpu_torch.ops import threshold as th
+
+    batch3 = rand(N3, H3, W3, 1)
+    rows3 = batch3.reshape(N3, H3 * W3)
+
+    # -- K4 against its plain version, exact -------------------------------
+    hdri = rand(5 * 256 * 512 + 333)
+    hdri[::97] = -0.25
+    hdri[1::101] = 1.75
+    hdri[2::103] = 1e9
+    hdri[3::107] = -1e9
+    hdri[4::109] = float("nan")
+    skewed = torch.where(rand(N3, H3 * W3) < 0.9, 1.0, rows3)
+    k4_err = 0.0
+    for name, x in (("config #3", rows3), ("HDRI vector", hdri[None]),
+                    ("90 % white", skewed)):
+        got = gk.histogram256(x)
+        ref = gk.histogram256_plain(x)
+        torch.cuda.synchronize()
+        k4_err = max(k4_err, max_err(got, ref))
+        ndiff = int((got != ref).sum())
+        print(f"k4 {name} {tuple(x.shape)}: {ndiff} of {got.numel()} counts "
+              f"differ, total {int(got.sum())}")
+        require(ndiff == 0 and int(got.sum()) == x.numel(), f"k4 {name}")
+
+    # -- K5 against its plain version, exact -------------------------------
+    k5_err = 0.0
+    for shape in ((N3, H3, W3), (2, 77, 61), (1, 1, 50), (1, 5, 1),
+                  (3, 40, 700)):
+        x = batch3[..., 0] if shape == (N3, H3, W3) else rand(*shape)
+        t = 0.3 + 0.4 * rand(shape[0])
+        got = gk.fused_bilevel_morph_edge(x, t)
+        ref = gk._morph_edge_reference(x, t)
+        torch.cuda.synchronize()
+        k5_err = max(k5_err, max_err(got, ref))
+        ndiff = int((got != ref).sum())
+        print(f"k5 {shape}, one threshold per image: {ndiff} pixels differ")
+        require(ndiff == 0, f"k5 {shape}")
+
+    # -- the config #3 main path, end to end, by each route ----------------
+    def fused3_route():
+        return gk.fused_bilevel_morph_edge(
+            batch3, th.auto_threshold_values(batch3, "otsu"))
+
+    def op3_route():
+        return pipelines.document_binarize()(batch3)
+
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+    fused3 = fused3_route()
+    torch.cuda.synchronize()
+    launches3f = dict(gk.LAUNCHES)
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+    ops3 = op3_route()
+    torch.cuda.synchronize()
+    launches3o = dict(gk.LAUNCHES)
+    print(f"config #3 main path launches: fused route {launches3f}, op "
+          f"route {launches3o}")
+    require(launches3f["k4"] >= 1 and launches3f["k5"] >= 1 and
+            launches3o["k4"] >= 1, "config #3 launches")
+    for out in (fused3, ops3):
+        require(out.shape == (N3, H3, W3, 1), f"shape {out.shape}")
+        require(bool(((out == 0) | (out == 1)).all()), "not a 0/1 image")
+    ndiff = int((fused3 != ops3).sum())
+    print(f"config #3 fused route vs op route ({N3} images): {ndiff} "
+          f"pixels differ; edge share {float(fused3.mean()):.5f}")
+    require(ndiff == 0, "config #3 routes differ")
+    t3 = th.auto_threshold_values(batch3, "otsu")
+    pages = batch3[..., 0].cpu().numpy()
+    j_port = [round(float(t) * 255) for t in t3.cpu()]
+    j_ref = [otsu_bin_f64(page) for page in pages]
+    print(f"config #3 Otsu bins {j_port}, float64 numpy {j_ref}")
+    require(j_port == j_ref, "config #3 Otsu vs float64 numpy")
+    _, ref3 = document_binarize_f64(pages[0])
+    ndiff = int((fused3[0, ..., 0].cpu().numpy() != ref3).sum())
+    print(f"config #3 image 0 vs the numpy op chain: {ndiff} pixels differ")
+    require(ndiff == 0, "config #3 vs numpy")
+
+    k4_ms, k4_plain_ms = median_ms(lambda: gk.histogram256(rows3),
+                                   lambda: gk.histogram256_plain(rows3))
+    k4_skew_ms, histc_ms = median_ms(
+        lambda: gk.histogram256(skewed),
+        lambda: torch.histc(rows3, 256, -0.5 / 255, 255.5 / 255))
+    k5_ms, k5_plain_ms = median_ms(
+        lambda: gk.fused_bilevel_morph_edge(batch3, t3),
+        lambda: gk._morph_edge_reference(batch3[..., 0], t3))
+    fused3_ms, op3_ms = median_ms(fused3_route, op3_route)
+    mp3 = N3 * H3 * W3 / 1e6
+    k4_bound = bound(4 * rows3.numel() + 4 * N3 * 256, 2 * rows3.numel())
+    # four 3x3 min/max stages and the 3x3 edge sum: 9 operations each
+    k5_bound = bound(2 * 4 * batch3.numel(), 5 * 9 * batch3.numel())
+    print(f"k4 config #3 {tuple(rows3.shape)}: kernel {k4_ms:.4f} ms, plain "
+          f"{k4_plain_ms:.4f} ms, 90 % white {k4_skew_ms:.4f} ms, "
+          f"torch.histc {histc_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
+          f"({k4_bound[1]}) [{name_limit}]")
+    print(f"k5 config #3 {(N3, H3, W3)}: kernel {k5_ms:.4f} ms, plain "
+          f"{k5_plain_ms:.4f} ms, bound {k5_bound[0]:.4f} ms "
+          f"({k5_bound[1]}) [{name_limit}]")
+    print(f"config #3 end to end: fused route {fused3_ms:.4f} ms = "
+          f"{mp3 / fused3_ms * 1e3:.1f} MP/s, op route {op3_ms:.4f} ms = "
+          f"{mp3 / op3_ms * 1e3:.1f} MP/s (input {mp3:.3f} MP/step, median "
           f"of {RUNS}) [{name_limit}]")
 
     kernels = [
@@ -321,17 +520,35 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "k2_blur_unsharp", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/blur_unsharp.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches2["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "k3_separable_blur", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
+        {"name": "k4_histogram256", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
+         "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
+         "launches": launches3f["k4"] + launches3o["k4"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": histc_ms},
+        {"name": "k5_morph_edge", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/morph_edge.cu",
+         "replaces": "imagemagick_tpu/ops/pallas_kernels.py:147",
+         "launches": launches3f["k5"] + launches3o["k5"],
+         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

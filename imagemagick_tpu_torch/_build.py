@@ -36,6 +36,10 @@ _SIGNATURES = {
     "k2_blur_unsharp": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
     # x, y, taps, N, H, W, C, ntaps, stream
     "k3_separable_blur": [_P] * 3 + [_I] * 5 + [_P],
+    # x, counts, nrows, rowlen, stream
+    "k4_histogram256": [_P, _P, _I, ctypes.c_longlong, _P],
+    # x, thr, y, N, H, W, stream
+    "k5_morph_edge": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lib = None

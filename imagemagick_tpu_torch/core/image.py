@@ -3,9 +3,11 @@
 Port of ``imagemagick_tpu/core/image.py`` (the reference's Image struct and
 pixel cache, MagickCore/image.h:131-350, cache.c): pixels are a dense
 (H, W, C) — or batched (N, H, W, C) — float32 tensor in [0,1] (Q16-HDRI
-semantics), on whatever device the tensor lies; static semantics live in
-ImageSpec.  Op methods are thin wrappers over the functions in
-``imagemagick_tpu_torch.ops`` and return new Images.
+semantics); static semantics live in ImageSpec.  A tensor keeps the device
+it lies on; pixels given as a numpy array or a list go to ``device``, the
+CUDA card unless the caller asks for the CPU.  Op methods are thin
+wrappers over the functions in ``imagemagick_tpu_torch.ops`` and return
+new Images.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ from .spec import ImageSpec, normalize_colorspace
 class Image:
     __slots__ = ("data", "spec")
 
-    def __init__(self, data, spec: Optional[ImageSpec] = None):
+    def __init__(self, data, spec: Optional[ImageSpec] = None,
+                 device="cuda"):
         self.data = data if isinstance(data, torch.Tensor) else \
-            torch.from_numpy(np.asarray(data, np.float32))
+            _to_device(np.asarray(data, np.float32), device)
         self.spec = spec or ImageSpec()
 
     # -- basic accessors ----------------------------------------------------
@@ -104,15 +107,26 @@ class Image:
         return self.data.detach().cpu().numpy()
 
     @classmethod
-    def from_uint8(cls, arr: np.ndarray, spec: Optional[ImageSpec] = None
-                   ) -> "Image":
-        """An Image on the CPU; move ``.data`` to a card with ``replace``."""
+    def from_uint8(cls, arr: np.ndarray, spec: Optional[ImageSpec] = None,
+                   device="cuda") -> "Image":
+        """An Image of 8-bit pixels scaled to [0, 1], on ``device``."""
         if arr.ndim == 2:
             arr = arr[..., None]
-        data = torch.from_numpy(np.asarray(arr, np.float32) / 255.0)
+        data = _to_device(np.asarray(arr, np.float32) / 255.0, device)
         if spec is None:
             spec = _infer_spec(arr.shape[-1])
         return cls(data, spec)
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Host pixels as a float32 tensor on ``device``; a CUDA device
+    without a card raises rather than leaving the pixels on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "Image: no CUDA card for device 'cuda'; pass device='cpu' to "
+            "keep the pixels on the CPU")
+    return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
 
 
 def _infer_spec(channels: int) -> ImageSpec:

@@ -1,1 +1,2 @@
-"""The port's op families (the slice: resize, blur, colorspace, fused)."""
+"""The port's op families: resize, blur, colorspace, enhance (grayscale),
+histogram, threshold, morphology, the fused pipelines and the kernels."""

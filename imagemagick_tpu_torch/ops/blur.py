@@ -7,6 +7,7 @@ are numpy, copied from the JAX package:
   * the "blur:" 1-D kernel (morphology.c:1140 BlurKernel)
   * GaussianBlurImage (effect.c:1709) as two separable passes
   * UnsharpMaskImage (effect.c:4256) over BlurImage
+  * EdgeImage (effect.c), config #3's last op
 
 ``_separable_conv`` runs kernel K3 (``gpu_kernels.separable_blur``) for an
 odd kernel of at most 33 taps with edge padding, the envelope of the TPU
@@ -175,6 +176,15 @@ def convolve(img: torch.Tensor, kernel, bias: float = 0.0,
             k = k / s
     out = _depthwise_conv(img, k, virtual_pixel) + bias
     return out.clamp(0.0, 1.0)
+
+
+def edge_image(img: torch.Tensor, radius: float = 0.0,
+               virtual_pixel: str = "edge") -> torch.Tensor:
+    """EdgeImage (effect.c): convolve with flat -1 kernel, center = w*h-1."""
+    width = optimal_kernel_width_1d(radius, 0.5)
+    k = -np.ones((width, width), dtype=np.float32)
+    k[(width - 1) // 2, (width - 1) // 2] = float(width * width) - 1.0
+    return _depthwise_conv(img, k, virtual_pixel).clamp(0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,18 @@
 """Hand-written CUDA kernels of the port: wrappers, plain versions, counts.
 
-Counterpart of ``imagemagick_tpu/ops/pallas_kernels.py``.  Holds K3, the
-separable blur (``csrc/separable_blur.cu``), and the launch counts of every
-kernel of the package; the wrappers of K1 and K2 live in
-``fused_pipeline.py`` beside their planners.
+Counterpart of ``imagemagick_tpu/ops/pallas_kernels.py``.  Holds three
+kernels and the launch counts of every kernel of the package (the wrappers
+of K1 and K2 live in ``fused_pipeline.py`` beside their planners):
+
+* K3, ``separable_blur`` (``csrc/separable_blur.cu``): the odd-tap
+  Gaussian of the blur ops.
+* K4, ``histogram256`` (``csrc/histogram256.cu``): one exact 256-bin
+  histogram per row, ``bin = clip(int(v*255 + 0.5), 0, 255)``.  Config #3
+  (``-auto-threshold otsu``) takes the per-image Otsu values from one
+  launch over the (N, H*W) batch.
+* K5, ``fused_bilevel_morph_edge`` (``csrc/morph_edge.cu``): config #3's
+  tail, threshold -> open square:1 -> close square:1 -> edge 1, in one
+  pass with one threshold per image read from device memory.
 
 A wrapper runs its kernel's plain PyTorch version only when the tensor it
 is given lies on the CPU.  For a CUDA tensor it launches the kernel or
@@ -21,7 +30,7 @@ import torch
 from .. import _build
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0}
 
 K3_MAX_TAPS = 33
 # K3 holds a (32+2r) x (32+2r) x C tile and a 32 x (32+2r) x C intermediate
@@ -86,3 +95,100 @@ def separable_blur(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
     _build.check(err, "k3_separable_blur")
     LAUNCHES["k3"] += 1
     return y
+
+
+def histogram256_plain(x: torch.Tensor) -> torch.Tensor:
+    """K4's plain version: (R, L) float32 -> (R, 256) float32 counts of
+    ``clip(int(v*255 + 0.5), 0, 255)`` per row.  The product and the sum
+    round one at a time (the kernel's ``__fmul_rn`` / ``__fadd_rn``).  NaN
+    lands in bin 0 and the float is clamped to [-1, 256] before the cast,
+    so out-of-range values clip to bin 0 or 255 as the kernel's saturating
+    ``__float2int_rz`` makes them."""
+    from .histogram import _bin_index, _histogram_fixed_batched
+
+    return _histogram_fixed_batched(_bin_index(x, 256), 256)
+
+
+def histogram256(x: torch.Tensor) -> torch.Tensor:
+    """K4: one 256-bin histogram of each row of an (R, L) float32 tensor,
+    as (R, 256) float32 counts (exact: the kernel counts in int32)."""
+    if not on_card(x):
+        return histogram256_plain(x)
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("histogram256 takes a contiguous (R, L) float32 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    rows, rowlen = x.shape
+    if rows < 1 or rowlen < 1 or rowlen >= 2 ** 31:
+        raise ValueError(f"histogram256: shape {tuple(x.shape)}")
+    counts = torch.zeros((rows, 256), dtype=torch.int32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.k4_histogram256(x.data_ptr(), counts.data_ptr(), rows,
+                                  rowlen, stream_of(x))
+    _build.check(err, "k4_histogram256")
+    LAUNCHES["k4"] += 1
+    return counts.to(torch.float32)
+
+
+def _thresholds(threshold, n: int, device: torch.device) -> torch.Tensor:
+    """One float32 threshold per image on ``device``: a scalar is
+    broadcast, an (N,) tensor is taken as it is."""
+    if not isinstance(threshold, torch.Tensor):
+        return torch.full((n,), float(threshold), dtype=torch.float32,
+                          device=device)
+    t = threshold.to(device=device, dtype=torch.float32)
+    if t.dim() == 0:
+        return t.expand(n).contiguous()
+    if t.shape != (n,):
+        raise ValueError(f"{tuple(t.shape)} thresholds for {n} images")
+    return t.contiguous()
+
+
+def _morph_edge_reference(x3: torch.Tensor, threshold) -> torch.Tensor:
+    """K5's plain version, the op chain with each stage padding its own
+    input: bilevel -> open square:1 -> close square:1 -> edge 1 on an
+    (N, H, W) float32 tensor, one threshold per image (or one for all)."""
+    from . import blur as _bl
+    from . import morphology as _mo
+    from . import threshold as _th
+
+    t = _thresholds(threshold, x3.shape[0], x3.device)
+    y = _th.bilevel(x3[..., None], t.view(-1, 1, 1, 1))
+    y = _mo.morphology(y, "open", "square:1")
+    y = _mo.morphology(y, "close", "square:1")
+    return _bl.edge_image(y, 1.0)[..., 0]
+
+
+def fused_bilevel_morph_edge(img: torch.Tensor, threshold) -> torch.Tensor:
+    """K5: bilevel(threshold) -> open(square:1) -> close(square:1) ->
+    edge(1) of an (N, H, W, 1) or (N, H, W) float32 batch, as the op chain
+    computes it (``x > threshold``, every stage edge-replicated).
+    ``threshold`` is a scalar or one value per image, e.g. the (N,)
+    tensor of ``threshold.auto_threshold_values``; the kernel reads it
+    from device memory."""
+    if img.dim() == 4 and img.shape[-1] == 1:
+        x3 = img[..., 0]
+    elif img.dim() == 3:
+        x3 = img
+    else:
+        raise ValueError("fused_bilevel_morph_edge takes (N, H, W, 1) or "
+                         f"(N, H, W), got {tuple(img.shape)}")
+    if not on_card(img):
+        out = _morph_edge_reference(x3, threshold)
+        return out[..., None] if img.dim() == 4 else out
+    if img.dtype != torch.float32 or x3.numel() == 0:
+        raise ValueError("fused_bilevel_morph_edge takes a float32 batch, "
+                         f"got {img.dtype} {tuple(img.shape)}")
+    N, H, W = x3.shape
+    if N > 65535:
+        raise ValueError(f"fused_bilevel_morph_edge: {N} images")
+    x3 = x3.contiguous()
+    t = _thresholds(threshold, N, img.device)
+    y = torch.empty_like(x3)
+    lib = _build.load()
+    with torch.cuda.device(img.device):
+        err = lib.k5_morph_edge(x3.data_ptr(), t.data_ptr(), y.data_ptr(),
+                                N, H, W, stream_of(img))
+    _build.check(err, "k5_morph_edge")
+    LAUNCHES["k5"] += 1
+    return y[..., None] if img.dim() == 4 else y

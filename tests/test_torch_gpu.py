@@ -6,7 +6,8 @@ imports neither JAX nor the JAX package, and the suite's conftest does).
 Tolerances: K3 sums at most 33 float32 taps in another order (1e-5); K1
 sums float32 products of depth up to SPAN in another order (2e-5); K2
 sums up to 33 + 17 taps in another order (2e-5), and with Lab its powf and
-cbrtf stand against torch.pow (5e-5).
+cbrtf stand against torch.pow (5e-5).  K4 counts and K5's 0/1 outputs are
+exact: both are held to equality.
 """
 
 import numpy as np
@@ -23,8 +24,7 @@ GRAY = np.array([[0.212656, 0.715158, 0.072186]])
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernels K1, K2 and K3 run only "
-                    "there")
+        pytest.skip("needs a CUDA card: kernels K1 to K5 run only there")
     return torch.device("cuda", 0)
 
 
@@ -190,3 +190,110 @@ def test_k2_refuses_what_it_does_not_take(dev):
                                (x.transpose(1, 2), t15, t9, False)):
         with pytest.raises(ValueError):
             fp.blur_unsharp_kernel(bad_x, bt, ut, 1.0, lab)
+
+
+def _hdri(n, seed):
+    v = _rand((n,), seed=seed)
+    v[::97] = -0.25
+    v[1::101] = 1.75
+    v[2::103] = 1e9
+    v[3::107] = -1e9
+    v[4::109] = np.nan
+    v[5::113] = (np.arange(len(v[5::113])) % 256 + 0.5) / 255  # bin edges
+    return v
+
+
+@pytest.mark.parametrize("rows,rowlen,skew", [
+    (1, 5 * 256 * 512 + 333, False), (16, 20_000, False), (3, 1, False),
+    (5, 70_001, True), (300, 257, True),
+])
+def test_k4_matches_plain(dev, rows, rowlen, skew):
+    x = _hdri(rows * rowlen, seed=rows).reshape(rows, rowlen)
+    if skew:                                   # a mostly white page
+        x[_rand(x.shape, seed=7) < 0.9] = 1.0
+    before = gk.LAUNCHES["k4"]
+    got = gk.histogram256(torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k4"] == before + 1
+    ref = gk.histogram256(torch.from_numpy(x))          # plain, CPU
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+    assert got.sum().item() == rows * rowlen
+
+
+def test_k4_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((4, 64), device=dev)
+    for bad in (x.double(), x.t(), x[None], x[:, :0]):
+        with pytest.raises(ValueError):
+            gk.histogram256(bad)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_channel_histogram_on_card(dev, channels):
+    """Each channel of an image is a strided view: the histogram reads it
+    through K4, one launch a channel, and equals the CPU's counts."""
+    from imagemagick_tpu_torch.ops import histogram
+
+    x = torch.from_numpy(_hdri(2 * 40 * 33 * channels, seed=channels)
+                         .reshape(2, 40, 33, channels))
+    before = gk.LAUNCHES["k4"]
+    got = histogram.channel_histogram(x.to(dev))
+    bars = histogram.histogram_image(x.to(dev), height=50)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k4"] == before + 2 * channels
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  histogram.channel_histogram(x).numpy())
+    np.testing.assert_array_equal(
+        bars.cpu().numpy(), histogram.histogram_image(x, height=50).numpy())
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 77, 61), (1, 1, 50), (1, 5, 1), (3, 40, 700), (1, 33, 96),
+    (2, 64, 128), (1, 1, 1), (4, 130, 65),
+])
+def test_k5_matches_plain(dev, shape):
+    x = _rand(shape, seed=shape[1])
+    t = np.linspace(0.35, 0.65, shape[0]).astype(np.float32)
+    before = gk.LAUNCHES["k5"]
+    got = gk.fused_bilevel_morph_edge(torch.from_numpy(x).to(dev),
+                                      torch.from_numpy(t).to(dev))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k5"] == before + 1
+    ref = gk.fused_bilevel_morph_edge(torch.from_numpy(x),
+                                      torch.from_numpy(t))
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
+def test_k5_on_8bit_pages_and_scalar_threshold(dev):
+    u8 = np.random.default_rng(1).integers(0, 256, (2, 96, 80, 1))
+    x = torch.from_numpy((u8 / 255.0).astype(np.float32))
+    t = 128 / 255.0                           # pixels sit on the threshold
+    got = gk.fused_bilevel_morph_edge(x.to(dev), t)
+    ref = gk.fused_bilevel_morph_edge(x, t)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
+def test_config3_routes_agree_on_card(dev):
+    from imagemagick_tpu_torch.models import pipelines
+    from imagemagick_tpu_torch.ops import threshold
+
+    batch = torch.from_numpy(_rand((3, 90, 70, 1), seed=9)).to(dev)
+    before = dict(gk.LAUNCHES)
+    ops = pipelines.document_binarize()(batch)
+    fused = gk.fused_bilevel_morph_edge(
+        batch, threshold.auto_threshold_values(batch, "otsu"))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k4"] == before["k4"] + 2
+    assert gk.LAUNCHES["k5"] == before["k5"] + 1
+    np.testing.assert_array_equal(fused.cpu().numpy(), ops.cpu().numpy())
+    cpu = pipelines.document_binarize()(batch.cpu())
+    np.testing.assert_array_equal(ops.cpu().numpy(), cpu.numpy())
+
+
+def test_image_defaults_to_the_card(dev):
+    import imagemagick_tpu_torch as it
+
+    arr = _rand((5, 6, 3), seed=10)
+    assert it.Image(arr).data.device.type == "cuda"
+    u8 = (arr * 255).astype(np.uint8)
+    assert it.Image.from_uint8(u8).data.device.type == "cuda"
+    assert it.Image(arr, device="cpu").data.device.type == "cpu"

@@ -69,7 +69,7 @@ def test_image_members(batch):
         blurred, np.asarray(JImage(jnp.asarray(batch[0])).blur(0.0, 1.0).data),
         atol=1e-5)
     u8 = (batch[0] * 255).astype(np.uint8)
-    np.testing.assert_array_equal(it.Image.from_uint8(u8).to_numpy(),
+    np.testing.assert_array_equal(it.Image.from_uint8(u8, device="cpu").to_numpy(),
                                   np.asarray(JImage.from_uint8(u8).data))
     both = it.stack([img, img])
     assert both.data.shape == (2, 64, 128, 3)
