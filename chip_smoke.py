@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives three BASELINE pipelines, each once through the port's two user
+Drives four BASELINE pipelines, each once through the port's two user
 routes:
 
 * config #1 — a batch of 32 NHWC float32 images of 512x768x3 -> Lanczos
@@ -23,6 +23,12 @@ routes:
   ``fused_bilevel_morph_edge``, kernel K5 (``csrc/morph_edge.cu``); the op
   route, ``models.pipelines.document_binarize()``, runs the threshold,
   the morphology and the edge as PyTorch ops.
+* config #4 — a batch of one 2160x4096x1 frame -> forward 2-D DFT ->
+  Wiener mask ``F*|F|^2 / (|F|^2 + 0.01*sum(x^2))`` -> inverse DFT ->
+  clip.  The fused route, ``models.pipelines.fft_wiener()`` in the
+  ``auto`` mode, runs kernels K6a -> K6b -> K6c (``csrc/wiener_fft.cu``);
+  the op route, the same pipeline under ``fourier.set_fft_mode("fft")``,
+  runs ``torch.fft.rfft2`` -> mask -> ``irfft2``.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -32,7 +38,9 @@ fused routes of configs #1 and #2 against a float64 reference (>= 100 dB)
 and each pair of routes against each other (>= 60 dB; an op route clips
 after every op); config #3's results are exact 0/1 images, so K4, K5 and
 the two routes are held to equality, every image's Otsu bin to a float64
-numpy Otsu, and image 0 to a numpy op chain.  It
+numpy Otsu, and image 0 to a numpy op chain; config #4's fused route is
+held to a float64 numpy Wiener (>= 100 dB) and to the op route (>= 100
+dB: neither clips before its end).  It
 then times each kernel against its plain version and each route end to
 end with CUDA events (median of 25 runs after a warm-up), and computes
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -74,6 +82,12 @@ K2_TOL = 2e-5      # float32 sums of 15 + 9 taps in another order
 K2_LAB_TOL = 5e-5  # and powf / cbrtf against torch.pow
 # config #3
 N3, H3, W3 = 16, 1056, 816
+# config #4
+N4, H4, W4 = 1, 2160, 4096
+NOISE = 0.01
+K6_SPEC_TOL = 1e-5  # K6a/K6b vs plain, relative to max|F|: FP32 sums of
+                    # n1 + n2 terms per transform in another order, FMAs
+K6C_TOL = 1e-5      # K6c's [0, 1] output, absolute
 # the H100 SXM's published peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -173,6 +187,28 @@ def document_binarize_f64(img: np.ndarray) -> tuple:
     y = mn(mx(mx(mn(y))))
     y = np.clip(9.0 * y - window(y, sum), 0.0, 1.0)
     return j, y
+
+
+def wiener_f64(x: np.ndarray, noise: float) -> np.ndarray:
+    """Config #4 on one (H, W) plane in float64 numpy: fft2, the Wiener
+    mask with pmean = sum(x^2), ifft2, the clipped real part."""
+    x = x.astype(np.float64)
+    f = np.fft.fft2(x)
+    p = f.real ** 2 + f.imag ** 2
+    g = f * (p / (p + noise * float((x * x).sum())))
+    return np.clip(np.fft.ifft2(g).real, 0.0, 1.0)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    require(a.shape == b.shape, f"shapes {a.shape} {b.shape}")
+    return float(((a - b).abs().max() / b.abs().max()).item())
+
+
+def fft_flops(n_elems: int, length: int) -> float:
+    """A radix FFT's operation count for the n_elems / length complex
+    transforms of that length: 5 * length * log2(length) each."""
+    return 5.0 * n_elems * math.log2(length)
 
 
 def median_ms(*fns):
@@ -515,6 +551,120 @@ def main() -> None:
           f"{mp3 / op3_ms * 1e3:.1f} MP/s (input {mp3:.3f} MP/step, median "
           f"of {RUNS}) [{name_limit}]")
 
+    # == config #4: 4K Wiener FFT denoise ==================================
+    from imagemagick_tpu_torch.ops import fourier as ft
+    from imagemagick_tpu_torch.ops import fourier_kernels as fk
+
+    batch4 = rand(N4, H4, W4, 1)
+    planes4 = batch4.reshape(N4, H4, W4)         # C = 1: one plane an image
+    require(fk.supported(H4, W4), "K6 declines config #4's shape")
+
+    # -- K6a, K6b, K6c against their plain versions -----------------------
+    k6_err = {"k6a": 0.0, "k6b": 0.0, "k6c": 0.0}
+    for shape in ((N4, H4, W4), (2, 72, 384), (3, 45, 102)):
+        x = planes4 if shape == (N4, H4, W4) else rand(*shape)
+        pm = torch.sum(x * x, dim=(-2, -1))
+        spec_ref = fk._w_forward_plain(x)
+        spec = fk.w_forward(x)
+        g_ref = fk._h_mask_plain(spec_ref, pm, NOISE)
+        g = fk.h_mask(spec_ref, pm, NOISE)
+        out = fk.w_inverse(g_ref)
+        out_ref = fk._w_inverse_plain(g_ref)
+        torch.cuda.synchronize()
+        rel = (rel_err(spec, spec_ref), rel_err(g, g_ref))
+        errs = (max_err(spec, spec_ref), max_err(g, g_ref),
+                max_err(out, out_ref))
+        print(f"k6 {shape}: k6a max|d| {errs[0]:.3e} ({rel[0]:.3e} of "
+              f"max|F|), k6b {errs[1]:.3e} ({rel[1]:.3e} of max|F|), k6c "
+              f"{errs[2]:.3e}")
+        require(rel[0] <= K6_SPEC_TOL, f"k6a {shape} {rel[0]}")
+        require(rel[1] <= K6_SPEC_TOL, f"k6b {shape} {rel[1]}")
+        require(errs[2] <= K6C_TOL, f"k6c {shape} {errs[2]}")
+        for key, err in zip(k6_err, errs):
+            k6_err[key] = max(k6_err[key], err)
+
+    # -- the config #4 main path, end to end, by each route ----------------
+    wiener = pipelines.fft_wiener(NOISE)
+
+    def fused4_route():
+        return wiener(batch4)
+
+    def op4_route():
+        ft.set_fft_mode("fft")
+        try:
+            return wiener(batch4)
+        finally:
+            ft.set_fft_mode("auto")
+
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+    fused4 = fused4_route()
+    torch.cuda.synchronize()
+    launches4 = dict(gk.LAUNCHES)
+    ops4 = op4_route()
+    torch.cuda.synchronize()
+    print(f"config #4 main path launches: {launches4}")
+    require(all(launches4[k] >= 1 for k in ("k6a", "k6b", "k6c")),
+            f"config #4 launches {launches4}")
+    for out in (fused4, ops4):
+        require(out.shape == (N4, H4, W4, 1), f"shape {out.shape}")
+        require(bool(torch.isfinite(out).all()), "non-finite output")
+    t0 = time.perf_counter()
+    ref4 = wiener_f64(batch4[0, ..., 0].cpu().numpy(), NOISE)
+    f64_s = time.perf_counter() - t0
+    db_fused4 = psnr(fused4[0, ..., 0].cpu().numpy(), ref4)
+    db_routes4 = psnr(fused4.cpu().numpy(), ops4.cpu().numpy())
+    print(f"config #4 fused route vs float64 numpy ({f64_s:.2f} s on the "
+          f"host): {db_fused4:.2f} dB")
+    print(f"config #4 fused route vs op route: {db_routes4:.2f} dB")
+    require(db_fused4 >= 100.0, f"config #4 fused route {db_fused4} dB")
+    require(db_routes4 >= 100.0, f"config #4 routes agree at {db_routes4} dB")
+
+    pm4 = torch.sum(planes4 * planes4, dim=(-2, -1))
+    spec4 = fk.w_forward(planes4)
+    g4 = fk.h_mask(spec4, pm4, NOISE)
+    k6a_ms, k6a_plain_ms, fft_ms = median_ms(
+        lambda: fk.w_forward(planes4), lambda: fk._w_forward_plain(planes4),
+        lambda: torch.fft.fft(planes4, dim=-1))
+    k6b_ms, k6b_plain_ms = median_ms(
+        lambda: fk.h_mask(spec4, pm4, NOISE),
+        lambda: fk._h_mask_plain(spec4, pm4, NOISE))
+    k6c_ms, k6c_plain_ms, ifft_ms = median_ms(
+        lambda: fk.w_inverse(g4), lambda: fk._w_inverse_plain(g4),
+        lambda: torch.fft.ifft(g4, dim=-1))
+    fused4_ms, op4_ms = median_ms(fused4_route, op4_route)
+    n4 = planes4.numel()
+    mp4 = n4 / 1e6
+    # bytes: each input read once, each output written once; operations: a
+    # radix FFT's count per transform (K6b also 6 per element for the mask)
+    k6a_bound = bound(4 * n4 + 8 * n4, fft_flops(n4, W4))
+    k6b_bound = bound(8 * n4 + 8 * n4 + 4 * N4,
+                      2 * fft_flops(n4, H4) + 6 * n4)
+    k6c_bound = bound(8 * n4 + 4 * n4, fft_flops(n4, W4))
+    # what the kernels' dense sub-DFTs do: 8 operations a complex
+    # multiply-add, 4 a real-by-complex one, 6 a twiddle
+    n1w, n2w = fk._factor(W4)
+    n1h, n2h = fk._factor(H4)
+    dense = (n4 * (4 * n1w + 6 + 8 * n2w),
+             2 * n4 * (8 * (n1h + n2h) + 6) + 6 * n4,
+             n4 * (8 * n1w + 6 + 4 * n2w))
+    for name, ms, plain_ms, lib_ms, bnd, ops in (
+            ("k6a", k6a_ms, k6a_plain_ms, fft_ms, k6a_bound, dense[0]),
+            ("k6b", k6b_ms, k6b_plain_ms, None, k6b_bound, dense[1]),
+            ("k6c", k6c_ms, k6c_plain_ms, ifft_ms, k6c_bound, dense[2])):
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"{name} config #4 {(N4, H4, W4)}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib}, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}); dense four-step {ops / 1e9:.3f} GFLOP = "
+              f"{ops / FP32_FLOP_PER_S * 1e3:.4f} ms at the FP32 peak, "
+              f"{ops / ms / 1e9:.1f} TFLOP/s achieved [{name_limit}]")
+    print("(k6a's library call is torch.fft.fft along W; k6c's, "
+          "torch.fft.ifft along W, lacks K6c's real part and clip)")
+    print(f"config #4 end to end: fused route {fused4_ms:.4f} ms = "
+          f"{mp4 / fused4_ms * 1e3:.1f} MP/s, op route {op4_ms:.4f} ms = "
+          f"{mp4 / op4_ms * 1e3:.1f} MP/s (input {mp4:.3f} MP/step, median "
+          f"of {RUNS}) [{name_limit}]")
+
     kernels = [
         {"name": "k1_fused_pipeline", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
@@ -549,6 +699,24 @@ def main() -> None:
          "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
          "library_ms": None},
+        {"name": "k6a_w_forward", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/wiener_fft.cu",
+         "replaces": "imagemagick_tpu/ops/fourier_pallas.py:85",
+         "launches": launches4["k6a"], "max_abs_err": k6_err["k6a"],
+         "ms": k6a_ms, "plain_ms": k6a_plain_ms, "bound_ms": k6a_bound[0],
+         "bound_by": k6a_bound[1], "library_ms": fft_ms},
+        {"name": "k6b_h_mask", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/wiener_fft.cu",
+         "replaces": "imagemagick_tpu/ops/fourier_pallas.py:137",
+         "launches": launches4["k6b"], "max_abs_err": k6_err["k6b"],
+         "ms": k6b_ms, "plain_ms": k6b_plain_ms, "bound_ms": k6b_bound[0],
+         "bound_by": k6b_bound[1], "library_ms": None},
+        {"name": "k6c_w_inverse", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/wiener_fft.cu",
+         "replaces": "imagemagick_tpu/ops/fourier_pallas.py:161",
+         "launches": launches4["k6c"], "max_abs_err": k6_err["k6c"],
+         "ms": k6c_ms, "plain_ms": k6c_plain_ms, "bound_ms": k6c_bound[0],
+         "bound_by": k6c_bound[1], "library_ms": ifft_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

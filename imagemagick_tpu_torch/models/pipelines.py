@@ -1,9 +1,9 @@
-"""Canned benchmark pipelines (BASELINE.md configs #1-#3).
+"""Canned benchmark pipelines (BASELINE.md configs #1-#4).
 
 Port of ``imagemagick_tpu/models/pipelines.py``.  Each returns a function
 over an (N, H, W, C) float32 batch that runs the configuration's ops one
-after another on the batch's device: the op route of each config.  Config
-#4 (``fft_wiener``) waits for its slice (ROADMAP.md Queue 1 item 13).
+after another on the batch's device: the op route of each config.  On a
+CUDA batch, config #4 (``fft_wiener``) runs kernels K6a -> K6b -> K6c.
 """
 
 from __future__ import annotations
@@ -51,8 +51,19 @@ def document_binarize():
     return fn
 
 
+def fft_wiener(noise: float = 0.01):
+    """Config #4: forward DFT + Wiener-style filter + inverse DFT."""
+    from ..ops import fourier as ft
+
+    def fn(batch):
+        return ft.wiener_deconvolve(batch, noise=noise)
+
+    return fn
+
+
 PIPELINES = {
     "thumbnail_gray": thumbnail_gray,
     "blur_unsharp_lab": blur_unsharp_lab,
     "document_binarize": document_binarize,
+    "fft_wiener": fft_wiener,
 }

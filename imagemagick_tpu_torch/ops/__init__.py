@@ -1,2 +1,3 @@
 """The port's op families: resize, blur, colorspace, enhance (grayscale),
-histogram, threshold, morphology, the fused pipelines and the kernels."""
+histogram, threshold, morphology, fourier, the fused pipelines and the
+kernels."""

@@ -180,8 +180,9 @@ def test_config3_slice_matches_jax_document_binarize(kind):
 
 def test_pipelines_table():
     assert set(tpl.PIPELINES) == {"thumbnail_gray", "blur_unsharp_lab",
-                                  "document_binarize"}
-    assert set(tpl.PIPELINES) < set(jpl.PIPELINES)
+                                  "document_binarize", "fft_wiener"}
+    assert set(tpl.PIPELINES) == set(jpl.PIPELINES)
+    assert all(tpl.PIPELINES[k] is getattr(tpl, k) for k in tpl.PIPELINES)
 
 
 def test_image_pixels_go_to_the_requested_device(monkeypatch):

@@ -7,7 +7,9 @@ Tolerances: K3 sums at most 33 float32 taps in another order (1e-5); K1
 sums float32 products of depth up to SPAN in another order (2e-5); K2
 sums up to 33 + 17 taps in another order (2e-5), and with Lab its powf and
 cbrtf stand against torch.pow (5e-5).  K4 counts and K5's 0/1 outputs are
-exact: both are held to equality.
+exact: both are held to equality.  K6a and K6b sum n1 + n2 float32 terms
+per transform in another order than their plain versions, with FMAs: their
+spectra within 1e-5 of max|F|; K6c's [0, 1] output within 1e-5.
 """
 
 import numpy as np
@@ -24,7 +26,7 @@ GRAY = np.array([[0.212656, 0.715158, 0.072186]])
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernels K1 to K5 run only there")
+        pytest.skip("needs a CUDA card: kernels K1 to K6c run only there")
     return torch.device("cuda", 0)
 
 
@@ -297,3 +299,89 @@ def test_image_defaults_to_the_card(dev):
     u8 = (arr * 255).astype(np.uint8)
     assert it.Image.from_uint8(u8).data.device.type == "cuda"
     assert it.Image(arr, device="cpu").data.device.type == "cpu"
+
+
+def _spec_rel(got, ref):
+    return float((got.cpu() - ref.cpu()).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2160, 4096), (2, 72, 384), (3, 45, 102), (1, 48, 256),
+])
+def test_k6_match_plain(dev, shape):
+    """Each K6 kernel against its plain version on the same card inputs."""
+    from imagemagick_tpu_torch.ops import fourier_kernels as fk
+
+    x = torch.from_numpy(_rand(shape, seed=shape[1])).to(dev)
+    pmean = torch.sum(x * x, dim=(-2, -1))
+    before = dict(gk.LAUNCHES)
+    spec = fk.w_forward(x)
+    spec_ref = fk._w_forward_plain(x)
+    g = fk.h_mask(spec_ref, pmean, 0.01)
+    g_ref = fk._h_mask_plain(spec_ref, pmean, 0.01)
+    out = fk.w_inverse(g_ref)
+    out_ref = fk._w_inverse_plain(g_ref)
+    torch.cuda.synchronize()
+    for key in ("k6a", "k6b", "k6c"):
+        assert gk.LAUNCHES[key] == before[key] + 1
+    assert spec.dtype == g.dtype == torch.complex64
+    assert _spec_rel(spec, spec_ref) <= 1e-5
+    assert _spec_rel(g, g_ref) <= 1e-5
+    assert float((out - out_ref).abs().max()) <= 1e-5
+
+
+def test_k6_fused_route_vs_float64(dev):
+    """Config #4's entry on a card batch of two images runs K6a-K6c once
+    each and is >= 100 dB from a float64 numpy Wiener."""
+    from imagemagick_tpu_torch.models import pipelines
+
+    x = _rand((2, 72, 384, 1), seed=12)
+    before = dict(gk.LAUNCHES)
+    got = pipelines.fft_wiener()(torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    for key in ("k6a", "k6b", "k6c"):
+        assert gk.LAUNCHES[key] == before[key] + 1
+    planes = x[..., 0].astype(np.float64)
+    f = np.fft.fft2(planes)
+    p = np.abs(f) ** 2
+    pmean = (planes ** 2).sum(axis=(-2, -1), keepdims=True)
+    ref = np.clip(np.fft.ifft2(f * p / (p + 0.01 * pmean)).real, 0, 1)
+    mse = float(np.mean((got.cpu().numpy()[..., 0] - ref) ** 2))
+    assert 10 * np.log10(1.0 / max(mse, 1e-30)) >= 100.0
+
+
+def test_k6_refuses_what_it_does_not_take(dev):
+    from imagemagick_tpu_torch.ops import fourier_kernels as fk
+
+    x = torch.zeros((1, 48, 256), device=dev)
+    spec = torch.zeros((1, 48, 256), dtype=torch.complex64, device=dev)
+    pm = torch.ones(1, device=dev)
+    for bad in (x.double(), x.transpose(1, 2), x[0],
+                torch.zeros((1, 13, 256), device=dev)):
+        with pytest.raises(ValueError):
+            fk.w_forward(bad)
+    for bad, p in ((spec, torch.ones(2, device=dev)), (spec, pm.double()),
+                   (x, pm), (spec.transpose(1, 2), pm)):
+        with pytest.raises(ValueError):
+            fk.h_mask(bad, p, 0.01)
+    for bad in (x, spec[:, :, :251].contiguous()):          # 251 is prime
+        with pytest.raises(ValueError):
+            fk.w_inverse(bad)
+
+
+def test_k6_declined_shape_takes_the_fourstep(dev):
+    """A prime extent has no four-step factorization for K6: the card
+    runs the torch four-step (dense along the prime axis), no K6 launch."""
+    from imagemagick_tpu_torch.ops import fourier
+
+    x = torch.from_numpy(_rand((2, 13, 40, 1), seed=13))
+    before = dict(gk.LAUNCHES)
+    got = fourier.wiener_deconvolve(x.to(dev), noise=0.01)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before
+    fourier.set_fft_mode("fourstep")
+    try:
+        ref = fourier.wiener_deconvolve(x, noise=0.01)
+    finally:
+        fourier.set_fft_mode("auto")
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-5)

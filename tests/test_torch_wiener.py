@@ -1,0 +1,153 @@
+"""Kernels K6a, K6b and K6c (``ops/fourier_kernels.py``) on the CPU.
+
+On a CPU tensor each wrapper runs its plain version, the port's FP32
+four-step.  Each stage is held against its float64 numpy meaning (K6a the
+DFT along W, K6b the DFT along H -> Wiener mask -> inverse DFT along H,
+K6c the clipped real part of the inverse DFT along W): spectra to a
+relative 1e-5 of max|F|, K6c's [0, 1] output to 1e-6.  The chain is held
+to the JAX ``wiener_pallas`` in interpret mode at >= 100 dB (its bf16
+three-pass products put it about 108 dB from float64), and to the JAX
+four-step ``wiener_deconvolve`` and a float64 numpy Wiener at >= 120 dB.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from imagemagick_tpu.ops import fourier as jff
+from imagemagick_tpu.ops import fourier_pallas as jfp
+from imagemagick_tpu_torch.ops import fourier_kernels as fk
+from imagemagick_tpu_torch.ops import gpu_kernels as gk
+
+# 48 = 6 x 8, 256 = 16 x 16, 72 = 8 x 9, 384 = 16 x 24, 45 = 5 x 9 and
+# 102 = 6 x 17: n1 != n2, odd factors, a width that fills no 4-column chunk
+SHAPES = [(2, 48, 256), (1, 72, 384), (3, 45, 102)]
+SPEC_REL = 1e-5
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).random(shape).astype(np.float32)
+
+
+def _db(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b)) ** 2))
+    return 200.0 if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def _rel(got, ref):
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def wiener_f64(x, noise):
+    """The Wiener denoise of (P, H, W) planes in float64 numpy."""
+    x = x.astype(np.float64)
+    f = np.fft.fft2(x)
+    p = np.abs(f) ** 2
+    pmean = (x * x).sum(axis=(-2, -1), keepdims=True)
+    return np.clip(np.fft.ifft2(f * p / (p + noise * pmean)).real, 0.0, 1.0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_w_forward_plain_is_the_dft_along_w(shape):
+    x = _rand(shape, seed=1)
+    got = fk.w_forward(torch.from_numpy(x))
+    assert got.dtype == torch.complex64 and got.shape == shape
+    assert _rel(got.numpy(), np.fft.fft(x.astype(np.float64), axis=-1)) \
+        <= SPEC_REL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_h_mask_plain_is_dft_mask_idft_along_h(shape):
+    rng = np.random.default_rng(2)
+    spec = np.fft.fft(rng.random(shape), axis=-1).astype(np.complex64)
+    pmean = rng.uniform(50, 200, shape[0]).astype(np.float32)
+    got = fk.h_mask(torch.from_numpy(spec), torch.from_numpy(pmean), 0.01)
+    f = np.fft.fft(spec.astype(np.complex128), axis=-2)
+    p = np.abs(f) ** 2
+    ref = np.fft.ifft(f * p / (p + 0.01 * pmean[:, None, None]), axis=-2)
+    assert got.dtype == torch.complex64 and got.shape == shape
+    assert _rel(got.numpy(), ref) <= SPEC_REL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_w_inverse_plain_is_the_clipped_real_idft_along_w(shape):
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-0.2, 1.2, shape)          # values on both clip sides
+    g = np.fft.fft(x, axis=-1).astype(np.complex64)
+    got = fk.w_inverse(torch.from_numpy(g))
+    ref = np.clip(np.fft.ifft(g.astype(np.complex128), axis=-1).real, 0, 1)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert float(np.abs(got.numpy() - ref).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("hw,noise", [((48, 256), 0.01), ((72, 384), 0.02)])
+def test_chain_matches_jax_wiener_pallas(hw, noise):
+    x = _rand(hw, seed=sum(hw))
+    ref = np.asarray(jfp.wiener_pallas(jnp.asarray(x), noise,
+                                       interpret=True))
+    got = fk.wiener_kernel(torch.from_numpy(x[None]), noise)[0].numpy()
+    assert _db(got, ref) >= 100.0
+    # the JAX kernels' bf16 three-pass products lie further from float64
+    ref64 = wiener_f64(x[None], noise)[0]
+    assert _db(got, ref64) >= _db(ref, ref64) + 10.0
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_chain_matches_jax_fourstep_and_float64(shape):
+    x = _rand(shape, seed=4)
+    got = fk.wiener_kernel(torch.from_numpy(x), 0.01).numpy()
+    assert got.shape == shape and got.dtype == np.float32
+    jff.set_fft_mode("fourstep")
+    try:
+        ref = np.asarray(jff.wiener_deconvolve(
+            jnp.asarray(np.moveaxis(x, 0, -1)), noise=0.01))
+    finally:
+        jff.set_fft_mode("auto")
+    assert _db(got, np.moveaxis(ref, -1, 0)) >= 120.0
+    assert _db(got, wiener_f64(x, 0.01)) >= 120.0
+
+
+def test_batched_call_equals_per_plane_calls():
+    x = torch.from_numpy(_rand((4, 45, 102), seed=5))
+    batched = fk.wiener_kernel(x, 0.01)
+    for p in range(x.shape[0]):
+        one = fk.wiener_kernel(x[p:p + 1].contiguous(), 0.01)
+        np.testing.assert_allclose(batched[p].numpy(), one[0].numpy(),
+                                   rtol=0, atol=1e-6)
+
+
+def test_plain_versions_launch_nothing():
+    before = dict(gk.LAUNCHES)
+    fk.wiener_kernel(torch.from_numpy(_rand((1, 48, 256), seed=6)), 0.01)
+    assert gk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("hw,ok", [
+    ((2160, 4096), True), ((48, 256), True), ((72, 384), True),
+    ((45, 102), True), ((8192, 8192), True),
+    ((13, 256), False), ((48, 2161), False), ((2, 256), False),
+    ((48, 8200), False), ((16384, 64), False),
+])
+def test_supported(hw, ok):
+    """Prime extents have no four-step factorization; extents past
+    MAX_EXTENT do not fit the kernels' shared memory."""
+    assert fk.supported(*hw) is ok
+
+
+def test_tables_hold_the_axis_consts():
+    """K6's table: row 1 of the sub-DFT matrices and the flat twiddle
+    field; entry (k, m) of each sub-DFT is root (k*m) mod n."""
+    for n, inverse in ((2160, False), (4096, True), (72, False)):
+        n1, n2, C1, S1, C2, S2, Tc, Ts = fk._axis_consts(n, inverse)
+        tab = fk._table_on(n, inverse, torch.device("cpu")).numpy()
+        assert tab.shape == (n1 + n2 + n, 2)
+        k = np.arange(n1)
+        roots = tab[:n1, 0][np.outer(k, k) % n1]
+        np.testing.assert_allclose(roots, C1, atol=1e-6)
+        np.testing.assert_array_equal(tab[n1:n1 + n2, 1], S2[1])
+        np.testing.assert_array_equal(tab[n1 + n2:, 0], Tc.ravel())
+        np.testing.assert_array_equal(tab[n1 + n2:, 1], Ts.ravel())
