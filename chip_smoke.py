@@ -15,7 +15,9 @@ routes:
   ``fused_blur_unsharp_pipeline``, runs kernel K2
   (``csrc/blur_unsharp.cu``); the op route, ``Image(batch)
   .gaussian_blur().unsharp_mask().transform_colorspace()`` twice, runs K3
-  for both of its blurs.
+  for both of its blurs; the pipelined fused route, the same call with
+  ``pipelined=True``, runs kernel K2p (``csrc/blur_unsharp_pipe.cu``), K2's
+  function in a warp-specialised schedule on a persistent grid.
 * config #3 — a batch of 16 letter pages of 1056x816x1 -> -auto-threshold
   otsu -> -morphology open square:1 -> -morphology close square:1 ->
   -edge 1.  Both routes take the per-image Otsu values from one launch of
@@ -445,6 +447,79 @@ def main() -> None:
           f"{mp2 / op2_ms * 1e3:.1f} MP/s (input {mp2:.3f} MP/step, median "
           f"of {RUNS}) [{name_limit}]")
 
+    # -- K2p against its plain version ------------------------------------
+    # partial tiles and fewer tiles than SMs; one tile row; a tile count
+    # that leaves a tail on the persistent grid; 33 + 17 taps, whose
+    # windows fit only 16-pixel tiles
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k2p_err = 0.0
+    for shape, bt, ut, tile in (
+            ((N2, H2, W2, C), blur2, unsharp2, 32),
+            ((2, 37, 45, 3), blur2, unsharp2, 32),
+            ((1, 8, 128, 3), blur2, unsharp2, 32),
+            ((2, 300, 500, 3), blur2, unsharp2, 32),
+            ((1, 40, 50, 3), gauss_taps(33, 33 / 7.0),
+             gauss_taps(17, 17 / 9.0), 16)):
+        x = batch2 if shape == tuple(batch2.shape) else rand(*shape)
+        err = max_err(fp.blur_unsharp_pipe_kernel(x, bt, ut, GAIN),
+                      fp._blur_unsharp_pipe_plain(x, bt, ut, GAIN))
+        torch.cuda.synchronize()
+        ntiles = shape[0] * -(-shape[1] // tile) * -(-shape[2] // tile)
+        print(f"k2p {shape} {len(bt)} + {len(ut)} taps ({ntiles} tiles of "
+              f"{tile}, {sms} SMs): max|d| {err:.3e} (tolerance "
+              f"{K2_LAB_TOL})")
+        require(err <= K2_LAB_TOL, f"k2p {shape} max|d| {err}")
+        k2p_err = max(k2p_err, err)
+    k2p_out = fp.blur_unsharp_pipe_kernel(batch2, blur2, unsharp2, GAIN)
+    k2_out = fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True)
+    torch.cuda.synchronize()
+    print(f"k2p vs k2 {(N2, H2, W2, C)}: max|d| "
+          f"{max_err(k2p_out, k2_out):.3e}, "
+          f"{int((k2p_out != k2_out).sum())} values differ")
+
+    # -- the config #2 pipelined fused route, end to end --------------------
+    def pipe2_route():
+        return fp.fused_blur_unsharp_pipeline(
+            flat2, SIGMA, SIGMA_UNSHARP, GAIN, C, in_shape=(N2, H2, W2, C),
+            lab_roundtrip=True, pipelined=True)
+
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+    pipe2 = pipe2_route()
+    torch.cuda.synchronize()
+    launches2p = dict(gk.LAUNCHES)
+    print(f"config #2 pipelined route launches: {launches2p}")
+    require(launches2p["k2p"] == 1 and launches2p["k2"] == 0,
+            f"launches {launches2p}")
+    require(pipe2.shape == (N2, H2, W2, C), f"shape {pipe2.shape}")
+    require(bool(torch.isfinite(pipe2).all()), "non-finite output")
+    db_pipe2 = psnr(pipe2[:1].cpu().numpy(), ref2)
+    db_pipe_routes2 = psnr(pipe2.cpu().numpy(), ops2.cpu().numpy())
+    print(f"config #2 pipelined route vs float64 (image 0): {db_pipe2:.2f} "
+          "dB")
+    print(f"config #2 pipelined route vs op route ({N2} images): "
+          f"{db_pipe_routes2:.2f} dB")
+    require(db_pipe2 >= 100.0, f"config #2 pipelined route {db_pipe2} dB")
+    require(db_pipe_routes2 >= 60.0,
+            f"config #2 pipelined and op routes agree at {db_pipe_routes2} dB")
+
+    k2p_ms, k2_lab_ms, k2p_plain_ms, k2_nolab_ms = median_ms(
+        lambda: fp.blur_unsharp_pipe_kernel(batch2, blur2, unsharp2, GAIN),
+        lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True),
+        lambda: fp._blur_unsharp_pipe_plain(batch2, blur2, unsharp2, GAIN),
+        lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, False))
+    pipe2_ms, seq2_ms = median_ms(pipe2_route, fused2_route)
+    print(f"k2p config #2 {(N2, H2, W2, C)} Lab: kernel {k2p_ms:.4f} ms = "
+          f"{mp2 / k2p_ms * 1e3:.1f} MP/s, k2 {k2_lab_ms:.4f} ms, plain "
+          f"{k2p_plain_ms:.4f} ms, bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]}) [{name_limit}]")
+    print(f"k2 without Lab {k2_nolab_ms:.4f} ms: the Lab epilogue's share "
+          f"of k2 is {k2_lab_ms - k2_nolab_ms:.4f} ms [{name_limit}]")
+    print(f"config #2 end to end: pipelined route (K2p) {pipe2_ms:.4f} ms = "
+          f"{mp2 / pipe2_ms * 1e3:.1f} MP/s, sequential fused route (K2) "
+          f"{seq2_ms:.4f} ms = {mp2 / seq2_ms * 1e3:.1f} MP/s (median of "
+          f"{RUNS}) [{name_limit}]")
+
     # == config #3: Otsu -> open/close square:1 -> edge 1 ==================
     from imagemagick_tpu_torch.models import pipelines
     from imagemagick_tpu_torch.ops import threshold as th
@@ -677,6 +752,12 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches2["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "k2p_blur_unsharp_pipe", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/blur_unsharp_pipe.cu",
+         "replaces": "imagemagick_tpu/ops/fused_pipeline.py:484",
+         "launches": launches2p["k2p"], "max_abs_err": k2p_err,
+         "ms": k2p_ms, "plain_ms": k2p_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
         {"name": "k3_separable_blur", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",

@@ -3,10 +3,11 @@
 On first use, ``load()`` compiles every ``csrc/*.cu`` with ``nvcc`` for
 Hopper (``sm_90a``), one ``nvcc`` per source, all started together, links
 the objects into one shared library with a plain C interface, stores it
-under ``_build/`` keyed by a hash of the sources and flags, and loads it
-with ``ctypes``.  Nothing includes PyTorch's headers, so a build takes
-seconds.  Each C entry launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises when that is not 0.
+under ``_build/`` keyed by a hash of the flags, the sources and the headers
+they include (``csrc/*.cuh``), and loads it with ``ctypes``.  Nothing
+includes PyTorch's headers, so a build takes seconds.  Each C entry
+launches on the stream it is given and returns ``cudaGetLastError()``;
+``check`` raises when that is not 0.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ _SIGNATURES = {
     "k1_fused_pipeline": [_P] * 8 + [_I] * 10 + [_P],
     # x, y, taps, N, H, W, C, nblur, nunsharp, gain, lab, stream
     "k2_blur_unsharp": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
+    # x, y, taps, N, H, W, nblur, nunsharp, gain, stream
+    "k2p_blur_unsharp_pipe": [_P] * 3 + [_I] * 5 + [_F, _P],
     # x, y, taps, N, H, W, C, ntaps, stream
     "k3_separable_blur": [_P] * 3 + [_I] * 5 + [_P],
     # x, counts, nrows, rowlen, stream
@@ -92,19 +95,24 @@ def _compile(sources, so: Path) -> None:
     os.replace(tmp, so)
 
 
+def digest(src_dir: Path = _SRC) -> str:
+    """Hash of the flags and of every ``*.cu`` and ``*.cuh`` in ``src_dir``:
+    a change to a source or to a header it includes names a new library."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted([*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]):
+        h.update(path.name.encode() + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first use."""
     global _lib
     if _lib is not None:
         return _lib
-    sources = sorted(_SRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
-    so = _OUT / f"libimtpu_kernels_{digest.hexdigest()[:16]}.so"
+    so = _OUT / f"libimtpu_kernels_{digest()}.so"
     if not so.exists():
         _OUT.mkdir(exist_ok=True)
-        _compile(sources, so)
+        _compile(sorted(_SRC.glob("*.cu")), so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

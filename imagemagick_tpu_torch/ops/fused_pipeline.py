@@ -1,4 +1,4 @@
-"""Fused pipelines: two banded block products (K1), blur -> unsharp (K2).
+"""Fused pipelines: two banded block products (K1), blur -> unsharp (K2, K2p).
 
 Port of ``imagemagick_tpu/ops/fused_pipeline.py``.  The thumbnail pipeline
 — resize (any filter), separable Gaussian blur, and any per-pixel linear
@@ -23,7 +23,12 @@ Config #2 — Gaussian blur, unsharp mask (threshold 0), and optionally an
 sRGB->Lab->sRGB round trip — runs as kernel K2 (``csrc/blur_unsharp.cu``)
 through ``fused_blur_unsharp_pipeline``: the two blurs as stencils of the
 taps the JAX planner derives (``blur_unsharp_taps``) and the rest per
-pixel, again one read of the input and one write of the output.
+pixel, again one read of the input and one write of the output.  With
+``pipelined=True`` and the Lab round trip, the same function runs as
+kernel K2p (``csrc/blur_unsharp_pipe.cu``), the counterpart of the JAX
+package's software-pipelined ``_kernel_pipe``: a persistent grid whose
+producer warps compute the stencils of one tile while its consumer warps
+run the Lab epilogue of the tile before and store it.
 
 Reference parity: ResizeImage (MagickCore/resize.c:3761),
 GaussianBlurImage (effect.c:1709), UnsharpMaskImage (effect.c:4256),
@@ -648,13 +653,60 @@ def blur_unsharp_kernel(x: torch.Tensor, blur_taps: Sequence[float],
     return y
 
 
+def _blur_unsharp_pipe_plain(x: torch.Tensor, blur_taps: Sequence[float],
+                             unsharp_taps: Sequence[float], gain: float
+                             ) -> torch.Tensor:
+    """K2p's plain version: K2's with the Lab round trip, since the JAX
+    ``_kernel_pipe`` computes the function of the sequential kernel."""
+    return _blur_unsharp_plain(x, blur_taps, unsharp_taps, gain, True)
+
+
+def blur_unsharp_pipe_kernel(x: torch.Tensor, blur_taps: Sequence[float],
+                             unsharp_taps: Sequence[float], gain: float
+                             ) -> torch.Tensor:
+    """K2p, the counterpart of the Pallas ``_kernel_pipe``: K2's function
+    with the Lab round trip, in a software-pipelined schedule.
+
+    x (N, H, W, 3) float32; returns
+    clip(lab_to_rgb(rgb_to_lab(clip((1+gain) z - gain u)))) for z and u as
+    ``blur_unsharp_kernel`` computes them.  On a CUDA tensor: C == 3, at
+    most 33 blur and 17 unsharp taps.
+    """
+    bt = tuple(float(t) for t in np.asarray(blur_taps, np.float32))
+    ut = tuple(float(t) for t in np.asarray(unsharp_taps, np.float32))
+    if not on_card(x):
+        return _blur_unsharp_pipe_plain(x, bt, ut, float(gain))
+    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("blur_unsharp_pipe_kernel takes a contiguous (N, H, "
+                         f"W, 3) float32 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    N, H, W, C = x.shape
+    if (len(bt) % 2 != 1 or len(bt) > K2_MAX_BLUR_TAPS or
+            len(ut) % 2 != 1 or len(ut) > K2_MAX_UNSHARP_TAPS or
+            x.numel() == 0 or C != 3):
+        raise ValueError(f"blur_unsharp_pipe_kernel: {len(bt)} blur and "
+                         f"{len(ut)} unsharp taps on {tuple(x.shape)}")
+    y = torch.empty_like(x)
+    taps = constant_on(bt + ut, torch.float32, x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.k2p_blur_unsharp_pipe(x.data_ptr(), y.data_ptr(),
+                                        taps.data_ptr(), N, H, W, len(bt),
+                                        len(ut), float(gain), stream_of(x))
+    _build.check(err, "k2p_blur_unsharp_pipe")
+    LAUNCHES["k2p"] += 1
+    return y
+
+
 def fused_blur_unsharp_pipeline(x: torch.Tensor, sigma_blur: float,
                                 sigma_unsharp: float, gain: float, C: int,
                                 in_shape: Optional[Tuple[int, int, int,
                                                          int]] = None,
-                                lab_roundtrip: bool = False
+                                lab_roundtrip: bool = False,
+                                pipelined: bool = False
                                 ) -> Optional[torch.Tensor]:
-    """Blur -> unsharp (threshold 0) [-> sRGB->Lab->sRGB], one launch of K2.
+    """Blur -> unsharp (threshold 0) [-> sRGB->Lab->sRGB], one launch of K2
+    (of K2p with ``pipelined`` and ``lab_roundtrip``).
 
     ``-gaussian-blur 0x{sigma_blur}`` then ``-unsharp 0x{sigma_unsharp}``
     with ``gain`` and threshold 0, i.e. (1+g)·z − g·Bu(z) for z = Bg(x),
@@ -666,6 +718,9 @@ def fused_blur_unsharp_pipeline(x: torch.Tensor, sigma_blur: float,
     even unsharp taps or a radius of 0 or over 8, Lab with C != 3) and,
     beyond it, for a blur over 33 taps, more than 8 channels or an image
     narrower than its blur on both axes (ROADMAP Queue 3).
+    ``pipelined=True`` is the counterpart of the JAX package's
+    ``IMTPU_PIPE_KERNEL``: with ``lab_roundtrip`` the function runs kernel
+    K2p, and without it, as in the JAX function, K2.
     """
     if x.dtype != torch.float32:
         return None
@@ -695,8 +750,10 @@ def fused_blur_unsharp_pipeline(x: torch.Tensor, sigma_blur: float,
         return None
     if len(blur) > K2_MAX_BLUR_TAPS or C > K2_MAX_CHANNELS:
         return None
-    return blur_unsharp_kernel(x.reshape(N, Hin, Win, C).contiguous(), blur,
-                               unsharp, gain, lab_roundtrip)
+    x = x.reshape(N, Hin, Win, C).contiguous()
+    if pipelined and lab_roundtrip:
+        return blur_unsharp_pipe_kernel(x, blur, unsharp, gain)
+    return blur_unsharp_kernel(x, blur, unsharp, gain, lab_roundtrip)
 
 
 def _lab_roundtrip_f64(x: np.ndarray) -> np.ndarray:

@@ -2,8 +2,8 @@
 
 Counterpart of ``imagemagick_tpu/ops/pallas_kernels.py``.  Holds three
 kernels and the launch counts of every kernel of the package (the wrappers
-of K1 and K2 live in ``fused_pipeline.py`` beside their planners, those of
-K6a-K6c in ``fourier_kernels.py``):
+of K1, K2 and K2p live in ``fused_pipeline.py`` beside their planners,
+those of K6a-K6c in ``fourier_kernels.py``):
 
 * K3, ``separable_blur`` (``csrc/separable_blur.cu``): the odd-tap
   Gaussian of the blur ops.
@@ -31,8 +31,8 @@ import torch
 from .. import _build
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6a": 0, "k6b": 0,
-            "k6c": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k2p": 0, "k3": 0, "k4": 0, "k5": 0, "k6a": 0,
+            "k6b": 0, "k6c": 0}
 
 K3_MAX_TAPS = 33
 # K3 holds a (32+2r) x (32+2r) x C tile and a 32 x (32+2r) x C intermediate

@@ -6,7 +6,9 @@ imports neither JAX nor the JAX package, and the suite's conftest does).
 Tolerances: K3 sums at most 33 float32 taps in another order (1e-5); K1
 sums float32 products of depth up to SPAN in another order (2e-5); K2
 sums up to 33 + 17 taps in another order (2e-5), and with Lab its powf and
-cbrtf stand against torch.pow (5e-5).  K4 counts and K5's 0/1 outputs are
+cbrtf stand against torch.pow (5e-5); K2p computes K2's values in K2's
+order, so it is held to its plain version at K2's Lab tolerance and to K2
+for equality.  K4 counts and K5's 0/1 outputs are
 exact: both are held to equality.  K6a and K6b sum n1 + n2 float32 terms
 per transform in another order than their plain versions, with FMAs: their
 spectra within 1e-5 of max|F|; K6c's [0, 1] output within 1e-5.
@@ -192,6 +194,76 @@ def test_k2_refuses_what_it_does_not_take(dev):
                                (x.transpose(1, 2), t15, t9, False)):
         with pytest.raises(ValueError):
             fp.blur_unsharp_kernel(bad_x, bt, ut, 1.0, lab)
+
+
+@pytest.mark.parametrize("shape,nb,nu", [
+    ((8, 1080, 1920, 3), 15, 9),    # config #2
+    ((2, 37, 45, 3), 15, 9),        # partial tiles, fewer tiles than SMs
+    ((1, 8, 128, 3), 15, 9),        # one tile row
+    ((2, 300, 500, 3), 15, 9),      # 320 tiles: a tail on the grid
+    ((1, 40, 50, 3), 33, 17),       # the largest windows: 16-tiles
+    ((1, 5, 7, 3), 33, 17),         # image smaller than the taps
+])
+def test_k2p_matches_plain(dev, shape, nb, nu):
+    x = _rand(shape, seed=15)
+    bt, ut = _taps(nb, nb / 7.0), _taps(nu, nu / 9.0)
+    before = dict(gk.LAUNCHES)
+    got = fp.blur_unsharp_pipe_kernel(torch.from_numpy(x).to(dev), bt, ut,
+                                      1.0)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k2p"] == before["k2p"] + 1
+    assert gk.LAUNCHES["k2"] == before["k2"]
+    ref = fp.blur_unsharp_pipe_kernel(torch.from_numpy(x), bt, ut, 1.0)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=5e-5)
+    got, ref = got.cpu().numpy(), ref.numpy()
+    for sl in (np.s_[:, :4], np.s_[:, -4:], np.s_[:, :, :4],
+               np.s_[:, :, -4:]):
+        np.testing.assert_allclose(got[sl], ref[sl], atol=5e-5)
+
+
+def test_k2p_equals_k2(dev):
+    """One 1080p image: K2p's schedule leaves every value as K2 makes it."""
+    x = torch.from_numpy(_rand((1, 1080, 1920, 3), seed=16)).to(dev)
+    blur, unsharp = fp.blur_unsharp_taps(1080, 1920, 2.0, 1.0)
+    got = fp.blur_unsharp_pipe_kernel(x, blur, unsharp, 1.0)
+    want = fp.blur_unsharp_kernel(x, blur, unsharp, 1.0, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k2p_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((1, 8, 8, 3), device=dev)
+    t9, t15 = _taps(9, 1.0), _taps(15, 2.0)
+    for bad_x, bt, ut in ((x[..., :1].contiguous(), t15, t9),
+                          (torch.zeros((1, 8, 8, 4), device=dev), t15, t9),
+                          (x, _taps(35, 6.0), t9),
+                          (x, t15, _taps(19, 3.0)),
+                          (x, np.ones(4) / 4, t9),
+                          (x, t15, np.ones(2) / 2),
+                          (x.double(), t15, t9),
+                          (x.transpose(1, 2), t15, t9)):
+        with pytest.raises(ValueError):
+            fp.blur_unsharp_pipe_kernel(bad_x, bt, ut, 1.0)
+
+
+def test_pipelined_route_runs_k2p(dev):
+    """``pipelined=True`` with Lab launches K2p and not K2, and equals the
+    sequential route; without Lab it runs K2."""
+    x = torch.from_numpy(_rand((2, 64, 128, 3), seed=17)).to(dev)
+    before = dict(gk.LAUNCHES)
+    got = fp.fused_blur_unsharp_pipeline(x, 2.0, 1.0, 1.0, 3,
+                                         lab_roundtrip=True, pipelined=True)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k2p"] == before["k2p"] + 1
+    assert gk.LAUNCHES["k2"] == before["k2"]
+    want = fp.fused_blur_unsharp_pipeline(x, 2.0, 1.0, 1.0, 3,
+                                          lab_roundtrip=True)
+    assert torch.equal(got, want)
+    before = dict(gk.LAUNCHES)
+    fp.fused_blur_unsharp_pipeline(x, 2.0, 1.0, 1.0, 3, pipelined=True)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k2"] == before["k2"] + 1
+    assert gk.LAUNCHES["k2p"] == before["k2p"]
 
 
 def _hdri(n, seed):
