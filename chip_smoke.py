@@ -28,7 +28,8 @@ routes:
 * config #4 — a batch of one 2160x4096x1 frame -> forward 2-D DFT ->
   Wiener mask ``F*|F|^2 / (|F|^2 + 0.01*sum(x^2))`` -> inverse DFT ->
   clip.  The fused route, ``models.pipelines.fft_wiener()`` in the
-  ``auto`` mode, runs kernels K6a -> K6b -> K6c (``csrc/wiener_fft.cu``);
+  ``auto`` mode, runs kernels K6a -> K6b -> K6c (``csrc/wiener_fft.cu``;
+  K6a and K6c radix FFTs, K6b four-step DFTs);
   the op route, the same pipeline under ``fourier.set_fft_mode("fft")``,
   runs ``torch.fft.rfft2`` -> mask -> ``irfft2``.
 
@@ -42,17 +43,22 @@ after every op); config #3's results are exact 0/1 images, so K4, K5 and
 the two routes are held to equality, every image's Otsu bin to a float64
 numpy Otsu, and image 0 to a numpy op chain; config #4's fused route is
 held to a float64 numpy Wiener (>= 100 dB) and to the op route (>= 100
-dB: neither clips before its end).  It
-then times each kernel against its plain version and each route end to
-end with CUDA events (median of 25 runs after a warm-up), and computes
-each kernel's bound: the larger of its bytes over 3.35 TB/s and its
-float32 operations over 67 TFLOP/s, the H100 SXM's published peaks.
+dB: neither clips before its end); K6a and K6c are also held at
+(1, 7, 8192) and (1, 5, 8186), and K6c on a non-Hermitian spectrum
+against a float64 inverse.  It then times each kernel against its plain
+version and each route end to end with CUDA events: per call
+(``median_ms``: one event pair around one call on an idle stream, median
+of 25 after a warm-up, so host work and launch latency are included) and,
+for each kernel and its library call, device-only (``device_ms``: one
+event pair around 20 back-to-back calls, over 20, median of 5).  It
+computes each kernel's bound: the larger of its bytes over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s, the H100 SXM's published peaks.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
 needs one CUDA card and fails without one.  The line before the last is
 a JSON object with every kernel's launches on the main path, its largest
-error against the plain version, its times and its bound; the last line
-is
+error against the plain version, its times (per call and device-only)
+and its bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,6 +80,8 @@ GRAY = np.array([[0.212656, 0.715158, 0.072186]])
 TAGS = [("resize", (HOUT, WOUT, "lanczos")), ("gblur", (0.0, SIGMA, "2d")),
         ("mix", ((0.212656, 0.715158, 0.072186),))]
 RUNS = 25
+DEVICE_LAUNCHES = 20   # back-to-back calls in one device_ms run
+DEVICE_RUNS = 5
 K3_TOL = 1e-5   # float32 sums of <= 33 taps in another order
 K1_TOL = 2e-5   # float32 dot products of depth SPAN=1280 in another order
 # config #2
@@ -87,9 +95,15 @@ N3, H3, W3 = 16, 1056, 816
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
-K6_SPEC_TOL = 1e-5  # K6a/K6b vs plain, relative to max|F|: FP32 sums of
-                    # n1 + n2 terms per transform in another order, FMAs
+K6_SPEC_TOL = 1e-5  # K6a/K6b vs plain, relative to max|F|: FP32 sums in
+                    # another order (K6b n1 + n2 terms, K6a radix passes
+                    # or a p-term generic pass), FMAs
 K6C_TOL = 1e-5      # K6c's [0, 1] output, absolute
+# K6a and K6c: config #4's shape, odd factors, a width with a generic
+# radix-17 pass and scalar rows (102), the largest extent with an odd row
+# count, and a generic radix-4093 pass
+K6_ROW_SHAPES = ((N4, H4, W4), (2, 72, 384), (3, 45, 102), (1, 7, 8192),
+                 (1, 5, 8186))
 # the H100 SXM's published peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -231,6 +245,29 @@ def median_ms(*fns):
     return [statistics.median(t) for t in times]
 
 
+def device_ms(*fns, launches=DEVICE_LAUNCHES):
+    """Device-only time (ms) of one call of each fn: after a warm-up, one
+    CUDA-event pair around ``launches`` back-to-back calls, over
+    ``launches``; median of DEVICE_RUNS such runs, the fns interleaved.
+    The stream does not drain between calls, so a call's host work and
+    launch latency hide behind the device work queued before it."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(DEVICE_RUNS):
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                fn()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end) / launches)
+    return [statistics.median(t) for t in times]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -349,12 +386,15 @@ def main() -> None:
     k3_ms, k3_plain_ms = median_ms(
         lambda: gk.separable_blur(x3, taps15),
         lambda: gk._separable_blur_plain(x3, taps15))
+    k1_dev, k3_dev = device_ms(k1_kernel,
+                               lambda: gk.separable_blur(x3, taps15))
     fused_ms, op_ms = median_ms(fused_route, op_route)
     mp = N * H * W / 1e6
-    print(f"k1 config #1 (TO=64): kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms [{name_limit}]")
-    print(f"k3 {(N, HOUT, WOUT, C)} 15 taps: kernel {k3_ms:.4f} ms, plain "
-          f"{k3_plain_ms:.4f} ms [{name_limit}]")
+    print(f"k1 config #1 (TO=64): kernel {k1_ms:.4f} ms ({k1_dev:.4f} "
+          f"device-only), plain {k1_plain_ms:.4f} ms [{name_limit}]")
+    print(f"k3 {(N, HOUT, WOUT, C)} 15 taps: kernel {k3_ms:.4f} ms "
+          f"({k3_dev:.4f} device-only), plain {k3_plain_ms:.4f} ms "
+          f"[{name_limit}]")
     k1_bytes = 4 * (flat.numel() + N * HOUT * WOUT + k1_ops.WV.numel() +
                     k1_ops.GB.numel())
     k1_bound = bound(k1_bytes, k1_flops(fp))
@@ -432,10 +472,13 @@ def main() -> None:
     k2_ms, k2_plain_ms = median_ms(
         lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True),
         lambda: fp._blur_unsharp_plain(batch2, blur2, unsharp2, GAIN, True))
+    k2_dev, = device_ms(
+        lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True))
     fused2_ms, op2_ms = median_ms(fused2_route, op2_route)
     mp2 = N2 * H2 * W2 / 1e6
     print(f"k2 config #2 {(N2, H2, W2, C)} Lab: kernel {k2_ms:.4f} ms = "
-          f"{mp2 / k2_ms * 1e3:.1f} MP/s, plain {k2_plain_ms:.4f} ms = "
+          f"{mp2 / k2_ms * 1e3:.1f} MP/s ({k2_dev:.4f} device-only), plain "
+          f"{k2_plain_ms:.4f} ms = "
           f"{mp2 / k2_plain_ms * 1e3:.1f} MP/s [{name_limit}]")
     # the two separable stencils' multiply-adds; Lab's powf and cbrtf are
     # not counted
@@ -508,9 +551,12 @@ def main() -> None:
         lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True),
         lambda: fp._blur_unsharp_pipe_plain(batch2, blur2, unsharp2, GAIN),
         lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, False))
+    k2p_dev, = device_ms(
+        lambda: fp.blur_unsharp_pipe_kernel(batch2, blur2, unsharp2, GAIN))
     pipe2_ms, seq2_ms = median_ms(pipe2_route, fused2_route)
     print(f"k2p config #2 {(N2, H2, W2, C)} Lab: kernel {k2p_ms:.4f} ms = "
-          f"{mp2 / k2p_ms * 1e3:.1f} MP/s, k2 {k2_lab_ms:.4f} ms, plain "
+          f"{mp2 / k2p_ms * 1e3:.1f} MP/s ({k2p_dev:.4f} device-only), k2 "
+          f"{k2_lab_ms:.4f} ms, plain "
           f"{k2p_plain_ms:.4f} ms, bound {k2_bound[0]:.4f} ms "
           f"({k2_bound[1]}) [{name_limit}]")
     print(f"k2 without Lab {k2_nolab_ms:.4f} ms: the Lab epilogue's share "
@@ -609,18 +655,23 @@ def main() -> None:
     k5_ms, k5_plain_ms = median_ms(
         lambda: gk.fused_bilevel_morph_edge(batch3, t3),
         lambda: gk._morph_edge_reference(batch3[..., 0], t3))
+    k4_dev, histc_dev, k5_dev = device_ms(
+        lambda: gk.histogram256(rows3),
+        lambda: torch.histc(rows3, 256, -0.5 / 255, 255.5 / 255),
+        lambda: gk.fused_bilevel_morph_edge(batch3, t3))
     fused3_ms, op3_ms = median_ms(fused3_route, op3_route)
     mp3 = N3 * H3 * W3 / 1e6
     k4_bound = bound(4 * rows3.numel() + 4 * N3 * 256, 2 * rows3.numel())
     # four 3x3 min/max stages and the 3x3 edge sum: 9 operations each
     k5_bound = bound(2 * 4 * batch3.numel(), 5 * 9 * batch3.numel())
-    print(f"k4 config #3 {tuple(rows3.shape)}: kernel {k4_ms:.4f} ms, plain "
-          f"{k4_plain_ms:.4f} ms, 90 % white {k4_skew_ms:.4f} ms, "
-          f"torch.histc {histc_ms:.4f} ms, bound {k4_bound[0]:.4f} ms "
+    print(f"k4 config #3 {tuple(rows3.shape)}: kernel {k4_ms:.4f} ms "
+          f"({k4_dev:.4f} device-only), plain {k4_plain_ms:.4f} ms, 90 % "
+          f"white {k4_skew_ms:.4f} ms, torch.histc {histc_ms:.4f} ms "
+          f"({histc_dev:.4f} device-only), bound {k4_bound[0]:.4f} ms "
           f"({k4_bound[1]}) [{name_limit}]")
-    print(f"k5 config #3 {(N3, H3, W3)}: kernel {k5_ms:.4f} ms, plain "
-          f"{k5_plain_ms:.4f} ms, bound {k5_bound[0]:.4f} ms "
-          f"({k5_bound[1]}) [{name_limit}]")
+    print(f"k5 config #3 {(N3, H3, W3)}: kernel {k5_ms:.4f} ms ({k5_dev:.4f} "
+          f"device-only), plain {k5_plain_ms:.4f} ms, bound "
+          f"{k5_bound[0]:.4f} ms ({k5_bound[1]}) [{name_limit}]")
     print(f"config #3 end to end: fused route {fused3_ms:.4f} ms = "
           f"{mp3 / fused3_ms * 1e3:.1f} MP/s, op route {op3_ms:.4f} ms = "
           f"{mp3 / op3_ms * 1e3:.1f} MP/s (input {mp3:.3f} MP/step, median "
@@ -635,27 +686,45 @@ def main() -> None:
     require(fk.supported(H4, W4), "K6 declines config #4's shape")
 
     # -- K6a, K6b, K6c against their plain versions -----------------------
+    # K6b takes composite extents only (H = 7 and 5 are prime); its plain
+    # version takes any H, so K6c gets the same kind of input everywhere
     k6_err = {"k6a": 0.0, "k6b": 0.0, "k6c": 0.0}
-    for shape in ((N4, H4, W4), (2, 72, 384), (3, 45, 102)):
+    for shape in K6_ROW_SHAPES:
         x = planes4 if shape == (N4, H4, W4) else rand(*shape)
         pm = torch.sum(x * x, dim=(-2, -1))
         spec_ref = fk._w_forward_plain(x)
         spec = fk.w_forward(x)
         g_ref = fk._h_mask_plain(spec_ref, pm, NOISE)
-        g = fk.h_mask(spec_ref, pm, NOISE)
         out = fk.w_inverse(g_ref)
         out_ref = fk._w_inverse_plain(g_ref)
         torch.cuda.synchronize()
-        rel = (rel_err(spec, spec_ref), rel_err(g, g_ref))
-        errs = (max_err(spec, spec_ref), max_err(g, g_ref),
-                max_err(out, out_ref))
-        print(f"k6 {shape}: k6a max|d| {errs[0]:.3e} ({rel[0]:.3e} of "
-              f"max|F|), k6b {errs[1]:.3e} ({rel[1]:.3e} of max|F|), k6c "
-              f"{errs[2]:.3e}")
-        require(rel[0] <= K6_SPEC_TOL, f"k6a {shape} {rel[0]}")
-        require(rel[1] <= K6_SPEC_TOL, f"k6b {shape} {rel[1]}")
-        require(errs[2] <= K6C_TOL, f"k6c {shape} {errs[2]}")
-        for key, err in zip(k6_err, errs):
+        errs = {"k6a": max_err(spec, spec_ref), "k6c": max_err(out, out_ref)}
+        rel = rel_err(spec, spec_ref)
+        line = (f"k6 {shape} (passes {fk._radix_plan(shape[2])}): k6a max|d| "
+                f"{errs['k6a']:.3e} ({rel:.3e} of max|F|), k6c "
+                f"{errs['k6c']:.3e}")
+        require(rel <= K6_SPEC_TOL, f"k6a {shape} {rel}")
+        require(errs["k6c"] <= K6C_TOL, f"k6c {shape} {errs['k6c']}")
+        if fk.supported(*shape[1:]):
+            g = fk.h_mask(spec_ref, pm, NOISE)
+            torch.cuda.synchronize()
+            errs["k6b"] = max_err(g, g_ref)
+            rel_b = rel_err(g, g_ref)
+            line += (f", k6b {errs['k6b']:.3e} ({rel_b:.3e} of max|F|)")
+            require(rel_b <= K6_SPEC_TOL, f"k6b {shape} {rel_b}")
+        # K6c on a spectrum with no symmetry: Re IDFT of any g
+        u = torch.complex(rand(*shape).double() * 1.4 - 0.2,
+                          rand(*shape).double() * 2 - 1)
+        g_any = torch.fft.fft(u, dim=-1).to(torch.complex64)
+        ref_any = torch.fft.ifft(g_any.to(torch.complex128),
+                                 dim=-1).real.clamp(0, 1)
+        err_any = max_err(fk.w_inverse(g_any).double(), ref_any)
+        torch.cuda.synchronize()
+        line += f"; k6c non-Hermitian vs float64 {err_any:.3e}"
+        require(err_any <= K6C_TOL, f"k6c non-Hermitian {shape} {err_any}")
+        errs["k6c"] = max(errs["k6c"], err_any)
+        print(line)
+        for key, err in errs.items():
             k6_err[key] = max(k6_err[key], err)
 
     # -- the config #4 main path, end to end, by each route ----------------
@@ -679,7 +748,7 @@ def main() -> None:
     ops4 = op4_route()
     torch.cuda.synchronize()
     print(f"config #4 main path launches: {launches4}")
-    require(all(launches4[k] >= 1 for k in ("k6a", "k6b", "k6c")),
+    require(all(launches4[k] == 1 for k in ("k6a", "k6b", "k6c")),
             f"config #4 launches {launches4}")
     for out in (fused4, ops4):
         require(out.shape == (N4, H4, W4, 1), f"shape {out.shape}")
@@ -707,32 +776,33 @@ def main() -> None:
     k6c_ms, k6c_plain_ms, ifft_ms = median_ms(
         lambda: fk.w_inverse(g4), lambda: fk._w_inverse_plain(g4),
         lambda: torch.fft.ifft(g4, dim=-1))
+    k6a_dev, fft_dev, k6b_dev, k6c_dev, ifft_dev = device_ms(
+        lambda: fk.w_forward(planes4), lambda: torch.fft.fft(planes4, dim=-1),
+        lambda: fk.h_mask(spec4, pm4, NOISE), lambda: fk.w_inverse(g4),
+        lambda: torch.fft.ifft(g4, dim=-1))
     fused4_ms, op4_ms = median_ms(fused4_route, op4_route)
     n4 = planes4.numel()
     mp4 = n4 / 1e6
     # bytes: each input read once, each output written once; operations: a
-    # radix FFT's count per transform (K6b also 6 per element for the mask)
-    k6a_bound = bound(4 * n4 + 8 * n4, fft_flops(n4, W4))
+    # radix FFT's count per transform, halved for K6a and K6c (two real rows
+    # per complex transform), K6b also 6 per element for the mask
+    k6a_bound = bound(4 * n4 + 8 * n4, fft_flops(n4, W4) / 2)
     k6b_bound = bound(8 * n4 + 8 * n4 + 4 * N4,
                       2 * fft_flops(n4, H4) + 6 * n4)
-    k6c_bound = bound(8 * n4 + 4 * n4, fft_flops(n4, W4))
-    # what the kernels' dense sub-DFTs do: 8 operations a complex
-    # multiply-add, 4 a real-by-complex one, 6 a twiddle
-    n1w, n2w = fk._factor(W4)
-    n1h, n2h = fk._factor(H4)
-    dense = (n4 * (4 * n1w + 6 + 8 * n2w),
-             2 * n4 * (8 * (n1h + n2h) + 6) + 6 * n4,
-             n4 * (8 * n1w + 6 + 4 * n2w))
-    for name, ms, plain_ms, lib_ms, bnd, ops in (
-            ("k6a", k6a_ms, k6a_plain_ms, fft_ms, k6a_bound, dense[0]),
-            ("k6b", k6b_ms, k6b_plain_ms, None, k6b_bound, dense[1]),
-            ("k6c", k6c_ms, k6c_plain_ms, ifft_ms, k6c_bound, dense[2])):
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"{name} config #4 {(N4, H4, W4)}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib}, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}); dense four-step {ops / 1e9:.3f} GFLOP = "
-              f"{ops / FP32_FLOP_PER_S * 1e3:.4f} ms at the FP32 peak, "
-              f"{ops / ms / 1e9:.1f} TFLOP/s achieved [{name_limit}]")
+    k6c_bound = bound(8 * n4 + 4 * n4, fft_flops(n4, W4) / 2)
+    for name, ms, dev_ms, plain_ms, lib_ms, lib_dev, bnd in (
+            ("k6a", k6a_ms, k6a_dev, k6a_plain_ms, fft_ms, fft_dev,
+             k6a_bound),
+            ("k6b", k6b_ms, k6b_dev, k6b_plain_ms, None, None, k6b_bound),
+            ("k6c", k6c_ms, k6c_dev, k6c_plain_ms, ifft_ms, ifft_dev,
+             k6c_bound)):
+        lib = "none" if lib_ms is None else \
+            f"{lib_ms:.4f} ms ({lib_dev:.4f} device-only)"
+        print(f"{name} config #4 {(N4, H4, W4)}: kernel {ms:.4f} ms "
+              f"({dev_ms:.4f} device-only), plain {plain_ms:.4f} ms, "
+              f"library {lib}, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"device-only at {bnd[0] / dev_ms * 100:.1f} % of the bound "
+              f"[{name_limit}]")
     print("(k6a's library call is torch.fft.fft along W; k6c's, "
           "torch.fft.ifft along W, lacks K6c's real part and clip)")
     print(f"config #4 end to end: fused route {fused4_ms:.4f} ms = "
@@ -746,58 +816,67 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "device_ms": k1_dev, "library_device_ms": None},
         {"name": "k2_blur_unsharp", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/blur_unsharp.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches2["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "device_ms": k2_dev, "library_device_ms": None},
         {"name": "k2p_blur_unsharp_pipe", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/blur_unsharp_pipe.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:484",
          "launches": launches2p["k2p"], "max_abs_err": k2p_err,
          "ms": k2p_ms, "plain_ms": k2p_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "device_ms": k2p_dev, "library_device_ms": None},
         {"name": "k3_separable_blur", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         "device_ms": k3_dev, "library_device_ms": None},
         {"name": "k4_histogram256", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-         "library_ms": histc_ms},
+         "library_ms": histc_ms,
+         "device_ms": k4_dev, "library_device_ms": histc_dev},
         {"name": "k5_morph_edge", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/morph_edge.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:147",
          "launches": launches3f["k5"] + launches3o["k5"],
          "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         "device_ms": k5_dev, "library_device_ms": None},
         {"name": "k6a_w_forward", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/wiener_fft.cu",
          "replaces": "imagemagick_tpu/ops/fourier_pallas.py:85",
          "launches": launches4["k6a"], "max_abs_err": k6_err["k6a"],
          "ms": k6a_ms, "plain_ms": k6a_plain_ms, "bound_ms": k6a_bound[0],
-         "bound_by": k6a_bound[1], "library_ms": fft_ms},
+         "bound_by": k6a_bound[1], "library_ms": fft_ms,
+         "device_ms": k6a_dev, "library_device_ms": fft_dev},
         {"name": "k6b_h_mask", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/wiener_fft.cu",
          "replaces": "imagemagick_tpu/ops/fourier_pallas.py:137",
          "launches": launches4["k6b"], "max_abs_err": k6_err["k6b"],
          "ms": k6b_ms, "plain_ms": k6b_plain_ms, "bound_ms": k6b_bound[0],
-         "bound_by": k6b_bound[1], "library_ms": None},
+         "bound_by": k6b_bound[1], "library_ms": None,
+         "device_ms": k6b_dev, "library_device_ms": None},
         {"name": "k6c_w_inverse", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/wiener_fft.cu",
          "replaces": "imagemagick_tpu/ops/fourier_pallas.py:161",
          "launches": launches4["k6c"], "max_abs_err": k6_err["k6c"],
          "ms": k6c_ms, "plain_ms": k6c_plain_ms, "bound_ms": k6c_bound[0],
-         "bound_by": k6c_bound[1], "library_ms": ifft_ms},
+         "bound_by": k6c_bound[1], "library_ms": ifft_ms,
+         "device_ms": k6c_dev, "library_device_ms": ifft_dev},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,13 +43,13 @@ _SIGNATURES = {
     "k4_histogram256": [_P, _P, _I, ctypes.c_longlong, _P],
     # x, thr, y, N, H, W, stream
     "k5_morph_edge": [_P] * 3 + [_I] * 3 + [_P],
-    # x, spec, table, P, H, W, n1, n2, stream
-    "k6a_w_forward": [_P] * 3 + [_I] * 5 + [_P],
+    # x, spec, roots, twiddles, radices (host), P, H, W, passes, stream
+    "k6a_w_forward": [_P] * 5 + [_I] * 4 + [_P],
     # spec, pmean, out, table, inverse table, P, H, W, n1, n2, columns,
     # noise, stream
     "k6b_h_mask": [_P] * 5 + [_I] * 6 + [_F, _P],
-    # spec, out, table, P, H, W, n1, n2, stream
-    "k6c_w_inverse": [_P] * 3 + [_I] * 5 + [_P],
+    # g, out, roots, twiddles, radices (host), P, H, W, passes, stream
+    "k6c_w_inverse": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -240,8 +240,10 @@ def inverse_fft(first: torch.Tensor, second: torch.Tensor,
     a = torch.movedim(first, -1, 0).float() * n
     b = torch.movedim(second, -1, 0).float()
     if modulus:
-        phase = (b - 0.5) * (2.0 * math.pi)
-        f = torch.complex(a * torch.cos(phase), a * torch.sin(phase))
+        # torch.polar, not torch.cos: on the CPU, torch.cos of a float32
+        # tensor comes out to about 12 bits in some processes (about 1 in
+        # 100 in one measurement), torch.polar to full precision in all
+        f = torch.polar(a, (b - 0.5) * (2.0 * math.pi))
     else:
         f = torch.complex(a, b * n)
     f = torch.fft.ifftshift(f, dim=(-2, -1))
@@ -269,8 +271,8 @@ def complex_images(a_real: torch.Tensor, a_imag: torch.Tensor,
         return (torch.sqrt(ar * ar + ai * ai),
                 torch.atan2(ai, ar) / (2 * math.pi) + 0.5)
     if op == "realimaginary":
-        mag, ph = ar, (ai - 0.5) * 2.0 * math.pi
-        return mag * torch.cos(ph), mag * torch.sin(ph)
+        f = torch.polar(ar, (ai - 0.5) * 2.0 * math.pi)   # see inverse_fft
+        return f.real, f.imag
     if op == "conjugate":
         return ar, -ai
     raise ValueError(f"unknown complex operator {operator!r}")

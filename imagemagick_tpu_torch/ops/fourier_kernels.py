@@ -2,28 +2,33 @@
 
 Counterpart of ``imagemagick_tpu/ops/fourier_pallas.py`` (its three Pallas
 kernels, entered at ``wiener_pallas``).  For a stack of P real (H, W)
-planes, each kernel computes in FP32, as a four-step DFT per axis
-(N = n1*n2, two dense sub-DFTs and a twiddle, natural order in and out):
+planes, each kernel computes in FP32 (``csrc/wiener_fft.cu``):
 
-* K6a, ``w_forward`` (``csrc/wiener_fft.cu``): the DFT along W of every
-  row, (P, H, W) float32 -> (P, H, W) complex64.
+* K6a, ``w_forward``: the DFT along W of every row, (P, H, W) float32 ->
+  (P, H, W) complex64.  A radix FFT over the plan ``_radix_plan(W)`` and
+  one table of W roots (``_roots_on``; ``_twiddles_on`` holds its entries
+  in the order the passes read them), two real rows packed into one
+  complex transform and split by Hermitian symmetry.
 * K6b, ``h_mask``: the DFT along H of every column, the Wiener mask
   ``p / (p + noise * pmean)`` with ``p = |F|^2`` and one ``pmean = sum(x^2)``
-  per plane read from device memory, and the inverse DFT along H (/H).
-  The spectrum crosses device memory three times, not five.
+  per plane read from device memory, and the inverse DFT along H (/H),
+  each transform a four-step DFT (N = n1*n2, two dense sub-DFTs and a
+  twiddle).  The spectrum crosses device memory three times, not five.
 * K6c, ``w_inverse``: the inverse DFT along W (/W), its real part, clipped
-  to [0, 1].
+  to [0, 1], as the same radix FFT of two packed rows.
 
 ``wiener_kernel`` runs the three in turn.  The spectrum between them is
 in natural frequency order (so is the TPU kernels', whatever the
 docstring of ``fourier_pallas.py`` says), so each stage is held against
-its plain version alone.  A wrapper runs its kernel's plain version (the
-port's torch four-step, ``fourier._fourstep_axis``) only for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises.
+its plain version alone.  A wrapper runs its kernel's plain version only
+for a CPU tensor; for a CUDA tensor it launches the kernel or raises.
+K6a's and K6c's plain versions follow their kernels' plan, root table,
+packing and passes; K6b's is the port's torch four-step
+(``fourier._fourstep_axis``).
 
 ``supported(H, W)``: both extents composite (a four-step factorization
-exists) and at most ``MAX_EXTENT``: K6b holds one or two whole columns
-of the spectrum in shared memory, K6a and K6c one whole row.
+exists for K6b) and at most ``MAX_EXTENT``: K6b holds one or two whole
+columns of the spectrum in shared memory, K6a and K6c one whole row.
 """
 
 from __future__ import annotations
@@ -38,13 +43,18 @@ import torch
 from .. import _build
 from .gpu_kernels import LAUNCHES, on_card, stream_of
 
-# K6c holds a row and its stage-one output, about 16 bytes per element, in
-# shared memory (227 KB a block); K6b as much per column element, for two
-# columns up to H = K6B_TWO_COLUMNS and one column above
+# K6a and K6c hold two padded buffers of one complex row, 17 bytes per
+# element, in shared memory (227 KB a block); K6b about as much per column
+# element, for two columns up to H = K6B_TWO_COLUMNS and one column above
 MAX_EXTENT = 8192
 K6B_TWO_COLUMNS = 4096
+# the radices with a butterfly of their own in csrc/wiener_fft.cu, in the
+# order a plan takes them; the kernels take at most MAX_PASSES passes
+RADICES = (8, 4, 2, 3, 5, 7)
+MAX_PASSES = 16
 
 
+@functools.lru_cache(maxsize=64)
 def _factor(n: int) -> Optional[Tuple[int, int]]:
     n1 = 1
     for d in range(2, int(math.isqrt(n)) + 1):
@@ -73,10 +83,69 @@ def _axis_consts(n: int, inverse: bool):
             f32(np.cos(tw)), f32(np.sin(tw)))
 
 
+def _extent_ok(n: int) -> bool:
+    return 4 <= n <= MAX_EXTENT and _factor(n) is not None
+
+
 def supported(H: int, W: int) -> bool:
     """True when kernels K6a-K6c take (H, W) planes."""
-    return (4 <= H <= MAX_EXTENT and 4 <= W <= MAX_EXTENT
-            and _factor(H) is not None and _factor(W) is not None)
+    return _extent_ok(H) and _extent_ok(W)
+
+
+@functools.lru_cache(maxsize=32)
+def _radix_plan(n: int) -> Tuple[int, ...]:
+    """The passes of K6a's and K6c's n-point FFT: radix 8 while it divides
+    n, then 4 and 2, then 3, 5 and 7; each other prime factor, ascending,
+    is one generic pass (4096 -> 8.8.8.8, 384 -> 8.8.2.3, 102 -> 2.3.17)."""
+    plan = []
+    for r in RADICES:
+        while n % r == 0:
+            plan.append(r)
+            n //= r
+    p = 11
+    while n > 1:
+        while n % p == 0:
+            plan.append(p)
+            n //= p
+        p += 2
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=16)
+def _roots_on(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """The n roots exp(-+2 pi i k / n) as (n, 2) float32 (cos, sin) on
+    ``device``, computed in float64: every twiddle of K6a's (forward) or
+    K6c's (inverse) passes and every root of a generic pass."""
+    a = (2.0 if inverse else -2.0) * np.pi * np.arange(n) / n
+    roots = np.stack([np.cos(a), np.sin(a)], axis=1).astype(np.float32)
+    return torch.from_numpy(roots).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _twiddles_on(n: int, inverse: bool,
+                 device: torch.device) -> torch.Tensor:
+    """The twiddles of K6a's or K6c's passes in the order they read them,
+    as (T, 2) float32 entries of ``_roots_on(n, inverse, device)``: for
+    each pass with a butterfly of its own after the first (radix r, after
+    passes whose radices multiply to ns), root[t j0 n/(ns r)] at
+    (t - 1) ns + j0 for 1 <= t < r, j0 < ns.  Neighbouring butterflies
+    read neighbouring entries; a generic pass reads the roots."""
+    idx = []
+    ns = 1
+    for r in _radix_plan(n):
+        if r in RADICES and ns > 1:
+            t = np.arange(1, r)[:, None]
+            idx.append((t * np.arange(ns) * (n // (ns * r))).ravel())
+        ns *= r
+    idx.append(np.zeros(1, np.int64))   # so that no table is empty
+    index = torch.from_numpy(np.concatenate(idx)).to(device)
+    return _roots_on(n, inverse, device)[index].contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _plan_on_host(n: int) -> torch.Tensor:
+    """``_radix_plan(n)`` as a host int32 tensor, read by the C entry."""
+    return torch.tensor(_radix_plan(n), dtype=torch.int32)
 
 
 @functools.lru_cache(maxsize=16)
@@ -91,37 +160,97 @@ def _table_on(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.stack([cos, sin], axis=1)).to(device)
 
 
-def _check_planes(x: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+def _check_planes(x: torch.Tensor, dtype: torch.dtype, name: str,
+                  rows_only: bool = False) -> None:
+    """Raise unless ``x`` is contiguous (P, H, W) ``dtype`` that the kernel
+    takes: both extents ``supported``, or only W for a row kernel."""
     if x.dim() != 3 or x.dtype != dtype or not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous (P, H, W) {dtype} "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
     P, H, W = x.shape
-    if P < 1 or not supported(H, W) or P * max(H, W) >= 2 ** 31:
+    ok = _extent_ok(W) and H >= 1 if rows_only else supported(H, W)
+    if P < 1 or not ok or P * max(H, W) >= 2 ** 31:
         raise ValueError(f"{name}: shape {tuple(x.shape)} not supported")
+
+
+def _fft_rows(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The unnormalised DFT (or inverse DFT) of each row of a (B, n)
+    complex64 tensor, as K6a's and K6c's passes compute it in FP32.
+
+    Stockham passes over ``_radix_plan(n)``: after passes whose radices
+    multiply to ns, a pass of radix r takes butterfly j < n/r from
+    v_q = z[j + q n/r], q < r, and puts output k at
+    (j - j mod ns) r + j mod ns + k ns.  Output k is the sum over q of
+    v_q root[(q e) mod n], e = (j mod ns) n/(ns r) + k n/r: the twiddle
+    and the butterfly's root in one entry of ``_roots_on``.  The last
+    pass leaves natural order.  The sum over q is a batched product, in
+    chunks of at most 2**22 roots (a generic pass of a large prime)."""
+    B, n = z.shape
+    dev = z.device
+    roots = torch.view_as_complex(_roots_on(n, inverse, dev))
+    chunk = max(1, (1 << 22) // n)
+    ns = 1
+    for r in _radix_plan(n):
+        m = n // r
+        e = (torch.arange(m, device=dev) % ns) * (n // (ns * r)) + \
+            torch.arange(r, device=dev)[:, None] * m
+        v = z.reshape(B, r, m)
+        acc = torch.zeros_like(v)
+        for q0 in range(0, r, chunk):
+            q = torch.arange(q0, min(q0 + chunk, r), device=dev)
+            acc = acc + torch.einsum("bqm,qkm->bkm", v[:, q0:q0 + len(q)],
+                                     roots[(q[:, None, None] * e) % n])
+        z = acc.reshape(B, r, m // ns, ns).transpose(1, 2).reshape(B, n)
+        ns *= r
+    return z
+
+
+def _row_pairs(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows 0, 2, 4, ... and 1, 3, 5, ... of (R, n) ``rows``; an odd R
+    pairs the last row with zeros, as the kernels' last block does."""
+    if rows.shape[0] % 2:
+        rows = torch.cat([rows, torch.zeros_like(rows[:1])])
+    return rows[0::2], rows[1::2]
+
+
+def _mirror(z: torch.Tensor) -> torch.Tensor:
+    """conj(z[(n - k) mod n]) along the last axis."""
+    return torch.roll(z.flip(-1), 1, dims=-1).conj()
+
+
+def _unpair(a: torch.Tensor, b: torch.Tensor, shape) -> torch.Tensor:
+    """Rows a[0], b[0], a[1], b[1], ... cut to ``shape``."""
+    P, H, W = shape
+    return torch.stack([a, b], dim=1).reshape(-1, W)[:P * H].reshape(shape)
 
 
 # -- K6a ----------------------------------------------------------------------
 
 def _w_forward_plain(x: torch.Tensor) -> torch.Tensor:
-    """K6a's plain version: the four-step DFT along W in FP32."""
-    from .fourier import _fourstep_axis
-
-    return torch.complex(*_fourstep_axis(x, None, inverse=False))
+    """K6a's plain version: each pair of real rows as one complex row
+    z = x_a + i x_b, Z = DFT(z) by ``_fft_rows``, then
+    X_a = (Z + conj Z[-k]) / 2 and X_b = (Z - conj Z[-k]) / 2i, in FP32."""
+    xa, xb = _row_pairs(x.reshape(-1, x.shape[-1]))
+    Z = _fft_rows(torch.complex(xa, xb), inverse=False)
+    Zm = _mirror(Z)
+    return _unpair((Z + Zm) * 0.5, (Z - Zm) * -0.5j, x.shape)
 
 
 def w_forward(x: torch.Tensor) -> torch.Tensor:
     """K6a: the DFT along W of (P, H, W) float32 planes, as complex64."""
     if not on_card(x):
         return _w_forward_plain(x)
-    _check_planes(x, torch.float32, "w_forward")
+    _check_planes(x, torch.float32, "w_forward", rows_only=True)
     P, H, W = x.shape
-    n1, n2 = _factor(W)
     spec = torch.empty((P, H, W), dtype=torch.complex64, device=x.device)
-    tab = _table_on(W, False, x.device)
+    roots = _roots_on(W, False, x.device)
+    tw = _twiddles_on(W, False, x.device)
+    plan = _plan_on_host(W)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.k6a_w_forward(x.data_ptr(), spec.data_ptr(),
-                                tab.data_ptr(), P, H, W, n1, n2,
+                                roots.data_ptr(), tw.data_ptr(),
+                                plan.data_ptr(), P, H, W, plan.numel(),
                                 stream_of(x))
     _build.check(err, "k6a_w_forward")
     LAUNCHES["k6a"] += 1
@@ -177,12 +306,15 @@ def h_mask(spec: torch.Tensor, pmean: torch.Tensor,
 # -- K6c ----------------------------------------------------------------------
 
 def _w_inverse_plain(g: torch.Tensor) -> torch.Tensor:
-    """K6c's plain version: the inverse four-step DFT along W in FP32,
-    its real part clipped to [0, 1]."""
-    from .fourier import _fourstep_axis
-
-    out, _ = _fourstep_axis(g.real, g.imag, inverse=True)
-    return torch.clamp(out, 0.0, 1.0)
+    """K6c's plain version: each pair of rows as one complex row
+    Z = (h(g_a) + i h(g_b)) / W with h(g) = (g + conj g[-k]) / 2, so that
+    IDFT(h(g)) = Re IDFT(g) for any g; z = IDFT(Z) by ``_fft_rows``, then
+    clip(Re z) and clip(Im z) to [0, 1], in FP32."""
+    W = g.shape[-1]
+    ga, gb = _row_pairs(g.reshape(-1, W))
+    Z = ((ga + _mirror(ga)) + (gb + _mirror(gb)) * 1j) * (0.5 / W)
+    z = _fft_rows(Z, inverse=True)
+    return torch.clamp(_unpair(z.real, z.imag, g.shape), 0.0, 1.0)
 
 
 def w_inverse(g: torch.Tensor) -> torch.Tensor:
@@ -190,15 +322,18 @@ def w_inverse(g: torch.Tensor) -> torch.Tensor:
     as float32."""
     if not on_card(g):
         return _w_inverse_plain(g)
-    _check_planes(g, torch.complex64, "w_inverse")
+    _check_planes(g, torch.complex64, "w_inverse", rows_only=True)
     P, H, W = g.shape
-    n1, n2 = _factor(W)
     out = torch.empty((P, H, W), dtype=torch.float32, device=g.device)
-    tab = _table_on(W, True, g.device)
+    roots = _roots_on(W, True, g.device)
+    tw = _twiddles_on(W, True, g.device)
+    plan = _plan_on_host(W)
     lib = _build.load()
     with torch.cuda.device(g.device):
-        err = lib.k6c_w_inverse(g.data_ptr(), out.data_ptr(), tab.data_ptr(),
-                                P, H, W, n1, n2, stream_of(g))
+        err = lib.k6c_w_inverse(g.data_ptr(), out.data_ptr(),
+                                roots.data_ptr(), tw.data_ptr(),
+                                plan.data_ptr(), P, H, W, plan.numel(),
+                                stream_of(g))
     _build.check(err, "k6c_w_inverse")
     LAUNCHES["k6c"] += 1
     return out

@@ -9,9 +9,11 @@ sums up to 33 + 17 taps in another order (2e-5), and with Lab its powf and
 cbrtf stand against torch.pow (5e-5); K2p computes K2's values in K2's
 order, so it is held to its plain version at K2's Lab tolerance and to K2
 for equality.  K4 counts and K5's 0/1 outputs are
-exact: both are held to equality.  K6a and K6b sum n1 + n2 float32 terms
-per transform in another order than their plain versions, with FMAs: their
-spectra within 1e-5 of max|F|; K6c's [0, 1] output within 1e-5.
+exact: both are held to equality.  K6b sums n1 + n2 float32 terms per
+transform, K6a radix butterflies (or a p-term sum for a prime factor above
+7) in another order than their plain versions, with FMAs: their spectra
+within 1e-5 of max|F|; K6c's [0, 1] output within 1e-5, also against a
+float64 inverse of a spectrum with no symmetry.
 """
 
 import numpy as np
@@ -378,10 +380,13 @@ def _spec_rel(got, ref):
 
 
 @pytest.mark.parametrize("shape", [
-    (1, 2160, 4096), (2, 72, 384), (3, 45, 102), (1, 48, 256),
+    (1, 2160, 4096), (2, 72, 384), (3, 45, 102), (1, 7, 8192),
+    (1, 5, 8186), (1, 48, 256), (1, 5, 135),
 ])
 def test_k6_match_plain(dev, shape):
-    """Each K6 kernel against its plain version on the same card inputs."""
+    """Each K6 kernel against its plain version on the same card inputs
+    (K6b where H is composite), and K6c on a non-Hermitian spectrum
+    against a float64 inverse."""
     from imagemagick_tpu_torch.ops import fourier_kernels as fk
 
     x = torch.from_numpy(_rand(shape, seed=shape[1])).to(dev)
@@ -389,17 +394,27 @@ def test_k6_match_plain(dev, shape):
     before = dict(gk.LAUNCHES)
     spec = fk.w_forward(x)
     spec_ref = fk._w_forward_plain(x)
-    g = fk.h_mask(spec_ref, pmean, 0.01)
     g_ref = fk._h_mask_plain(spec_ref, pmean, 0.01)
     out = fk.w_inverse(g_ref)
     out_ref = fk._w_inverse_plain(g_ref)
+    with_k6b = fk.supported(*shape[1:])
+    if with_k6b:
+        g = fk.h_mask(spec_ref, pmean, 0.01)
     torch.cuda.synchronize()
     for key in ("k6a", "k6b", "k6c"):
-        assert gk.LAUNCHES[key] == before[key] + 1
-    assert spec.dtype == g.dtype == torch.complex64
+        assert gk.LAUNCHES[key] == before[key] + (key != "k6b" or with_k6b)
+    assert spec.dtype == torch.complex64
     assert _spec_rel(spec, spec_ref) <= 1e-5
-    assert _spec_rel(g, g_ref) <= 1e-5
+    if with_k6b:
+        assert _spec_rel(g, g_ref) <= 1e-5
     assert float((out - out_ref).abs().max()) <= 1e-5
+    rng = np.random.default_rng(shape[2])
+    u = rng.uniform(-0.2, 1.2, shape) + 1j * rng.uniform(-1, 1, shape)
+    g_any = np.fft.fft(u, axis=-1).astype(np.complex64)
+    ref = np.clip(np.fft.ifft(g_any.astype(np.complex128), axis=-1).real,
+                  0, 1)
+    got = fk.w_inverse(torch.from_numpy(g_any).to(dev)).cpu().numpy()
+    assert float(np.abs(got - ref).max()) <= 1e-5
 
 
 def test_k6_fused_route_vs_float64(dev):
@@ -428,8 +443,10 @@ def test_k6_refuses_what_it_does_not_take(dev):
     x = torch.zeros((1, 48, 256), device=dev)
     spec = torch.zeros((1, 48, 256), dtype=torch.complex64, device=dev)
     pm = torch.ones(1, device=dev)
+    # K6a and K6c transform rows: a prime W is refused, a prime H is not
     for bad in (x.double(), x.transpose(1, 2), x[0],
-                torch.zeros((1, 13, 256), device=dev)):
+                torch.zeros((1, 13, 251), device=dev),
+                torch.zeros((1, 13, 8200), device=dev)):
         with pytest.raises(ValueError):
             fk.w_forward(bad)
     for bad, p in ((spec, torch.ones(2, device=dev)), (spec, pm.double()),

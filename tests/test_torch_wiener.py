@@ -1,13 +1,17 @@
 """Kernels K6a, K6b and K6c (``ops/fourier_kernels.py``) on the CPU.
 
-On a CPU tensor each wrapper runs its plain version, the port's FP32
-four-step.  Each stage is held against its float64 numpy meaning (K6a the
-DFT along W, K6b the DFT along H -> Wiener mask -> inverse DFT along H,
-K6c the clipped real part of the inverse DFT along W): spectra to a
-relative 1e-5 of max|F|, K6c's [0, 1] output to 1e-6.  The chain is held
-to the JAX ``wiener_pallas`` in interpret mode at >= 100 dB (its bf16
+On a CPU tensor each wrapper runs its plain version: for K6a and K6c the
+kernels' radix plan, root table, two-row packing and Stockham passes in
+FP32, for K6b the port's FP32 four-step.  Each stage is held against its
+float64 numpy meaning (K6a the DFT along W, K6b the DFT along H -> Wiener
+mask -> inverse DFT along H, K6c the clipped real part of the inverse DFT
+along W): spectra to a relative 1e-5 of max|F|, K6c's [0, 1] output to
+1e-6 (4e-6 where a generic pass sums 4093 terms).  The chain is held to
+the JAX ``wiener_pallas`` in interpret mode at >= 100 dB (its bf16
 three-pass products put it about 108 dB from float64), and to the JAX
 four-step ``wiener_deconvolve`` and a float64 numpy Wiener at >= 120 dB.
+A float64 numpy replay of the CUDA passes' index arithmetic (twiddles
+read from ``_twiddles_on``) is held to ``np.fft``.
 """
 
 import math
@@ -151,3 +155,137 @@ def test_tables_hold_the_axis_consts():
         np.testing.assert_array_equal(tab[n1:n1 + n2, 1], S2[1])
         np.testing.assert_array_equal(tab[n1 + n2:, 0], Tc.ravel())
         np.testing.assert_array_equal(tab[n1 + n2:, 1], Ts.ravel())
+
+
+# the widths of the radix plans: 8.8.8.8, 8.8.8.8.2, 8.8.2.3, 2.3.17,
+# 4.5.7, 8.2.3.3.3.5, 2.4093 (a generic pass of a large prime) and 3.3.3.5
+# (an odd width: the kernels' scalar row path)
+WIDTHS = [4096, 8192, 384, 102, 140, 2160, 8186, 135]
+
+
+def _k6c_tol(W):
+    """K6c's absolute tolerance against float64: a generic pass of a
+    prime p sums p float32 terms per output (p = 4093 at W = 8186)."""
+    return 4e-6 if max(fk._radix_plan(W)) > 1000 else 1e-6
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+def test_radix_plan_factors_n(n):
+    plan = fk._radix_plan(n)
+    assert math.prod(plan) == n and len(plan) <= fk.MAX_PASSES
+    for r in plan:
+        assert r in fk.RADICES or (r > 7 and all(r % d for d in range(2, r)))
+    # radix 8 first, then 4 and 2, then 3, 5 and 7, then generic primes
+    order = [fk.RADICES.index(r) if r in fk.RADICES else 6 + r for r in plan]
+    assert order == sorted(order)
+
+
+@pytest.mark.parametrize("n,plan", [
+    (4096, (8, 8, 8, 8)), (384, (8, 8, 2, 3)), (140, (4, 5, 7)),
+    (102, (2, 3, 17)), (8192, (8, 8, 8, 8, 2)), (8186, (2, 4093)),
+])
+def test_radix_plan_examples(n, plan):
+    assert fk._radix_plan(n) == plan
+
+
+@pytest.mark.parametrize("n", [102, 384, 4096])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_roots_are_float64_roots_in_float32(n, inverse):
+    roots = fk._roots_on(n, inverse, torch.device("cpu")).numpy()
+    ref = np.exp((2j if inverse else -2j) * np.pi * np.arange(n) / n)
+    assert roots.dtype == np.float32 and roots.shape == (n, 2)
+    # correctly rounded: within half an ulp of 1 of the float64 value
+    assert np.abs(roots[:, 0] - ref.real).max() <= 2.0 ** -24
+    assert np.abs(roots[:, 1] - ref.imag).max() <= 2.0 ** -24
+
+
+def _kernel_passes(z, inverse):
+    """A float64 numpy replay of ``fft_passes`` in csrc/wiener_fft.cu on
+    the rows of z: butterfly j of a radix-r pass after passes of product
+    ns reads z[j + q n/r], a pass with a butterfly of its own turns input
+    q by ``_twiddles_on``'s entry (q - 1) ns + j mod ns, a generic pass
+    takes root[(q e) mod n], and output k goes to
+    (j - j mod ns) r + j mod ns + k ns."""
+    n = z.shape[-1]
+    cpu = torch.device("cpu")
+    roots, tw = (t[:, 0].astype(np.float64) + 1j * t[:, 1] for t in (
+        fk._roots_on(n, inverse, cpu).numpy(),
+        fk._twiddles_on(n, inverse, cpu).numpy()))
+    sign = 2j if inverse else -2j
+    a, ns, t0 = z.astype(np.complex128), 1, 0
+    for r in fk._radix_plan(n):
+        m = n // r
+        j = np.arange(m)
+        j0 = j % ns
+        q = np.arange(r)[:, None]
+        v = a[..., j + q * m]                                  # (..., r, m)
+        b = np.empty_like(a)
+        if r in fk.RADICES:
+            if ns > 1:
+                v[..., 1:, :] *= tw[t0 + (q[1:] - 1) * ns + j0]
+                t0 += (r - 1) * ns
+            out = np.exp(sign * np.pi * q * q.T / r) @ v       # r-point DFT
+        else:
+            e = j0 * (n // (ns * r)) + q * m                   # (k, j)
+            out = np.einsum("...qj,qkj->...kj", v, roots[(q[:, :, None] *
+                                                          e) % n])
+        for k in range(r):
+            b[..., (j - j0) * r + j0 + k * ns] = out[..., k, :]
+        a, ns = b, ns * r
+    return a
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_passes_and_twiddle_layout_give_the_dft(n, inverse):
+    rng = np.random.default_rng(n)
+    z = rng.random((2, n)) + 1j * rng.random((2, n))
+    ref = np.fft.ifft(z, axis=-1) * n if inverse else np.fft.fft(z, axis=-1)
+    got = _kernel_passes(z, inverse)
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+def test_w_forward_plain_at_the_plan_widths_and_odd_rows(W):
+    x = _rand((1, 3, W), seed=W)                  # three rows: one unpaired
+    got = fk.w_forward(torch.from_numpy(x))
+    assert got.dtype == torch.complex64 and got.shape == (1, 3, W)
+    assert _rel(got.numpy(), np.fft.fft(x.astype(np.float64), axis=-1)) \
+        <= SPEC_REL
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+@pytest.mark.parametrize("hermitian", [True, False])
+def test_w_inverse_plain_at_the_plan_widths_and_odd_rows(W, hermitian):
+    """Any g, Hermitian (a real row's spectrum, as K6b makes to rounding)
+    or not: K6c computes clip(Re IDFT(g))."""
+    rng = np.random.default_rng(W)
+    u = rng.uniform(-0.2, 1.2, (1, 3, W))          # values on both clip sides
+    if not hermitian:
+        u = u + 1j * rng.uniform(-1, 1, u.shape)
+    g = np.fft.fft(u, axis=-1).astype(np.complex64)
+    got = fk.w_inverse(torch.from_numpy(g))
+    ref = np.clip(np.fft.ifft(g.astype(np.complex128), axis=-1).real, 0, 1)
+    assert got.dtype == torch.float32 and got.shape == (1, 3, W)
+    assert float(np.abs(got.numpy() - ref).max()) <= _k6c_tol(W)
+
+
+def test_row_kernels_round_trip_with_a_prime_row_count():
+    x = torch.from_numpy(_rand((1, 7, 384), seed=9))
+    np.testing.assert_allclose(
+        fk.w_inverse(fk.w_forward(x)).numpy(), x.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,ok", [
+    ((1, 7, 384), True), ((1, 1, 4), True), ((2, 13, 256), True),
+    ((1, 7, 251), False), ((1, 7, 8200), False), ((1, 7, 2), False),
+])
+def test_row_kernels_check_only_w(shape, ok):
+    """K6a and K6c transform rows: H may be prime; W must be composite
+    and at most MAX_EXTENT."""
+    x = torch.zeros(shape)
+    if ok:
+        fk._check_planes(x, torch.float32, "w_forward", rows_only=True)
+    else:
+        with pytest.raises(ValueError):
+            fk._check_planes(x, torch.float32, "w_forward", rows_only=True)
