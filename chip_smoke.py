@@ -35,8 +35,10 @@ routes:
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
-and at shapes that do not fill a tile.  Each main path runs with every
-launch count set to 0 just before it and read just after.  It checks the
+and at shapes that do not fill a tile (K2 also at 1 + 1 and 33 + 17 taps,
+on 32- and 16-tiles), and K2p to K2 on every value.  Each
+main path runs with every launch count set to 0 just before it and read
+just after.  It checks the
 fused routes of configs #1 and #2 against a float64 reference (>= 100 dB)
 and each pair of routes against each other (>= 60 dB; an op route clips
 after every op); config #3's results are exact 0/1 images, so K4, K5 and
@@ -50,9 +52,10 @@ version and each route end to end with CUDA events: per call
 (``median_ms``: one event pair around one call on an idle stream, median
 of 25 after a warm-up, so host work and launch latency are included) and,
 for each kernel and its library call, device-only (``device_ms``: one
-event pair around 20 back-to-back calls, over 20, median of 5).  It
-computes each kernel's bound: the larger of its bytes over 3.35 TB/s and
-its float32 operations over 67 TFLOP/s, the H100 SXM's published peaks.
+event pair around 20 back-to-back calls, over 20, median of 5); K3 also
+at config #2's two op-route shapes.  It computes each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its float32 operations over 67
+TFLOP/s, the H100 SXM's published peaks.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
 needs one CUDA card and fails without one.  The line before the last is
@@ -423,15 +426,30 @@ def main() -> None:
         k3_err = max(k3_err, err)
 
     # -- K2 against its plain version -------------------------------------
+    # config #2's shape and its kernel's partial 64 x 32 tiles; C = 1 (the
+    # generic kernel, 32-tiles); 33 + 17 taps on 32-tiles (C = 3 with Lab)
+    # and on 16-tiles (C = 6 and C = 8: their 32-tile windows do not fit);
+    # 1 + 1 taps
+    wide_b, wide_u = gauss_taps(33, 33 / 7.0), gauss_taps(17, 17 / 9.0)
     k2_err = 0.0
-    for shape, lab in (((N2, H2, W2, C), True), ((N2, H2, W2, C), False),
-                       ((2, 37, 45, 3), True), ((1, 100, 33, 1), False)):
+    for shape, bt, ut, lab in (
+            ((N2, H2, W2, C), blur2, unsharp2, True),
+            ((N2, H2, W2, C), blur2, unsharp2, False),
+            ((2, 37, 45, 3), blur2, unsharp2, True),
+            ((2, 100, 150, 3), blur2, unsharp2, True),
+            ((2, 100, 150, 3), blur2, unsharp2, False),
+            ((1, 100, 33, 1), blur2, unsharp2, False),
+            ((1, 40, 50, 3), wide_b, wide_u, True),
+            ((1, 37, 45, 6), wide_b, wide_u, False),
+            ((1, 40, 50, 8), wide_b, wide_u, False),
+            ((2, 37, 45, 3), (1.0,), (1.0,), True)):
         x = batch2 if shape == tuple(batch2.shape) else rand(*shape)
-        err = max_err(fp.blur_unsharp_kernel(x, blur2, unsharp2, GAIN, lab),
-                      fp._blur_unsharp_plain(x, blur2, unsharp2, GAIN, lab))
+        err = max_err(fp.blur_unsharp_kernel(x, bt, ut, GAIN, lab),
+                      fp._blur_unsharp_plain(x, bt, ut, GAIN, lab))
         torch.cuda.synchronize()
         tol = K2_LAB_TOL if lab else K2_TOL
-        print(f"k2 {shape} lab={lab}: max|d| {err:.3e} (tolerance {tol})")
+        print(f"k2 {shape} {len(bt)} + {len(ut)} taps lab={lab}: max|d| "
+              f"{err:.3e} (tolerance {tol})")
         require(err <= tol, f"k2 {shape} lab={lab} max|d| {err}")
         k2_err = max(k2_err, err)
 
@@ -454,8 +472,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches2 = dict(gk.LAUNCHES)
     print(f"config #2 main path launches: {launches2}")
-    require(launches2["k2"] >= 1 and launches2["k3"] >= 2,
-            f"launches {launches2}")
+    require(launches2["k2"] == 1 and launches2["k2p"] == 0 and
+            launches2["k3"] >= 2, f"launches {launches2}")
     for out in (fused2, ops2):
         require(out.shape == (N2, H2, W2, C), f"shape {out.shape}")
         require(bool(torch.isfinite(out).all()), "non-finite output")
@@ -468,6 +486,18 @@ def main() -> None:
           f"{db_routes2:.2f} dB")
     require(db_fused2 >= 100.0, f"config #2 fused route {db_fused2} dB")
     require(db_routes2 >= 60.0, f"config #2 routes agree at {db_routes2} dB")
+
+    # K3 at the op route's two shapes: the blur's taps and the unsharp's
+    k3_taps2 = (taps15, gaussian_kernel_1d(0.0, SIGMA_UNSHARP))
+    k3_ms2 = median_ms(*(lambda t=t: gk.separable_blur(batch2, t)
+                         for t in k3_taps2))
+    k3_dev2 = device_ms(*(lambda t=t: gk.separable_blur(batch2, t)
+                          for t in k3_taps2))
+    for taps, ms, dev_ms in zip(k3_taps2, k3_ms2, k3_dev2):
+        tb = bound(2 * 4 * batch2.numel(), 2 * 2 * len(taps) * batch2.numel())
+        print(f"k3 config #2 op route {tuple(batch2.shape)} {len(taps)} taps: "
+              f"kernel {ms:.4f} ms ({dev_ms:.4f} device-only), bound "
+              f"{tb[0]:.4f} ms ({tb[1]}) [{name_limit}]")
 
     k2_ms, k2_plain_ms = median_ms(
         lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True),
@@ -516,9 +546,11 @@ def main() -> None:
     k2p_out = fp.blur_unsharp_pipe_kernel(batch2, blur2, unsharp2, GAIN)
     k2_out = fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True)
     torch.cuda.synchronize()
+    ndiff = int((k2p_out != k2_out).sum())
     print(f"k2p vs k2 {(N2, H2, W2, C)}: max|d| "
-          f"{max_err(k2p_out, k2_out):.3e}, "
-          f"{int((k2p_out != k2_out).sum())} values differ")
+          f"{max_err(k2p_out, k2_out):.3e}, {ndiff} of {k2_out.numel()} "
+          "values differ")
+    require(ndiff == 0, f"k2p and k2 differ on {ndiff} values")
 
     # -- the config #2 pipelined fused route, end to end --------------------
     def pipe2_route():

@@ -33,7 +33,7 @@ _SIGNATURES = {
     # r0, x, wv, gb, kr, c0s, guids, out, nprog, ntiles, nterms, nb, TO,
     # BAND, SPAN, WINC, OUTP, clip, stream
     "k1_fused_pipeline": [_P] * 8 + [_I] * 10 + [_P],
-    # x, y, taps, N, H, W, C, nblur, nunsharp, gain, lab, stream
+    # x, y, taps (host), N, H, W, C, nblur, nunsharp, gain, lab, stream
     "k2_blur_unsharp": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
     # x, y, taps, N, H, W, nblur, nunsharp, gain, stream
     "k2p_blur_unsharp_pipe": [_P] * 3 + [_I] * 5 + [_F, _P],

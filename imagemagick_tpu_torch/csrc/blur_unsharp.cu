@@ -14,26 +14,54 @@
 // The unsharp blur reads z at CLAMPED image coordinates: within ut/2
 // pixels of a border its halo holds z of the edge pixel, not a blur
 // evaluated outside the image (the Pallas kernel's Mv_ext rows and its
-// edge-pixel lane padding).
+// edge-pixel lane padding).  Every value is the chain acc = t[0] v[0],
+// then fmaf(t[k], v[k], acc) for k ascending, on the values K2p
+// (blur_unsharp_pipe.cu) and the plain version read, so K2 and K2p agree
+// bit for bit; the Lab epilogue is lab_roundtrip.cuh's, shared with K2p.
 //
 // What bounds it on an H100: device-memory traffic sets the floor (config
 // #2, 8 x 1080 x 1920 x 3: 199 MB in and 199 MB out, about 0.12 ms at
-// 3.35 TB/s), but this simple version does one shared-memory load per FMA
-// (about 75 per output value at 15 + 9 taps, with the halo recomputed
-// per tile) and nine powf/cbrtf per pixel with Lab, so shared-memory
-// bandwidth and the Lab math bind it first.
-// What the design does about it: one block per (image, T x T output
-// tile).  It loads the x tile with a halo of bt/2 + ut/2 pixels once, at
-// clamped coordinates, into shared memory, computes z on the
-// (T + ut-1)^2 window in two passes, the vertical unsharp pass over that
-// window, then the horizontal unsharp pass, the mix and the Lab round
-// trip per pixel in registers, and writes only the output: no
-// intermediate reaches device memory.  T is 32, or 16 where the 32-tile
-// windows would not fit in a block's shared memory (many channels and
-// wide taps).  The TPU kernel's banded matrix products, lane rolls and
-// lane fields serve its matrix unit and 128-lane layout and are not
-// carried over; the Lab math is the colorspace module's, with powf and
-// cbrtf in place of its exp2/log2 seed and Newton step.
+// 3.35 TB/s).  The stencils' 65-75 FMAs per output value (15 + 9 taps,
+// with the halo recomputed per tile) and Lab's nine powf / cbrtf per
+// pixel come next; the first version, which loaded a tap and a datum from
+// shared memory for each FMA, was bound by those loads.
+// What the design does about it: one block per (image, TW x TH output
+// tile).  It copies the x tile with a halo of bt/2 + ut/2 pixels once into
+// shared memory with cp.async (an interior tile's rows as 16-byte chunks
+// where x's rows are 16-byte aligned, else float by float from clamped
+// coordinates), then runs four passes: the vertical blur, the horizontal
+// blur (z), the vertical unsharp blur, and the horizontal unsharp blur
+// with the mix, the clip and Lab.  In each pass a thread computes a run
+// of outputs along the stencil's axis from a window of values it loads
+// into registers once: R outputs of an n-tap stencil cost R + n - 1
+// loads and R n FMAs.  The taps reach the kernel by value, as kernel
+// arguments, and feed the FMAs from the constant bank.  Two kernels: one
+// for config #2 (C = 3, 15 + 9 taps, all compile-time, so the loops
+// unroll exactly) and a generic one that reads C and the tap counts at
+// run time, its loops unrolled to the largest counts and left where the
+// count ends.  Threads walk their items with 2-D and 3-D indices and
+// strides; a thread splits its first item and its stride once a pass,
+// so no item costs an integer division.  The buffers the passes read
+// across rows have an odd row stride in floats, so the horizontal passes,
+// whose warps take 32 rows at one column, load from 32 different banks,
+// as do the vertical ones, whose warps take 32 neighbouring lanes of one
+// row.
+// Clamping: the vertical blur is computed for every z row as if
+// unclamped, and the horizontal blur of z row i reads the row of image
+// row clamp(zy0 + i), which is the clamped z row's; the horizontal blur
+// runs unclamped too, and the vertical unsharp pass reads z of column
+// clamp(zx0 + j) on border tiles.  So only the x window copy and two
+// per-thread offsets clamp.  Results go through shared memory to a
+// coalesced store that drops what lies outside the image.  Config #2's
+// tile is 64 x 32 with 512 threads, two blocks an SM (9 % faster than 32 x
+// 32 with 256 threads, three blocks an SM: the Lab epilogue wants the
+// warps); the generic kernel's is 32 x 32 with 256 threads, or 16 x 16
+// where the 32-tile windows would not fit in a block's shared memory
+// (C >= 6 at 33 + 17 taps).  The TPU kernel's
+// banded matrix products, lane rolls and lane fields serve its matrix
+// unit and 128-lane layout and are not carried over.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -41,139 +69,327 @@
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int MAX_BLUR_TAPS = 33;
 constexpr int MAX_UNSHARP_TAPS = 17;
 constexpr int MAX_CHANNELS = 8;
 constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may use
+constexpr int RUN = 8;  // outputs a thread computes in passes 1-3
 
 using lab::clip01;
 using lab::lab_roundtrip;
 
-__host__ __device__ __forceinline__ int tap_floats(int nb, int nu) {
-  return (nb + nu + 3) / 4 * 4;  // keep the windows 16-byte aligned
+// Everything the kernel reads besides x, by value: the taps sit in the
+// constant bank with the other kernel arguments.
+struct Args {
+  const float* x;
+  float* y;
+  float bt[MAX_BLUR_TAPS];
+  float ut[MAX_UNSHARP_TAPS];
+  int H, W, C, nb, nu, lab;
+  int vec;  // x is 16-byte aligned and W * C % 4 == 0: so is every row
+  float gain;
+};
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// The buffers of a TW x TH tile with C channels and radii rb, ru, in
+// floats.  Buffer A holds the x window, then the z window; buffer B the
+// vertical blur, then the vertical unsharp pass, then the output tile.
+struct Geo {
+  int xw, xh;      // x window: pixels, rows
+  int zw, zh;      // z window: pixels, rows
+  int xl, zl, sl;  // floats a row: x window (and vertical blur), z window
+                   // (and vertical unsharp pass), output tile
+  int xa;          // row stride of the x window: a multiple of 4, with
+                   // room for a row shifted by up to 3 floats
+  int xp, zp, sp;  // row strides of the others: odd
+  int a, b;        // floats of A and of B
+};
+
+__host__ __device__ constexpr Geo geometry(int TW, int TH, int C, int rb,
+                                           int ru) {
+  const int xw = TW + 2 * (ru + rb), xh = TH + 2 * (ru + rb);
+  const int zw = TW + 2 * ru, zh = TH + 2 * ru;
+  const int xa = (xw * C + 6) / 4 * 4;
+  const int xp = (xw * C) | 1, zp = (zw * C) | 1, sp = (TW * C) | 1;
+  return {xw, xh, zw, zh, xw * C, zw * C, TW * C, xa, xp, zp, sp,
+          imax(xh * xa, zh * zp), imax(zh * xp, imax(TH * zp, TH * sp))};
 }
 
-// floats of the x window (later the z window) and of the vertical-pass
-// buffer (later the vertical unsharp pass) for a T x T tile
-__host__ __device__ __forceinline__ int buf_a(int T, int C, int rb, int ru) {
-  const int xs = T + 2 * ru + 2 * rb, zs = T + 2 * ru;
-  return xs * xs * C > zs * zs * C ? xs * xs * C : zs * zs * C;
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
 }
 
-__host__ __device__ __forceinline__ int buf_b(int T, int C, int rb, int ru) {
-  const int xs = T + 2 * ru + 2 * rb, zs = T + 2 * ru;
-  return zs * xs * C > T * zs * C ? zs * xs * C : T * zs * C;
+// One float, or four 16-byte aligned ones, from device memory to shared
+// memory, asynchronously: a thread keeps all of its window's copies in
+// flight at once.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-blur_unsharp_kernel(const float* __restrict__ x, float* __restrict__ y,
-                    const float* __restrict__ taps, int H, int W, int C,
-                    int nb, int nu, float gain, int lab, int T) {
-  extern __shared__ __align__(16) float smem[];
-  const int rb = nb / 2, ru = nu / 2;
-  const int xs = T + 2 * ru + 2 * rb;   // x window side, pixels
-  const int zs = T + 2 * ru;            // z window side, pixels
-  const int xrow = xs * C, zrow = zs * C;
-  float* tp = smem;                     // nb blur taps, then nu unsharp taps
-  const float* up = tp + nb;
-  float* a = smem + tap_floats(nb, nu); // x window, then z window
-  float* b = a + buf_a(T, C, rb, ru);   // vertical blur, then vertical unsharp
-  const int y0 = blockIdx.y * T, x0 = blockIdx.x * T;
-  const int zy0 = y0 - ru, zx0 = x0 - ru;  // image position of z window (0, 0)
-  const size_t plane = (size_t)H * W * C;
-  const float* src = x + blockIdx.z * plane;
-  float* dst = y + blockIdx.z * plane;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
 
-  for (int k = threadIdx.x; k < nb + nu; k += THREADS) tp[k] = taps[k];
-  // x window row i, pixel p: image (clamp(zy0 - rb + i), clamp(zx0 - rb + p))
-  for (int e = threadIdx.x; e < xs * xrow; e += THREADS) {
-    const int i = e / xrow;
-    const int rem = e - i * xrow;
-    const int p = rem / C;
-    const int c = rem - p * C;
-    const int gy = min(max(zy0 - rb + i, 0), H - 1);
-    const int gx = min(max(zx0 - rb + p, 0), W - 1);
-    a[e] = src[((size_t)gy * W + gx) * C + c];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" :::
+               "memory");
+}
+
+// Calls f(a, b) for the items of an na x nb grid, b fastest, that this
+// thread takes when the block's NT threads deal them out in turn.
+template <int NT, class F>
+__device__ __forceinline__ void for_items(int na, int nb, F f) {
+  int a = 0, b = threadIdx.x;
+  while (b >= nb) {
+    b -= nb;
+    ++a;
   }
-  __syncthreads();
-
-  // z window (i, j) holds z at image (clamp(zy0 + i), clamp(zx0 + j)).
-  // Its blur reads x rows clamp(zy0 + i) - rb .. + rb, which start at x
-  // window row clamp(zy0 + i) - zy0; likewise for columns.
-  // Vertical blur, over every column of the x window:
-  for (int e = threadIdx.x; e < zs * xrow; e += THREADS) {
-    const int i = e / xrow;
-    const int lane = e - i * xrow;
-    const float* col = a + (min(max(zy0 + i, 0), H - 1) - zy0) * xrow + lane;
-    float acc = tp[0] * col[0];
-    for (int k = 1; k < nb; ++k) acc = fmaf(tp[k], col[k * xrow], acc);
-    b[e] = acc;
-  }
-  __syncthreads();
-
-  // horizontal blur: a shift by one pixel is a shift by C floats
-  for (int e = threadIdx.x; e < zs * zrow; e += THREADS) {
-    const int i = e / zrow;
-    const int rem = e - i * zrow;
-    const int j = rem / C;
-    const int c = rem - j * C;
-    const float* row =
-        b + i * xrow + (min(max(zx0 + j, 0), W - 1) - zx0) * C + c;
-    float acc = tp[0] * row[0];
-    for (int k = 1; k < nb; ++k) acc = fmaf(tp[k], row[k * C], acc);
-    a[e] = acc;
-  }
-  __syncthreads();
-
-  // vertical unsharp pass: output row i reads z window rows i .. i + 2ru
-  for (int e = threadIdx.x; e < T * zrow; e += THREADS) {
-    const int i = e / zrow;
-    const int lane = e - i * zrow;
-    const float* col = a + i * zrow + lane;
-    float acc = up[0] * col[0];
-    for (int k = 1; k < nu; ++k) acc = fmaf(up[k], col[k * zrow], acc);
-    b[e] = acc;
-  }
-  __syncthreads();
-
-  // horizontal unsharp pass, the mix, Lab and the store: one pixel a thread
-  for (int p = threadIdx.x; p < T * T; p += THREADS) {
-    const int i = p / T;
-    const int j = p - i * T;
-    const int gy = y0 + i, gx = x0 + j;
-    if (gy >= H || gx >= W) continue;
-    auto sharpen = [&](int c) {
-      const float* row = b + i * zrow + j * C + c;
-      float u = up[0] * row[0];
-      for (int k = 1; k < nu; ++k) u = fmaf(up[k], row[k * C], u);
-      const float z = a[(i + ru) * zrow + (j + ru) * C + c];
-      return clip01((1.f + gain) * z - gain * u);
-    };
-    float* o = dst + ((size_t)gy * W + gx) * C;
-    if (lab) {
-      float r = sharpen(0), g = sharpen(1), bl = sharpen(2);
-      lab_roundtrip(r, g, bl);
-      o[0] = r;
-      o[1] = g;
-      o[2] = bl;
-    } else {
-      for (int c = 0; c < C; ++c) o[c] = sharpen(c);
+  while (a < na) {
+    f(a, b);
+    b += NT;
+    while (b >= nb) {
+      b -= nb;
+      ++a;
     }
   }
 }
 
-size_t smem_bytes(int T, int C, int nb, int nu) {
-  return (size_t)(tap_floats(nb, nu) + buf_a(T, C, nb / 2, nu / 2) +
-                  buf_b(T, C, nb / 2, nu / 2)) * sizeof(float);
+// Calls f(a, b, c) for the items of an na x nb x nc grid, c fastest, that
+// this thread takes when the block's NT threads deal them out in turn.
+// The thread splits its first item and the stride NT into (b, c) steps
+// once; each item after costs adds and compares.
+template <int NT, class F>
+__device__ __forceinline__ void for_items3(int na, int nb, int nc, F f) {
+  const int qc = NT / nc, rc = NT - qc * nc;
+  int c = threadIdx.x % nc, b = threadIdx.x / nc, a = 0;
+  while (b >= nb) {
+    b -= nb;
+    ++a;
+  }
+  while (a < na) {
+    f(a, b, c);
+    c += rc;
+    b += qc;
+    if (c >= nc) {
+      c -= nc;
+      ++b;
+    }
+    while (b >= nb) {
+      b -= nb;
+      ++a;
+    }
+  }
+}
+
+// R outputs of a stencil along a window that load(q) reads:
+// out[r] = t[0] w[r], then fmaf(t[k], w[r + k], out[r]) for k = 1 .. n-1.
+// The window w[0 .. R+n-2] is loaded into registers once.  N > 0: n == N
+// taps; N == 0: n taps known at run time, the loops unrolled to NMAX and
+// left where n ends.
+template <int R, int N, int NMAX, class Load>
+__device__ __forceinline__ void stencil(const float (&t)[NMAX], int n,
+                                        Load load, float (&out)[R]) {
+  constexpr int K = N ? N : NMAX;
+  float w[R + K - 1];
+#pragma unroll
+  for (int q = 0; q < R + K - 1; ++q) {
+    if (!N && q >= R + n - 1) break;
+    w[q] = load(q);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = t[0] * w[r];
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    if (!N && k >= n) break;
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] = fmaf(t[k], w[r + k], out[r]);
+  }
+}
+
+// CT, NB, NU: the channels and tap counts, or 0 for those read from p at
+// run time; NT threads, at least MINB blocks an SM.
+template <int CT, int NB, int NU, int TW, int TH, int NT, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+blur_unsharp_kernel(const Args p) {
+  extern __shared__ float smem[];
+  const int C = CT ? CT : p.C;
+  const int nb = NB ? NB : p.nb, nu = NU ? NU : p.nu;
+  const int rb = nb / 2, ru = nu / 2;
+  const Geo g = geometry(TW, TH, C, rb, ru);
+  float* const A = smem;
+  float* const B = smem + g.a;
+  const int H = p.H, W = p.W;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int zy0 = y0 - ru, zx0 = x0 - ru;    // image position of z (0, 0)
+  const int wy0 = zy0 - rb, wx0 = zx0 - rb;  // image position of x (0, 0)
+  const size_t rowlen = (size_t)W * C;
+  const size_t plane = (size_t)H * rowlen;
+
+  // x window row i, lane l (pixel l / C) at A[sh + i * xa + l]: image
+  // (clamp(wy0 + i), clamp(wx0 + l / C)).  An interior tile whose rows are
+  // 16-byte aligned in step copies each row as one run of 16-byte chunks,
+  // the shift sh keeping shared and device addresses equal modulo 16
+  // bytes (the chunks at the ends take up to 3 floats of the image row on
+  // either side); a border tile copies float by float from clamped
+  // coordinates.
+  int sh = 0;
+  {
+    const float* src = p.x + blockIdx.z * plane;
+    if (p.vec && wy0 >= 0 && wy0 + g.xh <= H && wx0 >= 0 &&
+        wx0 + g.xw <= W) {
+      const size_t s0 = wy0 * rowlen + (size_t)wx0 * C;
+      sh = (int)(s0 & 3);
+      const float* base = src + (s0 - sh);
+      for_items<NT>(g.xh, (g.xl + sh + 3) / 4, [&](int i, int k) {
+        cp_async16(A + i * g.xa + 4 * k, base + i * rowlen + 4 * k);
+      });
+    } else {
+      for_items3<NT>(g.xh, g.xw, C, [&](int i, int px, int c) {
+        const int gy = clampi(wy0 + i, 0, H - 1);
+        const int gx = clampi(wx0 + px, 0, W - 1);
+        cp_async4(A + i * g.xa + px * C + c,
+                  src + gy * rowlen + (size_t)gx * C + c);
+      });
+    }
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // 1. vertical blur of every lane of the x window, z rows 0 .. zh-1 as if
+  // unclamped: run ri covers rows i0 .. i0+RUN-1 (the last run overlaps
+  // its neighbour rather than run past the window)
+  for_items<NT>((g.zh + RUN - 1) / RUN, g.xl, [&](int ri, int l) {
+    const int i0 = min(ri * RUN, g.zh - RUN);
+    const float* col = A + sh + i0 * g.xa + l;
+    float out[RUN];
+    stencil<RUN, NB>(p.bt, nb, [&](int q) { return col[q * g.xa]; }, out);
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) B[(i0 + r) * g.xp + l] = out[r];
+  });
+  __syncthreads();
+
+  // 2. horizontal blur into the z window: z row i is z of image row
+  // clamp(zy0 + i), so it reads that row's vertical blur; columns as if
+  // unclamped.  Rows fastest: a warp takes 32 rows of one column run.
+  for_items3<NT>((g.zw + RUN - 1) / RUN, C, g.zh, [&](int m, int c, int i) {
+    const int j0 = min(m * RUN, g.zw - RUN);
+    const float* row =
+        B + (clampi(zy0 + i, 0, H - 1) - zy0) * g.xp + j0 * C + c;
+    float out[RUN];
+    stencil<RUN, NB>(p.bt, nb, [&](int q) { return row[q * C]; }, out);
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) A[i * g.zp + (j0 + r) * C + c] = out[r];
+  });
+  __syncthreads();
+
+  // 3. vertical unsharp pass, tile rows 0 .. TH-1 over every lane of the z
+  // window; on a tile at the left or right border, lane (j, c) reads z of
+  // column clamp(zx0 + j)
+  const bool inside_x = zx0 >= 0 && zx0 + g.zw <= W;
+  for_items3<NT>(TH / RUN, g.zw, C, [&](int ri, int j, int c) {
+    const int l = j * C + c;
+    const int ls =
+        inside_x ? l : (clampi(zx0 + j, 0, W - 1) - zx0) * C + c;
+    const float* col = A + ri * RUN * g.zp + ls;
+    float out[RUN];
+    stencil<RUN, NU>(p.ut, nu, [&](int q) { return col[q * g.zp]; }, out);
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) B[(ri * RUN + r) * g.zp + l] = out[r];
+  });
+  __syncthreads();
+
+  // 4. horizontal unsharp pass, the mix, the clip and Lab, RUN4 pixels of
+  // all channels a thread (up to 4, fewer where the tile has fewer pixels
+  // than 4 a thread), rows fastest; held in registers until every thread
+  // has read B, then staged in B.  The channel loops unroll to CM, the
+  // most channels the kernel takes, and stop at C, so res is indexed by
+  // constants and stays in registers.
+  constexpr int CM = CT ? CT : MAX_CHANNELS;
+  constexpr int RUN4 = TW * TH >= 4 * NT ? 4 : TW * TH >= 2 * NT ? 2 : 1;
+  constexpr int ITEMS = TH * (TW / RUN4);
+  constexpr int PER_THREAD = (ITEMS + NT - 1) / NT;
+  float res[PER_THREAD][CM][RUN4];
+#pragma unroll
+  for (int s = 0; s < PER_THREAD; ++s) {
+    const int q = threadIdx.x + s * NT;
+    if (ITEMS % NT == 0 || q < ITEMS) {
+      const int i = q % TH, j0 = q / TH * RUN4;  // TH is a power of two
+#pragma unroll
+      for (int c = 0; c < CM; ++c) {
+        if (!CT && c >= C) break;
+        const float* row = B + i * g.zp + j0 * C + c;
+        float u[RUN4];
+        stencil<RUN4, NU>(p.ut, nu, [&](int k) { return row[k * C]; }, u);
+        const float* zc = A + (i + ru) * g.zp + (j0 + ru) * C + c;
+#pragma unroll
+        for (int r = 0; r < RUN4; ++r)
+          res[s][c][r] = clip01((1.f + p.gain) * zc[r * C] - p.gain * u[r]);
+      }
+      if constexpr (CM >= 3) {
+        if (C == 3 && p.lab) {
+#pragma unroll
+          for (int r = 0; r < RUN4; ++r)
+            lab_roundtrip(res[s][0][r], res[s][1][r], res[s][2][r]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < PER_THREAD; ++s) {
+    const int q = threadIdx.x + s * NT;
+    if (ITEMS % NT == 0 || q < ITEMS) {
+      float* o = B + (q % TH) * g.sp + q / TH * RUN4 * C;
+#pragma unroll
+      for (int r = 0; r < RUN4; ++r) {
+#pragma unroll
+        for (int c = 0; c < CM; ++c) {
+          if (!CT && c >= C) break;
+          o[r * C + c] = res[s][c][r];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile's rows and pixels inside the image, coalesced
+  float* dst = p.y + blockIdx.z * plane + y0 * rowlen + (size_t)x0 * C;
+  for_items<NT>(min(TH, H - y0), min(TW, W - x0) * C, [&](int i, int l) {
+    dst[i * rowlen + l] = B[i * g.sp + l];
+  });
+}
+
+size_t smem_bytes(int TW, int TH, int C, int nb, int nu) {
+  const Geo g = geometry(TW, TH, C, nb / 2, nu / 2);
+  return (size_t)(g.a + g.b) * sizeof(float);
+}
+
+template <int CT, int NB, int NU, int TW, int TH, int NT, int MINB>
+cudaError_t launch(const Args& args, int N, cudaStream_t stream) {
+  const size_t smem = smem_bytes(TW, TH, args.C, args.nb, args.nu);
+  if (smem > MAX_SMEM || (args.H + TH - 1) / TH > 65535)
+    return cudaErrorInvalidValue;
+  auto* kernel = blur_unsharp_kernel<CT, NB, NU, TW, TH, NT, MINB>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((args.W + TW - 1) / TW, (args.H + TH - 1) / TH, N);
+  kernel<<<grid, NT, smem, stream>>>(args);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y: (N, H, W, C) float32, contiguous, on the current device; C <= 8.
-// taps: nb blur taps then nu unsharp taps, float32 on the device, both
-// counts odd, nb <= 33, nu <= 17.  lab (C == 3 only): the sRGB->Lab->sRGB
-// round trip after the unsharp mix.
+// taps: nb blur taps then nu unsharp taps, float32 in HOST memory (passed
+// to the kernel by value), both counts odd, nb <= 33, nu <= 17.  lab
+// (C == 3 only): the sRGB->Lab->sRGB round trip after the unsharp mix.
 extern "C" int k2_blur_unsharp(const float* x, float* y, const float* taps,
                                int N, int H, int W, int C, int nb, int nu,
                                float gain, int lab, void* stream) {
@@ -181,19 +397,23 @@ extern "C" int k2_blur_unsharp(const float* x, float* y, const float* taps,
       nb < 1 || nb > MAX_BLUR_TAPS || nb % 2 == 0 || nu < 1 ||
       nu > MAX_UNSHARP_TAPS || nu % 2 == 0 || (lab && C != 3))
     return cudaErrorInvalidValue;
-  int T = 32;
-  size_t smem = smem_bytes(T, C, nb, nu);
-  if (smem > MAX_SMEM) {
-    T = 16;
-    smem = smem_bytes(T, C, nb, nu);
-  }
-  if ((H + T - 1) / T > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      blur_unsharp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + T - 1) / T, (H + T - 1) / T, N);
-  blur_unsharp_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, y, taps, H, W, C, nb, nu, gain, lab, T);
-  return cudaGetLastError();
+  Args args{};
+  args.x = x;
+  args.y = y;
+  for (int k = 0; k < nb; ++k) args.bt[k] = taps[k];
+  for (int k = 0; k < nu; ++k) args.ut[k] = taps[nb + k];
+  args.H = H;
+  args.W = W;
+  args.C = C;
+  args.nb = nb;
+  args.nu = nu;
+  args.lab = lab;
+  args.vec = (size_t)W * C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  args.gain = gain;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C == 3 && nb == 15 && nu == 9)
+    return launch<3, 15, 9, 64, 32, 512, 2>(args, N, s);
+  if (smem_bytes(32, 32, C, nb, nu) <= MAX_SMEM)
+    return launch<0, 0, 0, 32, 32, 256, 2>(args, N, s);
+  return launch<0, 0, 0, 16, 16, 256, 2>(args, N, s);
 }

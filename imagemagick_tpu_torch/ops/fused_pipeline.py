@@ -641,7 +641,8 @@ def blur_unsharp_kernel(x: torch.Tensor, blur_taps: Sequence[float],
                          f"{len(ut)} unsharp taps, lab={lab}, on "
                          f"{tuple(x.shape)}")
     y = torch.empty_like(x)
-    taps = constant_on(bt + ut, torch.float32, x.device)
+    # on the host: the C entry copies them into the kernel's arguments
+    taps = constant_on(bt + ut, torch.float32, torch.device("cpu"))
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.k2_blur_unsharp(x.data_ptr(), y.data_ptr(),

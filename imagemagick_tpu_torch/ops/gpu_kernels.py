@@ -58,7 +58,9 @@ def stream_of(x: torch.Tensor) -> int:
 @lru_cache(maxsize=64)
 def constant_on(values: tuple, dtype: torch.dtype,
                 device: torch.device) -> torch.Tensor:
-    """A small host constant as a tensor on ``device``, uploaded once."""
+    """A small host constant as a tensor on ``device``, uploaded once:
+    calls with equal arguments return the same tensor, which callers do
+    not write to."""
     return torch.tensor(values, dtype=dtype, device=device)
 
 

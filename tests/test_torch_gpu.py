@@ -145,7 +145,11 @@ def test_blur_beyond_k3_channels_takes_plain_path(dev):
     ((1, 100, 33, 1), False, 15, 9),   # C = 1
     ((3, 50, 70, 4), False, 7, 3),
     ((1, 40, 50, 8), False, 33, 17),   # the largest windows: 16-tiles
+    ((1, 37, 45, 6), False, 33, 17),   # the fewest channels on 16-tiles
+    ((1, 40, 50, 3), True, 33, 17),    # the generic kernel with Lab
     ((1, 5, 7, 3), True, 33, 17),      # image smaller than the taps
+    ((2, 100, 150, 3), True, 15, 9),   # partial 64 x 32 tiles
+    ((2, 37, 45, 3), True, 1, 1),
 ])
 def test_k2_matches_plain(dev, shape, lab, nb, nu):
     x = _rand(shape, seed=5)
@@ -180,6 +184,22 @@ def test_k2_fused_entry_borders_vs_float64(dev, lab):
     for sl in (np.s_[:], np.s_[:, :4], np.s_[:, -4:], np.s_[:, :, :4],
                np.s_[:, :, -4:]):
         assert float(np.abs(got[sl] - ref[sl]).max()) <= 3e-5
+
+
+@pytest.mark.parametrize("shape,nb,nu", [
+    ((2, 100, 150, 3), 15, 9),   # config #2's kernel, partial 64 x 32 tiles
+    ((1, 40, 50, 3), 33, 17),    # the generic kernel, 32-tiles
+    ((2, 37, 45, 3), 7, 3),
+])
+def test_k2_equals_k2p(dev, shape, nb, nu):
+    """K2 with Lab leaves every value as K2p makes it, whichever of its
+    kernels runs: each output keeps its chain of FMAs."""
+    x = torch.from_numpy(_rand(shape, seed=7)).to(dev)
+    bt, ut = _taps(nb, nb / 7.0), _taps(nu, nu / 9.0)
+    got = fp.blur_unsharp_kernel(x, bt, ut, 1.0, True)
+    want = fp.blur_unsharp_pipe_kernel(x, bt, ut, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_k2_refuses_what_it_does_not_take(dev):
