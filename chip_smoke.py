@@ -29,7 +29,7 @@ routes:
   Wiener mask ``F*|F|^2 / (|F|^2 + 0.01*sum(x^2))`` -> inverse DFT ->
   clip.  The fused route, ``models.pipelines.fft_wiener()`` in the
   ``auto`` mode, runs kernels K6a -> K6b -> K6c (``csrc/wiener_fft.cu``;
-  K6a and K6c radix FFTs, K6b four-step DFTs);
+  radix FFTs along W, down strips of columns, and along W again);
   the op route, the same pipeline under ``fourier.set_fft_mode("fft")``,
   runs ``torch.fft.rfft2`` -> mask -> ``irfft2``.
 
@@ -99,14 +99,17 @@ N3, H3, W3 = 16, 1056, 816
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
 K6_SPEC_TOL = 1e-5  # K6a/K6b vs plain, relative to max|F|: FP32 sums in
-                    # another order (K6b n1 + n2 terms, K6a radix passes
-                    # or a p-term generic pass), FMAs
+                    # another order (radix passes or a p-term generic
+                    # pass), FMAs
 K6C_TOL = 1e-5      # K6c's [0, 1] output, absolute
 # K6a and K6c: config #4's shape, odd factors, a width with a generic
 # radix-17 pass and scalar rows (102), the largest extent with an odd row
 # count, and a generic radix-4093 pass
 K6_ROW_SHAPES = ((N4, H4, W4), (2, 72, 384), (3, 45, 102), (1, 7, 8192),
                  (1, 5, 8186))
+# K6b alone: a generic radix-4093 pass down one-column strips, the largest
+# extent, an odd H (3.3.3.5) with W not a multiple of the 4-column strip
+K6B_SHAPES = ((1, 8186, 64), (1, 8192, 64), (2, 135, 102))
 # the H100 SXM's published peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -304,9 +307,20 @@ def main() -> None:
     taps15 = gauss_taps(optimal_kernel_width_2d(0.0, SIGMA), SIGMA)
     require(len(taps15) == 15, f"{len(taps15)} taps")
     k3_err = 0.0
+    # config #1's shape; the generic kernel at C = 1, 2, 4 and 8 and at 3
+    # and 33 taps; images smaller than the halo; W not a multiple of the
+    # tile, with and without the 16-byte window copy (W * C % 4)
     for shape, taps in (((N, HOUT, WOUT, C), taps15),
                         ((3, 333, 517, 3), gauss_taps(33, 5.0)),
-                        ((2, 64, 96, 1), gauss_taps(3, 0.8))):
+                        ((2, 64, 96, 1), gauss_taps(3, 0.8)),
+                        ((2, 40, 70, 1), gauss_taps(33, 5.0)),
+                        ((1, 45, 97, 2), gauss_taps(3, 0.8)),
+                        ((1, 33, 65, 4), gauss_taps(33, 5.0)),
+                        ((1, 37, 70, 8), gauss_taps(33, 5.0)),
+                        ((2, 5, 7, 3), gauss_taps(33, 5.0)),
+                        ((1, 6, 10, 3), taps15),
+                        ((1, 70, 130, 3), taps15),
+                        ((1, 100, 256, 3), gauss_taps(9, 1.5))):
         x = rand(*shape)
         err = max_err(gk.separable_blur(x, taps),
                       gk._separable_blur_plain(x, taps))
@@ -758,6 +772,17 @@ def main() -> None:
         print(line)
         for key, err in errs.items():
             k6_err[key] = max(k6_err[key], err)
+    for shape in K6B_SHAPES:
+        spec = torch.fft.fft(rand(*shape), dim=-1)
+        pm = 50 + 150 * rand(shape[0])
+        g = fk.h_mask(spec, pm, NOISE)
+        g_ref = fk._h_mask_plain(spec, pm, NOISE)
+        torch.cuda.synchronize()
+        rel_b = rel_err(g, g_ref)
+        print(f"k6b {shape} (passes {fk._radix_plan(shape[1])}): max|d| "
+              f"{max_err(g, g_ref):.3e} ({rel_b:.3e} of max|F|)")
+        require(rel_b <= K6_SPEC_TOL, f"k6b {shape} {rel_b}")
+        k6_err["k6b"] = max(k6_err["k6b"], max_err(g, g_ref))
 
     # -- the config #4 main path, end to end, by each route ----------------
     wiener = pipelines.fft_wiener(NOISE)
@@ -802,16 +827,21 @@ def main() -> None:
     k6a_ms, k6a_plain_ms, fft_ms = median_ms(
         lambda: fk.w_forward(planes4), lambda: fk._w_forward_plain(planes4),
         lambda: torch.fft.fft(planes4, dim=-1))
-    k6b_ms, k6b_plain_ms = median_ms(
+
+    # K6b's yardstick: cuFFT's transforms along H both ways, no mask
+    def h_fft_ifft():
+        return torch.fft.ifft(torch.fft.fft(spec4, dim=-2), dim=-2)
+
+    k6b_ms, k6b_plain_ms, hfft_ms = median_ms(
         lambda: fk.h_mask(spec4, pm4, NOISE),
-        lambda: fk._h_mask_plain(spec4, pm4, NOISE))
+        lambda: fk._h_mask_plain(spec4, pm4, NOISE), h_fft_ifft)
     k6c_ms, k6c_plain_ms, ifft_ms = median_ms(
         lambda: fk.w_inverse(g4), lambda: fk._w_inverse_plain(g4),
         lambda: torch.fft.ifft(g4, dim=-1))
-    k6a_dev, fft_dev, k6b_dev, k6c_dev, ifft_dev = device_ms(
+    k6a_dev, fft_dev, k6b_dev, hfft_dev, k6c_dev, ifft_dev = device_ms(
         lambda: fk.w_forward(planes4), lambda: torch.fft.fft(planes4, dim=-1),
-        lambda: fk.h_mask(spec4, pm4, NOISE), lambda: fk.w_inverse(g4),
-        lambda: torch.fft.ifft(g4, dim=-1))
+        lambda: fk.h_mask(spec4, pm4, NOISE), h_fft_ifft,
+        lambda: fk.w_inverse(g4), lambda: torch.fft.ifft(g4, dim=-1))
     fused4_ms, op4_ms = median_ms(fused4_route, op4_route)
     n4 = planes4.numel()
     mp4 = n4 / 1e6
@@ -825,7 +855,8 @@ def main() -> None:
     for name, ms, dev_ms, plain_ms, lib_ms, lib_dev, bnd in (
             ("k6a", k6a_ms, k6a_dev, k6a_plain_ms, fft_ms, fft_dev,
              k6a_bound),
-            ("k6b", k6b_ms, k6b_dev, k6b_plain_ms, None, None, k6b_bound),
+            ("k6b", k6b_ms, k6b_dev, k6b_plain_ms, hfft_ms, hfft_dev,
+             k6b_bound),
             ("k6c", k6c_ms, k6c_dev, k6c_plain_ms, ifft_ms, ifft_dev,
              k6c_bound)):
         lib = "none" if lib_ms is None else \
@@ -835,7 +866,8 @@ def main() -> None:
               f"library {lib}, bound {bnd[0]:.4f} ms ({bnd[1]}), "
               f"device-only at {bnd[0] / dev_ms * 100:.1f} % of the bound "
               f"[{name_limit}]")
-    print("(k6a's library call is torch.fft.fft along W; k6c's, "
+    print("(k6a's library call is torch.fft.fft along W; k6b's yardstick, "
+          "torch.fft.fft then torch.fft.ifft along H, lacks the mask; k6c's, "
           "torch.fft.ifft along W, lacks K6c's real part and clip)")
     print(f"config #4 end to end: fused route {fused4_ms:.4f} ms = "
           f"{mp4 / fused4_ms * 1e3:.1f} MP/s, op route {op4_ms:.4f} ms = "
@@ -901,7 +933,7 @@ def main() -> None:
          "launches": launches4["k6b"], "max_abs_err": k6_err["k6b"],
          "ms": k6b_ms, "plain_ms": k6b_plain_ms, "bound_ms": k6b_bound[0],
          "bound_by": k6b_bound[1], "library_ms": None,
-         "device_ms": k6b_dev, "library_device_ms": None},
+         "device_ms": k6b_dev, "library_device_ms": hfft_dev},
         {"name": "k6c_w_inverse", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/wiener_fft.cu",
          "replaces": "imagemagick_tpu/ops/fourier_pallas.py:161",

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "k2_blur_unsharp": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
     # x, y, taps, N, H, W, nblur, nunsharp, gain, stream
     "k2p_blur_unsharp_pipe": [_P] * 3 + [_I] * 5 + [_F, _P],
-    # x, y, taps, N, H, W, C, ntaps, stream
+    # x, y, taps (host), N, H, W, C, ntaps, stream
     "k3_separable_blur": [_P] * 3 + [_I] * 5 + [_P],
     # x, counts, nrows, rowlen, stream
     "k4_histogram256": [_P, _P, _I, ctypes.c_longlong, _P],
@@ -45,9 +45,9 @@ _SIGNATURES = {
     "k5_morph_edge": [_P] * 3 + [_I] * 3 + [_P],
     # x, spec, roots, twiddles, radices (host), P, H, W, passes, stream
     "k6a_w_forward": [_P] * 5 + [_I] * 4 + [_P],
-    # spec, pmean, out, table, inverse table, P, H, W, n1, n2, columns,
-    # noise, stream
-    "k6b_h_mask": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # spec, pmean, out, forward roots and twiddles, inverse roots and
+    # twiddles, radices (host), P, H, W, passes, noise, stream
+    "k6b_h_mask": [_P] * 8 + [_I] * 4 + [_F, _P],
     # g, out, roots, twiddles, radices (host), P, H, W, passes, stream
     "k6c_w_inverse": [_P] * 5 + [_I] * 4 + [_P],
 }

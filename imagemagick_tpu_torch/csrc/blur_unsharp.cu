@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 
 #include "lab_roundtrip.cuh"
+#include "stencil.cuh"
 
 namespace {
 
@@ -77,6 +78,14 @@ constexpr int RUN = 8;  // outputs a thread computes in passes 1-3
 
 using lab::clip01;
 using lab::lab_roundtrip;
+using stencil::clampi;
+using stencil::cp_async16;
+using stencil::cp_async4;
+using stencil::cp_async_wait_all;
+using stencil::for_items;
+using stencil::for_items3;
+using stencil::imax;
+using stencil::run;
 
 // Everything the kernel reads besides x, by value: the taps sit in the
 // constant bank with the other kernel arguments.
@@ -89,8 +98,6 @@ struct Args {
   int vec;  // x is 16-byte aligned and W * C % 4 == 0: so is every row
   float gain;
 };
-
-__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 // The buffers of a TW x TH tile with C channels and radii rb, ru, in
 // floats.  Buffer A holds the x window, then the z window; buffer B the
@@ -114,102 +121,6 @@ __host__ __device__ constexpr Geo geometry(int TW, int TH, int C, int rb,
   const int xp = (xw * C) | 1, zp = (zw * C) | 1, sp = (TW * C) | 1;
   return {xw, xh, zw, zh, xw * C, zw * C, TW * C, xa, xp, zp, sp,
           imax(xh * xa, zh * zp), imax(zh * xp, imax(TH * zp, TH * sp))};
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
-// One float, or four 16-byte aligned ones, from device memory to shared
-// memory, asynchronously: a thread keeps all of its window's copies in
-// flight at once.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" :::
-               "memory");
-}
-
-// Calls f(a, b) for the items of an na x nb grid, b fastest, that this
-// thread takes when the block's NT threads deal them out in turn.
-template <int NT, class F>
-__device__ __forceinline__ void for_items(int na, int nb, F f) {
-  int a = 0, b = threadIdx.x;
-  while (b >= nb) {
-    b -= nb;
-    ++a;
-  }
-  while (a < na) {
-    f(a, b);
-    b += NT;
-    while (b >= nb) {
-      b -= nb;
-      ++a;
-    }
-  }
-}
-
-// Calls f(a, b, c) for the items of an na x nb x nc grid, c fastest, that
-// this thread takes when the block's NT threads deal them out in turn.
-// The thread splits its first item and the stride NT into (b, c) steps
-// once; each item after costs adds and compares.
-template <int NT, class F>
-__device__ __forceinline__ void for_items3(int na, int nb, int nc, F f) {
-  const int qc = NT / nc, rc = NT - qc * nc;
-  int c = threadIdx.x % nc, b = threadIdx.x / nc, a = 0;
-  while (b >= nb) {
-    b -= nb;
-    ++a;
-  }
-  while (a < na) {
-    f(a, b, c);
-    c += rc;
-    b += qc;
-    if (c >= nc) {
-      c -= nc;
-      ++b;
-    }
-    while (b >= nb) {
-      b -= nb;
-      ++a;
-    }
-  }
-}
-
-// R outputs of a stencil along a window that load(q) reads:
-// out[r] = t[0] w[r], then fmaf(t[k], w[r + k], out[r]) for k = 1 .. n-1.
-// The window w[0 .. R+n-2] is loaded into registers once.  N > 0: n == N
-// taps; N == 0: n taps known at run time, the loops unrolled to NMAX and
-// left where n ends.
-template <int R, int N, int NMAX, class Load>
-__device__ __forceinline__ void stencil(const float (&t)[NMAX], int n,
-                                        Load load, float (&out)[R]) {
-  constexpr int K = N ? N : NMAX;
-  float w[R + K - 1];
-#pragma unroll
-  for (int q = 0; q < R + K - 1; ++q) {
-    if (!N && q >= R + n - 1) break;
-    w[q] = load(q);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) out[r] = t[0] * w[r];
-#pragma unroll
-  for (int k = 1; k < K; ++k) {
-    if (!N && k >= n) break;
-#pragma unroll
-    for (int r = 0; r < R; ++r) out[r] = fmaf(t[k], w[r + k], out[r]);
-  }
 }
 
 // CT, NB, NU: the channels and tap counts, or 0 for those read from p at
@@ -268,7 +179,7 @@ blur_unsharp_kernel(const Args p) {
     const int i0 = min(ri * RUN, g.zh - RUN);
     const float* col = A + sh + i0 * g.xa + l;
     float out[RUN];
-    stencil<RUN, NB>(p.bt, nb, [&](int q) { return col[q * g.xa]; }, out);
+    run<RUN, NB>(p.bt, nb, [&](int q) { return col[q * g.xa]; }, out);
 #pragma unroll
     for (int r = 0; r < RUN; ++r) B[(i0 + r) * g.xp + l] = out[r];
   });
@@ -282,7 +193,7 @@ blur_unsharp_kernel(const Args p) {
     const float* row =
         B + (clampi(zy0 + i, 0, H - 1) - zy0) * g.xp + j0 * C + c;
     float out[RUN];
-    stencil<RUN, NB>(p.bt, nb, [&](int q) { return row[q * C]; }, out);
+    run<RUN, NB>(p.bt, nb, [&](int q) { return row[q * C]; }, out);
 #pragma unroll
     for (int r = 0; r < RUN; ++r) A[i * g.zp + (j0 + r) * C + c] = out[r];
   });
@@ -298,7 +209,7 @@ blur_unsharp_kernel(const Args p) {
         inside_x ? l : (clampi(zx0 + j, 0, W - 1) - zx0) * C + c;
     const float* col = A + ri * RUN * g.zp + ls;
     float out[RUN];
-    stencil<RUN, NU>(p.ut, nu, [&](int q) { return col[q * g.zp]; }, out);
+    run<RUN, NU>(p.ut, nu, [&](int q) { return col[q * g.zp]; }, out);
 #pragma unroll
     for (int r = 0; r < RUN; ++r) B[(ri * RUN + r) * g.zp + l] = out[r];
   });
@@ -325,7 +236,7 @@ blur_unsharp_kernel(const Args p) {
         if (!CT && c >= C) break;
         const float* row = B + i * g.zp + j0 * C + c;
         float u[RUN4];
-        stencil<RUN4, NU>(p.ut, nu, [&](int k) { return row[k * C]; }, u);
+        run<RUN4, NU>(p.ut, nu, [&](int k) { return row[k * C]; }, u);
         const float* zc = A + (i + ru) * g.zp + (j0 + ru) * C + c;
 #pragma unroll
         for (int r = 0; r < RUN4; ++r)

@@ -9,139 +9,98 @@
 //        p = |F|^2, one pmean = sum(x^2) per plane read from device memory
 //   K6c  out = clip(Re(IDFT_W(g)), 0, 1)                 (P, H, W) real
 //
-// K6a and K6c are radix FFTs in shared memory.  The host factors W into
-// passes (_radix_plan in fourier_kernels.py: radix 8, then 4 and 2, then
-// 3, 5 and 7; any other prime factor one generic pass) and uploads one
-// table of the W roots exp(-+2 pi i k / W), computed in float64 and cast
-// to float32 (_roots_on); every twiddle, and every root of a generic pass,
-// is an entry of it (the twiddles read in pass order from a copy,
-// _twiddles_on).  The passes are Stockham autosort passes between two row
+// All three are radix FFTs in shared memory.  The host factors the length
+// n (W for K6a and K6c, H for K6b) into passes (_radix_plan in
+// fourier_kernels.py: radix 8, then 4 and 2, then 3, 5 and 7; any other
+// prime factor one generic pass) and uploads one table of the n roots
+// exp(-+2 pi i k / n), computed in float64 and cast to float32
+// (_roots_on); every twiddle, and every root of a generic pass, is an
+// entry of it (the twiddles read in pass order from a copy,
+// _twiddles_on).  The passes are Stockham autosort passes between two
 // buffers in shared memory (radix_pass), natural order in and out, one
-// barrier between passes.  Two real rows share one complex transform: K6a
-// transforms x_a + i x_b and splits the spectrum by Hermitian symmetry;
-// K6c transforms h(g_a) + i h(g_b), h(g)[k] = (g[k] + conj g[-k]) / 2,
-// whose inverse DFT is Re IDFT(g_a) + i Re IDFT(g_b) for any g.
+// barrier between passes.  A pass runs over a strip of COLS transforms at
+// once: element i of transform c lives at slot(i * COLS + c).  Between
+// shared-memory buffers a thread takes one butterfly of all COLS
+// transforms, so that its index arithmetic and twiddles serve COLS
+// butterflies; a pass that reads or writes device memory gives
+// neighbouring threads the neighbouring transforms of one butterfly, so
+// that a warp moves whole rows of the strip.
 //
-// What bounds K6a and K6c on an H100: device memory.  Each moves 12 bytes
-// a pixel (4 in and 8 out, or 8 in and 4 out: 0.0317 ms at 2160 x 4096 and
-// 3.35 TB/s) against about 2.5 log2 W operations a pixel with the packing
-// (30 at W = 4096, 0.0040 ms at the FP32 peak).  So each pixel crosses
-// device memory once each way and everything between stays in shared
-// memory: 16 W bytes a block (about 68 KB at 4096, rows padded against
-// bank conflicts, three blocks an SM), W/16 threads up to 256 (two radix-8
-// butterflies a thread and pass at 4096).
-// Shared memory then carries the most traffic, so K6a's first pass reads
-// its rows straight from device memory and K6c's last pass writes its rows
-// straight to it, each one pass fewer through shared memory.
+// K6a and K6c transform rows, one strip of COLS = 1 a block.  Two real
+// rows share one complex transform: K6a transforms x_a + i x_b and splits
+// the spectrum by Hermitian symmetry; K6c transforms h(g_a) + i h(g_b),
+// h(g)[k] = (g[k] + conj g[-k]) / 2, whose inverse DFT is
+// Re IDFT(g_a) + i Re IDFT(g_b) for any g.
+// K6b transforms columns, a strip of COLS = 4 neighbouring columns a
+// block: four complex64 values are one 32-byte sector of a row, so every
+// row's read and write moves whole sectors.  Where two buffers of four
+// columns would not fit in a block's shared memory (H > 3418) the strip
+// narrows to two columns, and above H = 6837 to one.  Its first forward
+// pass reads the strip straight from device memory, the Wiener mask is
+// applied as the first inverse pass loads its inputs, and the last
+// inverse pass writes the strip, times 1/H, straight to device memory:
+// the spectrum crosses device memory once each way.
 //
-// K6b keeps its four-step DFTs along H: each axis of length N = n1 * n2,
-// natural order in and out, X[k2*n1 + k1] = sum_m2 w2^(m2 k2) tw(m2, k1)
-// sum_m1 w1^(m1 k1) x[m1*n2 + m2], with w1, w2 the n1- and n2-point roots
-// and tw the N-point twiddle, from the host's tables (_axis_consts, float64
-// cast to float32: n1 roots, n2 roots, then the twiddle field at
-// m2*n1 + k1).  Each sub-DFT is a small complex matrix product out of
-// shared memory with a 4x4 tile of outputs a thread; it does (n1 + n2)
-// complex multiply-adds per element and transform, so operations, not
-// bytes, bound it (PERF.md).  A block holds `cols` (<= 2) neighbouring
-// columns of all H rows, and the H x cols spectrum lives in shared memory
-// through both H transforms and the mask.  A stage-one output (k1, m2) goes
-// to row m2 of a buffer whose rows are ld = n1 | 1 elements long (odd, so
-// that the transposed stores of neighbouring threads fall in different
-// banks), where stage two reads it back as a row.
+// What bounds them on an H100: device memory.  K6a and K6c each move 12
+// bytes a pixel (4 in and 8 out, or 8 in and 4 out: 0.0317 ms at
+// 2160 x 4096 and 3.35 TB/s) against about 2.5 log2 W operations a pixel
+// with the packing (30 at W = 4096, 0.0040 ms at the FP32 peak); K6b moves
+// 16 (0.0423 ms) against about 2 x 5 log2 H (111 at H = 2160, 0.0143 ms).
+// So each value crosses device memory once each way and everything
+// between stays in shared memory: K6a and K6c hold 16 W bytes a block
+// (about 68 KB at 4096, three blocks an SM), W/16 threads up to 256 (two
+// radix-8 butterflies a thread and pass at 4096); K6b 2 x 8 x COLS x H
+// bytes (147 KB at H = 2160, one block an SM) and H / 4 threads up to
+// 512.  Shared memory then carries the most traffic, so each kernel's
+// first pass reads straight from device memory or its last pass writes
+// straight to it, one pass fewer through shared memory.
+// In K6b at 2160 x 4096 the passes, not device memory, take most of the
+// time (a copy that touches no device memory runs in 3/4 of it,
+// k6b_strip_split.py): the instructions of their index arithmetic are
+// what a thread a butterfly of the whole strip cuts, and what config #4's
+// plan known at compile time (Plan2160) folds away; the persistent grid
+// with an L2 prefetch of each block's next strip keeps the SM's one block
+// from waiting on device memory at the start of a strip.
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int MAX_THREADS = 512;
-constexpr int TK = 4;   // sub-DFT outputs a thread holds along k
-constexpr int TC = 4;   // and along the other index
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// out(k, c) = sum_m root[(k*m) mod nm] * a[m*lda + c] for k < nm, c < nc;
-// store(k, c, value) for each.
-template <typename Store>
-__device__ __forceinline__ void sub_dft(const float2* a, int nm, int nc,
-                                        int lda, const float2* root,
-                                        Store store) {
-  const int kt_n = (nm + TK - 1) / TK, ct_n = (nc + TC - 1) / TC;
-  for (int tile = threadIdx.x; tile < kt_n * ct_n; tile += blockDim.x) {
-    const int kt = tile / ct_n, ct = tile - kt * ct_n;
-    int k[TK], e[TK], c[TC];
-#pragma unroll
-    for (int i = 0; i < TK; ++i) {
-      k[i] = min(kt + i * kt_n, nm - 1);   // past the end: repeat, dropped
-      e[i] = 0;
-    }
-#pragma unroll
-    for (int j = 0; j < TC; ++j) c[j] = min(ct + j * ct_n, nc - 1);
-    float2 acc[TK][TC];
-#pragma unroll
-    for (int i = 0; i < TK; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) acc[i][j] = make_float2(0.f, 0.f);
-
-    for (int m = 0; m < nm; ++m) {
-      float2 v[TC], w[TK];
-#pragma unroll
-      for (int j = 0; j < TC; ++j) v[j] = a[m * lda + c[j]];
-#pragma unroll
-      for (int i = 0; i < TK; ++i) {
-        w[i] = root[e[i]];
-        e[i] += k[i];
-        if (e[i] >= nm) e[i] -= nm;
-      }
-#pragma unroll
-      for (int i = 0; i < TK; ++i)
-#pragma unroll
-        for (int j = 0; j < TC; ++j) {
-          float2& s = acc[i][j];
-          s.x = fmaf(v[j].x, w[i].x, fmaf(-v[j].y, w[i].y, s.x));
-          s.y = fmaf(v[j].x, w[i].y, fmaf(v[j].y, w[i].x, s.y));
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < TK; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j)
-        if (kt + i * kt_n < nm && ct + j * ct_n < nc)
-          store(kt + i * kt_n, ct + j * ct_n, acc[i][j]);
-  }
-}
-
-// Stage one of an axis: the n1-point sub-DFT (roots w1, in shared memory)
-// of the columns of a natural (n1, n2 * cols) buffer, times the twiddle tw
-// (device memory, m2*n1 + k1), into the transposed buffer y at
-// (m2 * ld + k1) * cols + col.
-__device__ __forceinline__ void stage_one(const float2* a, float2* y, int n1,
-                                          int n2, int cols, int ld,
-                                          const float2* w1,
-                                          const float2* __restrict__ tw) {
-  sub_dft(a, n1, n2 * cols, n2 * cols, w1, [&](int k1, int c, float2 v) {
-    const int m2 = c / cols, col = c - m2 * cols;
-    y[(m2 * ld + k1) * cols + col] = cmul(v, __ldg(&tw[m2 * n1 + k1]));
-  });
-}
-
-// -- K6a and K6c: radix FFTs of two real rows in shared memory ---------------
+// -- radix FFTs in shared memory: K6a, K6b, K6c ------------------------------
 
 constexpr int FFT_MAX_PASSES = 16;    // fourier_kernels.MAX_PASSES
 constexpr int FFT_MAX_THREADS = 256;
 constexpr int FFT_BLOCKS_PER_SM = 3;  // 3 x 68 KB of shared memory at 4096
 constexpr int FFT_MAX_N = 8192;       // two padded rows of float2: 136 KB
 
-// Where element i of a row lives in its shared-memory buffer: one float2 of
-// padding after every 16, so that a pass's stores at stride 8 (the first
-// pass's, ns = 1) fall in different banks, while 16 neighbouring elements
-// from 16 aligned threads stay one run of banks.
+// Where element e of a strip (element i of transform c at e = i COLS + c)
+// lives in its shared-memory buffer: one float2 of padding after every 16,
+// so that a pass's stores at stride 8 (the first pass's, ns = 1) fall in
+// different banks, while 16 neighbouring elements from 16 aligned threads
+// stay one run of banks.
 __host__ __device__ __forceinline__ int slot(int i) { return i + (i >> 4); }
 
 // The radices of one length's passes, from _radix_plan on the host.
 struct RadixPlan {
   int passes;
   int radix[FFT_MAX_PASSES];
+  __host__ __device__ int count() const { return passes; }
+  __host__ __device__ int at(int s) const { return radix[s]; }
+  __host__ __device__ int length(int n) const { return n; }
+};
+
+// The plan of config #4's H = 2160 known at compile time, so that every
+// pass's radix, ns and n/R are constants and its index arithmetic folds
+// (K6b's passes are bound by their instructions, PERF.md).
+struct Plan2160 {
+  __host__ __device__ static constexpr int count() { return 6; }
+  __host__ __device__ static constexpr int at(int s) {
+    return s == 0 ? 8 : s == 1 ? 2 : s < 5 ? 3 : 5;
+  }
+  __host__ __device__ static constexpr int length(int) { return 2160; }
 };
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -254,32 +213,47 @@ __device__ __forceinline__ void butterfly(float2* v) {
   }
 }
 
-// One Stockham pass of radix R over an n-point row, after passes whose
-// radices multiply to ns.  Butterfly j < n/R takes v_r = element
-// j + r n/R (load), turns v_r by root[r (j mod ns) n/(ns R)] (none in the
-// first pass), does its R-point DFT in registers and puts out_k at
-// (j - j mod ns) R + j mod ns + k ns (store).  tw holds this pass's
-// twiddles at (r - 1) ns + j mod ns, so that neighbouring butterflies read
-// neighbouring words.
-template <int R, bool INV, typename Load, typename Store>
+// One Stockham pass of radix R over COLS n-point transforms, after passes
+// whose radices multiply to ns.  Butterfly j < n/R of transform c takes
+// v_r = element j + r n/R (load(i, c)), turns v_r by
+// root[r (j mod ns) n/(ns R)] (none in the first pass), does its R-point
+// DFT in registers and puts out_k at (j - j mod ns) R + j mod ns + k ns
+// (store(i, c, value)).  A thread takes butterfly j of CPT neighbouring
+// transforms, so that its index arithmetic and twiddles serve CPT
+// butterflies; with CPT < COLS neighbouring threads take the next
+// transforms of the same butterfly (a pass that reads or writes device
+// memory: a warp then moves whole rows of the strip).  tw holds this
+// pass's twiddles at (r - 1) ns + j mod ns, so that neighbouring
+// butterflies read neighbouring words.
+template <int R, bool INV, int COLS, int CPT, typename Load, typename Store>
 __device__ __forceinline__ void radix_pass(Load load, Store store, int n,
                                            int ns,
                                            const float2* __restrict__ tw) {
+  constexpr int GROUPS = COLS / CPT;
   const int m = n / R;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+  for (int t = threadIdx.x; t < m * GROUPS; t += blockDim.x) {
+    const int j = t / GROUPS, c0 = t % GROUPS * CPT;
     const int j0 = j % ns;
-    float2 v[R];
+    float2 v[CPT][R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = load(j + r * m);
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[c][r] = load(j + r * m, c0 + c);
     if (ns > 1) {
 #pragma unroll
-      for (int r = 1; r < R; ++r)
-        v[r] = cmul(v[r], __ldg(&tw[(r - 1) * ns + j0]));
+      for (int r = 1; r < R; ++r) {
+        const float2 w = __ldg(&tw[(r - 1) * ns + j0]);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) v[c][r] = cmul(v[c][r], w);
+      }
     }
-    butterfly<R, INV>(v);
     const int d = (j - j0) * R + j0;
 #pragma unroll
-    for (int r = 0; r < R; ++r) store(d + r * ns, v[r]);
+    for (int c = 0; c < CPT; ++c) {
+      butterfly<R, INV>(v[c]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) store(d + r * ns, c0 + c, v[c][r]);
+    }
   }
 }
 
@@ -287,44 +261,53 @@ __device__ __forceinline__ void radix_pass(Load load, Store store, int n,
 // element j + q n/p times root[(q e) mod n], e = (j mod ns) n/(ns p) +
 // k n/p: the twiddle and the p-point root in one entry, the index carried
 // along the sum with one add and compare.  Four partial sums (q mod 4)
-// shorten the chain of roundings and of dependent FMAs.
-template <typename Load, typename Store>
+// shorten the chain of roundings and of dependent FMAs.  A thread takes
+// output o of CPT neighbouring transforms, each root serving CPT products.
+template <int COLS, int CPT, typename Load, typename Store>
 __device__ __forceinline__ void generic_pass(Load load, Store store, int n,
                                              int ns, int p,
                                              const float2* __restrict__ roots) {
+  constexpr int GROUPS = COLS / CPT;
   const int m = n / p, step = n / (ns * p);
-  for (int o = threadIdx.x; o < n; o += blockDim.x) {
+  for (int t = threadIdx.x; t < n * GROUPS; t += blockDim.x) {
+    const int o = t / GROUPS, c0 = t % GROUPS * CPT;
     const int k = o / m, j = o - k * m, j0 = j % ns;
     const int e = j0 * step + k * m;
-    float2 acc[4] = {};
+    float2 acc[CPT][4] = {};
     int idx = 0;
     for (int q = 0; q < p; ++q) {
-      const float2 v = load(j + q * m), w = __ldg(&roots[idx]);
-      float2& s = acc[q & 3];
-      s.x = fmaf(v.x, w.x, fmaf(-v.y, w.y, s.x));
-      s.y = fmaf(v.x, w.y, fmaf(v.y, w.x, s.y));
+      const float2 w = __ldg(&roots[idx]);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float2 v = load(j + q * m, c0 + c);
+        float2& s = acc[c][q & 3];
+        s.x = fmaf(v.x, w.x, fmaf(-v.y, w.y, s.x));
+        s.y = fmaf(v.x, w.y, fmaf(v.y, w.x, s.y));
+      }
       idx += e;
       if (idx >= n) idx -= n;
     }
-    store((j - j0) * p + j0 + k * ns,
-          cadd(cadd(acc[0], acc[2]), cadd(acc[1], acc[3])));
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      store((j - j0) * p + j0 + k * ns, c0 + c,
+            cadd(cadd(acc[c][0], acc[c][2]), cadd(acc[c][1], acc[c][3])));
   }
 }
 
 // One pass of radix r, which a plan holds: 2, 3, 4, 5, 7, 8 or a prime
-// above 7.
-template <bool INV, typename Load, typename Store>
+// above 7; a thread takes CPT of the COLS transforms (CPT divides COLS).
+template <bool INV, int COLS, int CPT, typename Load, typename Store>
 __device__ __forceinline__ void one_pass(int r, Load load, Store store, int n,
                                          int ns, const float2* __restrict__ tw,
                                          const float2* __restrict__ roots) {
   switch (r) {
-    case 2: radix_pass<2, INV>(load, store, n, ns, tw); break;
-    case 3: radix_pass<3, INV>(load, store, n, ns, tw); break;
-    case 4: radix_pass<4, INV>(load, store, n, ns, tw); break;
-    case 5: radix_pass<5, INV>(load, store, n, ns, tw); break;
-    case 7: radix_pass<7, INV>(load, store, n, ns, tw); break;
-    case 8: radix_pass<8, INV>(load, store, n, ns, tw); break;
-    default: generic_pass(load, store, n, ns, r, roots);
+    case 2: radix_pass<2, INV, COLS, CPT>(load, store, n, ns, tw); break;
+    case 3: radix_pass<3, INV, COLS, CPT>(load, store, n, ns, tw); break;
+    case 4: radix_pass<4, INV, COLS, CPT>(load, store, n, ns, tw); break;
+    case 5: radix_pass<5, INV, COLS, CPT>(load, store, n, ns, tw); break;
+    case 7: radix_pass<7, INV, COLS, CPT>(load, store, n, ns, tw); break;
+    case 8: radix_pass<8, INV, COLS, CPT>(load, store, n, ns, tw); break;
+    default: generic_pass<COLS, CPT>(load, store, n, ns, r, roots);
   }
 }
 
@@ -337,26 +320,34 @@ __device__ __forceinline__ void advance(int r, int& ns,
   ns *= r;
 }
 
+template <int COLS>
 struct SmemLoad {
   const float2* a;
-  __device__ float2 operator()(int i) const { return a[slot(i)]; }
+  __device__ float2 operator()(int i, int c) const {
+    return a[slot(i * COLS + c)];
+  }
 };
+template <int COLS>
 struct SmemStore {
   float2* b;
-  __device__ void operator()(int i, float2 v) const { b[slot(i)] = v; }
+  __device__ void operator()(int i, int c, float2 v) const {
+    b[slot(i * COLS + c)] = v;
+  }
 };
 
 // Passes s0 <= s < s1 of `plan` between the shared-memory buffers a and b
-// (the row in a, written before a barrier), a barrier after each; a, b,
+// (the strip in a, written before a barrier), a barrier after each; a, b,
 // ns and tw follow the passes, so the result is in a.
-template <bool INV>
-__device__ void smem_passes(float2*& a, float2*& b, int& ns,
-                            const float2*& tw, int n, const RadixPlan& plan,
-                            int s0, int s1,
-                            const float2* __restrict__ roots) {
+template <bool INV, int COLS, class Plan>
+__device__ __forceinline__ void smem_passes(float2*& a, float2*& b, int& ns,
+                                            const float2*& tw, int n,
+                                            const Plan& plan, int s0, int s1,
+                                            const float2* __restrict__ roots) {
+#pragma unroll
   for (int s = s0; s < s1; ++s) {
-    const int r = plan.radix[s];
-    one_pass<INV>(r, SmemLoad{a}, SmemStore{b}, n, ns, tw, roots);
+    const int r = plan.at(s);
+    one_pass<INV, COLS, COLS>(r, SmemLoad<COLS>{a}, SmemStore<COLS>{b}, n, ns,
+                              tw, roots);
     __syncthreads();
     advance(r, ns, tw);
     float2* t = a;
@@ -393,15 +384,15 @@ w_forward_kernel(const float* __restrict__ x, float2* __restrict__ spec,
   const float* xa = x + r0 * n;
   const float* xb = xa + n;
   int ns = 1;
-  one_pass<false>(
+  one_pass<false, 1, 1>(
       plan.radix[0],
-      [&](int i) {
+      [&](int i, int) {
         return make_float2(__ldg(&xa[i]), two ? __ldg(&xb[i]) : 0.f);
       },
-      SmemStore{a}, n, ns, tw, roots);
+      SmemStore<1>{a}, n, ns, tw, roots);
   __syncthreads();
   advance(plan.radix[0], ns, tw);
-  smem_passes<false>(a, b, ns, tw, n, plan, 1, plan.passes, roots);
+  smem_passes<false, 1>(a, b, ns, tw, n, plan, 1, plan.passes, roots);
 
   float2* sa = spec + r0 * n;
   float2* sb = sa + n;
@@ -469,13 +460,13 @@ w_inverse_kernel(const float2* __restrict__ g, float* __restrict__ out,
   }
   __syncthreads();
   int ns = 1;
-  smem_passes<true>(a, b, ns, tw, n, plan, 0, plan.passes - 1, roots);
+  smem_passes<true, 1>(a, b, ns, tw, n, plan, 0, plan.passes - 1, roots);
 
   float* oa = out + r0 * n;
   float* ob = oa + n;
-  one_pass<true>(
-      plan.radix[plan.passes - 1], SmemLoad{a},
-      [&](int i, float2 v) {
+  one_pass<true, 1, 1>(
+      plan.radix[plan.passes - 1], SmemLoad<1>{a},
+      [&](int i, int, float2 v) {
         oa[i] = clip01(v.x);
         if (two) ob[i] = clip01(v.y);
       },
@@ -483,62 +474,105 @@ w_inverse_kernel(const float2* __restrict__ g, float* __restrict__ out,
 }
 
 // -- K6b: DFT along H, Wiener mask, inverse DFT along H ---------------------
+//
+// Strip s is a strip of COLS neighbouring columns (plane s / chunks,
+// columns c0 .. c0 + COLS - 1; the last strip of a plane may hang over W,
+// where it reads zeros and writes nothing).  The first forward pass reads
+// row i of the strip straight from device memory, neighbouring threads
+// on neighbouring columns; the forward passes leave F in natural order in
+// shared memory; the first inverse pass loads F times the mask
+// p / (p + noise pmean), p = |F|^2; the last inverse pass writes its
+// outputs times 1/H straight to device memory.  The grid is persistent:
+// as many blocks as fit on the card at once, block b taking strips b,
+// b + G, b + 2G, ...  A strip's reads would leave the SM idle for a
+// trip to device memory, so as soon as a block has read one strip it asks
+// for its next one to be brought into L2, and the next strip's first pass
+// reads from L2.
 
-__global__ void __launch_bounds__(MAX_THREADS)
-h_mask_kernel(const float2* __restrict__ spec, const float* __restrict__ pmean,
-              float2* __restrict__ out, const float2* __restrict__ tab_f,
-              const float2* __restrict__ tab_i, int H, int W, int n1, int n2,
-              int ld, int cols, int chunks, float noise) {
-  extern __shared__ float2 smem[];
-  float2* buf = smem;                 // H * cols, natural: row r at r * cols
-  float2* y = buf + H * cols;         // n2 * ld * cols: stage one's output
-  float2* rf = y + n2 * ld * cols;    // forward roots, inverse roots
-  float2* ri = rf + n1 + n2;
-  const int plane = blockIdx.x / chunks;
-  const int c0 = (blockIdx.x - plane * chunks) * cols;
-  const long long base = (long long)plane * H * W + c0;
+constexpr int K6B_MAX_THREADS = 512;
+constexpr int K6B_BLOCKS_PER_SM = 1;     // 147 KB of shared memory at 2160
+constexpr size_t K6B_MAX_SMEM = 232448;  // bytes a block may use
 
-  for (int i = threadIdx.x; i < H * cols; i += blockDim.x) {
-    const int r = i / cols, c = i - r * cols;
-    buf[i] = c0 + c < W ? spec[base + (long long)r * W + c]
-                        : make_float2(0.f, 0.f);
-  }
-  for (int i = threadIdx.x; i < n1 + n2; i += blockDim.x) {
-    rf[i] = tab_f[i];
-    ri[i] = tab_i[i];
-  }
-  __syncthreads();
-
-  // forward: stage one into y, stage two and the mask back into buf
-  stage_one(buf, y, n1, n2, cols, ld, rf, tab_f + n1 + n2);
-  __syncthreads();
-  const float floor_ = noise * pmean[plane];
-  sub_dft(y, n2, n1 * cols, ld * cols, rf + n1, [&](int k2, int c, float2 f) {
-    const float p = f.x * f.x + f.y * f.y;
-    const float m = p / (p + floor_);
-    buf[k2 * n1 * cols + c] = make_float2(f.x * m, f.y * m);
-  });
-  __syncthreads();
-
-  // inverse: stage one into y, stage two (/H) to device memory
-  stage_one(buf, y, n1, n2, cols, ld, ri, tab_i + n1 + n2);
-  __syncthreads();
-  const float n = (float)H;
-  sub_dft(y, n2, n1 * cols, ld * cols, ri + n1, [&](int k2, int c, float2 f) {
-    const int k1 = c / cols, col = c - k1 * cols;
-    if (c0 + col < W)
-      out[base + (long long)(k2 * n1 + k1) * W + col] =
-          make_float2(f.x / n, f.y / n);
-  });
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.L2 [%0];" ::"l"(p));
 }
 
-// Threads for a block whose sub-DFTs are (nm x nm) by nc products: one
-// 4x4 output tile each, whole warps, at most MAX_THREADS (more tiles loop).
-int threads_for(int nm_a, int nc_a, int nm_b, int nc_b) {
-  const int a = ((nm_a + TK - 1) / TK) * ((nc_a + TC - 1) / TC);
-  const int b = ((nm_b + TK - 1) / TK) * ((nc_b + TC - 1) / TC);
-  const int t = ((a > b ? a : b) + 31) / 32 * 32;
-  return t < MAX_THREADS ? t : MAX_THREADS;
+template <int COLS, class Plan>
+__global__ void __launch_bounds__(K6B_MAX_THREADS, K6B_BLOCKS_PER_SM)
+h_mask_kernel(const float2* __restrict__ spec, const float* __restrict__ pmean,
+              float2* __restrict__ out, const float2* __restrict__ roots_f,
+              const float2* __restrict__ tw_f,
+              const float2* __restrict__ roots_i,
+              const float2* __restrict__ tw_i, int H, int W, int chunks,
+              int strips, Plan plan, float noise) {
+  extern __shared__ float2 smem[];
+  const int n = plan.length(H);
+  const float2 zero = make_float2(0.f, 0.f);
+  const float scale = 1.f / n;
+  const int last = plan.count() - 1;
+  for (int s = blockIdx.x; s < strips; s += gridDim.x) {
+    float2* a = smem;
+    float2* b = smem + slot(n * COLS);
+    const int plane = s / chunks;
+    const int c0 = (s - plane * chunks) * COLS;
+    const long long base = (long long)plane * n * W + c0;
+    const float2* src = spec + base;
+    float2* dst = out + base;
+    const int cols = min(COLS, W - c0);  // columns of the strip inside W
+
+    // forward: F = DFT_H of each column, natural order, in a
+    const float2* tw = tw_f;
+    int ns = 1;
+    one_pass<false, COLS, 1>(
+        plan.at(0),
+        [&](int i, int c) {
+          return c < cols ? __ldg(&src[(long long)i * W + c]) : zero;
+        },
+        SmemStore<COLS>{a}, n, ns, tw, roots_f);
+    __syncthreads();
+    const int next = s + gridDim.x;
+    if (next < strips) {
+      const int np = next / chunks;
+      const float2* nsrc =
+          spec + (long long)np * n * W + (next - np * chunks) * COLS;
+      for (int i = threadIdx.x; i < n; i += blockDim.x)
+        prefetch_l2(nsrc + (long long)i * W);
+    }
+    advance(plan.at(0), ns, tw);
+    smem_passes<false, COLS>(a, b, ns, tw, n, plan, 1, plan.count(), roots_f);
+
+    // inverse: the first pass loads F * mask, the last one stores g / H
+    const float floor_ = noise * __ldg(&pmean[plane]);
+    const float2* f = a;
+    auto masked = [&](int i, int c) {
+      const float2 v = f[slot(i * COLS + c)];
+      const float p = v.x * v.x + v.y * v.y;
+      const float m = p / (p + floor_);
+      return make_float2(v.x * m, v.y * m);
+    };
+    auto store_out = [&](int i, int c, float2 v) {
+      if (c < cols)
+        dst[(long long)i * W + c] = make_float2(v.x * scale, v.y * scale);
+    };
+    tw = tw_i;
+    ns = 1;
+    if (last == 0) {
+      one_pass<true, COLS, 1>(plan.at(0), masked, store_out, n, ns, tw,
+                              roots_i);
+    } else {
+      one_pass<true, COLS, COLS>(plan.at(0), masked, SmemStore<COLS>{b}, n,
+                                 ns, tw, roots_i);
+      __syncthreads();
+      advance(plan.at(0), ns, tw);
+      float2* t = a;
+      a = b;
+      b = t;
+      smem_passes<true, COLS>(a, b, ns, tw, n, plan, 1, last, roots_i);
+      one_pass<true, COLS, 1>(plan.at(last), SmemLoad<COLS>{a}, store_out,
+                              n, ns, tw, roots_i);
+    }
+    __syncthreads();  // the next strip's first pass overwrites the buffers
+  }
 }
 
 // The dynamic shared memory of a launch, allowed above 48 KB first.
@@ -547,10 +581,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-bool bad_axis(int n, int n1, int n2) {
-  return n1 < 2 || n2 < 2 || (long long)n1 * n2 != n;
 }
 
 // Threads for an n-point FFT block: n/16 (two radix-8 butterflies each a
@@ -605,6 +635,53 @@ bool row_launch(const int* radices, int passes, int P, int H, int W,
   return true;
 }
 
+// Whether the host's plan for an n-point transform is the static plan's.
+template <class Static>
+bool same_plan(const RadixPlan& plan, Static, int n) {
+  if (n != Static::length(n) || plan.passes != Static::count()) return false;
+  for (int s = 0; s < plan.passes; ++s)
+    if (plan.radix[s] != Static::at(s)) return false;
+  return true;
+}
+
+// The bytes of K6b's two strip buffers of `cols` columns of n rows.
+size_t h_mask_smem(int n, int cols) {
+  return 2 * (size_t)slot(n * cols) * sizeof(float2);
+}
+
+template <int COLS, class Plan>
+cudaError_t h_mask_launch(const float2* spec, const float* pmean,
+                          float2* out, const float2* roots_f,
+                          const float2* tw_f, const float2* roots_i,
+                          const float2* tw_i, const Plan& plan, int P, int H,
+                          int W, float noise, cudaStream_t stream) {
+  const int chunks = (W + COLS - 1) / COLS;
+  const long long strips = (long long)P * chunks;
+  if (strips > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = h_mask_smem(H, COLS);
+  cudaError_t err = allow_smem(h_mask_kernel<COLS, Plan>, smem);
+  if (err != cudaSuccess) return err;
+  // H / 4 threads (one radix-4 butterfly of the strip each), whole warps,
+  // at most K6B_MAX_THREADS
+  const int want = ((H + 3) / 4 + 31) / 32 * 32;
+  const int threads = want < K6B_MAX_THREADS ? want : K6B_MAX_THREADS;
+  // the persistent grid: as many blocks as are resident on the card at once
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, h_mask_kernel<COLS, Plan>, threads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long resident = (long long)sms * per_sm;
+  const unsigned blocks = (unsigned)(strips < resident ? strips : resident);
+  h_mask_kernel<COLS, Plan><<<blocks, threads, smem, stream>>>(
+      spec, pmean, out, roots_f, tw_f, roots_i, tw_i, H, W, chunks,
+      (int)strips, plan, noise);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (P, H, W) float32; spec: (P, H, W) complex64 (float2); roots, tw: the
@@ -625,30 +702,37 @@ extern "C" int k6a_w_forward(const float* x, void* spec, const void* roots,
   return cudaGetLastError();
 }
 
-// spec, out: (P, H, W) complex64; pmean: (P,) float32; tab_f, tab_i: the H
-// axis's forward and inverse tables, (n1 + n2 + H) float2 each; cols
-// (1 or 2) columns per block.
+// spec, out: (P, H, W) complex64; pmean: (P,) float32; roots_f, tw_f and
+// roots_i, tw_i: the H forward and inverse roots, (H) float2, and their
+// passes' twiddles in pass order; radices: the radices of the plan's
+// passes, in host memory.  All tensors contiguous, on one device.  The
+// strip is 4 columns, or 2 or 1 where 4 or 2 do not fit.
 extern "C" int k6b_h_mask(const void* spec, const float* pmean, void* out,
-                          const void* tab_f, const void* tab_i, int P, int H,
-                          int W, int n1, int n2, int cols, float noise,
-                          void* stream) {
-  if (P < 1 || W < 1 || bad_axis(H, n1, n2) || cols < 1 || cols > 2)
+                          const void* roots_f, const void* tw_f,
+                          const void* roots_i, const void* tw_i,
+                          const int* radices, int P, int H, int W, int passes,
+                          float noise, void* stream) {
+  RadixPlan plan;
+  if (P < 1 || W < 1 || !make_plan(radices, passes, H, plan))
     return cudaErrorInvalidValue;
-  const int chunks = (W + cols - 1) / cols;
-  const long long blocks = (long long)P * chunks;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int ld = n1 | 1;
-  const size_t smem =
-      ((size_t)H * cols + (size_t)n2 * ld * cols + 2 * (size_t)(n1 + n2)) * 8;
-  cudaError_t err = allow_smem(h_mask_kernel, smem);
-  if (err != cudaSuccess) return err;
-  h_mask_kernel<<<(unsigned)blocks,
-                  threads_for(n1, n2 * cols, n2, n1 * cols), smem,
-                  (cudaStream_t)stream>>>(
-      static_cast<const float2*>(spec), pmean, static_cast<float2*>(out),
-      static_cast<const float2*>(tab_f), static_cast<const float2*>(tab_i), H,
-      W, n1, n2, ld, cols, chunks, noise);
-  return cudaGetLastError();
+  const auto* s = static_cast<const float2*>(spec);
+  auto* o = static_cast<float2*>(out);
+  const auto* rf = static_cast<const float2*>(roots_f);
+  const auto* tf = static_cast<const float2*>(tw_f);
+  const auto* ri = static_cast<const float2*>(roots_i);
+  const auto* ti = static_cast<const float2*>(tw_i);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (same_plan(plan, Plan2160{}, H))
+    return h_mask_launch<4>(s, pmean, o, rf, tf, ri, ti, Plan2160{}, P, H, W,
+                            noise, st);
+  if (h_mask_smem(H, 4) <= K6B_MAX_SMEM)
+    return h_mask_launch<4>(s, pmean, o, rf, tf, ri, ti, plan, P, H, W,
+                            noise, st);
+  if (h_mask_smem(H, 2) <= K6B_MAX_SMEM)
+    return h_mask_launch<2>(s, pmean, o, rf, tf, ri, ti, plan, P, H, W,
+                            noise, st);
+  return h_mask_launch<1>(s, pmean, o, rf, tf, ri, ti, plan, P, H, W, noise,
+                          st);
 }
 
 // g: (P, H, W) complex64; out: (P, H, W) float32; roots, tw: the W inverse

@@ -11,9 +11,10 @@ planes, each kernel computes in FP32 (``csrc/wiener_fft.cu``):
   complex transform and split by Hermitian symmetry.
 * K6b, ``h_mask``: the DFT along H of every column, the Wiener mask
   ``p / (p + noise * pmean)`` with ``p = |F|^2`` and one ``pmean = sum(x^2)``
-  per plane read from device memory, and the inverse DFT along H (/H),
-  each transform a four-step DFT (N = n1*n2, two dense sub-DFTs and a
-  twiddle).  The spectrum crosses device memory three times, not five.
+  per plane read from device memory, and the inverse DFT along H (/H):
+  the same radix passes over ``_radix_plan(H)`` and the H roots, down a
+  strip of neighbouring columns in shared memory, the mask between the
+  two transforms.  The spectrum crosses device memory once each way.
 * K6c, ``w_inverse``: the inverse DFT along W (/W), its real part, clipped
   to [0, 1], as the same radix FFT of two packed rows.
 
@@ -22,13 +23,13 @@ in natural frequency order (so is the TPU kernels', whatever the
 docstring of ``fourier_pallas.py`` says), so each stage is held against
 its plain version alone.  A wrapper runs its kernel's plain version only
 for a CPU tensor; for a CUDA tensor it launches the kernel or raises.
-K6a's and K6c's plain versions follow their kernels' plan, root table,
-packing and passes; K6b's is the port's torch four-step
-(``fourier._fourstep_axis``).
+Each plain version follows its kernel's plan, root table and passes
+(``_fft_rows``), K6a's and K6c's also its packing of two real rows.
 
-``supported(H, W)``: both extents composite (a four-step factorization
-exists for K6b) and at most ``MAX_EXTENT``: K6b holds one or two whole
-columns of the spectrum in shared memory, K6a and K6c one whole row.
+``supported(H, W)``: both extents composite, as the JAX package's
+four-step kernels need them, and at most ``MAX_EXTENT``: K6b holds two
+buffers of a strip of whole columns in shared memory (four columns up to
+H = 3418, two up to 6837, one above), K6a and K6c of one whole row.
 """
 
 from __future__ import annotations
@@ -44,10 +45,9 @@ from .. import _build
 from .gpu_kernels import LAUNCHES, on_card, stream_of
 
 # K6a and K6c hold two padded buffers of one complex row, 17 bytes per
-# element, in shared memory (227 KB a block); K6b about as much per column
-# element, for two columns up to H = K6B_TWO_COLUMNS and one column above
+# element, in shared memory (227 KB a block); K6b as much per element of
+# its strip of columns
 MAX_EXTENT = 8192
-K6B_TWO_COLUMNS = 4096
 # the radices with a butterfly of their own in csrc/wiener_fft.cu, in the
 # order a plan takes them; the kernels take at most MAX_PASSES passes
 RADICES = (8, 4, 2, 3, 5, 7)
@@ -63,26 +63,6 @@ def _factor(n: int) -> Optional[Tuple[int, int]]:
     return None if n1 == 1 else (n1, n // n1)
 
 
-@functools.lru_cache(maxsize=8)
-def _axis_consts(n: int, inverse: bool):
-    """(n1, n2, C1, S1, C2, S2, Tc, Ts) numpy f32 for one axis; the
-    twiddle is indexed (n2, k1)."""
-    f = _factor(n)
-    if f is None:
-        return None
-    n1, n2 = f
-    sign = 2.0 if inverse else -2.0
-    k1 = np.arange(n1, dtype=np.float64)
-    k2 = np.arange(n2, dtype=np.float64)
-    a1 = sign * np.pi * np.outer(k1, k1) / n1
-    a2 = sign * np.pi * np.outer(k2, k2) / n2
-    tw = sign * np.pi * np.outer(k2, k1) / n
-    f32 = lambda a: np.asarray(a, np.float32)       # noqa: E731
-    return (n1, n2, f32(np.cos(a1)), f32(np.sin(a1)),
-            f32(np.cos(a2)), f32(np.sin(a2)),
-            f32(np.cos(tw)), f32(np.sin(tw)))
-
-
 def _extent_ok(n: int) -> bool:
     return 4 <= n <= MAX_EXTENT and _factor(n) is not None
 
@@ -94,7 +74,7 @@ def supported(H: int, W: int) -> bool:
 
 @functools.lru_cache(maxsize=32)
 def _radix_plan(n: int) -> Tuple[int, ...]:
-    """The passes of K6a's and K6c's n-point FFT: radix 8 while it divides
+    """The passes of the kernels' n-point FFT: radix 8 while it divides
     n, then 4 and 2, then 3, 5 and 7; each other prime factor, ascending,
     is one generic pass (4096 -> 8.8.8.8, 384 -> 8.8.2.3, 102 -> 2.3.17)."""
     plan = []
@@ -114,8 +94,9 @@ def _radix_plan(n: int) -> Tuple[int, ...]:
 @functools.lru_cache(maxsize=16)
 def _roots_on(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
     """The n roots exp(-+2 pi i k / n) as (n, 2) float32 (cos, sin) on
-    ``device``, computed in float64: every twiddle of K6a's (forward) or
-    K6c's (inverse) passes and every root of a generic pass."""
+    ``device``, computed in float64: every twiddle of the kernels' forward
+    (K6a, K6b) or inverse (K6b, K6c) passes and every root of a generic
+    pass."""
     a = (2.0 if inverse else -2.0) * np.pi * np.arange(n) / n
     roots = np.stack([np.cos(a), np.sin(a)], axis=1).astype(np.float32)
     return torch.from_numpy(roots).to(device)
@@ -124,7 +105,7 @@ def _roots_on(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=16)
 def _twiddles_on(n: int, inverse: bool,
                  device: torch.device) -> torch.Tensor:
-    """The twiddles of K6a's or K6c's passes in the order they read them,
+    """The twiddles of the kernels' passes in the order they read them,
     as (T, 2) float32 entries of ``_roots_on(n, inverse, device)``: for
     each pass with a butterfly of its own after the first (radix r, after
     passes whose radices multiply to ns), root[t j0 n/(ns r)] at
@@ -148,18 +129,6 @@ def _plan_on_host(n: int) -> torch.Tensor:
     return torch.tensor(_radix_plan(n), dtype=torch.int32)
 
 
-@functools.lru_cache(maxsize=16)
-def _table_on(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
-    """One axis's tables as (n1 + n2 + n, 2) float32 (cos, sin) on
-    ``device``, taken from ``_axis_consts``: the n1 roots of the first
-    sub-DFT (row 1 of C1, S1; entry (k, m) is root (k*m) mod n1), the n2
-    roots of the second, and the twiddle field flattened as n2*n1 + k1."""
-    n1, n2, C1, S1, C2, S2, Tc, Ts = _axis_consts(n, inverse)
-    cos = np.concatenate([C1[1], C2[1], Tc.ravel()])
-    sin = np.concatenate([S1[1], S2[1], Ts.ravel()])
-    return torch.from_numpy(np.stack([cos, sin], axis=1)).to(device)
-
-
 def _check_planes(x: torch.Tensor, dtype: torch.dtype, name: str,
                   rows_only: bool = False) -> None:
     """Raise unless ``x`` is contiguous (P, H, W) ``dtype`` that the kernel
@@ -175,7 +144,7 @@ def _check_planes(x: torch.Tensor, dtype: torch.dtype, name: str,
 
 def _fft_rows(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The unnormalised DFT (or inverse DFT) of each row of a (B, n)
-    complex64 tensor, as K6a's and K6c's passes compute it in FP32.
+    complex64 tensor, as the kernels' passes compute it in FP32.
 
     Stockham passes over ``_radix_plan(n)``: after passes whose radices
     multiply to ns, a pass of radix r takes butterfly j < n/r from
@@ -261,17 +230,17 @@ def w_forward(x: torch.Tensor) -> torch.Tensor:
 
 def _h_mask_plain(spec: torch.Tensor, pmean: torch.Tensor,
                   noise: float) -> torch.Tensor:
-    """K6b's plain version: the four-step DFT along H, the Wiener mask,
-    the inverse four-step along H, in FP32."""
-    from .fourier import _fourstep_axis
-
-    fr, fi = _fourstep_axis(spec.real.transpose(-1, -2),
-                            spec.imag.transpose(-1, -2), inverse=False)
-    p = fr * fr + fi * fi
-    m = p / (p + noise * pmean.reshape(-1, 1, 1))
-    gr, gi = _fourstep_axis(fr * m, fi * m, inverse=True)
-    return torch.complex(gr.transpose(-1, -2),
-                         gi.transpose(-1, -2)).contiguous()
+    """K6b's plain version: each column's DFT by ``_fft_rows``, times the
+    Wiener mask p / (p + noise * pmean), p = |F|^2, then its inverse DFT
+    by ``_fft_rows``, times 1/H, in FP32."""
+    P, H, W = spec.shape
+    F = _fft_rows(spec.transpose(-1, -2).reshape(P * W, H), inverse=False)
+    p = F.real * F.real + F.imag * F.imag
+    floor = (noise * pmean.to(torch.float32)).repeat_interleave(W)[:, None]
+    m = p / (p + floor)
+    g = _fft_rows(torch.complex(F.real * m, F.imag * m), inverse=True)
+    g = torch.complex(g.real * (1.0 / H), g.imag * (1.0 / H))
+    return g.reshape(P, W, H).transpose(-1, -2).contiguous()
 
 
 def h_mask(spec: torch.Tensor, pmean: torch.Tensor,
@@ -286,18 +255,20 @@ def h_mask(spec: torch.Tensor, pmean: torch.Tensor,
             pmean.device != spec.device):
         raise ValueError(f"h_mask: pmean {pmean.dtype} {tuple(pmean.shape)} "
                          f"on {pmean.device} for {P} planes")
-    n1, n2 = _factor(H)
-    cols = 2 if H <= K6B_TWO_COLUMNS else 1
     out = torch.empty_like(spec)
-    tab_f = _table_on(H, False, spec.device)
-    tab_i = _table_on(H, True, spec.device)
+    roots_f = _roots_on(H, False, spec.device)
+    tw_f = _twiddles_on(H, False, spec.device)
+    roots_i = _roots_on(H, True, spec.device)
+    tw_i = _twiddles_on(H, True, spec.device)
+    plan = _plan_on_host(H)
     pmean = pmean.contiguous()
     lib = _build.load()
     with torch.cuda.device(spec.device):
         err = lib.k6b_h_mask(spec.data_ptr(), pmean.data_ptr(),
-                             out.data_ptr(), tab_f.data_ptr(),
-                             tab_i.data_ptr(), P, H, W, n1, n2, cols,
-                             float(noise), stream_of(spec))
+                             out.data_ptr(), roots_f.data_ptr(),
+                             tw_f.data_ptr(), roots_i.data_ptr(),
+                             tw_i.data_ptr(), plan.data_ptr(), P, H, W,
+                             plan.numel(), float(noise), stream_of(spec))
     _build.check(err, "k6b_h_mask")
     LAUNCHES["k6b"] += 1
     return out

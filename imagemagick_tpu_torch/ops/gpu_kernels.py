@@ -35,9 +35,9 @@ LAUNCHES = {"k1": 0, "k2": 0, "k2p": 0, "k3": 0, "k4": 0, "k5": 0, "k6a": 0,
             "k6b": 0, "k6c": 0}
 
 K3_MAX_TAPS = 33
-# K3 holds a (32+2r) x (32+2r) x C tile and a 32 x (32+2r) x C intermediate
-# in shared memory: 196 KB at C=8 and 33 taps, within the 227 KB a block
-# may use
+# K3's generic kernel holds a (32+2r) x (32+2r) x C window and a
+# 32 x (32+2r) x C vertical pass in shared memory: 198 KB at C=8 and 33
+# taps, within the 227 KB a block may use
 K3_MAX_CHANNELS = 8
 
 
@@ -91,7 +91,8 @@ def separable_blur(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     N, H, W, C = x.shape
     y = torch.empty_like(x)
-    t = constant_on(taps, torch.float32, x.device)
+    # on the host: the C entry copies them into the kernel's arguments
+    t = constant_on(taps, torch.float32, torch.device("cpu"))
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.k3_separable_blur(x.data_ptr(), y.data_ptr(), t.data_ptr(),

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Time kernel K2 of this checkout against another checkout's.
+"""Time kernels K2 and K3 of this checkout against another checkout's.
 
 Loads the other checkout's ``imagemagick_tpu_torch`` under another module
 name (it builds its own kernels into its own ``_build/``) and gives both
-the same batch at config #2's shape, 8 x 1080 x 1920 x 3 from ``--seed``,
-with config #2's 15 + 9 taps.  It requires the two checkouts' K2 to agree
-on every value, with the Lab round trip and without, and at 1 + 1 and
-33 + 17 taps.  Then it times, in turns (other, this, this, other), each
-case per call (``chip_smoke.median_ms``: one event pair around one call
-on an idle stream) and device-only (``chip_smoke.device_ms``: one event
-pair around 20 back-to-back calls): K2 with and without Lab, and K2 with
-Lab at 1 + 1, 15 + 9 and 33 + 17 taps.  Last it prints the registers, stack and
-spills that ptxas reported for each checkout's K2 kernels
+the same batches from ``--seed``.  K2 runs at config #2's shape, 8 x 1080
+x 1920 x 3, with config #2's 15 + 9 taps; K3 at config #2's shape with
+the op route's 15 blur taps and 9 unsharp taps, and at config #1's op
+route shape, 32 x 256 x 256 x 3, with 15 taps.  It requires the two
+checkouts' K2 to agree on every value, with the Lab round trip and
+without, and at 1 + 1 and 33 + 17 taps, and their K3 to agree on every
+value at its three cases.  Then it times, in turns (other, this, this,
+other), each case per call (``chip_smoke.median_ms``: one event pair
+around one call on an idle stream) and device-only
+(``chip_smoke.device_ms``: one event pair around 20 back-to-back calls):
+K2 with and without Lab, K2 with Lab at 1 + 1, 15 + 9 and 33 + 17 taps,
+and K3 at its three cases.  Last it prints the registers, stack and
+spills that ptxas reported for each checkout's K2 and K3 kernels
 (``_build/*.log``).
 
 Run from the repository root on a machine with one CUDA card:
@@ -31,6 +35,7 @@ import torch
 
 N, H, W, C = 8, 1080, 1920, 3
 SIGMA, SIGMA_UNSHARP, GAIN = 2.0, 1.0, 1.0
+K3_CONFIG1 = (32, 256, 256, 3)
 
 
 def ptxas_report(build_dir: Path, pattern: str):
@@ -73,11 +78,16 @@ def main() -> None:
     from k6_ab import load_other
     from imagemagick_tpu_torch import _build
     from imagemagick_tpu_torch.ops import fused_pipeline as fp
+    from imagemagick_tpu_torch.ops import gpu_kernels as gk
+    from imagemagick_tpu_torch.ops.blur import (gaussian_kernel_1d,
+                                                optimal_kernel_width_2d)
 
     other_root = args.other.resolve()
     load_other(other_root)
     ofp = importlib.import_module(
         "other_imagemagick_tpu_torch.ops.fused_pipeline")
+    ogk = importlib.import_module(
+        "other_imagemagick_tpu_torch.ops.gpu_kernels")
     name_limit = card()
     print(name_limit)
 
@@ -109,6 +119,25 @@ def main() -> None:
         require(ndiff == 0, f"k2 {key} lab={lab} differs")
         del got, want
 
+    # -- K3: equality ---------------------------------------------------------
+    taps15 = gauss_taps(optimal_kernel_width_2d(0.0, SIGMA), SIGMA)
+    taps9 = gaussian_kernel_1d(0.0, SIGMA_UNSHARP)
+    require((len(taps15), len(taps9)) == (15, 9),
+            f"k3 {len(taps15)} and {len(taps9)} taps")
+    x1 = torch.rand(K3_CONFIG1, generator=gen, device=dev)
+    k3_cases = (("config #2", x, taps15), ("config #2", x, taps9),
+                ("config #1", x1, taps15))
+    for name, xk, tk in k3_cases:
+        want = ogk.separable_blur(xk, tk)
+        got = gk.separable_blur(xk, tk)
+        torch.cuda.synchronize()
+        ndiff = int((got != want).sum())
+        print(f"k3 {name} {tuple(xk.shape)} {len(tk)} taps: {ndiff} of "
+              f"{got.numel()} values differ from the other checkout's, "
+              f"max|d| {float((got - want).abs().max()):.3e}")
+        require(ndiff == 0, f"k3 {name} {len(tk)} taps differs")
+        del got, want
+
     # -- times, interleaved (other, this, this, other) ------------------------
     tags = ("other", "this", "this", "other")
     for key, lab in (("15 + 9", True), ("15 + 9", False), ("1 + 1", True),
@@ -122,12 +151,22 @@ def main() -> None:
             print(f"k2 {tag} {(N, H, W, C)} {key} taps lab={lab}: {pc:.4f} "
                   f"ms per call, {dv:.4f} ms device-only [{name_limit}]")
 
+    for name, xk, tk in k3_cases:
+        fns = [lambda m=m: m.separable_blur(xk, tk)
+               for m in (ogk, gk, gk, ogk)]
+        per_call = median_ms(*fns)
+        device = device_ms(*fns)
+        for tag, pc, dv in zip(tags, per_call, device):
+            print(f"k3 {tag} {name} {tuple(xk.shape)} {len(tk)} taps: "
+                  f"{pc:.4f} ms per call, {dv:.4f} ms device-only "
+                  f"[{name_limit}]")
+
     # -- registers and spills -------------------------------------------------
     for tag, build in (("this", _build._OUT),
                        ("other", other_root / "imagemagick_tpu_torch" /
                         "_build")):
-        for name, regs, stack, st, ld in ptxas_report(build,
-                                                      "blur_unsharp_kernel"):
+        for name, regs, stack, st, ld in ptxas_report(
+                build, "blur_unsharp_kernel|separable_blur_kernel"):
             print(f"ptxas {tag}: {name}: {regs} registers, {stack} bytes "
                   f"stack, {st} bytes spill stores, {ld} bytes spill loads")
     sys.stdout.flush()

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Time kernels K6a and K6c of this checkout against another checkout's.
+"""Time kernels K6a, K6b and K6c of this checkout against another's.
 
 Loads the other checkout's ``imagemagick_tpu_torch`` under another module
 name (it builds its own kernels into its own ``_build/``) and gives both
 the same inputs at config #4's shape, one 2160 x 4096 plane from
-``--seed``: K6a the plane, K6c the spectrum that this checkout's K6a and
-K6b make of it.  It holds each kernel to its own plain version and the
-two checkouts' kernels to each other, then times, in turns (other, this,
+``--seed``: K6a the plane, K6b the spectrum that this checkout's K6a
+makes of it, K6c the spectrum that this checkout's K6a and K6b make.  It
+holds each kernel to its own checkout's plain version and the two
+checkouts' kernels to each other, then times, in turns (other, this,
 this, other), each kernel per call (``chip_smoke.median_ms``: one event
 pair around one call on an idle stream) and device-only
 (``chip_smoke.device_ms``: one event pair around 20 back-to-back calls),
-``torch.fft.fft`` and ``torch.fft.ifft`` along W beside them, and config
-#4's fused route (``models.pipelines.fft_wiener``) of each checkout end
-to end, with its fidelity against a float64 numpy Wiener.
+with a library yardstick beside each: ``torch.fft.fft`` and
+``torch.fft.ifft`` along W for K6a and K6c, ``torch.fft.fft`` then
+``torch.fft.ifft`` along H (two cuFFT calls without the mask) for K6b.
+Last it times config #4's fused route (``models.pipelines.fft_wiener``)
+of each checkout end to end, with its fidelity against a float64 numpy
+Wiener, beside the op route (``fourier.set_fft_mode("fft")``: cuFFT's
+real transforms) of this checkout.
 
 Run from the repository root on a machine with one CUDA card:
 ``python3 k6_ab.py OTHER [--seed N]``, OTHER the root of a checkout of
@@ -53,6 +58,7 @@ def main() -> None:
         raise SystemExit("k6_ab: no CUDA card")
     from chip_smoke import card, device_ms, median_ms, psnr, wiener_f64
     from imagemagick_tpu_torch.models import pipelines
+    from imagemagick_tpu_torch.ops import fourier as ft
     from imagemagick_tpu_torch.ops import fourier_kernels as fk
 
     load_other(args.other.resolve())
@@ -66,7 +72,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     x = torch.rand((1, H, W), generator=gen, device=dev)
-    g = fk.h_mask(fk.w_forward(x), torch.sum(x * x, dim=(-2, -1)), NOISE)
+    pmean = torch.sum(x * x, dim=(-2, -1))
+    spec_x = fk.w_forward(x)
+    g = fk.h_mask(spec_x, pmean, NOISE)
     spec_ref = fk._w_forward_plain(x)
     out_ref = fk._w_inverse_plain(g)
     outs = {}
@@ -86,8 +94,23 @@ def main() -> None:
           f"k6c vs its plain version "
           f"{float((outs['this'][1] - out_ref).abs().max()):.3e}")
 
+    gs = {}
+    for name, mod in (("other", ofk), ("this", fk)):
+        gs[name] = mod.h_mask(spec_x, pmean, NOISE)
+        torch.cuda.synchronize()
+        rel = float(((gs[name] - mod._h_mask_plain(spec_x, pmean, NOISE))
+                     .abs().max() / g.abs().max()).item())
+        print(f"{name}: k6b vs its plain version {rel:.3e} of max|g|")
+    rel = float(((gs["this"] - gs["other"]).abs().max() /
+                 g.abs().max()).item())
+    print(f"this vs other: k6b {rel:.3e} of max|g|")
+    del gs
+
     def fwd(mod):
         return lambda: mod.w_forward(x)
+
+    def mask(mod):
+        return lambda: mod.h_mask(spec_x, pmean, NOISE)
 
     def inv(mod):
         return lambda: mod.w_inverse(g)
@@ -104,6 +127,8 @@ def main() -> None:
     tags = ("other", "this", "this", "other")
     for kernel, make, lib_name, lib in (
             ("k6a", fwd, "torch.fft.fft", lambda: torch.fft.fft(x, dim=-1)),
+            ("k6b", mask, "torch.fft.fft then torch.fft.ifft along H",
+             lambda: torch.fft.ifft(torch.fft.fft(spec_x, dim=-2), dim=-2)),
             ("k6c", inv, "torch.fft.ifft", lambda: torch.fft.ifft(g, dim=-1))):
         fns = [make(mod) for mod in order] + [lib]
         per_call = median_ms(*fns)
@@ -113,12 +138,21 @@ def main() -> None:
                   f"{dv:.4f} ms device-only [{name_limit}]")
         print(f"{lib_name} {(1, H, W)}: {per_call[-1]:.4f} ms per call, "
               f"{device[-1]:.4f} ms device-only [{name_limit}]")
-    fns = [lambda r=routes[t]: r(batch) for t in tags]
+    def op_route():
+        ft.set_fft_mode("fft")
+        try:
+            return routes["this"](batch)
+        finally:
+            ft.set_fft_mode("auto")
+
+    fns = [lambda r=routes[t]: r(batch) for t in tags] + [op_route]
     per_call = median_ms(*fns)
     device = device_ms(*fns)
     for tag, pc, dv in zip(tags, per_call, device):
         print(f"config #4 fused route {tag}: {pc:.4f} ms per call, {dv:.4f} "
               f"ms device-only (back to back) [{name_limit}]")
+    print(f"config #4 op route (cuFFT) this: {per_call[-1]:.4f} ms per call, "
+          f"{device[-1]:.4f} ms device-only (back to back) [{name_limit}]")
     sys.stdout.flush()
 
 

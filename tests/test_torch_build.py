@@ -38,3 +38,14 @@ def test_digest_covers_sources_and_their_names(tmp_path):
     (src / "notes.txt").write_text("not a source")
     assert _build.digest(src) == edited
 
+
+
+def test_digest_covers_the_stencil_header(tmp_path):
+    """stencil.cuh, included by K2's and K3's sources, names a new
+    library when it changes."""
+    src = _copy_sources(tmp_path)
+    header = src / "stencil.cuh"
+    assert header.exists()
+    before = _build.digest(src)
+    header.write_bytes(header.read_bytes() + b"// edited\n")
+    assert _build.digest(src) != before

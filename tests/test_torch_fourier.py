@@ -201,8 +201,7 @@ def test_tables_equal_jax_bit_for_bit(n, inverse):
     """The port's transform tables are the JAX package's numpy tables:
     an image pipeline carries no weights, these are its state."""
     for port_fn, jax_fn in ((tff._dft_mats_np, jff._dft_mats_np),
-                            (tff._fourstep_consts, jff._fourstep_consts),
-                            (fk._axis_consts, jfp._axis_consts)):
+                            (tff._fourstep_consts, jff._fourstep_consts)):
         got = _uncached(port_fn, n, inverse)
         ref = _uncached(jax_fn, n, inverse)
         assert (got is None) == (ref is None) == (

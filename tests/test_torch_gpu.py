@@ -9,11 +9,11 @@ sums up to 33 + 17 taps in another order (2e-5), and with Lab its powf and
 cbrtf stand against torch.pow (5e-5); K2p computes K2's values in K2's
 order, so it is held to its plain version at K2's Lab tolerance and to K2
 for equality.  K4 counts and K5's 0/1 outputs are
-exact: both are held to equality.  K6b sums n1 + n2 float32 terms per
-transform, K6a radix butterflies (or a p-term sum for a prime factor above
-7) in another order than their plain versions, with FMAs: their spectra
-within 1e-5 of max|F|; K6c's [0, 1] output within 1e-5, also against a
-float64 inverse of a spectrum with no symmetry.
+exact: both are held to equality.  K6a and K6b sum radix butterflies (or
+a p-term sum for a prime factor above 7) in another order than their
+plain versions, with FMAs: their spectra within 1e-5 of max|F|; K6c's
+[0, 1] output within 1e-5, also against a float64 inverse of a spectrum
+with no symmetry.
 """
 
 import numpy as np
@@ -48,6 +48,17 @@ def _taps(n, sigma):
 @pytest.mark.parametrize("shape,ntaps", [
     ((1, 1, 1, 1), 3), ((2, 37, 45, 3), 15), ((1, 100, 33, 4), 33),
     ((2, 31, 70, 8), 9), ((1, 5, 300, 2), 31), ((3, 64, 64, 3), 1),
+    # the generic kernel at C = 1, 2, 4 and 8, at 3 and 33 taps
+    ((2, 40, 70, 1), 3), ((2, 40, 70, 1), 33), ((1, 45, 97, 2), 3),
+    ((1, 45, 97, 2), 33), ((1, 33, 65, 4), 3), ((1, 33, 65, 4), 33),
+    ((1, 37, 70, 8), 3), ((1, 37, 70, 8), 33),
+    # images smaller than the halo, on each kernel
+    ((2, 5, 7, 3), 33), ((1, 6, 10, 3), 15), ((1, 3, 4, 3), 9),
+    ((1, 9, 5, 8), 33),
+    # W not a multiple of the tile; rows of W * C % 4 == 0 take the
+    # 16-byte window copy on interior tiles (256 * 3, 96 * 4)
+    ((1, 70, 130, 3), 15), ((2, 40, 100, 3), 9), ((1, 100, 256, 3), 15),
+    ((1, 100, 256, 3), 9), ((1, 70, 96, 4), 33), ((2, 70, 200, 1), 7),
 ])
 def test_k3_matches_plain(dev, shape, ntaps):
     x = _rand(shape)
@@ -57,6 +68,20 @@ def test_k3_matches_plain(dev, shape, ntaps):
     torch.cuda.synchronize()
     assert gk.LAUNCHES["k3"] == before + 1
     ref = gk.separable_blur(torch.from_numpy(x), k)          # plain, CPU
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("ntaps", [15, 9, 33])
+def test_k3_unaligned_batch_matches_plain(dev, ntaps):
+    """A contiguous batch that starts 4 bytes past a 16-byte boundary: the
+    window is copied float by float on every tile."""
+    shape = (2, 70, 256, 3)
+    flat = torch.from_numpy(_rand((int(np.prod(shape)) + 1,), seed=8))
+    x = flat.to(dev)[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    k = _taps(ntaps, ntaps / 5.0)
+    got = gk.separable_blur(x, k)
+    ref = gk.separable_blur(flat[1:].view(shape), k)          # plain, CPU
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-5)
 
 
@@ -435,6 +460,28 @@ def test_k6_match_plain(dev, shape):
                   0, 1)
     got = fk.w_inverse(torch.from_numpy(g_any).to(dev)).cpu().numpy()
     assert float(np.abs(got - ref).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2160, 6), (2, 135, 9), (1, 8186, 4), (1, 8192, 6), (3, 4, 6),
+    (1, 4096, 10), (1, 3418, 8), (1, 3420, 4), (1, 6838, 4),
+])
+def test_k6b_matches_plain(dev, shape):
+    """K6b at the heights of its plans (8.2.3.3.3.5, 3.3.3.5, a generic
+    pass of 4093, 8.8.8.8.2, one pass) and strip widths (4 columns up to
+    H = 3418, 2 up to 6837, 1 above), W not a multiple of the strip."""
+    from imagemagick_tpu_torch.ops import fourier_kernels as fk
+
+    rng = np.random.default_rng(shape[1])
+    spec = torch.from_numpy(np.fft.fft(rng.random(shape), axis=-1)
+                            .astype(np.complex64)).to(dev)
+    pmean = torch.from_numpy(rng.uniform(50, 200, shape[0])
+                             .astype(np.float32)).to(dev)
+    before = gk.LAUNCHES["k6b"]
+    got = fk.h_mask(spec, pmean, 0.01)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k6b"] == before + 1
+    assert _spec_rel(got, fk._h_mask_plain(spec, pmean, 0.01)) <= 1e-5
 
 
 def test_k6_fused_route_vs_float64(dev):

@@ -1,8 +1,9 @@
 """Kernels K6a, K6b and K6c (``ops/fourier_kernels.py``) on the CPU.
 
-On a CPU tensor each wrapper runs its plain version: for K6a and K6c the
-kernels' radix plan, root table, two-row packing and Stockham passes in
-FP32, for K6b the port's FP32 four-step.  Each stage is held against its
+On a CPU tensor each wrapper runs its plain version: the kernels' radix
+plan, root table and Stockham passes in FP32 (``_fft_rows``), for K6a
+and K6c with their two-row packing, for K6b down the columns with the
+mask between the two transforms.  Each stage is held against its
 float64 numpy meaning (K6a the DFT along W, K6b the DFT along H -> Wiener
 mask -> inverse DFT along H, K6c the clipped real part of the inverse DFT
 along W): spectra to a relative 1e-5 of max|F|, K6c's [0, 1] output to
@@ -10,10 +11,14 @@ along W): spectra to a relative 1e-5 of max|F|, K6c's [0, 1] output to
 the JAX ``wiener_pallas`` in interpret mode at >= 100 dB (its bf16
 three-pass products put it about 108 dB from float64), and to the JAX
 four-step ``wiener_deconvolve`` and a float64 numpy Wiener at >= 120 dB.
-A float64 numpy replay of the CUDA passes' index arithmetic (twiddles
-read from ``_twiddles_on``) is held to ``np.fft``.
+Float64 numpy replays of the CUDA passes' index arithmetic (twiddles
+read from ``_twiddles_on``), of K6a's and K6c's rows and of K6b's strips
+of columns, are held to ``np.fft``.  K6b's wrapper is checked against its
+C entry's signature with ``_build.load`` stubbed.
 """
 
+import contextlib
+import ctypes
 import math
 
 import numpy as np
@@ -24,6 +29,7 @@ import jax.numpy as jnp
 
 from imagemagick_tpu.ops import fourier as jff
 from imagemagick_tpu.ops import fourier_pallas as jfp
+from imagemagick_tpu_torch import _build
 from imagemagick_tpu_torch.ops import fourier_kernels as fk
 from imagemagick_tpu_torch.ops import gpu_kernels as gk
 
@@ -140,21 +146,6 @@ def test_supported(hw, ok):
     """Prime extents have no four-step factorization; extents past
     MAX_EXTENT do not fit the kernels' shared memory."""
     assert fk.supported(*hw) is ok
-
-
-def test_tables_hold_the_axis_consts():
-    """K6's table: row 1 of the sub-DFT matrices and the flat twiddle
-    field; entry (k, m) of each sub-DFT is root (k*m) mod n."""
-    for n, inverse in ((2160, False), (4096, True), (72, False)):
-        n1, n2, C1, S1, C2, S2, Tc, Ts = fk._axis_consts(n, inverse)
-        tab = fk._table_on(n, inverse, torch.device("cpu")).numpy()
-        assert tab.shape == (n1 + n2 + n, 2)
-        k = np.arange(n1)
-        roots = tab[:n1, 0][np.outer(k, k) % n1]
-        np.testing.assert_allclose(roots, C1, atol=1e-6)
-        np.testing.assert_array_equal(tab[n1:n1 + n2, 1], S2[1])
-        np.testing.assert_array_equal(tab[n1 + n2:, 0], Tc.ravel())
-        np.testing.assert_array_equal(tab[n1 + n2:, 1], Ts.ravel())
 
 
 # the widths of the radix plans: 8.8.8.8, 8.8.8.8.2, 8.8.2.3, 2.3.17,
@@ -289,3 +280,201 @@ def test_row_kernels_check_only_w(shape, ok):
     else:
         with pytest.raises(ValueError):
             fk._check_planes(x, torch.float32, "w_forward", rows_only=True)
+
+
+# -- K6b: the radix passes down strips of columns -----------------------------
+
+# H with the plan 8.2.3.3.3.5 (config #4), an odd H (3.3.3.5), a generic
+# pass of 4093 (2.4093), the largest extent (8.8.8.8.2), one pass (4) and
+# a strip of two columns (4096); W narrow, not a multiple of the strip
+HEIGHTS = [(1, 2160, 6), (2, 135, 9), (1, 8186, 4), (1, 8192, 6),
+           (3, 4, 6), (1, 4096, 10)]
+
+
+def _h_mask_f64(spec, pmean, noise):
+    f = np.fft.fft(spec.astype(np.complex128), axis=-2)
+    p = np.abs(f) ** 2
+    return np.fft.ifft(f * p / (p + noise * pmean[:, None, None]), axis=-2)
+
+
+@pytest.mark.parametrize("shape", HEIGHTS)
+def test_h_mask_plain_at_the_plan_heights(shape):
+    rng = np.random.default_rng(shape[1])
+    spec = np.fft.fft(rng.random(shape), axis=-1).astype(np.complex64)
+    pmean = rng.uniform(50, 200, shape[0]).astype(np.float32)
+    got = fk.h_mask(torch.from_numpy(spec), torch.from_numpy(pmean), 0.01)
+    assert got.dtype == torch.complex64 and got.shape == shape
+    assert _rel(got.numpy(), _h_mask_f64(spec, pmean, 0.01)) <= SPEC_REL
+
+
+def _slot(e):
+    return e + (e >> 4)
+
+
+def _strip_columns(H):
+    """The columns of K6b's strip: 4, or 2 or 1 where two padded buffers
+    of 4 or 2 columns of H rows exceed a block's 232,448 bytes."""
+    for cols in (4, 2):
+        if 2 * _slot(H * cols) * 8 <= 232448:
+            return cols
+    return 1
+
+
+def _strip_pass(load, store, n, cols, ns, r, tw, t0, roots, inverse):
+    """One pass of ``one_pass`` in csrc/wiener_fft.cu over a strip of
+    ``cols`` transforms, in float64, every butterfly (or, in a generic
+    pass, every output) of every transform at once.  Returns the next
+    pass's twiddle offset."""
+    m = n // r
+    if r in fk.RADICES:
+        t = np.arange(m * cols)
+        j, c = t // cols, t % cols
+        j0 = j % ns
+        q = np.arange(r)[:, None]
+        v = np.stack([load(j + k * m, c) for k in range(r)])      # (r, T)
+        if ns > 1:
+            v[1:] *= tw[t0 + (q[1:] - 1) * ns + j0]
+            t0 += (r - 1) * ns
+        sign = 2j if inverse else -2j
+        out = np.exp(sign * np.pi * q * q.T / r) @ v             # r-point DFT
+        for k in range(r):
+            store((j - j0) * r + j0 + k * ns, c, out[k])
+        return t0
+    t = np.arange(n * cols)
+    o, c = t // cols, t % cols
+    k, j = o // m, o % m
+    j0 = j % ns
+    e = j0 * (n // (ns * r)) + k * m
+    acc = np.zeros(len(t), np.complex128)
+    for q in range(r):
+        acc += load(j + q * m, c) * roots[(q * e) % n]
+    store((j - j0) * r + j0 + k * ns, c, acc)
+    return t0
+
+
+def _strip_replay(spec, pmean, noise):
+    """A float64 numpy replay of ``h_mask_kernel``: each block's strip of
+    columns c0 .. c0 + cols - 1, element (i, c) of the strip at
+    slot(i cols + c) of two buffers; the first forward pass reads the
+    plane (zeros past W), the first inverse pass loads F times the mask,
+    the last one writes g / H for the columns inside W; twiddles and
+    roots from the float32 tables of ``_twiddles_on`` and ``_roots_on``."""
+    P, H, W = spec.shape
+    cols = _strip_columns(H)
+    plan = fk._radix_plan(H)
+    cpu = torch.device("cpu")
+    tabs = {}
+    for inverse in (False, True):
+        roots, tw = (t[:, 0].astype(np.float64) + 1j * t[:, 1] for t in (
+            fk._roots_on(H, inverse, cpu).numpy(),
+            fk._twiddles_on(H, inverse, cpu).numpy()))
+        tabs[inverse] = roots, tw
+    out = np.full(spec.shape, np.nan, np.complex128)
+    size = _slot(H * cols)
+    for plane in range(P):
+        floor = noise * float(pmean[plane])
+        for c0 in range(0, W, cols):
+            inside = min(cols, W - c0)
+
+            def read(i, c, c0=c0, inside=inside, plane=plane):
+                ok = c < inside
+                return np.where(ok, spec[plane, i, np.minimum(c0 + c, W - 1)],
+                                0)
+
+            def write(i, c, v, c0=c0, inside=inside, plane=plane):
+                ok = c < inside
+                assert np.isnan(out[plane, i[ok], c0 + c[ok]]).all()
+                out[plane, i[ok], c0 + c[ok]] = v[ok] / H
+
+            def loader(buf):
+                return lambda i, c: buf[_slot(i * cols + c)]
+
+            def storer(buf):
+                def put(i, c, v):
+                    idx = _slot(i * cols + c)
+                    assert idx.max() < size and np.isnan(buf[idx]).all()
+                    buf[idx] = v
+                return put
+
+            def masked(buf):
+                def get(i, c):
+                    f = buf[_slot(i * cols + c)]
+                    p = np.abs(f) ** 2
+                    return f * p / (p + floor)
+                return get
+
+            for inverse in (False, True):
+                roots, tw = tabs[inverse]
+                ns, t0 = 1, 0
+                for s, r in enumerate(plan):
+                    first, last = s == 0, s == len(plan) - 1
+                    load = (read if not inverse else masked(a)) if first \
+                        else loader(a)
+                    b = np.full(size, np.nan, np.complex128)
+                    store = write if inverse and last else storer(b)
+                    t0 = _strip_pass(load, store, H, cols, ns, r, tw, t0,
+                                     roots, inverse)
+                    ns *= r
+                    a = b
+    return out
+
+
+@pytest.mark.parametrize("shape", HEIGHTS)
+def test_strip_replay_gives_dft_mask_idft(shape):
+    rng = np.random.default_rng(shape[1] + 1)
+    spec = np.fft.fft(rng.random(shape), axis=-1)
+    pmean = rng.uniform(50, 200, shape[0])
+    got = _strip_replay(spec, pmean, 0.01)
+    assert not np.isnan(got).any()
+    # the float32 roots of a generic pass of 4093 terms, both ways
+    tol = 4e-6 if max(fk._radix_plan(shape[1])) > 1000 else 1e-6
+    assert _rel(got, _h_mask_f64(spec, pmean, 0.01)) <= tol
+
+
+class _FakeLib:
+    def __init__(self):
+        self.calls = []
+
+    def k6b_h_mask(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("shape", [(1, 2160, 8), (2, 135, 9), (1, 8186, 4)])
+def test_k6b_wrapper_passes_the_radix_tables(monkeypatch, shape):
+    """K6b's card path with ``_build.load`` stubbed: the C entry gets the
+    spectrum, pmean, the output, the H roots and twiddles of both
+    directions on the spectrum's device, the plan in host memory and the
+    shape, in ``_SIGNATURES`` order and types."""
+    lib = _FakeLib()
+    monkeypatch.setattr(fk, "on_card", lambda x: True)
+    monkeypatch.setattr(fk, "stream_of", lambda x: 1234)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "check", lambda err, name: None)
+    P, H, W = shape
+    spec = torch.zeros(shape, dtype=torch.complex64)
+    pmean = torch.ones(P)
+    before = gk.LAUNCHES["k6b"]
+    out = fk.h_mask(spec, pmean, 0.25)
+    assert gk.LAUNCHES["k6b"] == before + 1
+    (args,) = lib.calls
+    sig = _build._SIGNATURES["k6b_h_mask"]
+    assert len(args) == len(sig) == 14
+    for arg, kind in zip(args, sig):
+        assert isinstance(arg, float if kind is ctypes.c_float else int)
+    (sp, pp, op, rf, tf, ri, ti, radices, P_, H_, W_, passes, noise,
+     stream) = args
+    cpu = torch.device("cpu")
+    assert (sp, pp, op) == (spec.data_ptr(), pmean.data_ptr(),
+                            out.data_ptr())
+    assert (rf, tf, ri, ti) == (
+        fk._roots_on(H, False, cpu).data_ptr(),
+        fk._twiddles_on(H, False, cpu).data_ptr(),
+        fk._roots_on(H, True, cpu).data_ptr(),
+        fk._twiddles_on(H, True, cpu).data_ptr())
+    assert (P_, H_, W_, passes, noise, stream) == (
+        P, H, W, len(fk._radix_plan(H)), 0.25, 1234)
+    got = np.ctypeslib.as_array((ctypes.c_int * passes).from_address(radices))
+    assert tuple(got) == fk._radix_plan(H)
