@@ -86,7 +86,9 @@ RUNS = 25
 DEVICE_LAUNCHES = 20   # back-to-back calls in one device_ms run
 DEVICE_RUNS = 5
 K3_TOL = 1e-5   # float32 sums of <= 33 taps in another order
-K1_TOL = 2e-5   # float32 dot products of depth SPAN=1280 in another order
+K1_TOL = 2e-5   # float32 dot products over the operators' windows (about
+                # 237 input lanes a row at config #1) in another order than
+                # torch.matmul's
 # config #2
 N2, H2, W2 = 8, 1080, 1920
 SIGMA_UNSHARP = 1.0
@@ -95,6 +97,15 @@ K2_TOL = 2e-5      # float32 sums of 15 + 9 taps in another order
 K2_LAB_TOL = 5e-5  # and powf / cbrtf against torch.pow
 # config #3
 N3, H3, W3 = 16, 1056, 816
+# K5 beside config #3: words of 32 pixels, a row cut into groups of 30
+# words past 1024 pixels, images shorter than a strip's 5-row halo
+K5_SHAPES = ((2, 77, 61), (1, 1, 50), (1, 5, 1), (3, 40, 700), (2, 9, 31),
+             (2, 9, 32), (2, 9, 33), (1, 23, 1025)) + tuple(
+                 (2, h, 37) for h in (1, 2, 3, 4, 5, 6, 11))
+# config #5 (the thumbnailer's step): a batch of 16 of config #1's images
+# -> Lanczos to 256x256x3, no blur, identity mix
+N5 = 16
+THUMB = 256
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -155,17 +166,42 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_flops(fp) -> int:
-    """The multiply-adds of config #1's function, two operations each:
-    each axis's resize and blur as one operator at its support (its
-    nonzero taps), in the cheaper of the two separable orders, with the
-    gray mix folded into the horizontal pass.  K1's band and chunk
-    padding is not counted."""
-    nv = np.count_nonzero(fp._axis_operator(H, HOUT, "lanczos", SIGMA))
-    nw = np.count_nonzero(fp._axis_operator(W, WOUT, "lanczos", SIGMA))
-    w_first = N * H * nw * C + N * WOUT * nv
-    h_first = N * nv * W * C + N * HOUT * nw * C
+def k1_flops(Mv: np.ndarray, Mw: np.ndarray, n: int, c: int,
+             cout: int) -> int:
+    """The multiply-adds of a separable map of n images of c channels to
+    cout, two operations each: each axis's operator (Mv (Hout, Hin), Mw
+    (Wout, Win)) at its support (its nonzero taps), in the cheaper of the
+    two separable orders, with the channel mix folded into the horizontal
+    pass.  K1's band and window padding is not counted."""
+    nv, nw = np.count_nonzero(Mv), np.count_nonzero(Mw)
+    (hout, hin), (wout, win) = Mv.shape, Mw.shape
+    w_first = n * hin * nw * c + n * wout * cout * nv
+    h_first = n * nv * win * c + n * hout * nw * c
     return 2 * min(w_first, h_first)
+
+
+def thumbnail_terms(h: int, w: int):
+    """Config #5's step operators on the staged layout
+    (``imagemagick_tpu/models/thumbnailer.py:110-117``): Lanczos to
+    THUMB x THUMB along H, its columns padded to the rows' %8, and along
+    W.  Returns ([(Mv, Mw)], rows, lanes) of the layout."""
+    from imagemagick_tpu_torch.ops.resize import resize_matrix
+
+    h8 = -(-h // 8) * 8
+    wcp = -(-w * 3 // 128) * 128
+    Mv = np.pad(resize_matrix(h, THUMB, "lanczos").astype(np.float64).T,
+                ((0, 0), (0, h8 - h)))
+    Mw = resize_matrix(w, THUMB, "lanczos").astype(np.float64).T
+    return [(Mv, Mw)], h8, wcp
+
+
+def thumbnail_plan(h: int, w: int):
+    """K1's plan of config #5's step, as ``fused_linear_pipeline`` makes
+    it (identity mix, TO = 64)."""
+    from imagemagick_tpu_torch.ops import fused_pipeline as fp
+
+    terms, h8, wcp = thumbnail_terms(h, w)
+    return fp.linear_plan(terms, 3, np.eye(3), 64, h8, wcp)
 
 
 def otsu_bin_f64(img: np.ndarray) -> int:
@@ -366,6 +402,51 @@ def main() -> None:
     print(f"dispatch 500x750 vs float64: {db:.2f} dB")
     require(db >= 100.0, f"dispatch {db} dB")
 
+    # -- K1 at config #5's thumbnail shape ---------------------------------
+    terms5, h8, wcp = thumbnail_terms(H, W)
+    plan5 = thumbnail_plan(H, W)
+    flat5 = rand(N5 * h8, wcp)
+    k1_ops5 = fp.plan_to_tensors(plan5.WV, plan5.GB,
+                                 fp.flat_r0(plan5.r0s, N5, h8), dev)
+
+    def k1_kernel5():
+        return fp.fused_kernel(flat5, k1_ops5, plan5.c0s, plan5.guids,
+                               plan5.ntiles)
+
+    def k1_plain5():
+        return fp._fused_plain(flat5, k1_ops5, plan5.c0s, plan5.guids,
+                               plan5.ntiles)
+
+    def thumb_entry():
+        return fp.fused_linear_pipeline(flat5, terms5, C,
+                                        in_shape=(N5, h8, W, C),
+                                        winc_pad=wcp)
+
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+    thumb = thumb_entry()
+    torch.cuda.synchronize()
+    launches5 = dict(gk.LAUNCHES)
+    require(launches5["k1"] == 1, f"config #5 launches {launches5}")
+    require(thumb.shape == (N5, THUMB, THUMB, C), f"shape {thumb.shape}")
+    plain5 = k1_plain5()
+    err = max_err(k1_kernel5(), plain5)
+    torch.cuda.synchronize()
+    print(f"k1 config #5 x {tuple(flat5.shape)} WV {plan5.WV.shape} GB "
+          f"{plan5.GB.shape}: max|d| {err:.3e}; entry launches {launches5}")
+    require(err <= K1_TOL, f"k1 config #5 max|d| {err}")
+    k1_err = max(k1_err, err)
+    TO5 = plan5.WV.shape[1]
+    want = plain5.reshape(N5, plan5.ntiles * TO5, -1)[:, :THUMB, :plan5.OUT]
+    err = max_err(thumb, want.reshape(N5, THUMB, THUMB, C))
+    ref5 = fp.reference_pipeline_f64(
+        flat5[:h8].reshape(1, h8, W, C).cpu().numpy(), THUMB, THUMB,
+        "lanczos", 0.0)
+    db5 = psnr(thumb[:1].cpu().numpy(), ref5)
+    print(f"config #5 entry vs plain: max|d| {err:.3e}; image 0 vs float64: "
+          f"{db5:.2f} dB")
+    require(err <= K1_TOL and db5 >= 100.0, f"config #5 {err} {db5} dB")
+
     # -- the main path, end to end ----------------------------------------
     def fused_route():
         return fp.fused_resize_pipeline(flat, HOUT, WOUT, "lanczos", SIGMA,
@@ -379,11 +460,13 @@ def main() -> None:
         gk.LAUNCHES[key] = 0
     fused = fused_route()
     torch.cuda.synchronize()
+    launches1f = dict(gk.LAUNCHES)
     ops = op_route()
     torch.cuda.synchronize()
     launches = dict(gk.LAUNCHES)
-    print(f"config #1 main path launches: {launches}")
-    require(launches["k1"] >= 1 and launches["k3"] >= 1,
+    print(f"config #1 main path launches: fused route {launches1f}, both "
+          f"routes {launches}")
+    require(launches1f["k1"] == 1 and launches["k3"] >= 1,
             f"launches {launches}")
     for out in (fused, ops):
         require(out.shape == (N, HOUT, WOUT, 1), f"shape {out.shape}")
@@ -414,7 +497,9 @@ def main() -> None:
           f"[{name_limit}]")
     k1_bytes = 4 * (flat.numel() + N * HOUT * WOUT + k1_ops.WV.numel() +
                     k1_ops.GB.numel())
-    k1_bound = bound(k1_bytes, k1_flops(fp))
+    k1_bound = bound(k1_bytes, k1_flops(
+        fp._axis_operator(H, HOUT, "lanczos", SIGMA),
+        fp._axis_operator(W, WOUT, "lanczos", SIGMA), N, C, 1))
     k3_bound = bound(2 * 4 * x3.numel(), 2 * 2 * len(taps15) * x3.numel())
     print(f"k1 bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), k3 bound "
           f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
@@ -422,6 +507,19 @@ def main() -> None:
           f"{mp / fused_ms * 1e3:.1f} MP/s, op route {op_ms:.4f} ms = "
           f"{mp / op_ms * 1e3:.1f} MP/s (input {mp:.3f} MP/step, median of "
           f"{RUNS}) [{name_limit}]")
+
+    k1_ms5, k1_plain_ms5, thumb_ms = median_ms(k1_kernel5, k1_plain5,
+                                                thumb_entry)
+    k1_dev5, = device_ms(k1_kernel5)
+    k1_bound5 = bound(
+        4 * (flat5.numel() + N5 * THUMB * THUMB * C + k1_ops5.WV.numel() +
+             k1_ops5.GB.numel()),
+        k1_flops(*terms5[0], N5, C, C))
+    print(f"k1 config #5 {(N5, h8, W, C)} -> {(THUMB, THUMB, C)}: kernel "
+          f"{k1_ms5:.4f} ms ({k1_dev5:.4f} device-only), plain "
+          f"{k1_plain_ms5:.4f} ms, bound {k1_bound5[0]:.4f} ms "
+          f"({k1_bound5[1]}); fused_linear_pipeline (plans each call) "
+          f"{thumb_ms:.4f} ms [{name_limit}]")
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
     batch2 = rand(N2, H2, W2, C)
@@ -641,8 +739,7 @@ def main() -> None:
 
     # -- K5 against its plain version, exact -------------------------------
     k5_err = 0.0
-    for shape in ((N3, H3, W3), (2, 77, 61), (1, 1, 50), (1, 5, 1),
-                  (3, 40, 700)):
+    for shape in ((N3, H3, W3),) + K5_SHAPES:
         x = batch3[..., 0] if shape == (N3, H3, W3) else rand(*shape)
         t = 0.3 + 0.4 * rand(shape[0])
         got = gk.fused_bilevel_morph_edge(x, t)
@@ -673,7 +770,7 @@ def main() -> None:
     launches3o = dict(gk.LAUNCHES)
     print(f"config #3 main path launches: fused route {launches3f}, op "
           f"route {launches3o}")
-    require(launches3f["k4"] >= 1 and launches3f["k5"] >= 1 and
+    require(launches3f["k4"] >= 1 and launches3f["k5"] == 1 and
             launches3o["k4"] >= 1, "config #3 launches")
     for out in (fused3, ops3):
         require(out.shape == (N3, H3, W3, 1), f"shape {out.shape}")

@@ -30,9 +30,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    # r0, x, wv, gb, kr, c0s, guids, out, nprog, ntiles, nterms, nb, TO,
-    # BAND, SPAN, WINC, OUTP, clip, stream
-    "k1_fused_pipeline": [_P] * 8 + [_I] * 10 + [_P],
+    # r0, x, wv, gb, kr, hwin, vwin, c0s, guids, out, nprog, ntiles,
+    # nterms, nb, TO, BAND, SPAN, WINC, OUTP, clip, stream
+    "k1_fused_pipeline": [_P] * 10 + [_I] * 10 + [_P],
     # x, y, taps (host), N, H, W, C, nblur, nunsharp, gain, lab, stream
     "k2_blur_unsharp": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
     # x, y, taps, N, H, W, nblur, nunsharp, gain, stream

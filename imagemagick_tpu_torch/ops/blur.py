@@ -151,10 +151,10 @@ def _separable_conv(img: torch.Tensor, k1d, virtual_pixel: str = "edge"
 
     With edge padding, an odd kernel of at most 33 taps and at most 8
     channels this is kernel K3 (one launch, both passes in shared memory);
-    otherwise two `_depthwise_conv` passes.
+    otherwise, and for an empty batch, two `_depthwise_conv` passes.
     """
     k = np.asarray(k1d, dtype=np.float32)
-    if (virtual_pixel == "edge" and len(k) % 2 == 1 and
+    if (virtual_pixel == "edge" and len(k) % 2 == 1 and img.numel() > 0 and
             1 < len(k) <= gpu_kernels.K3_MAX_TAPS and
             img.ndim in (3, 4) and img.dtype == torch.float32 and
             img.shape[-1] <= gpu_kernels.K3_MAX_CHANNELS):

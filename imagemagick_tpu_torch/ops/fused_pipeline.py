@@ -151,7 +151,10 @@ def _h_blocks(Mw: np.ndarray, C: int, mix: np.ndarray, WINC: int
 # Kernel K1 and its plain version
 # ---------------------------------------------------------------------------
 
-_LANES = 32   # output lanes per K1 block, LC in csrc/fused_pipeline.cu
+_LANES = 32        # output lanes per K1 block (LB in csrc/fused_pipeline.cu)
+_SLICE = 16        # input lanes per staged slice (KC)
+_WARP_LANES = 8    # lanes of a warp in K1's horizontal product (WL)
+_WARP_ROWS = 16    # output rows of a warp in K1's vertical product (VR)
 
 
 class K1Operands(NamedTuple):
@@ -159,26 +162,60 @@ class K1Operands(NamedTuple):
     r0: torch.Tensor    # (nprog,) int32 absolute first band row per program
     WV: torch.Tensor    # (T*ntiles, TO, BAND) float32
     GB: torch.Tensor    # (n_unique, SPAN, 128) float32
-    kr: torch.Tensor    # (n_unique, 128 // _LANES, 2) int32, see _depth_ranges
+    kr: torch.Tensor    # (n_unique, 128 // _LANES, 2) int32, _depth_ranges
+    hwin: torch.Tensor  # (n_unique, 128 // _WARP_LANES, 2) int32,
+                        # _lane_windows
+    vwin: torch.Tensor  # (T*ntiles, ceil(TO / _WARP_ROWS), 2) int32,
+                        # _row_windows
+
+
+def _windows(nz: np.ndarray, align: int) -> np.ndarray:
+    """[lo, hi) of the True entries along axis 1 of ``nz`` (n, depth,
+    groups), widened to multiples of ``align`` (depth is one); (0, 0)
+    where a group has none.  Returns (n, groups, 2) int32."""
+    depth = nz.shape[1]
+    lo = np.argmax(nz, axis=1)
+    hi = depth - np.argmax(nz[:, ::-1], axis=1)
+    out = np.stack([lo // align * align, -(-hi // align) * align], axis=-1)
+    out[~nz.any(axis=1)] = 0
+    return out.astype(np.int32)
 
 
 def _depth_ranges(GB: np.ndarray) -> np.ndarray:
     """[lo, hi) of the non-zero rows of each _LANES-lane chunk of each G
-    block, widened to multiples of 32; (0, 0) for an all-zero chunk.
+    block, widened to multiples of _SLICE; (0, 0) for an all-zero chunk.
 
     A G block spans the input lanes that any of its 128 output lanes
-    reads, so each narrower chunk reads only part of that depth (about a
-    third for config #1); K1 multiplies over this range only."""
+    reads, so each chunk reads only part of that depth (about a third for
+    config #1).  K1 stages the band and G over this range only."""
     n, span, lanes = GB.shape
-    chunks = lanes // _LANES
-    nz = np.abs(GB.reshape(n, span, chunks, _LANES)).sum(axis=3) > 0
-    out = np.zeros((n, chunks, 2), np.int32)
-    for g in range(n):
-        for q in range(chunks):
-            rows = np.nonzero(nz[g, :, q])[0]
-            if len(rows):
-                out[g, q] = (rows[0] // 32 * 32, _align(int(rows[-1]) + 1, 32))
-    return out
+    nz = (GB.reshape(n, span, lanes // _LANES, _LANES) != 0).any(axis=3)
+    return _windows(nz, _SLICE)
+
+
+def _lane_windows(GB: np.ndarray) -> np.ndarray:
+    """[lo, hi) of the non-zero rows of each _WARP_LANES-lane group of each
+    G block, widened to multiples of 4 (inside its chunk's
+    _depth_ranges); (0, 0) for an all-zero group.  A warp of K1 multiplies
+    over its group's window only: about 238 rows at config #1, of its
+    32-lane chunk's 456."""
+    n, span, lanes = GB.shape
+    nz = (GB.reshape(n, span, lanes // _WARP_LANES, _WARP_LANES) != 0
+          ).any(axis=3)
+    return _windows(nz, 4)
+
+
+def _row_windows(WV: np.ndarray) -> np.ndarray:
+    """[lo, hi) of the non-zero band columns of each _WARP_ROWS-row group
+    of each (term, row tile) block of WV, widened to multiples of 4; (0, 0)
+    for an all-zero group.  A warp of K1 folds its rows over this window
+    only: about 69 of config #1's 176 band rows."""
+    nt, TO, BAND = WV.shape
+    groups = -(-TO // _WARP_ROWS)
+    pad = np.zeros((nt, groups * _WARP_ROWS, BAND), bool)
+    pad[:, :TO] = WV != 0
+    nz = pad.reshape(nt, groups, _WARP_ROWS, BAND).any(axis=2)
+    return _windows(nz.transpose(0, 2, 1), 4)
 
 
 def _fused_plain(x: torch.Tensor, ops: K1Operands, c0s: Sequence[int],
@@ -186,8 +223,8 @@ def _fused_plain(x: torch.Tensor, ops: K1Operands, c0s: Sequence[int],
                  ) -> torch.Tensor:
     """K1's plain version: gather each program's band, two matmuls, clip.
 
-    Same operands and result as ``fused_kernel`` (the depth table is not
-    needed: the rows it skips are zero)."""
+    Same operands and result as ``fused_kernel`` (the window tables are
+    not needed: the terms they skip are zero)."""
     nprog = ops.r0.shape[0]
     _, TO, BAND = ops.WV.shape
     SPAN = ops.GB.shape[1]
@@ -221,7 +258,7 @@ def fused_kernel(x: torch.Tensor, ops: K1Operands, c0s: Sequence[int],
     guids = tuple(int(g) for g in guids)
     if not on_card(x):
         return _fused_plain(x, ops, c0s, guids, ntiles, clip)
-    r0, WV, GB, kr = ops
+    r0, WV, GB, kr, hwin, vwin = ops
     nprog = r0.shape[0]
     nt, TO, BAND = WV.shape
     n_unique, SPAN, lanes = GB.shape
@@ -231,7 +268,9 @@ def fused_kernel(x: torch.Tensor, ops: K1Operands, c0s: Sequence[int],
     for name, t, dtype in (("r0", r0, torch.int32), ("x", x, torch.float32),
                            ("WV", WV, torch.float32),
                            ("GB", GB, torch.float32),
-                           ("kr", kr, torch.int32)):
+                           ("kr", kr, torch.int32),
+                           ("hwin", hwin, torch.int32),
+                           ("vwin", vwin, torch.int32)):
         if t.device != x.device or t.dtype != dtype or \
                 not t.is_contiguous():
             raise ValueError(f"fused_kernel: {name} must be a contiguous "
@@ -243,6 +282,8 @@ def fused_kernel(x: torch.Tensor, ops: K1Operands, c0s: Sequence[int],
             SPAN % 32 or BAND % 4 or WINC % 4 or
             len(guids) != nterms * nb or
             tuple(kr.shape) != (n_unique, 128 // _LANES, 2) or
+            tuple(hwin.shape) != (n_unique, 128 // _WARP_LANES, 2) or
+            tuple(vwin.shape) != (nt, -(-TO // _WARP_ROWS), 2) or
             any(t.data_ptr() % 16 for t in (x, WV, GB)) or
             not all(0 <= g < n_unique for g in guids) or
             not all(0 <= c and c % 4 == 0 and c + SPAN <= WINC
@@ -250,7 +291,8 @@ def fused_kernel(x: torch.Tensor, ops: K1Operands, c0s: Sequence[int],
         raise ValueError(
             f"fused_kernel: operands r0 {tuple(r0.shape)}, x "
             f"{tuple(x.shape)}, WV {tuple(WV.shape)}, GB {tuple(GB.shape)}, "
-            f"kr {tuple(kr.shape)}, {nb} blocks, {len(guids)} block ids, "
+            f"kr {tuple(kr.shape)}, hwin {tuple(hwin.shape)}, vwin "
+            f"{tuple(vwin.shape)}, {nb} blocks, {len(guids)} block ids, "
             f"ntiles {ntiles}")
     out = torch.empty((nprog * TO, nb * 128), dtype=torch.float32,
                       device=x.device)
@@ -260,7 +302,8 @@ def fused_kernel(x: torch.Tensor, ops: K1Operands, c0s: Sequence[int],
     with torch.cuda.device(x.device):
         err = lib.k1_fused_pipeline(
             r0.data_ptr(), x.data_ptr(), WV.data_ptr(), GB.data_ptr(),
-            kr.data_ptr(), c0_t.data_ptr(), gid_t.data_ptr(), out.data_ptr(),
+            kr.data_ptr(), hwin.data_ptr(), vwin.data_ptr(), c0_t.data_ptr(),
+            gid_t.data_ptr(), out.data_ptr(),
             nprog, ntiles, nterms, nb, TO, BAND, SPAN, WINC, nb * 128,
             int(clip), stream_of(x))
     _build.check(err, "k1_fused_pipeline")
@@ -272,7 +315,8 @@ def plan_to_tensors(WV: np.ndarray, GB: np.ndarray, r0: np.ndarray,
                     device) -> K1Operands:
     """Planner operands (numpy, this package's or the JAX package's) as
     K1's tensors on ``device``.  ``r0`` is the flat per-program band
-    offsets (``flat_r0``); the depth table is derived from ``GB``."""
+    offsets (``flat_r0``); the window tables are derived from ``GB`` and
+    ``WV``."""
     r0 = np.asarray(r0)
     if r0.ndim != 1 or (r0.size and r0.min() < 0):
         raise ValueError(f"bad band offsets {r0!r}")
@@ -281,7 +325,9 @@ def plan_to_tensors(WV: np.ndarray, GB: np.ndarray, r0: np.ndarray,
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
     return K1Operands(put(r0, np.int32), put(WV, np.float32),
-                      put(GB, np.float32), put(_depth_ranges(GB), np.int32))
+                      put(GB, np.float32), put(_depth_ranges(GB), np.int32),
+                      put(_lane_windows(GB), np.int32),
+                      put(_row_windows(WV), np.int32))
 
 
 def flat_r0(r0s: np.ndarray, N: int, Hin: int) -> np.ndarray:
@@ -718,7 +764,8 @@ def fused_blur_unsharp_pipeline(x: torch.Tensor, sigma_blur: float,
     flat input without its shape or a channel mismatch, W*C % 128, H % 8,
     even unsharp taps or a radius of 0 or over 8, Lab with C != 3) and,
     beyond it, for a blur over 33 taps, more than 8 channels or an image
-    narrower than its blur on both axes (ROADMAP Queue 3).
+    narrower than its blur on both axes (ROADMAP.md Queue 2, "A capability
+    gap, not a rank").
     ``pipelined=True`` is the counterpart of the JAX package's
     ``IMTPU_PIPE_KERNEL``: with ``lab_roundtrip`` the function runs kernel
     K2p, and without it, as in the JAX function, K2.

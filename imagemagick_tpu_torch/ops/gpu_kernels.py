@@ -178,15 +178,15 @@ def fused_bilevel_morph_edge(img: torch.Tensor, threshold) -> torch.Tensor:
     else:
         raise ValueError("fused_bilevel_morph_edge takes (N, H, W, 1) or "
                          f"(N, H, W), got {tuple(img.shape)}")
+    if x3.numel() == 0:           # no pixel: nothing to threshold
+        return torch.empty_like(img)
     if not on_card(img):
         out = _morph_edge_reference(x3, threshold)
         return out[..., None] if img.dim() == 4 else out
-    if img.dtype != torch.float32 or x3.numel() == 0:
+    if img.dtype != torch.float32:
         raise ValueError("fused_bilevel_morph_edge takes a float32 batch, "
                          f"got {img.dtype} {tuple(img.shape)}")
     N, H, W = x3.shape
-    if N > 65535:
-        raise ValueError(f"fused_bilevel_morph_edge: {N} images")
     x3 = x3.contiguous()
     t = _thresholds(threshold, N, img.device)
     y = torch.empty_like(x3)

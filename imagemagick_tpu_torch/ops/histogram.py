@@ -30,6 +30,8 @@ def _bin_index(values: torch.Tensor, bins: int) -> torch.Tensor:
 def _histogram_fixed(values: torch.Tensor, bins: int) -> torch.Tensor:
     """Fixed-bin histogram of every value of ``values``: (bins,) float32
     counts, exact."""
+    if values.numel() == 0:
+        return torch.zeros(bins, dtype=torch.float32, device=values.device)
     if bins == 256 and values.dtype == torch.float32:
         # a channel of an image is a strided view; K4 reads dense rows
         return gpu_kernels.histogram256(

@@ -11,7 +11,8 @@ binary image by ``square:1`` run here on the op route; kernel K5
 (``gpu_kernels.fused_bilevel_morph_edge``) runs them fused.
 
 ``distance`` (the reference's raster-sweep distance transform, a row scan
-in the JAX package) waits for ROADMAP.md Queue 1 item 12.
+in the JAX package) waits for ROADMAP.md Queue 1, the
+``morphology.distance_transform`` entry.
 """
 
 from __future__ import annotations
@@ -424,7 +425,8 @@ def distance_transform(img: torch.Tensor, metric: str = "euclidean",
     """DistanceMorphology: not ported yet."""
     raise NotImplementedError(
         "morphology 'distance' (the chamfer distance transform, a row "
-        "scan) is not ported yet: ROADMAP.md Queue 1 item 12")
+        "scan) is not ported yet: ROADMAP.md Queue 1, the "
+        "'morphology.distance_transform' entry")
 
 
 # ---------------------------------------------------------------------------

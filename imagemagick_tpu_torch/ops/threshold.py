@@ -162,6 +162,8 @@ def auto_threshold_values(img: torch.Tensor, method: str = "otsu"
     inten = _intensity_image(img)[..., 0]
     lead, h, w = inten.shape[:-2], inten.shape[-2], inten.shape[-1]
     rows = inten.reshape(-1, h * w).to(torch.float32).contiguous()
+    if rows.shape[0] == 0:        # an empty batch: no image, no threshold
+        return torch.zeros(lead, dtype=torch.float32, device=img.device)
     return fn(gpu_kernels.histogram256(rows)).reshape(lead)
 
 

@@ -205,7 +205,8 @@ def test_declines_where_jax_declines(case):
 
 
 def test_port_only_limits():
-    """K2's limits, where the JAX function still runs (ROADMAP Queue 3):
+    """K2's limits, where the JAX function still runs (ROADMAP.md Queue 2,
+    "A capability gap, not a rank"):
     a blur over 33 taps, more than 8 channels."""
     wide = torch.from_numpy(_rand((1, 64, 128, 3), seed=11))
     assert len(tfp.blur_unsharp_taps(64, 128, 5.0, 1.0)[0]) == 35

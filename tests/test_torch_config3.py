@@ -199,3 +199,25 @@ def test_image_pixels_go_to_the_requested_device(monkeypatch):
         it.Image(arr)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         it.Image.from_uint8(u8)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_empty_batch_matches_jax(monkeypatch, channels):
+    """An empty batch on the card path gives what the JAX functions give:
+    an empty result of the batch's shape, and no threshold at all (the
+    JAX package takes the values inside ``auto_threshold``)."""
+    from imagemagick_tpu_torch import _build
+
+    def no_library():
+        raise AssertionError("an empty batch reached a kernel")
+
+    monkeypatch.setattr(gk, "on_card", lambda x: True)
+    monkeypatch.setattr(_build, "load", no_library)
+    x = np.zeros((0, 16, 16, channels), np.float32)
+    for jfn, tfn in ((lambda a: jth.auto_threshold(a, "otsu"),
+                      lambda a: tth.auto_threshold(a, "otsu")),
+                     (jpl.document_binarize(), tpl.document_binarize())):
+        want = np.asarray(jfn(jnp.asarray(x)))
+        got = tfn(torch.from_numpy(x)).numpy()
+        assert got.shape == want.shape and got.dtype == want.dtype
+    assert tuple(tth.auto_threshold_values(torch.from_numpy(x)).shape) == (0,)

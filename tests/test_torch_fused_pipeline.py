@@ -159,16 +159,19 @@ def test_cpu_wrapper_launches_nothing(batch):
     ((88, 128, 3, 37, 53, "mitchell", 1.3), EYE3_KEY, 16),
 ])
 def test_depth_ranges_cover_every_nonzero(shape, mix_key, TO):
-    """K1 multiplies each 32-lane chunk over its depth range only: the
-    range is 32-aligned, inside SPAN, and every row outside it is zero."""
+    """K1 stages each chunk of its output lanes over the chunk's depth
+    range only: the range is aligned to the staged slice, inside SPAN,
+    and every row outside it is zero."""
     *_, GB, c0s, SPAN, OUT, OUTP = tfp._plan(*shape, mix_key, TO)
     kr = tfp._depth_ranges(GB)
-    assert kr.shape == (GB.shape[0], 4, 2)
+    lanes, chunks = tfp._LANES, 128 // tfp._LANES
+    assert kr.shape == (GB.shape[0], chunks, 2)
     for g in range(GB.shape[0]):
-        for q in range(4):
+        for q in range(chunks):
             lo, hi = kr[g, q]
-            assert lo % 32 == 0 and hi % 32 == 0 and 0 <= lo <= hi <= SPAN
-            chunk = GB[g, :, 32 * q:32 * (q + 1)]
+            assert lo % tfp._SLICE == 0 and hi % tfp._SLICE == 0
+            assert 0 <= lo <= hi <= SPAN
+            chunk = GB[g, :, lanes * q:lanes * (q + 1)]
             assert not chunk[:lo].any() and not chunk[hi:].any()
     if shape[0] == 512:
-        assert (kr[..., 1] - kr[..., 0]).sum() < 0.4 * kr.shape[0] * 4 * SPAN
+        assert (kr[..., 1] - kr[..., 0]).sum() < 0.4 * kr.size // 2 * SPAN

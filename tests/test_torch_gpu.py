@@ -98,6 +98,8 @@ def test_k3_refuses_what_it_does_not_take(dev):
     (2, 64, 128, 3, 32, 32, 1.5, GRAY, 16),
     (3, 96, 256, 1, 40, 100, 1.0, None, 128),
     (1, 200, 384, 3, 57, 77, 2.5, None, 64),
+    # a wide kernel on narrow outputs: lane windows that overlap most
+    (2, 64, 512, 1, 24, 200, 2.5, None, 32),
 ])
 def test_k1_matches_plain(dev, N, H, W, C, Hout, Wout, sigma, mix, TO):
     x = _rand((N, H, W, C), seed=1)
@@ -121,6 +123,30 @@ def test_k1_two_terms_matches_plain(dev):
     got = fp.fused_linear_pipeline(torch.from_numpy(x).to(dev), terms, 1,
                                    TO=32)
     ref = fp.fused_linear_pipeline(torch.from_numpy(x), terms, 1, TO=32)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("N,h,w,wcp", [(2, 512, 768, 2304),
+                                       (1, 500, 100, 512)])
+def test_k1_thumbnail_matches_plain(dev, N, h, w, wcp):
+    """Config #5's step (Lanczos to 256x256x3, identity mix) on the staged
+    layout, whose rows may carry zero lanes past w * 3 (winc_pad)."""
+    from imagemagick_tpu_torch.ops.resize import resize_matrix
+
+    h8 = -(-h // 8) * 8
+    Mv = np.pad(resize_matrix(h, 256, "lanczos").astype(np.float64).T,
+                ((0, 0), (0, h8 - h)))
+    Mw = resize_matrix(w, 256, "lanczos").astype(np.float64).T
+    x = _rand((N * h8, wcp), seed=5)
+    x[:, w * 3:] = 0.0
+    before = gk.LAUNCHES["k1"]
+    got = fp.fused_linear_pipeline(torch.from_numpy(x).to(dev), [(Mv, Mw)],
+                                   3, in_shape=(N, h8, w, 3), winc_pad=wcp)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k1"] == before + 1
+    ref = fp.fused_linear_pipeline(torch.from_numpy(x), [(Mv, Mw)], 3,
+                                   in_shape=(N, h8, w, 3), winc_pad=wcp)
+    assert got.shape == (N, 256, 256, 3)
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=2e-5)
 
 
@@ -370,6 +396,11 @@ def test_channel_histogram_on_card(dev, channels):
 @pytest.mark.parametrize("shape", [
     (2, 77, 61), (1, 1, 50), (1, 5, 1), (3, 40, 700), (1, 33, 96),
     (2, 64, 128), (1, 1, 1), (4, 130, 65),
+    # a word of 32 pixels and one pixel either side of it; a row of two
+    # groups of words; images shorter than a strip's 5-row halo
+    (2, 9, 31), (2, 9, 32), (2, 9, 33), (1, 23, 1025), (2, 1, 37),
+    (2, 2, 37), (2, 3, 37), (2, 4, 37), (2, 5, 37), (2, 6, 37),
+    (2, 11, 37),
 ])
 def test_k5_matches_plain(dev, shape):
     x = _rand(shape, seed=shape[1])
@@ -541,3 +572,51 @@ def test_k6_declined_shape_takes_the_fourstep(dev):
     finally:
         fourier.set_fft_mode("auto")
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-5)
+
+
+# -- empty inputs: the empty or zero result, no launch -----------------------
+
+def _empty_cases(device):
+    from imagemagick_tpu_torch.models import pipelines
+    from imagemagick_tpu_torch.ops import blur, histogram, threshold
+
+    def z(*shape):
+        return torch.zeros(shape, device=device)
+
+    return [
+        (lambda: blur.gaussian_blur(z(0, 16, 16, 3), 0, 2.0),
+         (0, 16, 16, 3)),
+        (lambda: histogram.channel_histogram(z(0, 5, 3)), (256, 3)),
+        (lambda: gk.fused_bilevel_morph_edge(z(0, 16, 16, 1), 0.5),
+         (0, 16, 16, 1)),
+        (lambda: gk.fused_bilevel_morph_edge(z(2, 0, 16), 0.5), (2, 0, 16)),
+        (lambda: threshold.auto_threshold_values(z(0, 16, 16, 3)), (0,)),
+        (lambda: pipelines.document_binarize()(z(0, 16, 16, 1)),
+         (0, 16, 16, 1)),
+    ]
+
+
+def _check_empty(cases):
+    before = dict(gk.LAUNCHES)
+    for run, shape in cases:
+        out = run()
+        assert tuple(out.shape) == shape
+        assert not out.any()
+    assert gk.LAUNCHES == before
+
+
+def test_empty_inputs_on_card(dev):
+    _check_empty(_empty_cases(dev))
+
+
+def test_empty_inputs_reach_no_kernel(monkeypatch):
+    """The same calls with every wrapper taking its card path: none may
+    reach the kernel library."""
+    from imagemagick_tpu_torch import _build
+
+    def no_library():
+        raise AssertionError("an empty input reached a kernel")
+
+    monkeypatch.setattr(gk, "on_card", lambda x: True)
+    monkeypatch.setattr(_build, "load", no_library)
+    _check_empty(_empty_cases("cpu"))

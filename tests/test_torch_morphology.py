@@ -122,3 +122,23 @@ def test_distance_is_not_ported_yet():
 def test_unknown_method_raises():
     with pytest.raises(ValueError):
         tmo.morphology(torch.zeros((1, 4, 4, 1)), "no-such", "square:1")
+
+
+def test_roadmap_pointers_name_live_entries():
+    """The port's pointers into ROADMAP.md name entries by title, and
+    each title is still there."""
+    from pathlib import Path
+
+    from imagemagick_tpu_torch.ops import fused_pipeline as tfp
+
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md"
+               ).read_text()
+    with pytest.raises(NotImplementedError) as err:
+        tmo.distance_transform(torch.zeros((1, 4, 4, 1)))
+    assert "'morphology.distance_transform' entry" in str(err.value)
+    assert "**`morphology.distance_transform` and the `distance` method.**" \
+        in roadmap
+    assert "morphology.distance_transform" in tmo.__doc__
+    doc = " ".join(tfp.fused_blur_unsharp_pipeline.__doc__.split())
+    assert '"A capability gap, not a rank"' in doc
+    assert "**A capability gap, not a rank.**" in roadmap
