@@ -17,7 +17,7 @@ routes:
   .gaussian_blur().unsharp_mask().transform_colorspace()`` twice, runs K3
   for both of its blurs; the pipelined fused route, the same call with
   ``pipelined=True``, runs kernel K2p (``csrc/blur_unsharp_pipe.cu``), K2's
-  function in a warp-specialised schedule on a persistent grid.
+  passes in a warp-specialised schedule on a persistent grid.
 * config #3 — a batch of 16 letter pages of 1056x816x1 -> -auto-threshold
   otsu -> -morphology open square:1 -> -morphology close square:1 ->
   -edge 1.  Both routes take the per-image Otsu values from one launch of
@@ -36,7 +36,10 @@ routes:
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
 and at shapes that do not fill a tile (K2 also at 1 + 1 and 33 + 17 taps,
-on 32- and 16-tiles), and K2p to K2 on every value.  Each
+on 32- and 16-tiles; K4 also at rows that do not start on a 16-byte
+boundary, one row of 2^24 + 5 values, 1024 short rows, a 90 %-white and
+a near-white page, and to one CUDA kernel a call by ``torch.profiler``),
+and K2p to K2 on every value at six shapes.  Each
 main path runs with every launch count set to 0 just before it and read
 just after.  It checks the
 fused routes of configs #1 and #2 against a float64 reference (>= 100 dB)
@@ -53,7 +56,8 @@ version and each route end to end with CUDA events: per call
 of 25 after a warm-up, so host work and launch latency are included) and,
 for each kernel and its library call, device-only (``device_ms``: one
 event pair around 20 back-to-back calls, over 20, median of 5); K3 also
-at config #2's two op-route shapes.  It computes each kernel's bound: the
+at config #2's two op-route shapes; K4, whose wrapper's host work is
+longer than its kernel, also on the profiler's clock (``kernel_ms``).  It computes each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, the H100 SXM's published peaks.
 
@@ -285,6 +289,52 @@ def median_ms(*fns):
             end.synchronize()
             times[i].append(start.elapsed_time(end))
     return [statistics.median(t) for t in times]
+
+
+def cuda_events(fn, calls: int) -> list:
+    """(name, ms) of every CUDA kernel, memset and copy that ``calls``
+    calls of ``fn`` run on the card (after a warm-up call), from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def full_capture(fn, name: str, calls: int, tries: int = 5) -> list:
+    """``cuda_events`` of a capture that holds all ``calls`` launches of
+    the kernel whose name holds ``name``: the profiler's buffers drop an
+    event now and then, which can hide a launch but never add one, so a
+    short capture is taken again."""
+    for _ in range(tries):
+        events = cuda_events(fn, calls)
+        if sum(name in n for n, _ in events) == calls:
+            return events
+    raise RuntimeError(f"chip_smoke: no full profile of {calls} {name} "
+                       f"launches in {tries} tries")
+
+
+def kernels_per_call(fn, name: str, calls: int = 5) -> tuple:
+    """The CUDA kernels, memsets and copies one call of ``fn`` runs, as
+    (their number a call, their distinct names), from a full capture of
+    ``calls`` calls of the kernel named ``name``."""
+    events = full_capture(fn, name, calls)
+    return len(events) / calls, sorted({n for n, _ in events})
+
+
+def kernel_ms(fn, name: str, calls: int = DEVICE_LAUNCHES) -> float:
+    """The mean duration (ms) of the CUDA kernel whose name holds ``name``
+    over ``calls`` calls of ``fn``, on the profiler's clock: the kernel
+    alone, without the gaps between launches that host work leaves when
+    a kernel is shorter than its wrapper's host time."""
+    ms = [t for n, t in full_capture(fn, name, calls) if name in n]
+    return sum(ms) / len(ms)
 
 
 def device_ms(*fns, launches=DEVICE_LAUNCHES):
@@ -632,37 +682,35 @@ def main() -> None:
           f"{mp2 / op2_ms * 1e3:.1f} MP/s (input {mp2:.3f} MP/step, median "
           f"of {RUNS}) [{name_limit}]")
 
-    # -- K2p against its plain version ------------------------------------
+    # -- K2p against K2 and its plain version -----------------------------
+    # config #2 (its 64 x 32 tiles, 8160 of them on the persistent grid);
     # partial tiles and fewer tiles than SMs; one tile row; a tile count
-    # that leaves a tail on the persistent grid; 33 + 17 taps, whose
-    # windows fit only 16-pixel tiles
+    # that leaves a tail on the grid; 33 + 17 taps on the generic kernel's
+    # 32 x 32 tiles.  K2p must equal K2 on every value.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k2p_err = 0.0
-    for shape, bt, ut, tile in (
-            ((N2, H2, W2, C), blur2, unsharp2, 32),
-            ((2, 37, 45, 3), blur2, unsharp2, 32),
-            ((1, 8, 128, 3), blur2, unsharp2, 32),
-            ((2, 300, 500, 3), blur2, unsharp2, 32),
+    for shape, bt, ut in (
+            ((N2, H2, W2, C), blur2, unsharp2),
+            ((2, 37, 45, 3), blur2, unsharp2),
+            ((1, 8, 128, 3), blur2, unsharp2),
+            ((2, 300, 500, 3), blur2, unsharp2),
             ((1, 40, 50, 3), gauss_taps(33, 33 / 7.0),
-             gauss_taps(17, 17 / 9.0), 16)):
+             gauss_taps(17, 17 / 9.0))):
         x = batch2 if shape == tuple(batch2.shape) else rand(*shape)
-        err = max_err(fp.blur_unsharp_pipe_kernel(x, bt, ut, GAIN),
-                      fp._blur_unsharp_pipe_plain(x, bt, ut, GAIN))
+        got = fp.blur_unsharp_pipe_kernel(x, bt, ut, GAIN)
+        k2_out = fp.blur_unsharp_kernel(x, bt, ut, GAIN, True)
+        err = max_err(got, fp._blur_unsharp_pipe_plain(x, bt, ut, GAIN))
         torch.cuda.synchronize()
-        ntiles = shape[0] * -(-shape[1] // tile) * -(-shape[2] // tile)
+        ndiff = int((got != k2_out).sum())
+        tw, th = (64, 32) if (len(bt), len(ut)) == (15, 9) else (32, 32)
+        ntiles = shape[0] * -(-shape[1] // th) * -(-shape[2] // tw)
         print(f"k2p {shape} {len(bt)} + {len(ut)} taps ({ntiles} tiles of "
-              f"{tile}, {sms} SMs): max|d| {err:.3e} (tolerance "
+              f"{tw} x {th}, {sms} SMs): {ndiff} of {got.numel()} values "
+              f"differ from k2; max|d| {err:.3e} vs plain (tolerance "
               f"{K2_LAB_TOL})")
+        require(ndiff == 0, f"k2p and k2 differ on {ndiff} values at {shape}")
         require(err <= K2_LAB_TOL, f"k2p {shape} max|d| {err}")
         k2p_err = max(k2p_err, err)
-    k2p_out = fp.blur_unsharp_pipe_kernel(batch2, blur2, unsharp2, GAIN)
-    k2_out = fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True)
-    torch.cuda.synchronize()
-    ndiff = int((k2p_out != k2_out).sum())
-    print(f"k2p vs k2 {(N2, H2, W2, C)}: max|d| "
-          f"{max_err(k2p_out, k2_out):.3e}, {ndiff} of {k2_out.numel()} "
-          "values differ")
-    require(ndiff == 0, f"k2p and k2 differ on {ndiff} values")
 
     # -- the config #2 pipelined fused route, end to end --------------------
     def pipe2_route():
@@ -695,12 +743,14 @@ def main() -> None:
         lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True),
         lambda: fp._blur_unsharp_pipe_plain(batch2, blur2, unsharp2, GAIN),
         lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, False))
-    k2p_dev, = device_ms(
-        lambda: fp.blur_unsharp_pipe_kernel(batch2, blur2, unsharp2, GAIN))
+    k2p_dev, k2_dev_again = device_ms(
+        lambda: fp.blur_unsharp_pipe_kernel(batch2, blur2, unsharp2, GAIN),
+        lambda: fp.blur_unsharp_kernel(batch2, blur2, unsharp2, GAIN, True))
     pipe2_ms, seq2_ms = median_ms(pipe2_route, fused2_route)
     print(f"k2p config #2 {(N2, H2, W2, C)} Lab: kernel {k2p_ms:.4f} ms = "
           f"{mp2 / k2p_ms * 1e3:.1f} MP/s ({k2p_dev:.4f} device-only), k2 "
-          f"{k2_lab_ms:.4f} ms, plain "
+          f"{k2_lab_ms:.4f} ms ({k2_dev_again:.4f} device-only, same call), "
+          "plain "
           f"{k2p_plain_ms:.4f} ms, bound {k2_bound[0]:.4f} ms "
           f"({k2_bound[1]}) [{name_limit}]")
     print(f"k2 without Lab {k2_nolab_ms:.4f} ms: the Lab epilogue's share "
@@ -718,6 +768,11 @@ def main() -> None:
     rows3 = batch3.reshape(N3, H3 * W3)
 
     # -- K4 against its plain version, exact -------------------------------
+    # config #3's rows (16-byte aligned); the HDRI vector (unaligned tail,
+    # out-of-range values, NaN); rows whose starts fall 4, 8 and 12 bytes
+    # past a 16-byte boundary; one row of 2^24 + 5 values (a bin count
+    # past float32's exact integers); 1024 rows shorter than a block; a
+    # 90 %-white page and a near-white one (about 16 bins)
     hdri = rand(5 * 256 * 512 + 333)
     hdri[::97] = -0.25
     hdri[1::101] = 1.75
@@ -725,17 +780,29 @@ def main() -> None:
     hdri[3::107] = -1e9
     hdri[4::109] = float("nan")
     skewed = torch.where(rand(N3, H3 * W3) < 0.9, 1.0, rows3)
+    near_white = 0.94 + 0.06 * rand(N3, H3 * W3)
+    k4_inputs = [("config #3", rows3), ("HDRI vector", hdri[None])]
+    k4_inputs += [(f"rowlen % 4 = {k}", rand(N3, H3 * W3 + k))
+                  for k in (1, 2, 3)]
+    k4_inputs += [("one long row", rand(1, 2 ** 24 + 5)),
+                  ("1024 short rows", rand(1024, 37)),
+                  ("90 % white", skewed), ("near-white", near_white)]
     k4_err = 0.0
-    for name, x in (("config #3", rows3), ("HDRI vector", hdri[None]),
-                    ("90 % white", skewed)):
+    for name, x in k4_inputs:
         got = gk.histogram256(x)
         ref = gk.histogram256_plain(x)
         torch.cuda.synchronize()
         k4_err = max(k4_err, max_err(got, ref))
         ndiff = int((got != ref).sum())
+        sums = got.double().sum(1)
         print(f"k4 {name} {tuple(x.shape)}: {ndiff} of {got.numel()} counts "
-              f"differ, total {int(got.sum())}")
-        require(ndiff == 0 and int(got.sum()) == x.numel(), f"k4 {name}")
+              f"differ, {int((ref > 0).sum(1).max())} bins a row at most")
+        require(ndiff == 0 and bool((sums == x.shape[1]).all()),
+                f"k4 {name}")
+    per_call, names = kernels_per_call(lambda: gk.histogram256(rows3),
+                                       "histogram256")
+    print(f"k4 config #3: one call runs {per_call:g} CUDA kernel(s) {names}")
+    require(per_call == 1, f"k4 runs {per_call} kernels a call: {names}")
 
     # -- K5 against its plain version, exact -------------------------------
     k5_err = 0.0
@@ -795,6 +862,13 @@ def main() -> None:
     k4_skew_ms, histc_ms = median_ms(
         lambda: gk.histogram256(skewed),
         lambda: torch.histc(rows3, 256, -0.5 / 255, 255.5 / 255))
+    k4_pages = (("uniform", rows3), ("90 % white", skewed),
+                ("near-white", near_white))
+    k4_page_dev = device_ms(*(lambda x=x: gk.histogram256(x)
+                              for _, x in k4_pages))
+    k4_page_kernel = [kernel_ms(lambda x=x: gk.histogram256(x),
+                                "histogram256")
+                      for _, x in k4_pages]
     k5_ms, k5_plain_ms = median_ms(
         lambda: gk.fused_bilevel_morph_edge(batch3, t3),
         lambda: gk._morph_edge_reference(batch3[..., 0], t3))
@@ -812,6 +886,11 @@ def main() -> None:
           f"white {k4_skew_ms:.4f} ms, torch.histc {histc_ms:.4f} ms "
           f"({histc_dev:.4f} device-only), bound {k4_bound[0]:.4f} ms "
           f"({k4_bound[1]}) [{name_limit}]")
+    for (page, _), dev_ms, ker_ms in zip(k4_pages, k4_page_dev,
+                                         k4_page_kernel):
+        print(f"k4 config #3 {page} page: {dev_ms:.4f} ms device-only, "
+              f"kernel {ker_ms:.4f} ms on the profiler's clock "
+              f"({ker_ms / k4_page_kernel[0]:.3f} x uniform) [{name_limit}]")
     print(f"k5 config #3 {(N3, H3, W3)}: kernel {k5_ms:.4f} ms ({k5_dev:.4f} "
           f"device-only), plain {k5_plain_ms:.4f} ms, bound "
           f"{k5_bound[0]:.4f} ms ({k5_bound[1]}) [{name_limit}]")
@@ -1008,7 +1087,8 @@ def main() -> None:
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,
-         "device_ms": k4_dev, "library_device_ms": histc_dev},
+         "device_ms": k4_dev, "library_device_ms": histc_dev,
+         "kernel_ms": k4_page_kernel[0]},
         {"name": "k5_morph_edge", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/morph_edge.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:147",

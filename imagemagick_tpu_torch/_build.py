@@ -35,12 +35,12 @@ _SIGNATURES = {
     "k1_fused_pipeline": [_P] * 10 + [_I] * 10 + [_P],
     # x, y, taps (host), N, H, W, C, nblur, nunsharp, gain, lab, stream
     "k2_blur_unsharp": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
-    # x, y, taps, N, H, W, nblur, nunsharp, gain, stream
+    # x, y, taps (host), N, H, W, nblur, nunsharp, gain, stream
     "k2p_blur_unsharp_pipe": [_P] * 3 + [_I] * 5 + [_F, _P],
     # x, y, taps (host), N, H, W, C, ntaps, stream
     "k3_separable_blur": [_P] * 3 + [_I] * 5 + [_P],
-    # x, counts, nrows, rowlen, stream
-    "k4_histogram256": [_P, _P, _I, ctypes.c_longlong, _P],
+    # x, counts, scratch, scratch_rows, nrows, rowlen, stream
+    "k4_histogram256": [_P] * 3 + [_I] * 3 + [_P],
     # x, thr, y, N, H, W, stream
     "k5_morph_edge": [_P] * 3 + [_I] * 3 + [_P],
     # x, spec, roots, twiddles, radices (host), P, H, W, passes, stream

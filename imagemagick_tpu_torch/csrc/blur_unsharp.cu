@@ -26,10 +26,11 @@
 // pixel come next; the first version, which loaded a tap and a datum from
 // shared memory for each FMA, was bound by those loads.
 // What the design does about it: one block per (image, TW x TH output
-// tile).  It copies the x tile with a halo of bt/2 + ut/2 pixels once into
-// shared memory with cp.async (an interior tile's rows as 16-byte chunks
-// where x's rows are 16-byte aligned, else float by float from clamped
-// coordinates), then runs four passes: the vertical blur, the horizontal
+// tile). Its passes are blur_unsharp.cuh's, which K2p runs too. It copies
+// the x tile with a halo of bt/2 + ut/2 pixels once into shared memory with
+// cp.async (an interior tile's rows as 16-byte chunks where x's rows are
+// 16-byte aligned, else float by float from clamped coordinates), then runs
+// four passes: the vertical blur, the horizontal
 // blur (z), the vertical unsharp blur, and the horizontal unsharp blur
 // with the mix, the clip and Lab.  In each pass a thread computes a run
 // of outputs along the stencil's axis from a window of values it loads
@@ -65,18 +66,18 @@
 
 #include <cuda_runtime.h>
 
-#include "lab_roundtrip.cuh"
-#include "stencil.cuh"
+#include "blur_unsharp.cuh"
 
 namespace {
 
-constexpr int MAX_BLUR_TAPS = 33;
-constexpr int MAX_UNSHARP_TAPS = 17;
-constexpr int MAX_CHANNELS = 8;
 constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may use
-constexpr int RUN = 8;  // outputs a thread computes in passes 1-3
 
-using lab::clip01;
+using bu::Args;
+using bu::Geo;
+using bu::geometry;
+using bu::MAX_BLUR_TAPS;
+using bu::MAX_CHANNELS;
+using bu::MAX_UNSHARP_TAPS;
 using lab::lab_roundtrip;
 using stencil::clampi;
 using stencil::cp_async16;
@@ -84,43 +85,49 @@ using stencil::cp_async4;
 using stencil::cp_async_wait_all;
 using stencil::for_items;
 using stencil::for_items3;
-using stencil::imax;
-using stencil::run;
 
-// Everything the kernel reads besides x, by value: the taps sit in the
-// constant bank with the other kernel arguments.
-struct Args {
-  const float* x;
-  float* y;
-  float bt[MAX_BLUR_TAPS];
-  float ut[MAX_UNSHARP_TAPS];
-  int H, W, C, nb, nu, lab;
-  int vec;  // x is 16-byte aligned and W * C % 4 == 0: so is every row
-  float gain;
-};
+// The shift sh of tile t's x window in A (see copy_window), or -1 where
+// the window is copied float by float.
+template <class T>
+__device__ __forceinline__ int window_shift(const Args& p,
+                                            const bu::Ctx<T>& k, bu::Tile t) {
+  const Geo& g = k.g;
+  const int wy0 = t.y0 - k.ru - k.rb, wx0 = t.x0 - k.ru - k.rb;
+  if (p.vec && wy0 >= 0 && wy0 + g.xh <= p.H && wx0 >= 0 &&
+      wx0 + g.xw <= p.W)
+    return (int)((wy0 * k.rowlen + (size_t)wx0 * k.C) & 3);
+  return -1;
+}
 
-// The buffers of a TW x TH tile with C channels and radii rb, ru, in
-// floats.  Buffer A holds the x window, then the z window; buffer B the
-// vertical blur, then the vertical unsharp pass, then the output tile.
-struct Geo {
-  int xw, xh;      // x window: pixels, rows
-  int zw, zh;      // z window: pixels, rows
-  int xl, zl, sl;  // floats a row: x window (and vertical blur), z window
-                   // (and vertical unsharp pass), output tile
-  int xa;          // row stride of the x window: a multiple of 4, with
-                   // room for a row shifted by up to 3 floats
-  int xp, zp, sp;  // row strides of the others: odd
-  int a, b;        // floats of A and of B
-};
-
-__host__ __device__ constexpr Geo geometry(int TW, int TH, int C, int rb,
-                                           int ru) {
-  const int xw = TW + 2 * (ru + rb), xh = TH + 2 * (ru + rb);
-  const int zw = TW + 2 * ru, zh = TH + 2 * ru;
-  const int xa = (xw * C + 6) / 4 * 4;
-  const int xp = (xw * C) | 1, zp = (zw * C) | 1, sp = (TW * C) | 1;
-  return {xw, xh, zw, zh, xw * C, zw * C, TW * C, xa, xp, zp, sp,
-          imax(xh * xa, zh * zp), imax(zh * xp, imax(TH * zp, TH * sp))};
+// Starts the copy of tile t's x window into A, the block's threads
+// sharing it: x window row i, lane l (pixel l / C) at A[sh + i * xa + l]
+// is image (clamp(wy0 + i), clamp(wx0 + l / C)).  An interior tile whose
+// rows are 16-byte aligned in step copies each row as one run of 16-byte
+// chunks, the shift sh keeping shared and device addresses equal modulo
+// 16 bytes (the chunks at the ends take up to 3 floats of the image row
+// on either side); a border tile (sh = -1) copies float by float from
+// clamped coordinates, unshifted.  The caller waits for the copies.
+template <class T>
+__device__ __forceinline__ void copy_window(const Args& p,
+                                            const bu::Ctx<T>& k, bu::Tile t,
+                                            int sh, float* A) {
+  const Geo& g = k.g;
+  const int C = k.C, H = p.H, W = p.W;
+  const int wy0 = t.y0 - k.ru - k.rb, wx0 = t.x0 - k.ru - k.rb;
+  const float* src = p.x + t.n * k.plane;
+  if (sh >= 0) {
+    const float* base = src + (wy0 * k.rowlen + (size_t)wx0 * C - sh);
+    for_items<T::NT>(g.xh, (g.xl + sh + 3) / 4, [&](int i, int q) {
+      cp_async16(A + i * g.xa + 4 * q, base + i * k.rowlen + 4 * q);
+    });
+    return;
+  }
+  for_items3<T::NT>(g.xh, g.xw, C, [&](int i, int px, int c) {
+    const int gy = clampi(wy0 + i, 0, H - 1);
+    const int gx = clampi(wx0 + px, 0, W - 1);
+    cp_async4(A + i * g.xa + px * C + c,
+              src + gy * k.rowlen + (size_t)gx * C + c);
+  });
 }
 
 // CT, NB, NU: the channels and tap counts, or 0 for those read from p at
@@ -128,124 +135,39 @@ __host__ __device__ constexpr Geo geometry(int TW, int TH, int C, int rb,
 template <int CT, int NB, int NU, int TW, int TH, int NT, int MINB>
 __global__ void __launch_bounds__(NT, MINB)
 blur_unsharp_kernel(const Args p) {
+  using T = bu::Tiling<CT, NB, NU, TW, TH, NT>;
   extern __shared__ float smem[];
-  const int C = CT ? CT : p.C;
-  const int nb = NB ? NB : p.nb, nu = NU ? NU : p.nu;
-  const int rb = nb / 2, ru = nu / 2;
-  const Geo g = geometry(TW, TH, C, rb, ru);
+  const bu::Ctx<T> k(p);
+  const Geo& g = k.g;
+  const int C = k.C, tid = threadIdx.x;
   float* const A = smem;
   float* const B = smem + g.a;
-  const int H = p.H, W = p.W;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int zy0 = y0 - ru, zx0 = x0 - ru;    // image position of z (0, 0)
-  const int wy0 = zy0 - rb, wx0 = zx0 - rb;  // image position of x (0, 0)
-  const size_t rowlen = (size_t)W * C;
-  const size_t plane = (size_t)H * rowlen;
+  const bu::Tile t{(int)blockIdx.z, (int)blockIdx.y * TH,
+                   (int)blockIdx.x * TW};
 
-  // x window row i, lane l (pixel l / C) at A[sh + i * xa + l]: image
-  // (clamp(wy0 + i), clamp(wx0 + l / C)).  An interior tile whose rows are
-  // 16-byte aligned in step copies each row as one run of 16-byte chunks,
-  // the shift sh keeping shared and device addresses equal modulo 16
-  // bytes (the chunks at the ends take up to 3 floats of the image row on
-  // either side); a border tile copies float by float from clamped
-  // coordinates.
-  int sh = 0;
-  {
-    const float* src = p.x + blockIdx.z * plane;
-    if (p.vec && wy0 >= 0 && wy0 + g.xh <= H && wx0 >= 0 &&
-        wx0 + g.xw <= W) {
-      const size_t s0 = wy0 * rowlen + (size_t)wx0 * C;
-      sh = (int)(s0 & 3);
-      const float* base = src + (s0 - sh);
-      for_items<NT>(g.xh, (g.xl + sh + 3) / 4, [&](int i, int k) {
-        cp_async16(A + i * g.xa + 4 * k, base + i * rowlen + 4 * k);
-      });
-    } else {
-      for_items3<NT>(g.xh, g.xw, C, [&](int i, int px, int c) {
-        const int gy = clampi(wy0 + i, 0, H - 1);
-        const int gx = clampi(wx0 + px, 0, W - 1);
-        cp_async4(A + i * g.xa + px * C + c,
-                  src + gy * rowlen + (size_t)gx * C + c);
-      });
-    }
-    cp_async_wait_all();
-  }
+  const int sh = window_shift(p, k, t);
+  copy_window(p, k, t, sh, A);
+  cp_async_wait_all();
+  __syncthreads();
+  bu::vertical_blur<T>(p, k, A, B, sh, tid);
+  __syncthreads();
+  bu::horizontal_blur<T>(p, k, t, A, B, tid);
+  __syncthreads();
+  bu::vertical_unsharp<T>(p, k, t, A, B, tid);
   __syncthreads();
 
-  // 1. vertical blur of every lane of the x window, z rows 0 .. zh-1 as if
-  // unclamped: run ri covers rows i0 .. i0+RUN-1 (the last run overlaps
-  // its neighbour rather than run past the window)
-  for_items<NT>((g.zh + RUN - 1) / RUN, g.xl, [&](int ri, int l) {
-    const int i0 = min(ri * RUN, g.zh - RUN);
-    const float* col = A + sh + i0 * g.xa + l;
-    float out[RUN];
-    run<RUN, NB>(p.bt, nb, [&](int q) { return col[q * g.xa]; }, out);
+  // 4. the horizontal unsharp pass, the mix and the clip, then Lab, held
+  // in registers until every thread has read B, then staged in B
+  float res[T::PER_THREAD][T::CM][T::RUN4];
+  bu::unsharp_mix<T>(p, k, A, B, res, tid);
+  if constexpr (T::CM >= 3) {
+    if (C == 3 && p.lab) {
 #pragma unroll
-    for (int r = 0; r < RUN; ++r) B[(i0 + r) * g.xp + l] = out[r];
-  });
-  __syncthreads();
-
-  // 2. horizontal blur into the z window: z row i is z of image row
-  // clamp(zy0 + i), so it reads that row's vertical blur; columns as if
-  // unclamped.  Rows fastest: a warp takes 32 rows of one column run.
-  for_items3<NT>((g.zw + RUN - 1) / RUN, C, g.zh, [&](int m, int c, int i) {
-    const int j0 = min(m * RUN, g.zw - RUN);
-    const float* row =
-        B + (clampi(zy0 + i, 0, H - 1) - zy0) * g.xp + j0 * C + c;
-    float out[RUN];
-    run<RUN, NB>(p.bt, nb, [&](int q) { return row[q * C]; }, out);
+      for (int s = 0; s < T::PER_THREAD; ++s) {
+        const int q = tid + s * NT;
+        if (T::ITEMS % NT == 0 || q < T::ITEMS) {
 #pragma unroll
-    for (int r = 0; r < RUN; ++r) A[i * g.zp + (j0 + r) * C + c] = out[r];
-  });
-  __syncthreads();
-
-  // 3. vertical unsharp pass, tile rows 0 .. TH-1 over every lane of the z
-  // window; on a tile at the left or right border, lane (j, c) reads z of
-  // column clamp(zx0 + j)
-  const bool inside_x = zx0 >= 0 && zx0 + g.zw <= W;
-  for_items3<NT>(TH / RUN, g.zw, C, [&](int ri, int j, int c) {
-    const int l = j * C + c;
-    const int ls =
-        inside_x ? l : (clampi(zx0 + j, 0, W - 1) - zx0) * C + c;
-    const float* col = A + ri * RUN * g.zp + ls;
-    float out[RUN];
-    run<RUN, NU>(p.ut, nu, [&](int q) { return col[q * g.zp]; }, out);
-#pragma unroll
-    for (int r = 0; r < RUN; ++r) B[(ri * RUN + r) * g.zp + l] = out[r];
-  });
-  __syncthreads();
-
-  // 4. horizontal unsharp pass, the mix, the clip and Lab, RUN4 pixels of
-  // all channels a thread (up to 4, fewer where the tile has fewer pixels
-  // than 4 a thread), rows fastest; held in registers until every thread
-  // has read B, then staged in B.  The channel loops unroll to CM, the
-  // most channels the kernel takes, and stop at C, so res is indexed by
-  // constants and stays in registers.
-  constexpr int CM = CT ? CT : MAX_CHANNELS;
-  constexpr int RUN4 = TW * TH >= 4 * NT ? 4 : TW * TH >= 2 * NT ? 2 : 1;
-  constexpr int ITEMS = TH * (TW / RUN4);
-  constexpr int PER_THREAD = (ITEMS + NT - 1) / NT;
-  float res[PER_THREAD][CM][RUN4];
-#pragma unroll
-  for (int s = 0; s < PER_THREAD; ++s) {
-    const int q = threadIdx.x + s * NT;
-    if (ITEMS % NT == 0 || q < ITEMS) {
-      const int i = q % TH, j0 = q / TH * RUN4;  // TH is a power of two
-#pragma unroll
-      for (int c = 0; c < CM; ++c) {
-        if (!CT && c >= C) break;
-        const float* row = B + i * g.zp + j0 * C + c;
-        float u[RUN4];
-        run<RUN4, NU>(p.ut, nu, [&](int k) { return row[k * C]; }, u);
-        const float* zc = A + (i + ru) * g.zp + (j0 + ru) * C + c;
-#pragma unroll
-        for (int r = 0; r < RUN4; ++r)
-          res[s][c][r] = clip01((1.f + p.gain) * zc[r * C] - p.gain * u[r]);
-      }
-      if constexpr (CM >= 3) {
-        if (C == 3 && p.lab) {
-#pragma unroll
-          for (int r = 0; r < RUN4; ++r)
+          for (int r = 0; r < T::RUN4; ++r)
             lab_roundtrip(res[s][0][r], res[s][1][r], res[s][2][r]);
         }
       }
@@ -253,14 +175,14 @@ blur_unsharp_kernel(const Args p) {
   }
   __syncthreads();
 #pragma unroll
-  for (int s = 0; s < PER_THREAD; ++s) {
-    const int q = threadIdx.x + s * NT;
-    if (ITEMS % NT == 0 || q < ITEMS) {
-      float* o = B + (q % TH) * g.sp + q / TH * RUN4 * C;
+  for (int s = 0; s < T::PER_THREAD; ++s) {
+    const int q = tid + s * NT;
+    if (T::ITEMS % NT == 0 || q < T::ITEMS) {
+      float* o = B + (q % TH) * g.sp + q / TH * T::RUN4 * C;
 #pragma unroll
-      for (int r = 0; r < RUN4; ++r) {
+      for (int r = 0; r < T::RUN4; ++r) {
 #pragma unroll
-        for (int c = 0; c < CM; ++c) {
+        for (int c = 0; c < T::CM; ++c) {
           if (!CT && c >= C) break;
           o[r * C + c] = res[s][c][r];
         }
@@ -270,10 +192,9 @@ blur_unsharp_kernel(const Args p) {
   __syncthreads();
 
   // the tile's rows and pixels inside the image, coalesced
-  float* dst = p.y + blockIdx.z * plane + y0 * rowlen + (size_t)x0 * C;
-  for_items<NT>(min(TH, H - y0), min(TW, W - x0) * C, [&](int i, int l) {
-    dst[i * rowlen + l] = B[i * g.sp + l];
-  });
+  float* dst = p.y + t.n * k.plane + t.y0 * k.rowlen + (size_t)t.x0 * C;
+  for_items<NT>(min(TH, p.H - t.y0), min(TW, p.W - t.x0) * C,
+                [&](int i, int l) { dst[i * k.rowlen + l] = B[i * g.sp + l]; });
 }
 
 size_t smem_bytes(int TW, int TH, int C, int nb, int nu) {

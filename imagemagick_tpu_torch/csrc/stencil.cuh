@@ -1,7 +1,8 @@
 // Helpers of the register-window stencil kernels, shared by K2
-// (blur_unsharp.cu) and K3 (separable_blur.cu): asynchronous window
-// copies, item walks with no integer division per item, and the stencil
-// run that keeps every output's chain of FMAs in one fixed order.
+// (blur_unsharp.cu), K2p (blur_unsharp_pipe.cu) and K3
+// (separable_blur.cu): asynchronous window copies, item walks with no
+// integer division per item, and the stencil run that keeps every
+// output's chain of FMAs in one fixed order.
 
 #pragma once
 
@@ -36,11 +37,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
                "memory");
 }
 
-// Calls f(a, b) for the items of an na x nb grid, b fastest, that this
-// thread takes when the block's NT threads deal them out in turn.
+// Calls f(a, b) for the items of an na x nb grid, b fastest, that thread
+// tid takes when NT threads deal them out in turn.
 template <int NT, class F>
-__device__ __forceinline__ void for_items(int na, int nb, F f) {
-  int a = 0, b = threadIdx.x;
+__device__ __forceinline__ void for_items(int tid, int na, int nb, F f) {
+  int a = 0, b = tid;
   while (b >= nb) {
     b -= nb;
     ++a;
@@ -56,13 +57,14 @@ __device__ __forceinline__ void for_items(int na, int nb, F f) {
 }
 
 // Calls f(a, b, c) for the items of an na x nb x nc grid, c fastest, that
-// this thread takes when the block's NT threads deal them out in turn.
-// The thread splits its first item and the stride NT into (b, c) steps
-// once; each item after costs adds and compares.
+// thread tid takes when NT threads deal them out in turn.  The thread
+// splits its first item and the stride NT into (b, c) steps once; each
+// item after costs adds and compares.
 template <int NT, class F>
-__device__ __forceinline__ void for_items3(int na, int nb, int nc, F f) {
+__device__ __forceinline__ void for_items3(int tid, int na, int nb, int nc,
+                                           F f) {
   const int qc = NT / nc, rc = NT - qc * nc;
-  int c = threadIdx.x % nc, b = threadIdx.x / nc, a = 0;
+  int c = tid % nc, b = tid / nc, a = 0;
   while (b >= nb) {
     b -= nb;
     ++a;
@@ -80,6 +82,18 @@ __device__ __forceinline__ void for_items3(int na, int nb, int nc, F f) {
       ++a;
     }
   }
+}
+
+// The same walks for the block's thread threadIdx.x, when all NT threads
+// of the block deal the items out.
+template <int NT, class F>
+__device__ __forceinline__ void for_items(int na, int nb, F f) {
+  for_items<NT>((int)threadIdx.x, na, nb, f);
+}
+
+template <int NT, class F>
+__device__ __forceinline__ void for_items3(int na, int nb, int nc, F f) {
+  for_items3<NT>((int)threadIdx.x, na, nb, nc, f);
 }
 
 // R outputs of a stencil along a window that load(q) reads:

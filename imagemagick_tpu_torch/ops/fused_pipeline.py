@@ -734,7 +734,8 @@ def blur_unsharp_pipe_kernel(x: torch.Tensor, blur_taps: Sequence[float],
         raise ValueError(f"blur_unsharp_pipe_kernel: {len(bt)} blur and "
                          f"{len(ut)} unsharp taps on {tuple(x.shape)}")
     y = torch.empty_like(x)
-    taps = constant_on(bt + ut, torch.float32, x.device)
+    # on the host: the C entry copies them into the kernel's arguments
+    taps = constant_on(bt + ut, torch.float32, torch.device("cpu"))
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.k2p_blur_unsharp_pipe(x.data_ptr(), y.data_ptr(),

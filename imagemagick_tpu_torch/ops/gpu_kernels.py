@@ -114,9 +114,25 @@ def histogram256_plain(x: torch.Tensor) -> torch.Tensor:
     return _histogram_fixed_batched(_bin_index(x, 256), 256)
 
 
+# K4's scratch: the int32 accumulators of up to this many rows, then their
+# tickets; a row is shared by several blocks only when there are fewer
+# rows than half the card's SMs x 4 (264 on an H100)
+K4_SCRATCH_ROWS = 2048
+
+
+@lru_cache(maxsize=16)
+def _k4_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """K4's zeroed scratch for one stream of one device, made once: the
+    kernel leaves it zero, so calls on one stream, which run in turn,
+    share it."""
+    return torch.zeros(K4_SCRATCH_ROWS * 257, dtype=torch.int32,
+                       device=device)
+
+
 def histogram256(x: torch.Tensor) -> torch.Tensor:
     """K4: one 256-bin histogram of each row of an (R, L) float32 tensor,
-    as (R, 256) float32 counts (exact: the kernel counts in int32)."""
+    as (R, 256) float32 counts (exact: the kernel counts in int32), in one
+    launch."""
     if not on_card(x):
         return histogram256_plain(x)
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -125,14 +141,17 @@ def histogram256(x: torch.Tensor) -> torch.Tensor:
     rows, rowlen = x.shape
     if rows < 1 or rowlen < 1 or rowlen >= 2 ** 31:
         raise ValueError(f"histogram256: shape {tuple(x.shape)}")
-    counts = torch.zeros((rows, 256), dtype=torch.int32, device=x.device)
+    counts = torch.empty((rows, 256), dtype=torch.float32, device=x.device)
+    stream = stream_of(x)
+    scratch = _k4_scratch(x.device, stream)
     lib = _build.load()
     with torch.cuda.device(x.device):
-        err = lib.k4_histogram256(x.data_ptr(), counts.data_ptr(), rows,
-                                  rowlen, stream_of(x))
+        err = lib.k4_histogram256(x.data_ptr(), counts.data_ptr(),
+                                  scratch.data_ptr(), K4_SCRATCH_ROWS, rows,
+                                  rowlen, stream)
     _build.check(err, "k4_histogram256")
     LAUNCHES["k4"] += 1
-    return counts.to(torch.float32)
+    return counts
 
 
 def _thresholds(threshold, n: int, device: torch.device) -> torch.Tensor:

@@ -9,7 +9,8 @@ sums up to 33 + 17 taps in another order (2e-5), and with Lab its powf and
 cbrtf stand against torch.pow (5e-5); K2p computes K2's values in K2's
 order, so it is held to its plain version at K2's Lab tolerance and to K2
 for equality.  K4 counts and K5's 0/1 outputs are
-exact: both are held to equality.  K6a and K6b sum radix butterflies (or
+exact: both are held to equality (K4 also to one CUDA kernel a call, by
+``torch.profiler``).  K6a and K6b sum radix butterflies (or
 a p-term sum for a prime factor above 7) in another order than their
 plain versions, with FMAs: their spectra within 1e-5 of max|F|; K6c's
 [0, 1] output within 1e-5, also against a float64 inverse of a spectrum
@@ -353,10 +354,17 @@ def _hdri(n, seed):
 @pytest.mark.parametrize("rows,rowlen,skew", [
     (1, 5 * 256 * 512 + 333, False), (16, 20_000, False), (3, 1, False),
     (5, 70_001, True), (300, 257, True),
+    # rows whose starts fall 4, 8 and 12 bytes past a 16-byte boundary;
+    # rows shorter than a block; near-white pages (about 16 bins)
+    (16, 20_001, False), (16, 20_002, False), (16, 20_003, True),
+    (1024, 37, False), (2, 3, False), (1, 2 ** 24 + 5, False),
+    (7, 30_001, "near"), (16, 4096, "near"),
 ])
 def test_k4_matches_plain(dev, rows, rowlen, skew):
     x = _hdri(rows * rowlen, seed=rows).reshape(rows, rowlen)
-    if skew:                                   # a mostly white page
+    if skew == "near":
+        x = 0.94 + 0.06 * _rand(x.shape, seed=8)
+    elif skew:                                 # a mostly white page
         x[_rand(x.shape, seed=7) < 0.9] = 1.0
     before = gk.LAUNCHES["k4"]
     got = gk.histogram256(torch.from_numpy(x).to(dev))
@@ -364,7 +372,31 @@ def test_k4_matches_plain(dev, rows, rowlen, skew):
     assert gk.LAUNCHES["k4"] == before + 1
     ref = gk.histogram256(torch.from_numpy(x))          # plain, CPU
     np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
-    assert got.sum().item() == rows * rowlen
+    assert got.double().sum().item() == rows * rowlen
+
+
+def test_k4_is_one_kernel_per_call(dev):
+    """The kernel writes the float32 counts itself: one call runs one CUDA
+    kernel (no memset, no conversion), on a row shared by many blocks and
+    on rows of one block each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for shape in ((16, 861696), (1000, 37)):
+        x = torch.from_numpy(_rand(shape, seed=9)).to(dev)
+        gk.histogram256(x)                       # the scratch, made once
+        torch.cuda.synchronize()
+        # the profiler drops an event now and then (never adds one): take
+        # a capture that holds all five launches
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    gk.histogram256(x)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if sum("histogram256" in n for n in names) == 5:
+                break
+        assert len(names) == 5, names
 
 
 def test_k4_refuses_what_it_does_not_take(dev):
