@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Drives four BASELINE pipelines, each once through the port's two user
-routes:
+routes, and the port's three product surfaces (the thumbnailer, the CLI
+and the serve daemon):
 
 * config #1 — a batch of 32 NHWC float32 images of 512x768x3 -> Lanczos
   resize to 256x256 -> Gaussian blur sigma=2 -> sRGB->Gray.  The fused
@@ -32,6 +33,24 @@ routes:
   radix FFTs along W, down strips of columns, and along W again);
   the op route, the same pipeline under ``fourier.set_fft_mode("fft")``,
   runs ``torch.fft.rfft2`` -> mask -> ``irfft2``.
+* config #5, the thumbnailer — ``models.thumbnailer.run`` over 64 JPEGs
+  of 512x768 (quality 90, pixels from ``--seed``), batches of 16: each is
+  decoded at 1/2 by the DCT-scaled decode into 256 rows of 1152 u8 lanes,
+  uploaded, and resized to 256x256x3 by one K1 launch, then encoded.  The
+  codec is the port's native one where it builds, else PIL's (the JAX
+  function's fallback); the script says which.  Exactly 4 K1 launches in
+  the timed run; the step's u8 output within 2 levels of the plain step's
+  on the same staged bytes; every thumbnail decoded.
+* config1_cli — 32 images of 512x768x3 on the card through the CLI's
+  ``process(["-resize", "256x256!", "-gaussian-blur", "0x2",
+  "-colorspace", "gray"])`` and ``materialize_all``: one K1 launch, no
+  K3, >= 100 dB against float64, and the per-image marginal between 8 and
+  32 images; then a chain that dispatch declines (8 images of 40x30x3) on
+  K3 alone, against the same chain on the CPU.
+* config1_serve — ``serve.make_server(port=0)`` on loopback: a session of
+  64 u8 images of 512x768x3, the same chain applied with one K1 launch a
+  request on the ``fused-batch`` path, alone and from 8 clients at once,
+  and the fetched result within 1 level of the fused route's.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -110,6 +129,23 @@ K5_SHAPES = ((2, 77, 61), (1, 1, 50), (1, 5, 1), (3, 40, 700), (2, 9, 31),
 # -> Lanczos to 256x256x3, no blur, identity mix
 N5 = 16
 THUMB = 256
+# config #5 end to end (benchmarks.py:549-606): 64 JPEGs of 512x768,
+# quality 90, in batches of 16; the DCT-scaled decode stages each at 1/2
+# (384x256x3: 256 rows of 1152 lanes)
+CORPUS5 = 64
+STAGED5 = (256, 1152)
+THUMB_LEVELS = 2    # u8 levels between the card's step and the plain step
+# config1_cli (benchmarks.py:168-219) and config1_serve (:222-)
+CLI_ARGV = ["-resize", "256x256!", "-gaussian-blur", "0x2", "-colorspace",
+            "gray"]
+CLI_N1, CLI_N2 = 8, 32
+CLI_SMALL = (8, 40, 30, 3)   # W * C < 128: dispatch declines the chain
+CLI_OP_TOL = 2e-5   # the op chain on the card against the same chain on
+                    # the CPU: float32 resize products and K3's sums in
+                    # another order
+SERVE_N = 64
+SERVE_APPLIES = 5
+SERVE_CLIENTS, SERVE_ROUNDS = 8, 3
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -360,6 +396,326 @@ def device_ms(*fns, launches=DEVICE_LAUNCHES):
     return [statistics.median(t) for t in times]
 
 
+def reset_launches() -> None:
+    from imagemagick_tpu_torch.ops import gpu_kernels as gk
+
+    for key in gk.LAUNCHES:
+        gk.LAUNCHES[key] = 0
+
+
+def launched() -> dict:
+    from imagemagick_tpu_torch.ops import gpu_kernels as gk
+
+    return dict(gk.LAUNCHES)
+
+
+def jpeg_codec():
+    """(encode, decode, what) of the JPEG codec that config #5 runs here:
+    the port's native one where it builds, else PIL's, which
+    ``models/thumbnailer.py`` falls back to."""
+    from imagemagick_tpu_torch import native
+
+    if native.available():
+        return (lambda a: native.encode_jpeg(a, 90), native.decode_jpeg,
+                "the port's native codec (native/miniio.cpp)")
+    import io
+
+    import PIL
+    from PIL import Image as PImage
+
+    def encode(a):
+        buf = io.BytesIO()
+        PImage.fromarray(a).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    reason = (native.build_error() or "no error text").splitlines()[0]
+    return (encode, lambda b: np.asarray(PImage.open(io.BytesIO(b))),
+            f"PIL {PIL.__version__}: the native codec did not build here "
+            f"({reason})")
+
+
+def config5_end_to_end(seed: int, dev, gen, name_limit: str,
+                       k1_dev_full: float) -> dict:
+    """Config #5 through ``thumbnailer.run``: a corpus of CORPUS5 JPEGs of
+    512x768 (pixels from ``seed``), one warm run over it twice, then one
+    timed run with the launch counts set to 0 just before it."""
+    import os
+    import tempfile
+
+    from imagemagick_tpu_torch.models import thumbnailer as tn
+    from imagemagick_tpu_torch.ops import fused_pipeline as fp
+
+    encode, decode, codec = jpeg_codec()
+    print(f"config #5 codec: {codec}")
+    rng = np.random.default_rng(seed)
+    cfg = tn.ThumbnailerConfig(stage_width=W, stage_height=H, batch_size=N5)
+    with tempfile.TemporaryDirectory() as td:
+        paths = []
+        for i in range(CORPUS5):
+            arr = (rng.uniform(0, 1, (H, W, C)) * 255).astype(np.uint8)
+            paths.append(os.path.join(td, f"in_{i:04d}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(encode(arr))
+        tn.run(paths * 2, os.path.join(td, "warm"), cfg)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = tn.run(paths, os.path.join(td, "out"), cfg)
+        wall = time.perf_counter() - t0
+        launches = launched()
+        print(f"config #5 run() launches {launches}; stats {stats}")
+        require(launches["k1"] == CORPUS5 // N5 and
+                sum(launches.values()) == launches["k1"],
+                f"config #5 launches {launches}")
+        require(stats["images"] == CORPUS5 and stats["size_groups"] == 1,
+                f"config #5 stats {stats}")
+        require(stats["staged_MB"] == round(
+            CORPUS5 * STAGED5[0] * STAGED5[1] / 1e6, 2),
+            f"staged {stats['staged_MB']} MB")
+        # the step's u8 output on the bytes run() staged, on the card and
+        # by the plain step on the CPU
+        flats = []
+        for p in paths:
+            with open(p, "rb") as f:
+                flat, (w5, h5) = tn._decode_flat(f.read(), W, H, THUMB,
+                                                 THUMB)
+            require(flat.shape == STAGED5, f"staged {flat.shape}")
+            flats.append(flat)
+        staged = torch.from_numpy(np.stack(flats))
+        step = tn.make_flat_step(cfg, h5, w5, device=dev)
+        plain = tn.make_flat_step(cfg, h5, w5, device="cpu")
+        got = torch.cat([step(staged[i:i + N5]).cpu()
+                         for i in range(0, CORPUS5, N5)]).numpy()
+        want = torch.cat([plain(staged[i:i + N5])
+                          for i in range(0, CORPUS5, N5)]).numpy()
+        levels = int(np.abs(got.astype(int) - want).max())
+        require(got.shape == (CORPUS5, THUMB, THUMB, C) and
+                levels <= THUMB_LEVELS, f"config #5 step {levels} levels")
+        # every thumbnail decodes to its own image's step output: JPEG at
+        # quality 87 keeps little of a noise image's detail, but more of
+        # its own than any other image shares with it
+        own, other = [], []
+        for i, p in enumerate(paths):
+            name = os.path.splitext(os.path.basename(p))[0] + ".jpg"
+            with open(os.path.join(td, "out", name), "rb") as f:
+                thumb = decode(f.read())
+            require(thumb.shape == (THUMB, THUMB, C), f"thumb {thumb.shape}")
+            own.append(psnr(thumb / 255.0, got[i] / 255.0))
+            other.append(psnr(thumb / 255.0, got[(i + 1) % CORPUS5] / 255.0))
+    print(f"config #5 step vs plain step: {levels} u8 levels at most "
+          f"({CORPUS5} images, staged {STAGED5}); thumbnails against their "
+          f"own step output {min(own):.2f}-{max(own):.2f} dB, against the "
+          f"next image's {min(other):.2f}-{max(other):.2f} dB")
+    require(min(own) >= max(other) + 2.0, "a thumbnail is not its image's")
+
+    # K1 at the step's real shape: N5 x 256 rows x 1152 lanes -> 256x256x3
+    terms, h8, wcp = thumbnail_terms(h5, w5)
+    plan = fp.linear_plan(terms, C, np.eye(C), 64, h8, wcp)
+    ops = fp.plan_to_tensors(plan.WV, plan.GB, fp.flat_r0(plan.r0s, N5, h8),
+                             dev)
+    x = (staged[:N5].to(dev).to(torch.float32) / 255.0).reshape(
+        N5 * h8, wcp)
+
+    def kernel():
+        return fp.fused_kernel(x, ops, plan.c0s, plan.guids, plan.ntiles)
+
+    def plain_k1():
+        return fp._fused_plain(x, ops, plan.c0s, plan.guids, plan.ntiles)
+
+    err = max_err(kernel(), plain_k1())
+    torch.cuda.synchronize()
+    require(err <= K1_TOL, f"k1 config #5 staged max|d| {err}")
+    k1_ms, k1_plain_ms = median_ms(kernel, plain_k1)
+    k1_dev, = device_ms(kernel)
+    k1_bound = bound(4 * (x.numel() + N5 * THUMB * THUMB * C +
+                          ops.WV.numel() + ops.GB.numel()),
+                     k1_flops(*terms[0], N5, C, C))
+    mp_src = CORPUS5 * H * W / 1e6
+    print(f"k1 config #5 staged {(N5, h8, wcp)} -> {(THUMB, THUMB, C)}: "
+          f"max|d| {err:.3e}, kernel {k1_ms:.4f} ms ({k1_dev:.4f} "
+          f"device-only; {k1_dev_full:.4f} at the full-size 512x768 "
+          f"shape), plain {k1_plain_ms:.4f} ms, bound {k1_bound[0]:.4f} ms "
+          f"({k1_bound[1]}) [{name_limit}]")
+    print(f"config #5 end to end (run(), {CORPUS5} JPEGs of {H}x{W}): "
+          f"{wall:.4f} s = {CORPUS5 / wall:.2f} images/s, "
+          f"{mp_src / wall:.2f} source MP/s ({stats['megapixels_per_sec']} "
+          f"decoded MP/s), overlap_efficiency "
+          f"{stats['overlap_efficiency']}, device_drain_wait_s "
+          f"{stats['device_drain_wait_s']}, staged_MB {stats['staged_MB']} "
+          f"[{name_limit}]")
+    return {"k1": launches["k1"], "k1_err": err}
+
+
+def cli_phase(dev, gen, name_limit: str) -> dict:
+    """config1_cli: CLI_N2 images of 512x768x3 on the card through
+    ``process`` and ``materialize_all`` (one K1 launch), its per-image
+    marginal between CLI_N1 and CLI_N2 images, and a chain that dispatch
+    declines (K3 on the op route)."""
+    import timeit
+
+    from imagemagick_tpu_torch import cli
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.ops import dispatch
+    from imagemagick_tpu_torch.ops import fused_pipeline as fp
+
+    def run(datas):
+        st = cli.CLIState()
+        for d in datas:
+            st.images.append(cli.LazyImage(
+                Image(d, ImageSpec(colorspace="srgb"))))
+        cli.process(list(CLI_ARGV), st)
+        outs = cli.materialize_all(st.images)
+        if datas[0].is_cuda:
+            torch.cuda.synchronize()
+        return outs
+
+    datas = list(torch.rand((CLI_N2, H, W, C), generator=gen, device=dev))
+    counts = dict(dispatch.COUNTS)
+    reset_launches()
+    outs = run(datas)
+    launches = launched()
+    print(f"config1_cli launches {launches}, dispatch counts "
+          f"{dispatch.COUNTS} (before {counts})")
+    require(launches["k1"] == 1 and launches["k3"] == 0 and
+            dispatch.COUNTS["fused"] == counts["fused"] + 1 and
+            dispatch.COUNTS["op"] == counts["op"],
+            f"config1_cli launches {launches}")
+    out = torch.stack([o.data for o in outs])
+    require(out.shape == (CLI_N2, HOUT, WOUT, 1) and
+            all(o.spec.colorspace == "gray" for o in outs) and
+            bool(torch.isfinite(out).all()), f"config1_cli {out.shape}")
+    ref = fp.reference_pipeline_f64(torch.stack(datas[:4]).cpu().numpy(),
+                                    HOUT, WOUT, "lanczos", SIGMA, GRAY)
+    db = psnr(out[:4].cpu().numpy(), ref)
+    print(f"config1_cli vs float64 (4 images): {db:.2f} dB")
+    require(db >= 100.0, f"config1_cli {db} dB")
+
+    margs = []
+    for _ in range(5):
+        t1 = min(timeit.repeat(lambda: run(datas[:CLI_N1]), number=1,
+                               repeat=3))
+        t2 = min(timeit.repeat(lambda: run(datas), number=1, repeat=3))
+        margs.append(max((t2 - t1) / (CLI_N2 - CLI_N1), 1e-9))
+    per_img = statistics.median(margs)
+    print(f"config1_cli marginal ({CLI_N2}-{CLI_N1} images, median of 5): "
+          f"{per_img * 1e3:.4f} ms/image = "
+          f"{H * W / 1e6 / per_img:.1f} MP/s; rounds "
+          f"{[round(m * 1e3, 4) for m in margs]} ms [{name_limit}]")
+
+    small = torch.rand(CLI_SMALL, generator=gen, device=dev)
+    counts = dict(dispatch.COUNTS)
+    reset_launches()
+    got = torch.stack([o.data for o in run(list(small))])
+    small_launches = launched()
+    print(f"config1_cli declined chain {CLI_SMALL}: launches "
+          f"{small_launches}, dispatch counts {dispatch.COUNTS}")
+    require(small_launches["k3"] >= 1 and small_launches["k1"] == 0 and
+            dispatch.COUNTS["op"] == counts["op"] + 1 and
+            dispatch.COUNTS["fused"] == counts["fused"],
+            f"declined chain launches {small_launches}")
+    want = torch.stack([o.data for o in run(list(small.cpu()))])
+    err = max_err(got.cpu(), want)
+    print(f"config1_cli declined chain vs the CPU's: max|d| {err:.3e}")
+    require(err <= CLI_OP_TOL, f"declined chain max|d| {err}")
+    return {"k1": launches["k1"], "k3": small_launches["k3"]}
+
+
+def serve_phase(seed: int, dev, name_limit: str) -> dict:
+    """config1_serve: a session of SERVE_N u8 images of 512x768x3 on the
+    card behind ``make_server`` on loopback, the chain applied with
+    keep=1 (one warm-up, SERVE_APPLIES timed, then SERVE_CLIENTS clients
+    at once for SERVE_ROUNDS rounds), once more with keep=0, and the
+    result fetched."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from http.client import HTTPConnection
+    from urllib.parse import quote
+
+    from imagemagick_tpu_torch import serve
+    from imagemagick_tpu_torch.ops import fused_pipeline as fp
+
+    srv = serve.make_server(port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+
+    def call(method, path, body=None, headers=None) -> bytes:
+        conn = HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request(method, path, body=body, headers=headers or {})
+            resp = conn.getresponse()
+            out = resp.read()
+        finally:
+            conn.close()
+        require(resp.status == 200, f"{method} {path}: {resp.status} "
+                f"{out[:300]!r}")
+        return out
+
+    args = quote(" ".join(CLI_ARGV))
+    k1 = 0
+
+    def apply(keep: int) -> float:
+        nonlocal k1
+        reset_launches()
+        t0 = time.perf_counter()
+        info = json.loads(call("POST",
+                               f"/session/s1/apply?keep={keep}&args={args}"))
+        wall = time.perf_counter() - t0
+        launches = launched()
+        require(info["path"] == "fused-batch" and launches["k1"] == 1 and
+                sum(launches.values()) == 1,
+                f"config1_serve apply {info} launches {launches}")
+        k1 += launches["k1"]
+        return wall
+
+    try:
+        pixels = (np.random.default_rng(seed + 1).random(
+            (SERVE_N, H, W, C)) * 255).astype(np.uint8)
+        info = json.loads(call("POST", "/session/s1", pixels.tobytes(),
+                               {"X-Shape": f"{SERVE_N},{H},{W},{C}",
+                                "X-Dtype": "u8"}))
+        require(info["platform"] == "cuda", f"session {info}")
+        apply(1)                              # tags, plan, operands
+        walls = [apply(1) for _ in range(SERVE_APPLIES)]
+        # SERVE_CLIENTS clients at once, as benchmarks.py:285-300 runs
+        # them: requests overlap their host work with the card's
+        with ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+            list(ex.map(lambda _: call(
+                "POST", f"/session/s1/apply?keep=1&args={args}"),
+                range(SERVE_CLIENTS)))
+            t0 = time.perf_counter()
+            list(ex.map(lambda _: call(
+                "POST", f"/session/s1/apply?keep=1&args={args}"),
+                range(SERVE_CLIENTS * SERVE_ROUNDS)))
+            together = time.perf_counter() - t0
+        apply(0)
+        got = np.frombuffer(call("GET", "/session/s1"), np.uint8)
+        x = torch.from_numpy(pixels).to(dev).to(torch.float32) / 255.0
+        want = serve.clip_u8(fp.fused_resize_pipeline(
+            x, HOUT, WOUT, "lanczos", SIGMA, GRAY)).cpu().numpy()
+        levels = int(np.abs(got.reshape(want.shape).astype(int) -
+                            want).max())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    require(levels <= 1, f"config1_serve result {levels} levels off")
+    per = statistics.median(walls)
+    mp = SERVE_N * H * W / 1e6
+    print(f"config1_serve: session of {SERVE_N}x{H}x{W}x{C}, result within "
+          f"{levels} u8 levels of the fused route; request wall (HTTP + "
+          f"options + one K1 launch + sync) median of {SERVE_APPLIES} "
+          f"{per * 1e3:.4f} ms = {mp / per:.1f} MP/s; walls "
+          f"{[round(t * 1e3, 4) for t in walls]} ms [{name_limit}]")
+    n_req = SERVE_CLIENTS * SERVE_ROUNDS
+    print(f"config1_serve, {SERVE_CLIENTS} clients at once: {n_req} "
+          f"requests in {together * 1e3:.4f} ms = "
+          f"{together / n_req * 1e3:.4f} ms a request, "
+          f"{n_req * mp / together:.1f} MP/s [{name_limit}]")
+    return {"k1": k1}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -570,6 +926,13 @@ def main() -> None:
           f"{k1_plain_ms5:.4f} ms, bound {k1_bound5[0]:.4f} ms "
           f"({k1_bound5[1]}); fused_linear_pipeline (plans each call) "
           f"{thumb_ms:.4f} ms [{name_limit}]")
+
+    # == config #5 end to end, config1_cli, config1_serve ===================
+    # each main path with every launch count set to 0 just before it
+    new5 = config5_end_to_end(args.seed, dev, gen, name_limit, k1_dev5)
+    cli1 = cli_phase(dev, gen, name_limit)
+    serve1 = serve_phase(args.seed, dev, name_limit)
+    k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
     batch2 = rand(N2, H2, W2, C)
@@ -1054,7 +1417,9 @@ def main() -> None:
         {"name": "k1_fused_pipeline", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
-         "launches": launches["k1"], "max_abs_err": k1_err,
+         "launches": launches["k1"] + new5["k1"] + cli1["k1"] +
+         serve1["k1"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
          "device_ms": k1_dev, "library_device_ms": None},
@@ -1075,7 +1440,7 @@ def main() -> None:
         {"name": "k3_separable_blur", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
-         "launches": launches["k3"] + launches2["k3"],
+         "launches": launches["k3"] + launches2["k3"] + cli1["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,

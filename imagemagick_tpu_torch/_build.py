@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -53,6 +54,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lock = threading.Lock()   # one build per process: threads share its files
 
 
 def _nvcc() -> str:
@@ -105,23 +107,27 @@ def digest(src_dir: Path = _SRC) -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, compiled on first use."""
+    """The kernel library, compiled on first use.  Threads that call it
+    at once (a server's first requests) wait for one build."""
     global _lib
     if _lib is not None:
         return _lib
-    so = _OUT / f"libimtpu_kernels_{digest()}.so"
-    if not so.exists():
-        _OUT.mkdir(exist_ok=True)
-        _compile(sorted(_SRC.glob("*.cu")), so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.imtpu_error_string.argtypes = [ctypes.c_int]
-    lib.imtpu_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = _OUT / f"libimtpu_kernels_{digest()}.so"
+        if not so.exists():
+            _OUT.mkdir(exist_ok=True)
+            _compile(sorted(_SRC.glob("*.cu")), so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.imtpu_error_string.argtypes = [ctypes.c_int]
+        lib.imtpu_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
 
 
 def check(err: int, name: str) -> None:

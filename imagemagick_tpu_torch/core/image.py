@@ -3,7 +3,9 @@
 Port of ``imagemagick_tpu/core/image.py`` (the reference's Image struct and
 pixel cache, MagickCore/image.h:131-350, cache.c): pixels are a dense
 (H, W, C) — or batched (N, H, W, C) — float32 tensor in [0,1] (Q16-HDRI
-semantics); static semantics live in ImageSpec.  A tensor keeps the device
+semantics); static semantics live in ImageSpec, and host-only metadata
+(properties, profiles, page geometry, animation delay) in plain values
+that ops carry along.  A tensor keeps the device
 it lies on; pixels given as a numpy array or a list go to ``device``, the
 CUDA card unless the caller asks for the CPU.  Op methods are thin
 wrappers over the functions in ``imagemagick_tpu_torch.ops`` and return
@@ -12,7 +14,7 @@ new Images.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,13 +23,20 @@ from .spec import ImageSpec, normalize_colorspace
 
 
 class Image:
-    __slots__ = ("data", "spec")
+    __slots__ = ("data", "spec", "properties", "profiles", "page", "delay")
 
     def __init__(self, data, spec: Optional[ImageSpec] = None,
-                 device="cuda"):
+                 properties: Optional[Dict[str, Any]] = None,
+                 profiles: Optional[Dict[str, bytes]] = None,
+                 page: Optional[Tuple[int, int, int, int]] = None,
+                 delay: int = 0, device="cuda"):
         self.data = data if isinstance(data, torch.Tensor) else \
             _to_device(np.asarray(data, np.float32), device)
         self.spec = spec or ImageSpec()
+        self.properties = dict(properties or {})
+        self.profiles = dict(profiles or {})
+        self.page = page
+        self.delay = delay
 
     # -- basic accessors ----------------------------------------------------
     @property
@@ -44,7 +53,8 @@ class Image:
 
     def replace(self, data=None, spec=None) -> "Image":
         return Image(self.data if data is None else data,
-                     self.spec if spec is None else spec)
+                     self.spec if spec is None else spec,
+                     self.properties, self.profiles, self.page, self.delay)
 
     def __repr__(self):
         shp = "x".join(str(s) for s in self.data.shape)
@@ -66,7 +76,7 @@ class Image:
         color = cs.convert(self.color_data(), src, tgt)
         rest = self.data[..., self.spec.color_channels:]
         data = torch.cat([color, rest], dim=-1) if rest.shape[-1] else color
-        return Image(data, self.spec.with_(colorspace=tgt))
+        return self.replace(data=data, spec=self.spec.with_(colorspace=tgt))
 
     def resize(self, width: int, height: int, filter_name: str = "undefined",
                blur: float = 1.0) -> "Image":

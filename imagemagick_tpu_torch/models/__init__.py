@@ -1,5 +1,6 @@
-"""The port's canned pipelines (``pipelines``)."""
+"""The port's canned pipelines (``pipelines``) and the corpus thumbnailer
+(``thumbnailer``, BASELINE config #5)."""
 
-from . import pipelines
+from . import pipelines, thumbnailer
 
-__all__ = ["pipelines"]
+__all__ = ["pipelines", "thumbnailer"]

@@ -15,7 +15,11 @@ difference at >=60dB on representative content.
 
 Unlike the JAX package, nothing here catches an error: a chain or shape
 outside the kernel's envelope returns None, and an error of the kernel,
-its build or its launch propagates to the caller.
+its build or its launch propagates to the caller.  So ``COUNTS`` has no
+``error`` count.  It counts ``fused``, each chain or batch that ran as one
+K1 launch (here), and ``op``, each lazy chain remainder that ran as
+PyTorch ops (counted by the CLI's ``LazyImage``); the JAX CLI's ``pallas``
+and ``xla`` counts are these two.
 
 Plans and device operands are cached per (shape, chain, device), so
 repeated requests pay host planning and the operator upload once.
@@ -25,14 +29,14 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 # dispatch outcome counter (inspected by tests and tooling)
-COUNTS = {"fused": 0}
+COUNTS = {"fused": 0, "op": 0}
 
 _MAX_DIM = 4096          # dense host-side operator composition bound
 _MAX_CHANNELS = 4
@@ -164,6 +168,26 @@ def try_fused_batch_array(x: torch.Tensor, tags: List[Optional[tuple]],
     out = run(x)
     COUNTS["fused"] += 1
     return out
+
+
+def try_fused_batch(datas: Sequence[torch.Tensor],
+                    tags: List[Optional[tuple]],
+                    alpha: bool = False) -> Optional[torch.Tensor]:
+    """Batch variant of try_fused_chain (the CLI's grouped call): ``datas``
+    is a sequence of N same-shape (H, W, C) float32 tensors on one device
+    sharing one FULLY tagged chain.  They are stacked and run as one
+    batch (``try_fused_batch_array``).  Returns the (N, Hout, Wout, Cout)
+    result, or None when the chain or shape leaves the kernel envelope."""
+    if not datas:
+        return None
+    d0 = datas[0]
+    if d0.dim() != 3 or any(d.shape != d0.shape or d.device != d0.device
+                            for d in datas[1:]):
+        return None
+    n = match_prefix(tags)
+    if n != len(tags) or n == 0 or not _in_envelope(*map(int, d0.shape)):
+        return None
+    return try_fused_batch_array(torch.stack(list(datas)), tags, alpha)
 
 
 def match_prefix(tags: List[Optional[tuple]]) -> int:

@@ -1,0 +1,296 @@
+"""Serving daemon: device-resident batch sessions over HTTP.
+
+Port of ``imagemagick_tpu/serve.py``'s sessions.  A session holds an
+(N, H, W, C) float32 tensor on the server's device; ``/apply`` runs a CLI
+option chain on the whole batch and keeps the result on the device, so
+repeated applies pay no host<->device transfer.  A chain that K1 covers
+runs as ONE K1 launch over the batch (``dispatch.try_fused_batch_array``,
+``path == "fused-batch"``); its kernel tags are found once per (args,
+shape) by interpreting the options over one image, then cached.  Any
+other chain runs per image through the CLI's ``materialize_all``.
+
+Endpoints (stdlib http.server; no external dependencies):
+
+  GET  /healthz                  -> {"ok": true, "platform": "...",
+                                     "devices": N}
+  POST /session/<name>           -> body: raw pixels, headers
+                                    X-Shape: N,H,W,C and X-Dtype: u8|f32
+  POST /session/<name>/apply?args=...&keep=0|1
+                                 -> runs the options on the session
+  GET  /session/<name>           -> the session's pixels as u8 bytes
+
+``/convert``, ``/identify`` and ``/formats`` answer 501: they need the
+codecs and the whole CLI (``io/``).  An option the port's CLI lacks
+answers 501 too; a file name or another bad request, 400; an error of the
+server or the card (a kernel's), 500.
+
+Run:  python -m imagemagick_tpu_torch.serve [--port 8089] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import json
+import shlex
+import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+_LOCK = threading.Lock()
+_IO_GAP = ("needs the codecs and the whole CLI (io/), which are not ported "
+           "yet: ROADMAP.md Queue 1, 'Host layers'")
+
+
+def validate_args(args):
+    """Reject option lists that name files or options the port's CLI
+    lacks.  Allowed: parentheses and the CLI's options with their
+    arguments; none of them touches the host filesystem."""
+    from .cli import main as climain
+
+    i = 0
+    while i < len(args):
+        tok = args[i]
+        i += 1
+        if tok in ("(", ")"):
+            continue
+        if not tok.startswith(("-", "+")) or tok == "-":
+            raise ValueError(
+                "filename arguments are not allowed via /apply: %r" % tok)
+        if tok[1:] not in climain.OPS:
+            raise climain.unported(tok)
+        n = climain.OPS[tok[1:]][0]
+        if i + n > len(args):
+            raise ValueError("missing argument for %r" % tok)
+        i += n
+
+
+# name -> (N, H, W, C) float32 tensor on the server's device
+_SESSIONS: dict = {}
+# (args, shape) -> kernel tags (None = chain not kernel-expressible)
+_TAG_CACHE: dict = {}
+
+
+def _sync(x: torch.Tensor) -> None:
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+
+
+def _session_store(name: str, body: bytes, shape, dtype: str,
+                   device="cuda"):
+    """Store raw pixels as session ``name`` on ``device``.  u8 pixels go
+    up as bytes, from pinned host memory on a card, and are scaled to
+    [0, 1] there."""
+    device = torch.device(device)
+    n, h, w, c = shape
+    if dtype == "u8":
+        src, tdtype = np.frombuffer(body, np.uint8), torch.uint8
+    elif dtype == "f32":
+        src, tdtype = np.frombuffer(body, "<f4"), torch.float32
+    else:
+        raise ValueError("X-Dtype must be u8 or f32")
+    if src.size != n * h * w * c:
+        raise ValueError("payload size does not match X-Shape")
+    host = torch.empty(src.size, dtype=tdtype,
+                       pin_memory=device.type == "cuda")
+    host.numpy()[:] = src
+    dev = host.to(device).reshape(n, h, w, c)
+    if tdtype == torch.uint8:
+        dev = dev.to(torch.float32) / 255.0
+    _SESSIONS[name] = dev
+    return {"session": name, "shape": [n, h, w, c], "platform": device.type}
+
+
+def _session_apply(name: str, args, keep: bool = False):
+    from .cli import main as climain
+    from .core.image import Image
+    from .core.spec import ImageSpec
+    from .ops import dispatch as _dsp
+
+    dev = _SESSIONS.get(name)
+    if dev is None:
+        raise KeyError("no such session %r" % name)
+    t0 = time.perf_counter()
+    # Probe: interpret the options over ONE image to collect the lazy
+    # chain's kernel tags, cached per (args, shape).  A fully tagged
+    # chain runs over the resident batch as one K1 launch.
+    new = None
+    path = "general"
+    ck = (tuple(args), tuple(map(int, dev.shape)))
+    tags = _TAG_CACHE.get(ck, False)
+    if tags is False:
+        probe = dev[0]
+        st = climain.CLIState()
+        st.images.append(climain.LazyImage(
+            Image(probe, ImageSpec(colorspace="srgb"))))
+        climain.process(list(args), st)
+        tags = None
+        if len(st.images) == 1 and st.images[0].image.data is probe:
+            li = st.images[0]
+            ptags = [t for _, _, t in li.pending]
+            if li.pending and all(t is not None for t in ptags):
+                tags = ptags
+        _TAG_CACHE[ck] = tags
+    if tags is not None:
+        out = _dsp.try_fused_batch_array(dev, tags)
+        if out is not None:
+            new = out
+            path = "fused-batch"
+    if new is None:
+        st = climain.CLIState()
+        for i in range(dev.shape[0]):
+            st.images.append(climain.LazyImage(
+                Image(dev[i], ImageSpec(colorspace="srgb"))))
+        climain.process(list(args), st)
+        new = torch.stack([o.data for o in climain.materialize_all(
+            st.images)])
+    _sync(new)
+    if not keep:
+        _SESSIONS[name] = new
+    dt = time.perf_counter() - t0
+    mp = dev.shape[0] * dev.shape[1] * dev.shape[2] / 1e6
+    return {"session": name, "shape": list(map(int, new.shape)),
+            "seconds": round(dt, 5), "path": path,
+            "megapixels_per_sec": round(mp / dt, 1) if dt > 0 else 0.0}
+
+
+def _session_fetch(name: str) -> bytes:
+    dev = _SESSIONS.get(name)
+    if dev is None:
+        raise KeyError("no such session %r" % name)
+    return clip_u8(dev).cpu().numpy().tobytes()
+
+
+def clip_u8(dev: torch.Tensor) -> torch.Tensor:
+    return (dev.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+class Handler(BaseHTTPRequestHandler):
+    server_version = "imagemagick-tpu-torch/0.1"
+
+    def log_message(self, fmt, *args):   # quiet by default
+        if self.server.verbose:          # type: ignore[attr-defined]
+            sys.stderr.write(fmt % args + "\n")
+
+    def _reply(self, code, body: bytes, ctype="application/json"):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _err(self, code, msg):
+        self._reply(code, json.dumps({"error": msg}).encode())
+
+    def do_GET(self):
+        url = urlparse(self.path)
+        device = self.server.device      # type: ignore[attr-defined]
+        if url.path.startswith("/session/"):
+            try:
+                raw = _session_fetch(url.path[len("/session/"):])
+            except KeyError as exc:
+                return self._err(404, str(exc))
+            return self._reply(200, raw, "application/octet-stream")
+        if url.path == "/healthz":
+            count = torch.cuda.device_count() if device.type == "cuda" \
+                else 1
+            self._reply(200, json.dumps({"ok": True, "platform": device.type,
+                                         "devices": count}).encode())
+        elif url.path == "/formats":
+            self._err(501, "/formats " + _IO_GAP)
+        else:
+            self._err(404, "unknown path %s" % url.path)
+
+    def do_POST(self):
+        from .cli import main as climain
+
+        url = urlparse(self.path)
+        q = parse_qs(url.query)
+        length = int(self.headers.get("Content-Length", "0"))
+        body = self.rfile.read(length)
+        if url.path in ("/convert", "/identify"):
+            return self._err(501, url.path + " " + _IO_GAP)
+        if not body and not url.path.endswith("/apply"):
+            return self._err(400, "empty body")
+        try:
+            if url.path.startswith("/session/") and \
+                    url.path.endswith("/apply"):
+                name = url.path[len("/session/"):-len("/apply")]
+                args = shlex.split(q.get("args", [""])[0])
+                keep = q.get("keep", ["0"])[0] not in ("", "0")
+                validate_args(args)
+                # no global lock: applies from client threads overlap;
+                # concurrent non-keep applies to one session are
+                # last-writer-wins
+                info = _session_apply(name, args, keep=keep)
+                self._reply(200, json.dumps(info).encode())
+            elif url.path.startswith("/session/"):
+                name = url.path[len("/session/"):]
+                shape = tuple(int(v) for v in
+                              self.headers.get("X-Shape", "").split(","))
+                if len(shape) != 4:
+                    return self._err(400, "X-Shape must be N,H,W,C")
+                dtype = self.headers.get("X-Dtype", "u8")
+                with _LOCK:
+                    info = _session_store(name, body, shape, dtype,
+                                          self.server.device)  # type: ignore[attr-defined]
+                self._reply(200, json.dumps(info).encode())
+            else:
+                self._err(404, "unknown path %s" % url.path)
+        except NotImplementedError as exc:
+            self._err(501, str(exc))
+        except (ValueError, KeyError, climain.CLIError) as exc:
+            self._err(400, "%s: %s" % (type(exc).__name__, exc))
+        except Exception as exc:                    # noqa: BLE001
+            # the server's or the card's fault (a kernel's error): report
+            # it to the client and keep serving
+            self._err(500, "%s: %s" % (type(exc).__name__, exc))
+
+
+class _Server(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5: a burst of more clients
+    # than that loses connection requests, which the clients send again
+    # a second later
+    request_queue_size = 128
+
+
+def make_server(host="127.0.0.1", port=8089, verbose=False, device="cuda"):
+    """An HTTP server whose sessions live on ``device`` (the card unless
+    the caller passes a CPU device); call ``serve_forever`` to run it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("serve: no CUDA card for device 'cuda'; pass "
+                           "device='cpu' to serve from the CPU")
+    srv = _Server((host, port), Handler)
+    srv.verbose = verbose                           # type: ignore[attr-defined]
+    srv.device = device                             # type: ignore[attr-defined]
+    return srv
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8089)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--verbose", action="store_true")
+    ns = ap.parse_args(argv)
+    srv = make_server(ns.host, ns.port, ns.verbose, ns.device)
+    print(json.dumps({"serving": f"http://{ns.host}:{ns.port}",
+                      "endpoints": ["/healthz", "/session/<name>",
+                                    "/session/<name>/apply"]}))
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

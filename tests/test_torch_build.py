@@ -49,3 +49,39 @@ def test_digest_covers_the_stencil_header(tmp_path):
     before = _build.digest(src)
     header.write_bytes(header.read_bytes() + b"// edited\n")
     assert _build.digest(src) != before
+
+
+def test_threads_loading_at_once_build_once(tmp_path, monkeypatch):
+    """A server's first requests reach ``load()`` from several threads at
+    once: one of them builds, the others wait for its library (two builds
+    in one process share their temporary files' names)."""
+    import threading
+    import time
+
+    builds = []
+
+    def fake_compile(sources, so):
+        builds.append(so)
+        time.sleep(0.2)
+        so.write_bytes(b"")
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_OUT", tmp_path)
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(_build.load()))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(builds) == 1 and len(got) == 8
+    assert all(lib is got[0] for lib in got)

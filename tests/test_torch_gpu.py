@@ -652,3 +652,75 @@ def test_empty_inputs_reach_no_kernel(monkeypatch):
     monkeypatch.setattr(gk, "on_card", lambda x: True)
     monkeypatch.setattr(_build, "load", no_library)
     _check_empty(_empty_cases("cpu"))
+
+
+# -- the product surfaces: thumbnailer step, CLI batch, serve sessions ------
+
+@pytest.mark.parametrize("grayscale", [False, True])
+def test_thumbnail_step_on_card(dev, grayscale):
+    """Config #5's step at its real staged layout (256 rows of 1152 lanes,
+    a 1/2 DCT-scaled 768x512 JPEG), short last batch included: one K1
+    launch a step, within 1 u8 level of the plain step."""
+    from imagemagick_tpu_torch.models import thumbnailer as tn
+
+    cfg = tn.ThumbnailerConfig(grayscale=grayscale)
+    staged = torch.from_numpy(
+        (_rand((5, 256, 1152), 7) * 255).astype(np.uint8))
+    step = tn.make_flat_step(cfg, 256, 384, device=dev)
+    plain = tn.make_flat_step(cfg, 256, 384, device="cpu")
+    for batch in (staged[:4], staged[4:]):
+        before = gk.LAUNCHES["k1"]
+        got = step(batch.pin_memory())
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES["k1"] == before + 1
+        assert got.device.type == "cuda" and got.dtype == torch.uint8
+        want = plain(batch)
+        assert (got.cpu().int() - want.int()).abs().max() <= 1
+
+
+def test_cli_batch_is_one_launch_on_card(dev):
+    from imagemagick_tpu_torch.cli import main as cli
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+
+    argv = ["-resize", "64x64!", "-gaussian-blur", "0x2", "-colorspace",
+            "gray"]
+    x = torch.from_numpy(_rand((3, 96, 128, 3), 8))
+    outs = {}
+    for where in ("cpu", dev):
+        st = cli.CLIState()
+        for im in x.to(where):
+            st.images.append(cli.LazyImage(Image(im,
+                                                 ImageSpec(colorspace="srgb"))))
+        cli.process(argv, st)
+        before = dict(gk.LAUNCHES)
+        outs[str(where)] = torch.stack([o.data for o in
+                                        cli.materialize_all(st.images)])
+        torch.cuda.synchronize()
+        launched = {k: gk.LAUNCHES[k] - before[k] for k in before}
+    assert launched["k1"] == 1 and launched["k3"] == 0
+    got, want = outs[str(dev)], outs["cpu"]
+    assert got.shape == (3, 64, 64, 1)
+    assert (got.cpu() - want).abs().max() <= 2e-5
+
+
+def test_serve_session_on_card(dev):
+    from imagemagick_tpu_torch import serve
+
+    pixels = (_rand((4, 64, 96, 3), 9) * 255).astype(np.uint8)
+    chain = "-resize 32x32! -gaussian-blur 0x2 -colorspace gray".split()
+    fetched = {}
+    for where in ("cpu", dev):
+        info = serve._session_store("gpu_test", pixels.tobytes(),
+                                    pixels.shape, "u8", where)
+        assert info["platform"] == torch.device(where).type
+        before = gk.LAUNCHES["k1"]
+        info = serve._session_apply("gpu_test", chain)
+        assert info["path"] == "fused-batch"
+        if where == dev:
+            assert gk.LAUNCHES["k1"] == before + 1
+        fetched[str(where)] = np.frombuffer(
+            serve._session_fetch("gpu_test"), np.uint8)
+    serve._SESSIONS.pop("gpu_test")
+    diff = fetched[str(dev)].astype(int) - fetched["cpu"]
+    assert fetched["cpu"].size == 4 * 32 * 32 and np.abs(diff).max() <= 1

@@ -51,6 +51,17 @@ def _thumbnail_plan(h, w, winc_pad=None):
     return plan.WV, plan.GB
 
 
+def _thumbnailer_step_plan(grayscale):
+    """The plan the port's thumbnailer step makes at config #5's real
+    staged layout: a 768x512 JPEG decoded at 1/2 (256 rows of 1152
+    lanes, an H resize of 256 -> 256) to 256x256."""
+    from imagemagick_tpu_torch.models import thumbnailer as tn
+
+    cfg = tn.ThumbnailerConfig(grayscale=grayscale)
+    plan = tn.make_flat_step(cfg, 256, 384, device="cpu").plan
+    return plan.WV, plan.GB
+
+
 def _two_term_plan():
     Bv, Bw = fp.blur_band_matrix(64, 1.0), fp.blur_band_matrix(512, 1.0)
     Uv = fp.blur_band_matrix(64, 0.8, width_rule="1d")
@@ -60,13 +71,13 @@ def _two_term_plan():
     return plan.WV, plan.GB
 
 
-def _dispatch_plan():
-    tags = (("resize", (40, 36, "lanczos")), ("gblur", (0.0, 1.5, "2d")),
-            ("mix", GRAY))
-    Mv, Mw, mix, *_ = dispatch._plan_chain(70, 90, 3, tags)
-    Hp, Wp = dispatch._aligned_dims(70, 90, 3)
-    Mv = np.pad(Mv, ((0, 0), (0, Hp - 70)))
-    Mw = np.pad(Mw, ((0, 0), (0, Wp - 90)))
+def _dispatch_plan(H=70, W=90, Hout=40, Wout=36, sigma=1.5):
+    tags = (("resize", (Hout, Wout, "lanczos")),
+            ("gblur", (0.0, sigma, "2d")), ("mix", GRAY))
+    Mv, Mw, mix, *_ = dispatch._plan_chain(H, W, 3, tags)
+    Hp, Wp = dispatch._aligned_dims(H, W, 3)
+    Mv = np.pad(Mv, ((0, 0), (0, Hp - H)))
+    Mw = np.pad(Mw, ((0, 0), (0, Wp - W)))
     plan = fp.linear_plan([(Mv, Mw)], 3, mix, dispatch._TO, Hp, Wp * 3)
     return plan.WV, plan.GB
 
@@ -75,6 +86,10 @@ PLANS = {
     "config1": lambda: _resize_plan(512, 768, 3, 256, 256, 2.0, GRAY, 64),
     "config5": lambda: _thumbnail_plan(512, 768),
     "config5_winc_pad": lambda: _thumbnail_plan(500, 100, winc_pad=512),
+    "config5_staged": lambda: _thumbnailer_step_plan(False),
+    "config5_staged_gray": lambda: _thumbnailer_step_plan(True),
+    # the CLI's and the serve sessions' plan at config #1's shape
+    "config1_cli": lambda: _dispatch_plan(512, 768, 256, 256, 2.0),
     # the shapes of test_torch_gpu.py's test_k1_matches_plain
     "gpu_a": lambda: _resize_plan(64, 128, 3, 32, 32, 1.5, GRAY, 16),
     "gpu_b": lambda: _resize_plan(96, 256, 1, 40, 100, 1.0, ((1.0,),), 128),

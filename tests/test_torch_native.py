@@ -1,0 +1,122 @@
+"""Port parity: the native JPEG codec against the JAX package's.
+
+Both compile the same ``miniio.cpp`` against the same libjpeg, so decodes
+are byte-equal on the same JPEG bytes."""
+
+import importlib
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from imagemagick_tpu_torch import native as tn
+
+jn = importlib.import_module("imagemagick_tpu.native")
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _smooth(h, w, seed=0):
+    """A smooth gradient with a little texture, as u8 (h, w, 3)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 0.5 + 0.4 * np.sin(yy / 17.0)[..., None] * np.cos(
+        xx[..., None] / 23.0 + np.arange(3))
+    img = base + 0.01 * rng.standard_normal((h, w, 3))
+    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+def _noise(h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, (h, w, 3)) * 255).astype(np.uint8)
+
+
+def test_both_available():
+    assert tn.available() and jn.available()
+    assert tn.build_error() is None
+    assert tn.library_path().exists()
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (37, 50), (512, 768)])
+def test_decode_equals_jax(shape):
+    blob = tn.encode_jpeg(_noise(*shape, seed=shape[0]), 90)
+    got = tn.decode_jpeg(blob)
+    want = jn.decode_jpeg(blob)
+    assert got.shape == shape + (3,) and got.dtype == np.uint8
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("source,hint", [
+    ((512, 768), (256, 256)), ((512, 768), (100, 60)),
+    ((512, 768), (768, 512)), ((64, 96), (8, 8)), ((37, 50), (4, 4))])
+def test_scaled_decode_equals_jax(source, hint):
+    blob = tn.encode_jpeg(_noise(*source, seed=1), 90)
+    got = tn.decode_jpeg_scaled(blob, *hint)
+    want = jn.decode_jpeg_scaled(blob, *hint)
+    assert np.array_equal(got, want)
+    # the largest 1/{1,2,4,8} scale still covering the hint
+    assert got.shape[1] >= hint[0] and got.shape[0] >= hint[1]
+
+
+def test_scaled_decode_picks_half_at_config5():
+    """A 768x512 source with a 256x256 hint decodes at 1/2: 384x256, the
+    thumbnailer's staged (256, 1152) layout."""
+    blob = tn.encode_jpeg(_noise(512, 768), 90)
+    assert tn.decode_jpeg_scaled(blob, 256, 256).shape == (256, 384, 3)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_encode_equals_jax(channels):
+    img = _smooth(40, 56)[..., :channels]
+    assert tn.encode_jpeg(img, 87) == jn.encode_jpeg(img, 87)
+
+
+@pytest.mark.parametrize("quality,min_db", [(95, 38.0), (75, 35.0)])
+def test_round_trip(quality, min_db):
+    img = _smooth(64, 96, seed=2)
+    out = tn.decode_jpeg(tn.encode_jpeg(img, quality))
+    assert out.shape == img.shape
+    rms = np.sqrt(np.mean((out.astype(np.float64) - img) ** 2)) / 255.0
+    assert 20.0 * np.log10(1.0 / max(rms, 1e-12)) >= min_db
+
+
+def test_gray_round_trip_decodes_to_rgb():
+    gray = _smooth(32, 48)[..., :1]
+    out = tn.decode_jpeg(tn.encode_jpeg(gray, 95))
+    assert out.shape == (32, 48, 3)
+    assert np.abs(out.astype(int) - gray.astype(int)).max() <= 8
+
+
+@pytest.mark.parametrize("blob", [b"", b"garbage", b"\xff\xd8\xff\xe0junk",
+                                  b"\x89PNG\r\n\x1a\n"])
+def test_bad_input_returns_none(blob):
+    assert tn.decode_jpeg(blob) is None
+    assert tn.decode_jpeg_scaled(blob, 16, 16) is None
+
+
+def test_two_processes_build_at_once(tmp_path):
+    """Two processes that find no library build it at once into the same
+    directory; each loads a whole library and leaves no temporary file."""
+    code = textwrap.dedent(f"""
+        import sys
+        from pathlib import Path
+        import numpy as np
+        sys.path.insert(0, {str(REPO)!r})
+        from imagemagick_tpu_torch import native
+        native._OUT = Path({str(tmp_path)!r})
+        ok = native.available()
+        blob = native.encode_jpeg(np.full((8, 8, 3), 128, np.uint8))
+        print(ok, native.decode_jpeg(blob).shape, native.library_path().name)
+    """)
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert out.split()[:4] == ["True", "(8,", "8,", "3)"], out
+    names = {out.split()[-1] for out, _ in outs}
+    assert [p.name for p in tmp_path.iterdir()] == list(names)

@@ -1,0 +1,200 @@
+"""Port parity: the serve daemon's device-resident sessions against the
+JAX package's ``serve.py``.
+
+A loopback server on port 0 with its sessions on the CPU; the JAX
+``_session_store`` / ``_session_apply`` / ``_session_fetch`` run
+in-process on the same pixels.  On the CPU the JAX apply takes its
+general per-image path (XLA ops, a clip after every op) and the port's
+its fused-batch path (K1's plain version, one clip): fetched u8 pixels
+agree within 1 level on these images."""
+
+import importlib
+import json
+import threading
+from http.client import HTTPConnection
+from urllib.parse import quote
+
+import numpy as np
+import pytest
+
+from imagemagick_tpu_torch import serve as ts
+from imagemagick_tpu_torch.cli import main as tm
+
+js = importlib.import_module("imagemagick_tpu.serve")
+
+N, H, W, C = 3, 64, 96, 3
+CHAIN = "-resize 32x32! -gaussian-blur 0x2 -colorspace gray"
+
+
+def _pixels(seed=0, n=N, h=H, w=W):
+    """Smooth u8 content: a gradient with modest texture."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 0.5 + 0.4 * np.sin(yy / 11.0)[..., None] * np.cos(
+        xx[..., None] / 13.0 + np.arange(C))
+    img = base + 0.05 * rng.standard_normal((n, h, w, C))
+    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def server():
+    srv = ts.make_server(port=0, device="cpu")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    yield srv.server_address[1]
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+def _call(port, method, path, body=None, headers=None):
+    conn = HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _store(port, name, raw, shape=(N, H, W, C), dtype="u8"):
+    return _call(port, "POST", f"/session/{name}", raw,
+                 {"X-Shape": ",".join(map(str, shape)), "X-Dtype": dtype})
+
+
+def _apply(port, name, chain=CHAIN, keep=0):
+    return _call(port, "POST",
+                 f"/session/{name}/apply?keep={keep}&args={quote(chain)}")
+
+
+def test_healthz(server):
+    status, body = _call(server, "GET", "/healthz")
+    assert status == 200
+    assert json.loads(body) == {"ok": True, "platform": "cpu", "devices": 1}
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_sessions_match_jax(server, dtype):
+    pixels = _pixels(1)
+    raw = pixels.tobytes() if dtype == "u8" else \
+        (pixels.astype("<f4") / 255.0).tobytes()
+    name = f"match_{dtype}"
+    status, body = _store(server, name, raw, dtype=dtype)
+    assert status == 200
+    assert json.loads(body) == js._session_store(name, raw, (N, H, W, C),
+                                                 dtype)
+    for keep in (1, 0):
+        status, body = _apply(server, name, keep=keep)
+        assert status == 200
+        got = json.loads(body)
+        want = js._session_apply(name, CHAIN.split(), keep=bool(keep))
+        assert got["path"] == "fused-batch"
+        assert got["shape"] == want["shape"] == [N, 32, 32, 1]
+        status, raw_out = _call(server, "GET", f"/session/{name}")
+        assert status == 200
+        fetched = np.frombuffer(raw_out, np.uint8)
+        jfetched = np.frombuffer(js._session_fetch(name), np.uint8)
+        assert fetched.size == jfetched.size
+        assert np.abs(fetched.astype(int) - jfetched).max() <= 1
+        if keep:        # the session still holds the stored pixels
+            assert fetched.size == N * H * W * C
+    js._SESSIONS.pop(name, None)
+
+
+def test_general_path_for_a_declined_chain(server):
+    """A chain dispatch declines (an upscale) runs per image through the
+    CLI's materialize_all, as the JAX server's does."""
+    pixels = _pixels(2)
+    _store(server, "general", pixels.tobytes())
+    js._session_store("general", pixels.tobytes(), (N, H, W, C), "u8")
+    chain = "-resize 80x120! -colorspace gray"
+    status, body = _apply(server, "general", chain)
+    assert status == 200 and json.loads(body)["path"] == "general"
+    js._session_apply("general", chain.split())
+    got = np.frombuffer(_call(server, "GET", "/session/general")[1], np.uint8)
+    want = np.frombuffer(js._session_fetch("general"), np.uint8)
+    assert got.size == want.size == N * 80 * 120
+    assert np.abs(got.astype(int) - want).max() <= 1
+    js._SESSIONS.pop("general", None)
+
+
+def test_tag_cache_hit_on_second_apply(server, monkeypatch):
+    calls = []
+    orig = tm.process
+    monkeypatch.setattr(tm, "process",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    _store(server, "cache", _pixels(3, h=48, w=80).tobytes(), (N, 48, 80, C))
+    chain = "-resize 24x40! -colorspace gray"
+    assert _apply(server, "cache", chain, keep=1)[0] == 200
+    assert len(calls) == 1
+    assert ts._TAG_CACHE[((tuple(chain.split())), (N, 48, 80, C))] == [
+        ("resize", (40, 24, "lanczos")),
+        ("mix", ((0.212656, 0.715158, 0.072186),))]
+    status, body = _apply(server, "cache", chain, keep=1)
+    assert status == 200 and json.loads(body)["path"] == "fused-batch"
+    assert len(calls) == 1
+
+
+def test_error_codes_match_jax(server):
+    """An unknown session and a bad X-Shape give the JAX server's codes."""
+    assert _apply(server, "nosuch")[0] == 400
+    assert _call(server, "GET", "/session/nosuch")[0] == 404
+    raw = _pixels(4).tobytes()
+    for shape in ("1,2,3", "a,b,c,d", ""):
+        status, _ = _call(server, "POST", "/session/bad", raw,
+                          {"X-Shape": shape})
+        assert status == 400
+    assert _store(server, "bad", raw, (N, H, W, 4))[0] == 400   # size
+    assert _store(server, "bad", raw, dtype="u16")[0] == 400
+    assert _call(server, "POST", "/session/bad", b"",
+                 {"X-Shape": "1,1,1,1"})[0] == 400
+    assert _call(server, "GET", "/nowhere")[0] == 404
+    with pytest.raises(KeyError):
+        js._session_apply("nosuch", CHAIN.split())
+    with pytest.raises(KeyError):
+        ts._session_apply("nosuch", CHAIN.split())
+
+
+@pytest.mark.parametrize("path", ["/convert?args=-resize%2010x10",
+                                  "/identify"])
+def test_convert_and_identify_answer_501(server, path):
+    status, body = _call(server, "POST", path, b"\xff\xd8")
+    assert status == 501
+    assert "'Host layers'" in json.loads(body)["error"]
+
+
+def test_apply_args_are_checked(server):
+    _store(server, "args", _pixels(5).tobytes())
+    status, body = _apply(server, "args", "-sharpen 0x1")
+    assert status == 501 and "ROADMAP.md Queue 1" in json.loads(body)["error"]
+    status, body = _apply(server, "args", "-resize 10x10 in.png")
+    assert status == 400 and "filename" in json.loads(body)["error"]
+    assert _apply(server, "args", "-resize")[0] == 400
+
+
+def test_burst_of_clients_loses_no_connection(server):
+    """16 clients at once: a listen backlog of 5 (socketserver's default)
+    drops some of their connection requests, which the clients send again
+    a second later."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    def health(_):
+        t0 = time.perf_counter()
+        assert _call(server, "GET", "/healthz")[0] == 200
+        return time.perf_counter() - t0
+
+    assert ts._Server.request_queue_size >= 16
+    with ThreadPoolExecutor(16) as ex:
+        for _ in range(3):
+            assert max(ex.map(health, range(16))) < 0.9
+
+
+def test_card_device_without_card_raises():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ts.make_server(port=0)
