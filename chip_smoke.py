@@ -585,10 +585,16 @@ def cli_phase(dev, gen, name_limit: str) -> dict:
     require(out.shape == (CLI_N2, HOUT, WOUT, 1) and
             all(o.spec.colorspace == "gray" for o in outs) and
             bool(torch.isfinite(out).all()), f"config1_cli {out.shape}")
+    # every image against K1's plain version on CPU copies of the same
+    # pixels (float64 costs about a second an image on the host: 4 of them)
+    plain = dispatch.try_fused_batch_array(torch.stack(datas).cpu(), TAGS)
+    err = max_err(out.cpu(), plain)
     ref = fp.reference_pipeline_f64(torch.stack(datas[:4]).cpu().numpy(),
                                     HOUT, WOUT, "lanczos", SIGMA, GRAY)
     db = psnr(out[:4].cpu().numpy(), ref)
-    print(f"config1_cli vs float64 (4 images): {db:.2f} dB")
+    print(f"config1_cli vs K1's plain version ({CLI_N2} images): max|d| "
+          f"{err:.3e}; vs float64 (4 images): {db:.2f} dB")
+    require(err <= K1_TOL, f"config1_cli vs plain max|d| {err}")
     require(db >= 100.0, f"config1_cli {db} dB")
 
     margs = []
@@ -621,7 +627,7 @@ def cli_phase(dev, gen, name_limit: str) -> dict:
     return {"k1": launches["k1"], "k3": small_launches["k3"]}
 
 
-def serve_phase(seed: int, dev, name_limit: str) -> dict:
+def serve_phase(seed: int, name_limit: str) -> dict:
     """config1_serve: a session of SERVE_N u8 images of 512x768x3 on the
     card behind ``make_server`` on loopback, the chain applied with
     keep=1 (one warm-up, SERVE_APPLIES timed, then SERVE_CLIENTS clients
@@ -633,7 +639,7 @@ def serve_phase(seed: int, dev, name_limit: str) -> dict:
     from urllib.parse import quote
 
     from imagemagick_tpu_torch import serve
-    from imagemagick_tpu_torch.ops import fused_pipeline as fp
+    from imagemagick_tpu_torch.ops import dispatch
 
     srv = serve.make_server(port=0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -691,20 +697,21 @@ def serve_phase(seed: int, dev, name_limit: str) -> dict:
             together = time.perf_counter() - t0
         apply(0)
         got = np.frombuffer(call("GET", "/session/s1"), np.uint8)
-        x = torch.from_numpy(pixels).to(dev).to(torch.float32) / 255.0
-        want = serve.clip_u8(fp.fused_resize_pipeline(
-            x, HOUT, WOUT, "lanczos", SIGMA, GRAY)).cpu().numpy()
-        levels = int(np.abs(got.reshape(want.shape).astype(int) -
-                            want).max())
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
+    # all SERVE_N images against K1's plain version on the same pixels,
+    # run by the CPU through the dispatch plan the server used
+    x = torch.from_numpy(pixels).to(torch.float32) / 255.0
+    want = serve.clip_u8(dispatch.try_fused_batch_array(x, TAGS)).numpy()
+    require(got.size == want.size, f"config1_serve {got.size} bytes")
+    levels = int(np.abs(got.reshape(want.shape).astype(int) - want).max())
     require(levels <= 1, f"config1_serve result {levels} levels off")
     per = statistics.median(walls)
     mp = SERVE_N * H * W / 1e6
     print(f"config1_serve: session of {SERVE_N}x{H}x{W}x{C}, result within "
-          f"{levels} u8 levels of the fused route; request wall (HTTP + "
+          f"{levels} u8 levels of K1's plain version; request wall (HTTP + "
           f"options + one K1 launch + sync) median of {SERVE_APPLIES} "
           f"{per * 1e3:.4f} ms = {mp / per:.1f} MP/s; walls "
           f"{[round(t * 1e3, 4) for t in walls]} ms [{name_limit}]")
@@ -931,7 +938,7 @@ def main() -> None:
     # each main path with every launch count set to 0 just before it
     new5 = config5_end_to_end(args.seed, dev, gen, name_limit, k1_dev5)
     cli1 = cli_phase(dev, gen, name_limit)
-    serve1 = serve_phase(args.seed, dev, name_limit)
+    serve1 = serve_phase(args.seed, name_limit)
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================

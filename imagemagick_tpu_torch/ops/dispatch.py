@@ -175,18 +175,8 @@ def try_fused_batch(datas: Sequence[torch.Tensor],
                     alpha: bool = False) -> Optional[torch.Tensor]:
     """Batch variant of try_fused_chain (the CLI's grouped call): ``datas``
     is a sequence of N same-shape (H, W, C) float32 tensors on one device
-    sharing one FULLY tagged chain.  They are stacked and run as one
-    batch (``try_fused_batch_array``).  Returns the (N, Hout, Wout, Cout)
-    result, or None when the chain or shape leaves the kernel envelope."""
-    if not datas:
-        return None
-    d0 = datas[0]
-    if d0.dim() != 3 or any(d.shape != d0.shape or d.device != d0.device
-                            for d in datas[1:]):
-        return None
-    n = match_prefix(tags)
-    if n != len(tags) or n == 0 or not _in_envelope(*map(int, d0.shape)):
-        return None
+    sharing one FULLY tagged chain, run as one stacked batch
+    (``try_fused_batch_array``)."""
     return try_fused_batch_array(torch.stack(list(datas)), tags, alpha)
 
 
