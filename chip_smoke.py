@@ -51,6 +51,19 @@ and the serve daemon):
   64 u8 images of 512x768x3, the same chain applied with one K1 launch a
   request on the ``fused-batch`` path, alone and from 8 clients at once,
   and the fetched result within 1 level of the fused route's.
+* cli_tone — the CLI's tone and threshold options: (a) 32 images of
+  512x768x3 through ``-thumbnail 256x256 -auto-level -modulate 100,120
+  -sigmoidal-contrast 3x50% -gamma 1.1`` (the thumbnail's resize for the
+  group in one K1 launch, the rest image by image); (b) 16 color scans of
+  1056x816 through ``-scale 50% -colorspace gray -normalize
+  -auto-threshold otsu`` (one K1 and one K4 launch; the Otsu bins equal
+  to the CPU run's, and every pixel that differs within 1e-4 of its
+  threshold before it); (c) srgb -> key -> srgb for all 41 colorspaces on
+  8 frames of 1080x1920x3, image 0 against the CPU; (d) ``-sample``,
+  ``-adaptive-resize``, ``-magnify``, ``-ordered-dither``,
+  ``-random-threshold`` (a binomial bound), ``-lat`` and the distance
+  transform on 4 pages of 1056x816, each against its CPU run; the
+  per-image marginals of (a) and (b) and the distance transform's time.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -146,6 +159,41 @@ CLI_OP_TOL = 2e-5   # the op chain on the card against the same chain on
 SERVE_N = 64
 SERVE_APPLIES = 5
 SERVE_CLIENTS, SERVE_ROUNDS = 8, 3
+# cli_tone: (a) the thumbnail chain on config1_cli's images, (b) the
+# document chain on config #3's letter pages scanned in color, (c) every
+# colorspace round trip on config #2's frames, (d) the other ops of the
+# slice on config #3's page size
+TONE_A = ["-thumbnail", "256x256", "-auto-level", "-modulate", "100,120",
+          "-sigmoidal-contrast", "3x50%", "-gamma", "1.1"]
+TONE_A_N1, TONE_A_N2 = 8, 32
+TONE_A_TOL = 1e-4   # K1's 2e-5 through auto-level's stretch, the hue of
+                    # near-gray pixels, and the card's expf/powf against
+                    # the CPU's (a few ulps) through the sigmoid and gamma
+TONE_B = ["-scale", "50%", "-colorspace", "gray", "-normalize",
+          "-auto-threshold", "otsu"]
+TONE_B_N1, TONE_B_N2 = 4, 16
+TONE_B_TOL = 1e-4   # K1's 2e-5 through normalize's stretch, and a shift
+                    # of its 65536-bin levels by one bin (1.5e-5)
+ROUNDTRIP_N = 8
+ROUNDTRIP_TOL = 5e-5   # the card's float32 pow, exp, log, atan2 and
+                       # sin/cos round otherwise than the CPU's by a few
+                       # ulps, and the inverse sRGB transfer's slope (up
+                       # to 12.92) amplifies them
+ROUNDTRIP_F64 = 3.0    # and at least this many times the CPU's own
+                       # float32 error against float64 on the same
+                       # image: |card - cpu| <= |card - f64| + |cpu - f64|,
+                       # with the card's functions up to twice the CPU's
+                       # ulps.  That is what the ill-conditioned trips
+                       # reach: Jzazbz inverts its PQ curve (powers 134
+                       # and 6.28 of a difference near 0), PhotoYCC reads
+                       # its ramp at round(1024*v) (one step 7.2e-4)
+TONE_D_N = 4
+TONE_D = [["-sample", "50%"], ["-adaptive-resize", "75%"], ["-magnify"],
+          ["-ordered-dither", "o8x8"], ["-random-threshold", "20x80%"],
+          ["-lat", "15x15-5%"]]
+TONE_D_TOL = {"-adaptive-resize": 1e-6}   # mesh weights: float32 sums of
+                                          # three products; the rest equal
+LAT_TOL = 2e-5      # cuDNN's float32 mean of 225 taps in another order
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -546,29 +594,47 @@ def config5_end_to_end(seed: int, dev, gen, name_limit: str,
     return {"k1": launches["k1"], "k1_err": err}
 
 
+def _cli_run(argv, datas, specs=None):
+    """``process(argv)`` over one LazyImage per tensor, then
+    ``materialize_all``; synchronizes the card."""
+    from imagemagick_tpu_torch import cli
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+
+    st = cli.CLIState()
+    for d in datas:
+        st.images.append(cli.LazyImage(Image(
+            d, specs or ImageSpec(colorspace="srgb"))))
+    cli.process(list(argv), st)
+    outs = cli.materialize_all(st.images)
+    if datas[0].is_cuda:
+        torch.cuda.synchronize()
+    return outs
+
+
+def _marginal(run, datas, n1: int, n2: int) -> tuple:
+    """Per-image marginal seconds between n1 and n2 images (median of 5
+    rounds of the best of 3), and the rounds."""
+    import timeit
+
+    margs = []
+    for _ in range(5):
+        t1 = min(timeit.repeat(lambda: run(datas[:n1]), number=1, repeat=3))
+        t2 = min(timeit.repeat(lambda: run(datas[:n2]), number=1, repeat=3))
+        margs.append(max((t2 - t1) / (n2 - n1), 1e-9))
+    return statistics.median(margs), margs
+
+
 def cli_phase(dev, gen, name_limit: str) -> dict:
     """config1_cli: CLI_N2 images of 512x768x3 on the card through
     ``process`` and ``materialize_all`` (one K1 launch), its per-image
     marginal between CLI_N1 and CLI_N2 images, and a chain that dispatch
     declines (K3 on the op route)."""
-    import timeit
-
-    from imagemagick_tpu_torch import cli
-    from imagemagick_tpu_torch.core.image import Image
-    from imagemagick_tpu_torch.core.spec import ImageSpec
     from imagemagick_tpu_torch.ops import dispatch
     from imagemagick_tpu_torch.ops import fused_pipeline as fp
 
     def run(datas):
-        st = cli.CLIState()
-        for d in datas:
-            st.images.append(cli.LazyImage(
-                Image(d, ImageSpec(colorspace="srgb"))))
-        cli.process(list(CLI_ARGV), st)
-        outs = cli.materialize_all(st.images)
-        if datas[0].is_cuda:
-            torch.cuda.synchronize()
-        return outs
+        return _cli_run(CLI_ARGV, datas)
 
     datas = list(torch.rand((CLI_N2, H, W, C), generator=gen, device=dev))
     counts = dict(dispatch.COUNTS)
@@ -597,13 +663,7 @@ def cli_phase(dev, gen, name_limit: str) -> dict:
     require(err <= K1_TOL, f"config1_cli vs plain max|d| {err}")
     require(db >= 100.0, f"config1_cli {db} dB")
 
-    margs = []
-    for _ in range(5):
-        t1 = min(timeit.repeat(lambda: run(datas[:CLI_N1]), number=1,
-                               repeat=3))
-        t2 = min(timeit.repeat(lambda: run(datas), number=1, repeat=3))
-        margs.append(max((t2 - t1) / (CLI_N2 - CLI_N1), 1e-9))
-    per_img = statistics.median(margs)
+    per_img, margs = _marginal(run, datas, CLI_N1, CLI_N2)
     print(f"config1_cli marginal ({CLI_N2}-{CLI_N1} images, median of 5): "
           f"{per_img * 1e3:.4f} ms/image = "
           f"{H * W / 1e6 / per_img:.1f} MP/s; rounds "
@@ -721,6 +781,205 @@ def serve_phase(seed: int, name_limit: str) -> dict:
           f"{together / n_req * 1e3:.4f} ms a request, "
           f"{n_req * mp / together:.1f} MP/s [{name_limit}]")
     return {"k1": k1}
+
+
+def _scans(gen, dev, n: int) -> torch.Tensor:
+    """n letter pages of H3 x W3 scanned in color: tinted paper with
+    noise, and lines of dark glyph blocks (pixels from ``gen``)."""
+    paper = 0.88 + 0.04 * torch.rand((n, 1, 1, 3), generator=gen, device=dev)
+    ink = torch.rand((n, H3 // 12, W3 // 8, 1), generator=gen,
+                     device=dev) < 0.3
+    ink = ink.repeat_interleave(12, 1).repeat_interleave(8, 2)
+    ink &= (torch.arange(H3, device=dev) % 24 < 14)[None, :, None, None]
+    page = torch.where(ink, 0.18 + 0.05 * torch.rand(
+        (n, 1, 1, 3), generator=gen, device=dev), paper)
+    noise = 0.04 * torch.randn((n, H3, W3, 3), generator=gen, device=dev)
+    return (page + noise).clamp(0.0, 1.0)
+
+
+def cli_tone_phase(dev, gen, name_limit: str) -> dict:
+    """cli_tone: (a) the thumbnail chain TONE_A on TONE_A_N2 images of
+    512x768x3 (one K1 launch); (b) the document chain TONE_B on TONE_B_N2
+    color scans of config #3's pages (one K1 and one K4 launch); (c) the
+    round trip srgb -> key -> srgb of all 41 colorspaces on ROUNDTRIP_N
+    frames of 1080x1920x3; (d) the other options of the slice and the
+    distance transform on config #3's page size.  Each on the card
+    against the same calls on CPU copies."""
+    from imagemagick_tpu_torch.core.geometry import parse_meta_geometry
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.ops import colorspace as cs
+    from imagemagick_tpu_torch.ops import dispatch
+    from imagemagick_tpu_torch.ops import morphology as mo
+    from imagemagick_tpu_torch.ops import threshold as th
+
+    # -- (a) the thumbnail chain -----------------------------------------
+    datas = list(torch.rand((TONE_A_N2, H, W, C), generator=gen, device=dev))
+    counts = dict(dispatch.COUNTS)
+    reset_launches()
+    outs = _cli_run(TONE_A, datas)
+    la = launched()
+    print(f"cli_tone (a) {' '.join(TONE_A)}: launches {la}, dispatch "
+          f"counts {dispatch.COUNTS} (before {counts})")
+    require(la["k1"] == 1 and sum(la.values()) == 1 and
+            dispatch.COUNTS["fused"] == counts["fused"] + 1 and
+            dispatch.COUNTS["op"] == counts["op"] + TONE_A_N2,
+            f"cli_tone (a) launches {la}")
+    got = torch.stack([o.data for o in outs])
+    want = torch.stack([o.data for o in _cli_run(
+        TONE_A, [d.cpu() for d in datas])])
+    tw, th_, _, _ = parse_meta_geometry(TONE_A[1], W, H)
+    require(got.shape == want.shape == (TONE_A_N2, th_, tw, 3) and
+            bool(torch.isfinite(got).all()), f"cli_tone (a) {got.shape}")
+    err_a = max_err(got.cpu(), want)
+    print(f"cli_tone (a) vs the CPU run (K1's plain version), "
+          f"{TONE_A_N2} images: max|d| {err_a:.3e} (tolerance "
+          f"{TONE_A_TOL})")
+    require(err_a <= TONE_A_TOL, f"cli_tone (a) max|d| {err_a}")
+    per_a, rounds = _marginal(lambda d: _cli_run(TONE_A, d), datas,
+                              TONE_A_N1, TONE_A_N2)
+    print(f"cli_tone (a) marginal ({TONE_A_N2}-{TONE_A_N1} images, median "
+          f"of 5): {per_a * 1e3:.4f} ms/image = "
+          f"{H * W / 1e6 / per_a:.1f} MP/s; rounds "
+          f"{[round(m * 1e3, 4) for m in rounds]} ms [{name_limit}]")
+    del datas, outs, got, want
+
+    # -- (b) the document chain ------------------------------------------
+    scans = list(_scans(gen, dev, TONE_B_N2))
+    counts = dict(dispatch.COUNTS)
+    reset_launches()
+    outs = _cli_run(TONE_B, scans)
+    lb = launched()
+    print(f"cli_tone (b) {' '.join(TONE_B)}: launches {lb}, dispatch "
+          f"counts {dispatch.COUNTS} (before {counts})")
+    require(lb["k1"] == 1 and lb["k4"] == 1 and sum(lb.values()) == 2 and
+            dispatch.COUNTS["fused"] == counts["fused"] + 1,
+            f"cli_tone (b) launches {lb}")
+    got = torch.stack([o.data for o in outs])
+    cpu_scans = [d.cpu() for d in scans]
+    want = torch.stack([o.data for o in _cli_run(TONE_B, cpu_scans)])
+    require(got.shape == want.shape == (TONE_B_N2, H3 // 2, W3 // 2, 1) and
+            all(o.spec.colorspace == "gray" for o in outs),
+            f"cli_tone (b) {got.shape}")
+    # the values before the threshold, and each image's Otsu value, on
+    # both devices: the chain's result is those values over that value
+    pre = torch.stack([o.data for o in _cli_run(TONE_B[:-2], scans)])
+    pre_cpu = torch.stack([o.data for o in _cli_run(TONE_B[:-2],
+                                                    cpu_scans)])
+    t_card = th.auto_threshold_values(pre)
+    t_cpu = th.auto_threshold_values(pre_cpu)
+    require(torch.equal(got, (pre > t_card[:, None, None, None]).float()) and
+            torch.equal(want, (pre_cpu > t_cpu[:, None, None, None]).float()),
+            "cli_tone (b) is not its values over its Otsu value")
+    bins_card = torch.round(t_card.cpu() * 255).int().tolist()
+    bins_cpu = torch.round(t_cpu * 255).int().tolist()
+    require(bins_card == bins_cpu, f"cli_tone (b) Otsu bins {bins_card} "
+            f"against the CPU's {bins_cpu}")
+    pre_err = max_err(pre.cpu(), pre_cpu)
+    differ = got.cpu() != want
+    near = (pre_cpu - t_cpu[:, None, None, None]).abs() <= TONE_B_TOL
+    n_diff = int(differ.sum())
+    print(f"cli_tone (b) Otsu bins {bins_card} equal the CPU's; values "
+          f"before the threshold max|d| {pre_err:.3e}; {n_diff} of "
+          f"{got.numel()} pixels differ, all within {TONE_B_TOL} of the "
+          f"threshold: {bool((near | ~differ).all())}")
+    require(pre_err <= TONE_B_TOL and bool((near | ~differ).all()),
+            f"cli_tone (b) {n_diff} pixels differ, max|d| {pre_err}")
+    per_b, rounds = _marginal(lambda d: _cli_run(TONE_B, d), scans,
+                              TONE_B_N1, TONE_B_N2)
+    print(f"cli_tone (b) marginal ({TONE_B_N2}-{TONE_B_N1} scans of "
+          f"{H3}x{W3}x3, median of 5): {per_b * 1e3:.4f} ms/image = "
+          f"{H3 * W3 / 1e6 / per_b:.1f} MP/s; rounds "
+          f"{[round(m * 1e3, 4) for m in rounds]} ms [{name_limit}]")
+    del scans, cpu_scans, outs, pre, pre_cpu
+
+    # -- (c) every colorspace, srgb -> key -> srgb ------------------------
+    frames = torch.rand((ROUNDTRIP_N, H2, W2, C), generator=gen, device=dev)
+    image = Image(frames, ImageSpec(colorspace="srgb"))
+    image0 = Image(frames[0].cpu(), ImageSpec(colorspace="srgb"))
+    image64 = Image(frames[0].cpu().double(), ImageSpec(colorspace="srgb"))
+    keys = cs.supported_colorspaces()
+    worst = {}
+    t0 = time.perf_counter()
+    for key in keys:
+        back = image.transform_colorspace(key).transform_colorspace("srgb")
+        back0 = image0.transform_colorspace(key).transform_colorspace("srgb")
+        back64 = image64.transform_colorspace(key).transform_colorspace(
+            "srgb")
+        require(back.data.shape == (ROUNDTRIP_N, H2, W2, C) and
+                back0.data.shape == (H2, W2, C), f"round trip {key}")
+        err = max_err(back.data[0].cpu(), back0.data)
+        err64 = max_err(back0.data.double(), back64.data)
+        tol = max(ROUNDTRIP_TOL, ROUNDTRIP_F64 * err64)
+        worst[key] = (err, err64)
+        require(err <= tol, f"round trip {key} max|d| {err} > {tol}")
+    torch.cuda.synchronize()
+    print(f"cli_tone (c) {len(keys)} colorspace round trips on "
+          f"{tuple(frames.shape)}, image 0 against the CPU's "
+          f"({time.perf_counter() - t0:.1f} s): max|d| (the CPU's float32 "
+          f"against float64 in brackets) " +
+          ", ".join(f"{k} {v[0]:.2e} ({v[1]:.2e})" for k, v in worst.items()))
+    del frames, image
+
+    # -- (d) the other options and the distance transform ----------------
+    pages = torch.rand((TONE_D_N, H3, W3, 1), generator=gen, device=dev)
+    gray = ImageSpec(colorspace="gray")
+    for argv in TONE_D:
+        got = torch.stack([o.data for o in _cli_run(argv, list(pages),
+                                                    gray)])
+        want = torch.stack([o.data for o in _cli_run(
+            argv, list(pages.cpu()), gray)])
+        require(got.shape == want.shape, f"{argv} {got.shape}")
+        if argv[0] == "-random-threshold":
+            p = ((pages.double() - 0.2) / 0.6).clamp(0.0, 1.0)
+            mean = float(p.sum())
+            sd = math.sqrt(float((p * (1 - p)).sum()))
+            ok = all(abs(float(v.sum()) - mean) <= 5 * sd + 1
+                     for v in (got, want))
+            print(f"cli_tone (d) {' '.join(argv)}: white {int(got.sum())} "
+                  f"(card), {int(want.sum())} (CPU), expected {mean:.1f} "
+                  f"+- {sd:.1f}: within 5 sd {ok}")
+            require(ok and bool(((got == 0) | (got == 1)).all()),
+                    f"{argv} outside its binomial bound")
+            continue
+        err = max_err(got.cpu(), want)
+        if argv[0] == "-lat":
+            from imagemagick_tpu_torch.ops.blur import _depthwise_conv
+
+            box = np.ones((15, 15), np.float32) / 225.0
+            gap = (pages.cpu() - _depthwise_conv(pages.cpu(), box) + 0.05)
+            differ = got.cpu() != want
+            ok = bool(((gap.abs() <= LAT_TOL) | ~differ).all())
+            print(f"cli_tone (d) {' '.join(argv)}: {int(differ.sum())} of "
+                  f"{got.numel()} pixels differ, all within {LAT_TOL} of "
+                  f"the local mean: {ok}")
+            require(ok, f"{argv} differs away from its threshold")
+            continue
+        tol = TONE_D_TOL.get(argv[0], 0.0)
+        print(f"cli_tone (d) {' '.join(argv)}: {tuple(got.shape)} max|d| "
+              f"{err:.3e} (tolerance {tol})")
+        require(err <= tol, f"{argv} max|d| {err}")
+    binary = (pages > 0.5).float()
+    dist = mo.distance_transform(binary)
+    dist_cpu = mo.distance_transform(binary.cpu())
+    err = max_err(dist.cpu(), dist_cpu)
+    require(err <= 1e-6 and float(dist.max()) > 0.0,
+            f"distance transform max|d| {err}")
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mo.distance_transform(binary)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    dist_ms = statistics.median(times)
+    print(f"cli_tone (d) distance_transform (euclidean) of "
+          f"{tuple(binary.shape)} binary pages: max|d| {err:.3e} against "
+          f"the CPU's; {dist_ms:.4f} ms (median of 5, "
+          f"{dist_ms / TONE_D_N:.4f} ms a page) [{name_limit}]")
+    return {"k1": la["k1"] + lb["k1"], "k4": lb["k4"]}
 
 
 def main() -> None:
@@ -939,6 +1198,7 @@ def main() -> None:
     new5 = config5_end_to_end(args.seed, dev, gen, name_limit, k1_dev5)
     cli1 = cli_phase(dev, gen, name_limit)
     serve1 = serve_phase(args.seed, name_limit)
+    tone = cli_tone_phase(dev, gen, name_limit)
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -1425,7 +1685,7 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"] + new5["k1"] + cli1["k1"] +
-         serve1["k1"],
+         serve1["k1"] + tone["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -1455,7 +1715,7 @@ def main() -> None:
         {"name": "k4_histogram256", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
-         "launches": launches3f["k4"] + launches3o["k4"],
+         "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

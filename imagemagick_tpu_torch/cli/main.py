@@ -1,27 +1,40 @@
-"""The magick-compatible option interpreter: the ``config1_cli`` subset.
+"""The magick-compatible option interpreter: a subset of the options.
 
 Port of ``imagemagick_tpu/cli/main.py``'s engine: a sequential
 interpreter over an image list that *accumulates* ops per image
 (``LazyImage``) and runs the whole chain at materialization.  Ops that
-kernel K1 covers carry a dispatch tag (``ops/dispatch.py``): a fully
-tagged chain over a group of same-shape images runs as ONE K1 launch
-(``materialize_all`` -> ``dispatch.try_fused_batch``), a single image's
-tagged prefix as one launch (``LazyImage.materialize`` ->
+kernel K1 covers carry a dispatch tag (``ops/dispatch.py``).  The tagged
+prefix of the chains of a group of same-shape images runs as ONE K1
+launch (``materialize_all`` -> ``dispatch.try_fused_batch``), a single
+image's tagged prefix as one launch (``LazyImage.materialize`` ->
 ``dispatch.try_fused_chain``), and the rest as PyTorch ops on the
-images' device (K3 for a blur on a card), eagerly: there is no jit and
-no mesh.
+images' device, eagerly, image by image: there is no jit and no mesh.
+``-auto-threshold`` materializes every image and thresholds each group
+of same-shape images with one launch of kernel K4.
 
-Ported: parentheses, ``-resize`` (its tag; ``+resize`` is the same op),
-``-colorspace``, ``-gaussian-blur`` and ``-blur``.  The settings keep the
-JAX defaults and no option here changes them, so ``-filter`` is
-``undefined``, ``-virtual-pixel`` ``edge`` and ``-channel`` ``default``;
-write masks (``-region``) are not ported.  A file name, or any other
-option, raises NotImplementedError naming its ROADMAP.md entry.  The
-tags equal the JAX CLI's for the same arguments.
+Ported: parentheses; the resize family ``-resize`` (``+resize`` is the
+same op), ``-sample``, ``-scale``, ``-thumbnail``, ``-adaptive-resize``
+and ``-magnify``; ``-colorspace`` (all 41 colorspaces of
+``ops/colorspace.py``), ``-gaussian-blur`` and ``-blur``; the tone
+options ``-negate``, ``-gamma``, ``-level``, ``-auto-level``,
+``-auto-gamma``, ``-normalize``, ``-equalize``, ``-contrast-stretch``,
+``-linear-stretch``, ``-sigmoidal-contrast``, ``-brightness-contrast``,
+``-modulate``, ``-white-balance``, ``-enhance`` and ``-clahe``; and the
+thresholds ``-threshold``, ``-black-threshold``, ``-white-threshold``,
+``-auto-threshold``, ``-ordered-dither``, ``-random-threshold``, ``-lat``
+and ``-clamp``.  The settings keep the JAX defaults and no option here
+changes them, so ``-filter`` is ``undefined``, ``-virtual-pixel``
+``edge`` and ``-channel`` ``default``; write masks (``-region``) and
+``-seed`` are not ported.  A file name, or any other option, raises
+NotImplementedError naming its ROADMAP.md entry.  The tags equal the JAX
+CLI's for the same arguments.
 """
 
 from __future__ import annotations
 
+import importlib
+import re
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -33,8 +46,6 @@ from ..core.spec import ImageSpec, normalize_colorspace
 
 _IO_GAP = ("file names need the codecs and readers of io/, which are not "
            "ported yet: ROADMAP.md Queue 1, 'Host layers' (io/)")
-_RESIZE_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'The rest of the "
-               "modules that the slices touched' (ops/resize.py)")
 _OPS_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'The rest of the "
             "modules that the slices touched' and 'The other op families "
             "under ops/'")
@@ -81,14 +92,18 @@ class LazyImage:
         if new_shape is not None:
             self._shape = new_shape
 
-    def _settle(self, data: torch.Tensor) -> Image:
-        """Install ``data`` as the result of every pending op."""
+    def _settle(self, data: torch.Tensor, n: Optional[int] = None
+                ) -> Image:
+        """Install ``data`` as the result of the first ``n`` pending ops
+        (all of them by default); the rest stay pending."""
+        n = len(self.pending) if n is None else n
         img = self.image
-        out = Image(data, _fold_spec(img.spec, self.pending), img.properties,
-                    img.profiles, img.page, img.delay)
+        out = Image(data, _fold_spec(img.spec, self.pending[:n]),
+                    img.properties, img.profiles, img.page, img.delay)
         self.image = out
-        self.pending = []
-        self._shape = None
+        self.pending = self.pending[n:]
+        if not self.pending:
+            self._shape = None
         return out
 
     def materialize(self) -> Image:
@@ -170,9 +185,10 @@ def _geom_args(arg: str) -> Tuple[float, float]:
 # Option implementations.  Each handler: (state, arg, plus_form) -> None.
 # ---------------------------------------------------------------------------
 
-def _op_resize(st, arg, plus):
-    """Resize stays LAZY: output dims are static, so the op joins the
-    pending chain.  It is a separable linear map, tagged for K1 (alpha
+def _op_resize(st, arg, plus, op="resize"):
+    """The resize family stays LAZY: output dims are static, so the op
+    joins the pending chain.  A resize, a scale and a thumbnail without
+    its pre-sample stages are separable linear maps, tagged for K1 (alpha
     images too: dispatch checks full opacity, where premultiplied
     sampling equals straight sampling exactly)."""
     from ..ops import resize as rz
@@ -182,11 +198,39 @@ def _op_resize(st, arg, plus):
         alpha = li.spec.alpha
         cw, ch = li.width, li.height
         w, h, _, _ = parse_meta_geometry(arg, cw, ch)
-        rf = filt if filt not in ("undefined", "", None) else \
-            rz._default_filter(ch, cw, h, w, alpha)
-        li.push(lambda x, h=h, w=w, a=alpha: rz.resize(x, h, w, filt,
-                                                       has_alpha=a),
-                new_shape=(h, w), tag=("resize", (h, w, rf)))
+        tag = None
+        if op == "adaptive-resize":
+            # resize.c:1331: a mesh-interpolated lookup, not a filter
+            fn = lambda x, h=h, w=w: rz.interpolative_resize(x, h, w, "mesh")
+        elif op == "resize":
+            fn = lambda x, h=h, w=w, a=alpha: rz.resize(x, h, w, filt,
+                                                        has_alpha=a)
+            rf = filt if filt not in ("undefined", "", None) else \
+                rz._default_filter(ch, cw, h, w, alpha)
+            tag = ("resize", (h, w, rf))
+        elif op == "scale":
+            fn = lambda x, h=h, w=w: rz.scale(x, h, w)
+            tag = ("resize", (h, w, "box"))
+        elif op == "sample":
+            fn = lambda x, h=h, w=w: rz.sample(x, h, w)
+        else:   # thumbnail; resize.c:3692: its filter defaults to LanczosSharp
+            tf_ = filt if filt not in ("undefined", "", None) else \
+                "lanczossharp"
+            fn = lambda x, h=h, w=w, a=alpha, f=tf_: rz.thumbnail(
+                x, h, w, has_alpha=a, filter_name=f)
+            if not alpha and not ((cw // w) > 2 and (ch // h) > 2):
+                tag = ("resize", (h, w, tf_))
+        li.push(fn, new_shape=(h, w), tag=tag)
+
+
+def _op_magnify(st, arg, plus):
+    """-magnify: the EPX 2x upscale.  The JAX CLI queues it without its
+    new shape, so a later option there computes its geometry against the
+    size before the magnify; the port passes the doubled shape."""
+    from ..ops import resize as rz
+
+    for li in st.images:
+        li.push(rz.magnify, new_shape=(2 * li.height, 2 * li.width))
 
 
 def _op_blur(fname: str, rule: str):
@@ -241,15 +285,219 @@ def _op_colorspace(st, arg, plus):
                 tag=tag)
 
 
+def _op_simple(module: str, fname: str, argmap=None):
+    """A lazy per-pixel or neighborhood op: ``ops.<module>.<fname>(x,
+    **argmap(st, arg, plus))`` on each image.  The JAX handler also
+    honors ``-channel`` and write masks; here the channel setting is
+    always ``default`` (no ported option changes it) and write masks are
+    not ported, so the op runs on every channel of every pixel."""
+
+    def handler(st, arg, plus):
+        fn = getattr(importlib.import_module(f"..ops.{module}", __package__),
+                     fname)
+        kwargs = argmap(st, arg, plus) if argmap else {}
+        for li in st.images:
+            li.push(lambda x: fn(x, **kwargs))
+
+    return handler
+
+
+def _op_auto_threshold(st, arg, plus):
+    """-auto-threshold: each image materialized, then one launch of K4
+    for the histograms of each group of same-shape images; every image
+    is thresholded at its own value (``threshold.auto_threshold`` of a
+    batch).  The result is a gray image that keeps the properties, as in
+    the JAX CLI."""
+    from ..ops import threshold as th
+
+    imgs = materialize_all(st.images)
+    groups: Dict[tuple, List[int]] = {}
+    for i, img in enumerate(imgs):
+        key = (tuple(img.data.shape), img.data.device)
+        groups.setdefault(key, []).append(i)
+    for idxs in groups.values():
+        out = th.auto_threshold(torch.stack([imgs[i].data for i in idxs]),
+                                arg)
+        for j, i in enumerate(idxs):
+            st.images[i].image = Image(out[j], ImageSpec(colorspace="gray"),
+                                       imgs[i].properties)
+
+
+_GEOMINFO_RE = re.compile(
+    r"^\s*(?P<rho>[-+]?[\d.]+(?:[eE][-+]?\d+)?)?"
+    r"(?:[x,:](?P<sigma>[-+]?[\d.]+(?:[eE][-+]?\d+)?))?"
+    r"(?P<xi>[-+][\d.]+(?:[eE][-+]?\d+)?)?"
+    r"(?P<psi>[-+][\d.]+(?:[eE][-+]?\d+)?)?"
+    r"(?P<chi>[-+][\d.]+(?:[eE][-+]?\d+)?)?"
+    r"\s*(?P<percent>%)?\s*$")
+
+
+def _geometry_info(a):
+    """ParseGeometry (geometry.c) float semantics: RHOxSIGMA+XI+PSI+CHI,
+    all doubles — unlike the pixel-geometry parser, offsets keep their
+    fractional part.  Returns (rho, sigma, xi, psi, chi, percent) with
+    None for absent fields."""
+    m = _GEOMINFO_RE.match(a.replace("%", "") + ("%" if "%" in a else ""))
+    if not m:
+        return None, None, None, None, None, False
+    f = lambda s: float(s) if s is not None else None
+    return (f(m.group("rho")), f(m.group("sigma")), f(m.group("xi")),
+            f(m.group("psi")), f(m.group("chi")),
+            m.group("percent") is not None)
+
+
+def _op_clahe(st, arg, plus):
+    """-clahe WxH{%}+bins+clip-limit (operation.c:2006): the exact
+    integer pipeline (``enhance.clahe_reference``) on each materialized
+    image, its L channel on the host and its Lab conversions on the
+    image's device.  The tile size goes through META geometry semantics
+    (ParseRegionGeometry, operation.c:2011): "2x2" on 92x60 fits the
+    aspect ratio and yields 2x1 tiles."""
+    from ..ops import enhance as en
+
+    g = parse_geometry(arg)
+    _, _, _, psi, _, _ = _geometry_info(arg)
+    bins = int(g.x) if g.x else 128
+    clip = psi if psi is not None else 3.0
+    for li, img in zip(st.images, materialize_all(st.images)):
+        tw, th_, _, _ = parse_meta_geometry(arg, li.width, li.height)
+        li.image = img.replace(data=en.clahe_reference(img.data, tw, th_,
+                                                       bins, clip))
+
+
+def _percent(a: str) -> float:
+    a = a.strip()
+    if a.endswith("%"):
+        return float(a[:-1]) / 100.0
+    v = float(a)
+    return v if v <= 1.0 else v / 100.0 if v <= 100.0 else v / 65535.0
+
+
+def _parse_level_arg(arg):
+    # "black,white,gamma" with % support: "10%,90%,1.5"
+    parts = [p.strip() for p in arg.replace(",", " ").split()]
+
+    def pv(p):
+        return float(p[:-1]) / 100.0 if p.endswith("%") else float(p)
+
+    black = pv(parts[0]) if parts else 0.0
+    white = pv(parts[1]) if len(parts) > 1 else 1.0
+    gamma = pv(parts[2]) if len(parts) > 2 else 1.0
+    return black, white, gamma
+
+
+def _split_x(a: str) -> List[str]:
+    return [p for p in a.replace(",", "x").split("x") if p]
+
+
+def _stretch_args(a):
+    parts = _split_x(a)
+    return {"black_point": _percent(parts[0]) if parts else 0.0,
+            "white_point": _percent(parts[1]) if len(parts) > 1 else None}
+
+
+def _sigmoidal_args(a, sharpen):
+    parts = _split_x(a)
+    return {"sharpen": sharpen,
+            "contrast": float(parts[0]) if parts else 3.0,
+            "midpoint": _percent(parts[1]) if len(parts) > 1 else 0.5}
+
+
+def _bc_args(a):
+    parts = _split_x(a)
+    return {"brightness": float(parts[0]) if parts else 0.0,
+            "contrast": float(parts[1]) if len(parts) > 1 else 0.0}
+
+
+def _modulate_args(a):
+    parts = [p for p in a.replace(",", " ").replace("/", " ").split() if p]
+    return {"brightness": float(parts[0]) if parts else 100.0,
+            "saturation": float(parts[1]) if len(parts) > 1 else 100.0,
+            "hue": float(parts[2]) if len(parts) > 2 else 100.0}
+
+
+def _dither_args(a):
+    name, _, lv = a.partition(",")
+    return {"map_name": name, "levels": int(lv) if lv else 2}
+
+
+def _random_thresh_args(a):
+    parts = _split_x(a)
+    return {"low": _percent(parts[0]) if parts else 0.0,
+            "high": _percent(parts[1]) if len(parts) > 1 else 1.0}
+
+
+def _lat_args(a):
+    g = parse_geometry(a)
+    return {"width": int(g.width or 3),
+            "height": int(g.height or g.width or 3),
+            "bias": (float(g.x) / 100.0) if g.x is not None else 0.0}
+
+
+def _gamma_arg(a):
+    # operation.c:2479: StringToDouble stops at the comma, so "2.2,1,0.8"
+    # applies 2.2 to every channel
+    return {"value": float(re.match(r"[-+]?[\d.]*(?:[eE][-+]?\d+)?",
+                                    a.strip()).group() or 0)}
+
+
+def _threshold_arg(st, a, p):
+    return {"threshold": _percent(a)}
+
+
 # option name -> (number of arguments, handler)
 OPS: Dict[str, Tuple[int, Callable]] = {
+    # the resize family
     "resize": (1, _op_resize),
-    "colorspace": (1, _op_colorspace),
+    "adaptive-resize": (1, partial(_op_resize, op="adaptive-resize")),
+    "scale": (1, partial(_op_resize, op="scale")),
+    "sample": (1, partial(_op_resize, op="sample")),
+    "thumbnail": (1, partial(_op_resize, op="thumbnail")),
+    "magnify": (0, _op_magnify),
+    # blurs and color
     "blur": (1, _op_blur("blur", "1d")),
     "gaussian-blur": (1, _op_blur("gaussian_blur", "2d")),
+    "colorspace": (1, _op_colorspace),
+    "negate": (0, _op_simple("enhance", "negate",
+                             lambda st, a, p: {"grayscale_only": p})),
+    "gamma": (1, _op_simple("enhance", "gamma",
+                            lambda st, a, p: _gamma_arg(a))),
+    "level": (1, _op_simple("enhance", "level", lambda st, a, p: dict(zip(
+        ("black_point", "white_point", "gamma_"), _parse_level_arg(a))))),
+    "auto-level": (0, _op_simple("enhance", "auto_level")),
+    "auto-gamma": (0, _op_simple("enhance", "auto_gamma")),
+    "normalize": (0, _op_simple("enhance", "normalize")),
+    "equalize": (0, _op_simple("enhance", "equalize")),
+    "contrast-stretch": (1, _op_simple("enhance", "contrast_stretch",
+                                       lambda st, a, p: _stretch_args(a))),
+    "linear-stretch": (1, _op_simple("enhance", "linear_stretch",
+                                     lambda st, a, p: _stretch_args(a))),
+    "sigmoidal-contrast": (1, _op_simple(
+        "enhance", "sigmoidal_contrast",
+        lambda st, a, p: _sigmoidal_args(a, not p))),
+    "brightness-contrast": (1, _op_simple("enhance", "brightness_contrast",
+                                          lambda st, a, p: _bc_args(a))),
+    "modulate": (1, _op_simple("enhance", "modulate",
+                               lambda st, a, p: _modulate_args(a))),
+    "clahe": (1, _op_clahe),
+    "white-balance": (0, _op_simple("enhance", "white_balance")),
+    "enhance": (0, _op_simple("enhance", "enhance")),
+    # thresholds
+    "threshold": (1, _op_simple("threshold", "bilevel", _threshold_arg)),
+    "black-threshold": (1, _op_simple("threshold", "black_threshold",
+                                      _threshold_arg)),
+    "white-threshold": (1, _op_simple("threshold", "white_threshold",
+                                      _threshold_arg)),
+    "auto-threshold": (1, _op_auto_threshold),
+    "ordered-dither": (1, _op_simple("threshold", "ordered_dither",
+                                     lambda st, a, p: _dither_args(a))),
+    "random-threshold": (1, _op_simple(
+        "threshold", "random_threshold",
+        lambda st, a, p: _random_thresh_args(a))),
+    "lat": (1, _op_simple("threshold", "adaptive_threshold",
+                          lambda st, a, p: _lat_args(a))),
+    "clamp": (0, _op_simple("threshold", "clamp")),
 }
-
-_RESIZE_FAMILY = ("sample", "scale", "thumbnail", "adaptive-resize")
 
 
 def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
@@ -294,39 +542,40 @@ def unported(tok: str) -> NotImplementedError:
     the ROADMAP.md entry that ports it."""
     if not tok.startswith(("-", "+")) or tok == "-":
         return NotImplementedError(f"{tok!r}: {_IO_GAP}")
-    gap = _RESIZE_GAP if tok[1:] in _RESIZE_FAMILY else _OPS_GAP
-    return NotImplementedError(f"option {tok!r} {gap}")
+    return NotImplementedError(f"option {tok!r} {_OPS_GAP}")
 
 
 def materialize_all(lazies: List[LazyImage]) -> List[Image]:
-    """Materialize a list of lazy images, batching same-shape images whose
-    full pending chain is tagged into ONE K1 launch
-    (``dispatch.try_fused_batch``).  A group that dispatch declines runs
-    its chain once on the stacked group as PyTorch ops; every other image
-    materializes alone."""
+    """Materialize a list of lazy images, batching same-shape images
+    whose chains share a tagged prefix into ONE K1 launch for that
+    prefix (``dispatch.try_fused_batch``); the rest of each chain then
+    runs image by image.  A fully tagged group that dispatch declines
+    runs its chain once on the stacked group as PyTorch ops (its ops act
+    on each image alone); every other image materializes alone."""
     from ..ops import dispatch as _dsp
 
     groups: Dict[tuple, List[int]] = {}
     for idx, li in enumerate(lazies):
-        if not li.pending:
-            continue
         d = li.image.data
-        if d.dim() != 3:
+        if not li.pending or d.dim() != 3:
             continue
-        tags = tuple(t for _, _, t in li.pending)
-        if any(t is None for t in tags):
+        tags = [t for _, _, t in li.pending]
+        n = _dsp.match_prefix(tags)
+        if n == 0:
             continue
-        key = (tuple(map(int, d.shape)), d.device, tags,
-               bool(li.image.spec.alpha))
+        key = (tuple(map(int, d.shape)), d.device, tuple(tags[:n]),
+               n == len(tags), bool(li.image.spec.alpha))
         groups.setdefault(key, []).append(idx)
-    for (_, _, tags, has_alpha), idxs in groups.items():
+    for (_, _, prefix, whole, has_alpha), idxs in groups.items():
         if len(idxs) < 2:
             continue
         datas = [lazies[i].image.data for i in idxs]
-        out = _dsp.try_fused_batch(datas, list(tags), alpha=has_alpha)
+        out = _dsp.try_fused_batch(datas, list(prefix), alpha=has_alpha)
         if out is None:
+            if not whole:
+                continue      # each image runs its own chain below
             # equal tags mean equal ops: run the first image's chain on all
             out = _run_ops(torch.stack(datas), lazies[idxs[0]].pending)
         for j, i in enumerate(idxs):
-            lazies[i]._settle(out[j])
+            lazies[i]._settle(out[j], len(prefix))
     return [li.materialize() for li in lazies]

@@ -9,7 +9,9 @@ that ops carry along.  A tensor keeps the device
 it lies on; pixels given as a numpy array or a list go to ``device``, the
 CUDA card unless the caller asks for the CPU.  Op methods are thin
 wrappers over the functions in ``imagemagick_tpu_torch.ops`` and return
-new Images.
+new Images.  ``crop``, ``flip``, ``flop`` and ``rotate`` wait for
+ops/transform and ops/distort, ``sharpen`` for blur's effects (ROADMAP.md
+Queue 1); the JAX class's pytree hooks have no use here.
 """
 
 from __future__ import annotations
@@ -51,6 +53,18 @@ class Image:
     def channels(self) -> int:
         return self.data.shape[-1]
 
+    @property
+    def colorspace(self) -> str:
+        return self.spec.colorspace
+
+    @property
+    def alpha(self) -> bool:
+        return self.spec.alpha
+
+    @property
+    def batched(self) -> bool:
+        return self.data.dim() == 4
+
     def replace(self, data=None, spec=None) -> "Image":
         return Image(self.data if data is None else data,
                      self.spec if spec is None else spec,
@@ -61,9 +75,51 @@ class Image:
         return (f"<Image {shp} {self.spec.colorspace}"
                 f"{'+alpha' if self.spec.alpha else ''} {self.data.device}>")
 
-    # layout: [color..., alpha?, meta...]
+    def _with(self, data, spec: ImageSpec) -> "Image":
+        return Image(data, spec, self.properties, self.profiles, self.page,
+                     self.delay)
+
+    # layout: [color..., alpha?, meta...] (the meta tail of pixel.h:27's
+    # 64-channel map; per-pixel ops ignore it, geometry ops carry it)
     def color_data(self) -> torch.Tensor:
         return self.data[..., : self.spec.color_channels]
+
+    def alpha_data(self) -> Optional[torch.Tensor]:
+        if self.spec.alpha:
+            cc = self.spec.color_channels
+            return self.data[..., cc:cc + 1]
+        return None
+
+    def meta_data(self) -> Optional[torch.Tensor]:
+        """The meta-channel tail (None when absent)."""
+        if self.spec.meta_channels:
+            return self.data[..., -self.spec.meta_channels:]
+        return None
+
+    def with_meta(self, meta: Optional[torch.Tensor]) -> "Image":
+        """Attach/replace/drop meta channels (SetPixelMetaChannels analog)."""
+        base = self.data[..., : self.spec.channels - self.spec.meta_channels]
+        if meta is None:
+            return self._with(base, self.spec.with_(meta_channels=0))
+        return self._with(torch.cat([base, meta], dim=-1),
+                          self.spec.with_(meta_channels=meta.shape[-1]))
+
+    def with_color(self, color: torch.Tensor) -> "Image":
+        rest = self.data[..., self.spec.color_channels:]
+        data = torch.cat([color, rest], dim=-1) if rest.shape[-1] else color
+        return self.replace(data=data)
+
+    def set_alpha(self, enable: bool, value: float = 1.0) -> "Image":
+        """SetImageAlphaChannel analog (channel.c)."""
+        if enable and not self.spec.alpha:
+            a = torch.full(self.data.shape[:-1] + (1,), value,
+                           dtype=self.data.dtype, device=self.data.device)
+            return self._with(torch.cat([self.data, a], dim=-1),
+                              self.spec.with_(alpha=True))
+        if not enable and self.spec.alpha:
+            return self._with(self.data[..., :-1],
+                              self.spec.with_(alpha=False))
+        return self
 
     # -- op wrappers (thin; real math in ops/) -------------------------------
     def transform_colorspace(self, target: str) -> "Image":
@@ -76,7 +132,7 @@ class Image:
         color = cs.convert(self.color_data(), src, tgt)
         rest = self.data[..., self.spec.color_channels:]
         data = torch.cat([color, rest], dim=-1) if rest.shape[-1] else color
-        return self.replace(data=data, spec=self.spec.with_(colorspace=tgt))
+        return self._with(data, self.spec.with_(colorspace=tgt))
 
     def resize(self, width: int, height: int, filter_name: str = "undefined",
                blur: float = 1.0) -> "Image":
@@ -116,16 +172,38 @@ class Image:
     def to_numpy(self) -> np.ndarray:
         return self.data.detach().cpu().numpy()
 
+    def _quantized(self, top: float) -> np.ndarray:
+        arr = torch.clamp(self.data, 0.0, 1.0).detach().cpu().numpy()
+        return arr * np.float32(top) + np.float32(0.5)
+
+    def to_uint8(self) -> np.ndarray:
+        return self._quantized(255.0).astype(np.uint8)
+
+    def to_uint16(self) -> np.ndarray:
+        return self._quantized(65535.0).astype(np.uint16)
+
+    @classmethod
+    def _from_int(cls, arr: np.ndarray, top: float,
+                  spec: Optional[ImageSpec], device) -> "Image":
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        data = _to_device(np.asarray(arr, np.float32) / np.float32(top),
+                          device)
+        if spec is None:
+            spec = _infer_spec(arr.shape[-1])
+        return cls(data, spec)
+
     @classmethod
     def from_uint8(cls, arr: np.ndarray, spec: Optional[ImageSpec] = None,
                    device="cuda") -> "Image":
         """An Image of 8-bit pixels scaled to [0, 1], on ``device``."""
-        if arr.ndim == 2:
-            arr = arr[..., None]
-        data = _to_device(np.asarray(arr, np.float32) / 255.0, device)
-        if spec is None:
-            spec = _infer_spec(arr.shape[-1])
-        return cls(data, spec)
+        return cls._from_int(arr, 255.0, spec, device)
+
+    @classmethod
+    def from_uint16(cls, arr: np.ndarray, spec: Optional[ImageSpec] = None,
+                    device="cuda") -> "Image":
+        """An Image of 16-bit pixels scaled to [0, 1], on ``device``."""
+        return cls._from_int(arr, 65535.0, spec, device)
 
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:

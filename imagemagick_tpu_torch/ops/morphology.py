@@ -10,9 +10,9 @@ padded image, one PyTorch op per offset.  Config #3's open and close of a
 binary image by ``square:1`` run here on the op route; kernel K5
 (``gpu_kernels.fused_bilevel_morph_edge``) runs them fused.
 
-``distance`` (the reference's raster-sweep distance transform, a row scan
-in the JAX package) waits for ROADMAP.md Queue 1, the
-``morphology.distance_transform`` entry.
+``distance`` is the reference's raster-sweep distance transform: two
+chamfer sweeps, each a loop over rows on the host with the in-row
+dependency as one ``torch.cummin`` (``distance_transform``).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..core.virtual_pixel import pad_spatial
 
+_BIG = 1e6  # a distance no chamfer path reaches (outside the image)
 
 # ---------------------------------------------------------------------------
 # Kernel library (AcquireKernelBuiltIn / AcquireKernelInfo)
@@ -420,13 +421,121 @@ def hit_and_miss(img: torch.Tensor, kernel: np.ndarray,
     return torch.clamp(fg - bg, min=0.0)
 
 
+def _distance_pass(img: torch.Tensor, costs: np.ndarray, reverse: bool
+                   ) -> torch.Tensor:
+    """One chamfer sweep (row scan) of the distance transform.
+
+    MorphologyPrimitiveDirect (morphology.c:3242) does a raster sweep
+    where each pixel takes min(self, neighbor+cost) over its visited
+    neighbors.  Rows run in order: each row first takes the r rows of
+    output above it (all dx), in float32 as the JAX package does, then
+    its own left side.  The row costs are exact multiples,
+    c(0,-k) = k·c(0,-1), for every distance metric, so the left side is
+    d[i] = min_j cand[j] + (i-j)·c = min_j (cand[j] - j·c) + i·c: one
+    cumulative minimum along the row, taken in float64 and rounded to
+    float32 once.  The JAX package's associative min-plus scan rounds
+    after each combine, so the two may differ by float32 ulps of the
+    distances where a seed value is not an integer; with integer seeds
+    and costs (a binary image under Chebyshev or Manhattan) they are
+    equal."""
+    r = costs.shape[0] // 2
+    x = img.flip(-3, -2) if reverse else img
+    c_left = float(costs[r, r - 1])
+    w = x.shape[-2]
+    taps = [(dy, dx, float(costs[r - dy, r + dx]))
+            for dy in range(1, r + 1) for dx in range(-r, r + 1)
+            if np.isfinite(costs[r - dy, r + dx])]
+    k = torch.arange(w, dtype=torch.float64, device=x.device)[:, None] \
+        * c_left
+    # the r previous output rows, each padded with r columns of _BIG
+    # either side, top to bottom
+    row_shape = x.shape[:-3] + (w + 2 * r, x.shape[-1])
+    prev = [torch.full(row_shape, _BIG, dtype=x.dtype, device=x.device)
+            for _ in range(r)]
+    pad = torch.full(x.shape[:-3] + (r, x.shape[-1]), _BIG, dtype=x.dtype,
+                     device=x.device)
+    rows = []
+    for y in range(x.shape[-3]):
+        cand = x[..., y, :, :]
+        for dy, dx, c in taps:
+            p = prev[r - dy]
+            cand = torch.minimum(cand, p[..., r + dx:r + dx + w, :] + c)
+        vals = (torch.cummin(cand.to(torch.float64) - k, dim=-2).values
+                + k).to(x.dtype)
+        rows.append(vals)
+        prev = prev[1:] + [torch.cat([pad, vals, pad], dim=-2)]
+    out = torch.stack(rows, dim=-3)
+    return out.flip(-3, -2) if reverse else out
+
+
 def distance_transform(img: torch.Tensor, metric: str = "euclidean",
                        scale: float = 0.01, radius: int = 1) -> torch.Tensor:
-    """DistanceMorphology: not ported yet."""
-    raise NotImplementedError(
-        "morphology 'distance' (the chamfer distance transform, a row "
-        "scan) is not ported yet: ROADMAP.md Queue 1, the "
-        "'morphology.distance_transform' entry")
+    """DistanceMorphology: distance from background (v==0) to each pixel.
+
+    Two chamfer sweeps (forward + backward) reproduce the reference's
+    iterate-until-converged raster passes exactly.  radius>1 builds the
+    (2r+1)² kernel of kernel.c:2158 (values σ·metric(u,v)); the radius-1
+    Euclidean chamfer is NOT equivalent to the radius-4 one the reference
+    uses for "Euclidean:4" (knight's-move distances differ).  Each pixel
+    starts at its own value over ``scale`` and the chamfer min-propagates
+    value + step cost (grayscale seeding, MorphologyPrimitiveDirect): a
+    binary image reduces to the classic distance from background."""
+    m = metric.lower()
+    if radius <= 1:
+        costs = {"chebyshev": _CHEBYSHEV, "manhattan": _MANHATTAN,
+                 "euclidean": _EUCLIDEAN}[m]
+    else:
+        uu, vv = np.meshgrid(np.arange(-radius, radius + 1),
+                             np.arange(-radius, radius + 1))
+        if m == "chebyshev":
+            costs = np.maximum(np.abs(uu), np.abs(vv)).astype(np.float64)
+        elif m == "manhattan":
+            costs = (np.abs(uu) + np.abs(vv)).astype(np.float64)
+        else:
+            costs = np.sqrt(uu * uu + vv * vv)
+    # a float32 divisor on the image's device: a true division there, as
+    # the JAX package divides by jnp.float32(scale)
+    s = torch.tensor(max(scale, 1e-12), dtype=img.dtype, device=img.device)
+    d = img / s
+    d = _distance_pass(d, costs, reverse=False)
+    d = _distance_pass(d, costs, reverse=True)
+    return torch.clamp(d * scale, 0.0, 1.0)
+
+
+def _metric_from_spec(spec: str) -> str:
+    name = spec.split(":")[0].lower()
+    return name if name in ("chebyshev", "manhattan", "euclidean") \
+        else "euclidean"
+
+
+def _spec_args(spec: str) -> list:
+    parts = spec.split(":")
+    if len(parts) > 1:
+        return [p for p in re.split(r"[x,]", parts[1]) if p]
+    return []
+
+
+def _radius_from_spec(spec: str) -> int:
+    """Distance-kernel radius: kernel arg1 rho (kernel.c:2160; below 1
+    means the default 3x3)."""
+    args = _spec_args(spec)
+    if args:
+        try:
+            rho = float(args[0])
+        except ValueError:
+            return 1
+        if rho >= 1.0:
+            return int(rho)
+    return 1
+
+
+def _scale_from_spec(spec: str) -> float:
+    """Distance-kernel scale: kernel arg2, default 100 quantum units per
+    pixel step (kernel.c Euclidean default; oracle: an 8x8 square's
+    center reads distance*100 in Q16)."""
+    args = _spec_args(spec)
+    scale = float(args[1]) if len(args) > 1 else 100.0
+    return scale / 65535.0
 
 
 # ---------------------------------------------------------------------------
@@ -445,9 +554,11 @@ def morphology(img: torch.Tensor, method: str, kernel_spec: str,
     device.
     """
     method = method.lower().replace("-", "").replace("_", "")
-    if method == "distance":
-        return distance_transform(img)
     kernels = get_kernel(kernel_spec)
+    if method == "distance":
+        return distance_transform(img, _metric_from_spec(kernel_spec),
+                                  _scale_from_spec(kernel_spec),
+                                  _radius_from_spec(kernel_spec))
 
     def apply_once(x, k):
         if method in ("convolve",):

@@ -8,7 +8,12 @@ The contribution structure of one axis is a banded matrix built host-side
 with numpy (copied verbatim from the JAX package, so the weights are
 bit-equal).  The resample is one dense matmul per axis in full float32;
 for very large axes, where the dense matrix would waste memory, a windowed
-gather takes its place.
+gather takes its place.  ``sample``, ``scale``, ``thumbnail``, ``magnify``
+and ``interpolative_resize`` (the -sample, -scale, -thumbnail, -magnify and
+-adaptive-resize options) follow; their geometry is computed on the host
+in float64, as in the JAX package.  The JAX package's integer-factor
+strided path (``_resample_axis_strided``) is never dispatched there and
+has no counterpart here.
 
 Filter weights reproduce the reference's table (resize.c:823-940: function,
 support, window pairing, B/C coefficients, blur factors) including the
@@ -418,3 +423,230 @@ def resize(img: torch.Tensor, height: int, width: int,
         safe = torch.where(alpha.abs() < 1e-6, torch.ones_like(alpha), alpha)
         work = torch.cat([work[..., :-1] / safe, alpha], dim=-1)
     return work.clamp(0.0, 1.0)
+
+
+def sample(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Nearest-neighbor point sample (SampleImage, resize.c:3952).
+
+    The reference offsets by 0.5 - MagickEpsilon, so an exact integer
+    product floors DOWN (e.g. 60->15 picks rows 1,5,9,... not 2,6,10),
+    verified against the built reference binary.  The row and column
+    indices are computed on the host in float64."""
+    *_, in_h, in_w, c = img.shape
+    off = 0.5 - 1e-9
+    ys = np.minimum(((np.arange(height) + off) * in_h / height)
+                    .astype(np.int64), in_h - 1)
+    xs = np.minimum(((np.arange(width) + off) * in_w / width)
+                    .astype(np.int64), in_w - 1)
+    out = img.index_select(-3, torch.from_numpy(ys).to(img.device))
+    return out.index_select(-2, torch.from_numpy(xs).to(img.device))
+
+
+def scale(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Box-average scale (ScaleImage, resize.c)."""
+    return resize(img, height, width, filter_name="box")
+
+
+def thumbnail(img: torch.Tensor, height: int, width: int,
+              has_alpha: bool = False,
+              filter_name: str = None) -> torch.Tensor:
+    """ThumbnailImage (resize.c:3641-3703): point-sample to 4x the target
+    when both shrink factors exceed 4, box-resize to 2x when both exceed
+    2, then a final resize whose default filter is LANCZOSSHARP (not the
+    usual resize heuristic)."""
+    *_, in_h, in_w, _ = img.shape
+    work = img
+    if (in_w // width) > 4 and (in_h // height) > 4:
+        work = sample(work, 4 * height, 4 * width)
+    wh, ww = work.shape[-3], work.shape[-2]
+    if (ww // width) > 2 and (wh // height) > 2:
+        work = resize(work, 2 * height, 2 * width, filter_name="box",
+                      has_alpha=has_alpha)
+    return resize(work, height, width,
+                  filter_name=filter_name or "lanczossharp",
+                  has_alpha=has_alpha)
+
+
+def magnify(img: torch.Tensor) -> torch.Tensor:
+    """Pixel-art 2x upscale by the Scale2X/EPX rule (MagnifyImage, resize.c).
+
+    For each pixel P with neighbors A (above), B (right), C (left), D (below):
+      1 = C==A and C!=D and A!=B ? A : P   (top-left)
+      2 = A==B and A!=C and B!=D ? B : P   (top-right)
+      3 = D==C and D!=B and C!=A ? C : P   (bottom-left)
+      4 = B==D and B!=A and D!=C ? D : P   (bottom-right)
+    Neighbors beyond the border replicate the edge.
+    """
+    up = torch.cat([img[..., :1, :, :], img[..., :-1, :, :]], dim=-3)
+    down = torch.cat([img[..., 1:, :, :], img[..., -1:, :, :]], dim=-3)
+    left = torch.cat([img[..., :, :1, :], img[..., :, :-1, :]], dim=-2)
+    right = torch.cat([img[..., :, 1:, :], img[..., :, -1:, :]], dim=-2)
+
+    def eq(a, b):
+        return torch.all((a - b).abs() < 1e-6, dim=-1, keepdim=True)
+
+    a, b, c, d = up, right, left, down
+    p1 = torch.where(eq(c, a) & ~eq(c, d) & ~eq(a, b), a, img)
+    p2 = torch.where(eq(a, b) & ~eq(a, c) & ~eq(b, d), b, img)
+    p3 = torch.where(eq(d, c) & ~eq(d, b) & ~eq(c, a), c, img)
+    p4 = torch.where(eq(b, d) & ~eq(b, a) & ~eq(d, c), d, img)
+    top = torch.stack([p1, p2], dim=-2)      # (..., H, W, 2, C)
+    bot = torch.stack([p3, p4], dim=-2)
+    quad = torch.stack([top, bot], dim=-4)   # (..., H, 2, W, 2, C)
+    *lead, h, _, w, _, ch = quad.shape
+    return quad.reshape(*lead, h * 2, w * 2, ch)
+
+
+def _mesh_sample(img: torch.Tensor, u: np.ndarray, v: np.ndarray
+                 ) -> torch.Tensor:
+    """MeshInterpolatePixel (pixel.c:4689): split the 2x2 cell into two
+    triangles along the lower-luma-contrast diagonal and barycentrically
+    interpolate within the containing triangle.  u/v are HOST float64
+    grids: the triangle tie-breaks (dx<=dy) land exactly on rational
+    boundaries and must be decided in double like the reference."""
+    h, w, c = img.shape[-3:]
+    dev = img.device
+    u = np.asarray(u, np.float64)
+    v = np.asarray(v, np.float64)
+    x0 = np.floor(u)
+    y0 = np.floor(v)
+
+    def host(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    dx = host((u - x0)[..., None].astype(np.float32))
+    dy = host((v - y0)[..., None].astype(np.float32))
+    le_diag = host(((u - x0) <= (v - y0))[..., None])
+    le_anti = host(((u - x0) <= 1.0 - (v - y0))[..., None])
+    x0i = x0.astype(np.int64)
+    y0i = y0.astype(np.int64)
+    lead = img.shape[:-3]
+    flatimg = img.reshape(lead + (h * w, c))
+
+    def at(yi, xi):
+        idx = np.clip(yi, 0, h - 1) * w + np.clip(xi, 0, w - 1)
+        out = flatimg.index_select(-2, host(idx.reshape(-1)))
+        return out.reshape(lead + idx.shape + (c,))
+
+    p0 = at(y0i, x0i)
+    p1 = at(y0i, x0i + 1)
+    p2 = at(y0i + 1, x0i)
+    p3 = at(y0i + 1, x0i + 1)
+
+    def luma(p):
+        if c >= 3:
+            return (0.212656 * p[..., 0] + 0.715158 * p[..., 1]
+                    + 0.072186 * p[..., 2])[..., None]
+        return p[..., :1]
+
+    lx = luma(p0) - luma(p3)
+    ly = luma(p1) - luma(p2)
+    # NW-SE diagonal (|lx| < |ly|)
+    v_bl = dx * p3 + (1.0 - dy) * p0 + (dy - dx) * p2          # dx <= dy
+    v_tr = (1.0 - dx) * p0 + dy * p3 + (dx - dy) * p1          # dx > dy
+    # NE-SW diagonal
+    v_tl = dx * p1 + dy * p2 + (1.0 - dx - dy) * p0            # dx <= 1-dy
+    v_br = (1.0 - dx) * p2 + (1.0 - dy) * p1 + (dx + dy - 1.0) * p3
+    nwse = lx.abs() < ly.abs()
+    return torch.where(nwse, torch.where(le_diag, v_bl, v_tr),
+                       torch.where(le_anti, v_tl, v_br))
+
+
+def interpolative_resize(img: torch.Tensor, height: int, width: int,
+                         method: str = "mesh") -> torch.Tensor:
+    """InterpolativeResizeImage (resize.c:1208): per-dest-pixel single
+    interpolated lookup at ((i+0.5)·scale−0.5), NOT a filtered
+    convolution.  AdaptiveResizeImage (resize.c:1331) is this with Mesh
+    interpolation."""
+    h, w = img.shape[-3], img.shape[-2]
+    if (h, w) == (height, width):
+        return img
+    sy = h / float(height)
+    sx = w / float(width)
+    # geometry in float64 on the host: the mesh triangle tie-breaks
+    # (dx<=dy) sit exactly on thirds/halves for rational scales and flip
+    # under float32; the reference computes them in double
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    u = (xx + 0.5) * sx - 0.5
+    v = (yy + 0.5) * sy - 0.5
+    m = method.lower()
+    if m in ("mesh", "adaptive"):
+        return _mesh_sample(img, u, v)
+    wy = _interp_weights(v[:, 0], h, m, img.device)
+    wx = _interp_weights(u[0], w, m, img.device)
+    c = img.shape[-1]
+    if c in (2, 4) and m in ("bilinear", "blend", "catrom", "spline",
+                             "undefined", ""):
+        # BlendPixelTrait: colors interpolate alpha-premultiplied, the
+        # result is un-premultiplied by the interpolated alpha
+        # (pixel.c:4540-4555 gamma=PerceptibleReciprocal(alpha_blend))
+        a = img[..., -1:]
+        pm = torch.cat([img[..., :-1] * a, a], -1)
+        out = torch.einsum("yh,...hwc,xw->...yxc", wy, pm, wx)
+        ai = out[..., -1:]
+        gamma = torch.where(ai.abs() < 1e-12, 0.0, 1.0 / ai)
+        return torch.cat([out[..., :-1] * gamma, ai], -1).to(img.dtype)
+    return torch.einsum("yh,...hwc,xw->...yxc", wy, img, wx).to(img.dtype)
+
+
+def _interp_weights(t: np.ndarray, n: int, method: str,
+                    device=None) -> torch.Tensor:
+    """1-D interpolation weight matrix (n_dst, n_src) for the separable
+    InterpolatePixelChannel methods (pixel.c:4433-4830), as float32 on
+    ``device`` (the CPU by default).  Taps outside the image clamp to the
+    edge (the default virtual-pixel policy); weights are computed on the
+    host in float64 exactly as the reference."""
+    t = np.asarray(t, np.float64)
+    nd = t.shape[0]
+    W = np.zeros((nd, n), np.float64)
+    f0 = np.floor(t)
+    frac = t - f0
+    base = f0.astype(np.int64)
+
+    def add(idx, w):
+        np.add.at(W, (np.arange(nd), np.clip(idx, 0, n - 1)), w)
+
+    if method in ("integer",):
+        add(base, np.ones(nd))
+    elif method in ("nearest", "point"):
+        add(np.floor(t + 0.5).astype(np.int64), np.ones(nd))
+    elif method in ("average", "average4"):
+        add(base, np.full(nd, 0.5))
+        add(base + 1, np.full(nd, 0.5))
+    elif method == "average9":
+        b = (np.floor(t + 0.5) - 1.0).astype(np.int64)
+        for k in range(3):
+            add(b + k, np.full(nd, 1.0 / 3.0))
+    elif method == "average16":
+        for k in range(4):
+            add(base - 1 + k, np.full(nd, 0.25))
+    elif method == "blend":
+        # pixel.c:4580-4605: one tap outside the [0.25, 0.75) band, an
+        # equal two-tap blend inside it
+        both = (frac > 0.25) & (frac < 0.75)
+        hi = frac >= 0.75
+        add(base, np.where(both, 0.5, np.where(hi, 0.0, 1.0)))
+        add(base + 1, np.where(both, 0.5, np.where(hi, 1.0, 0.0)))
+    elif method in ("catrom", "spline"):
+        x = frac
+        alpha = 1.0 - x
+        if method == "catrom":
+            beta = -0.5 * x * alpha
+            w0 = alpha * beta
+            w3 = x * beta
+            gma = w3 - w0
+            w1 = alpha - w0 + gma
+            w2 = x - w3 - gma
+        else:
+            w3 = (1.0 / 6.0) * x ** 3
+            w0 = (1.0 / 6.0) * alpha ** 3
+            beta = w3 - w0
+            w1 = alpha - w0 + beta
+            w2 = x - w3 - beta
+        for k, wk in enumerate((w0, w1, w2, w3)):
+            add(base - 1 + k, wk)
+    else:  # bilinear default
+        add(base, 1.0 - frac)
+        add(base + 1, frac)
+    return torch.from_numpy(W.astype(np.float32)).to(
+        device if device is not None else "cpu")

@@ -1,10 +1,10 @@
-"""Thresholding ops (threshold.c family): the global thresholds.
+"""Thresholding ops (threshold.c family).
 
-Port of ``imagemagick_tpu/ops/threshold.py`` through its point ops (the
-reference's MagickCore/threshold.c): the auto-thresholds (Otsu :491, Kapur
-:392, Triangle :570) as reductions over 256-bin intensity histograms, and
-the bilevel/black/white/range/clamp/perceptible point ops.  The adaptive,
-random, ordered-dither and color thresholds wait for their queue item.
+Port of ``imagemagick_tpu/ops/threshold.py`` (the reference's
+MagickCore/threshold.c): the auto-thresholds (Otsu :491, Kapur :392,
+Triangle :570) as reductions over 256-bin intensity histograms; the
+bilevel/black/white/range/clamp/perceptible point ops; and the adaptive
+(local mean), random, ordered-dither and color thresholds.
 
 ``auto_threshold`` thresholds every image of a batch at its own value:
 ``auto_threshold_values`` takes the N histograms from one launch of kernel
@@ -17,11 +17,13 @@ within float32's rounding of each other.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import numpy as np
 import torch
 
 from . import gpu_kernels
-from .enhance import grayscale
+from .enhance import _intensity, grayscale
 
 _NBINS = 256  # reference histograms auto-thresholds at 256 bins (threshold.c)
 # A bin's threshold value: bin * float32(1/255), the JAX package's value.
@@ -199,14 +201,6 @@ def bilevel(img: torch.Tensor, threshold) -> torch.Tensor:
     return torch.cat([color, img[..., 3:]], dim=-1) if c > 3 else color
 
 
-def _intensity(img: torch.Tensor) -> torch.Tensor:
-    """GetPixelIntensity default (Rec709 luma on encoded values)."""
-    if img.shape[-1] < 3:
-        return img[..., 0]
-    return (0.212656 * img[..., 0] + 0.715158 * img[..., 1] +
-            0.072186 * img[..., 2])
-
-
 def _set_color(img: torch.Tensor, mask: torch.Tensor, value: float
                ) -> torch.Tensor:
     """Set all color channels where mask, preserving alpha."""
@@ -256,3 +250,120 @@ def perceptible(img: torch.Tensor, epsilon: float = 1e-7) -> torch.Tensor:
     """PerceptibleImage: raise tiny values to epsilon."""
     return torch.where(img.abs() < epsilon,
                        torch.sign(img) * epsilon + (img == 0) * epsilon, img)
+
+
+def adaptive_threshold(img: torch.Tensor, width: int = 3, height: int = 3,
+                       bias: float = 0.0) -> torch.Tensor:
+    """AdaptiveThresholdImage (threshold.c): local mean minus bias.  A
+    pixel at or below its local mean plus ``bias`` goes black
+    (``mean=sum/n+bias``: the bias ADDS to the mean)."""
+    from .blur import _depthwise_conv
+
+    box = np.ones((height, width), np.float32) / float(width * height)
+    mean = _depthwise_conv(img, box, "edge")
+    return (img > mean + bias).to(img.dtype)
+
+
+def random_threshold(img: torch.Tensor, low: float = 0.0, high: float = 1.0,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """RandomThresholdImage: each value against its own uniform threshold
+    in [low, high].
+
+    The thresholds come from ``generator``, a torch.Generator on the
+    image's device.  Without one the function seeds a new generator with
+    0 on that device, as the JAX function falls back to PRNGKey(0), so a
+    run repeats itself; the values differ from JAX's, whose PRNG is
+    another.  The CLI's -seed is not ported, so -random-threshold always
+    takes that fallback."""
+    if generator is None:
+        generator = torch.Generator(device=img.device).manual_seed(0)
+    t = torch.rand(img.shape, generator=generator, device=img.device,
+                   dtype=img.dtype) * (high - low) + low
+    return (img > t).to(img.dtype)
+
+
+# Ordered-dither threshold maps (config/thresholds.xml), a copy of the
+# JAX package's table: name -> (divisor, rows).
+_THRESHOLD_MAPS = {
+    "threshold": (2, [[1]]),
+    "checks": (3, [[1, 2], [2, 1]]),
+    "o2x2": (5, [[1, 3], [4, 2]]),
+    "o3x3": (10, [[3, 7, 4], [6, 1, 9], [2, 8, 5]]),
+    "o4x4": (17, [[1, 9, 3, 11], [13, 5, 15, 7], [4, 12, 2, 10],
+                  [16, 8, 14, 6]]),
+    "o8x8": (65, [
+        [1, 49, 13, 61, 4, 52, 16, 64], [33, 17, 45, 29, 36, 20, 48, 32],
+        [9, 57, 5, 53, 12, 60, 8, 56], [41, 25, 37, 21, 44, 28, 40, 24],
+        [3, 51, 15, 63, 2, 50, 14, 62], [35, 19, 47, 31, 34, 18, 46, 30],
+        [11, 59, 7, 55, 10, 58, 6, 54], [43, 27, 39, 23, 42, 26, 38, 22]]),
+    "h4x4a": (9, [[4, 2, 7, 5], [3, 1, 8, 6], [7, 5, 4, 2], [8, 6, 3, 1]]),
+    "h6x6a": (19, [
+        [14, 13, 10, 8, 2, 3], [16, 18, 12, 7, 1, 4], [15, 17, 11, 9, 6, 5],
+        [8, 2, 3, 14, 13, 10], [7, 1, 4, 16, 18, 12], [9, 6, 5, 15, 17, 11]]),
+    "h8x8a": (33, [
+        [13, 7, 8, 14, 17, 21, 22, 18], [6, 1, 3, 9, 28, 31, 29, 23],
+        [5, 2, 4, 10, 27, 32, 30, 24], [16, 12, 11, 15, 20, 26, 25, 19],
+        [17, 21, 22, 18, 13, 7, 8, 14], [28, 31, 29, 23, 6, 1, 3, 9],
+        [27, 32, 30, 24, 5, 2, 4, 10], [20, 26, 25, 19, 16, 12, 11, 15]]),
+    "c5x5b": (26, [
+        [1, 21, 16, 15, 4], [5, 17, 20, 19, 14], [6, 21, 25, 24, 12],
+        [7, 18, 22, 23, 11], [2, 8, 9, 10, 3]]),
+    "c6x6b": (37, [
+        [1, 5, 14, 13, 12, 4], [6, 22, 28, 27, 21, 11],
+        [15, 29, 35, 34, 26, 20], [16, 30, 36, 33, 25, 19],
+        [7, 23, 31, 32, 24, 10], [2, 8, 17, 18, 9, 3]]),
+    "c7x7b": (50, [
+        [3, 9, 18, 28, 17, 8, 2], [10, 24, 33, 39, 32, 23, 7],
+        [19, 34, 44, 48, 43, 31, 16], [25, 40, 45, 49, 47, 38, 27],
+        [20, 35, 41, 46, 42, 29, 15], [11, 21, 36, 37, 28, 22, 6],
+        [4, 12, 13, 26, 14, 5, 1]]),
+}
+for _alias, _name in (("1x1", "threshold"), ("2x1", "checks"),
+                      ("2x2", "o2x2"), ("3x3", "o3x3"), ("4x4", "o4x4"),
+                      ("8x8", "o8x8"), ("4x1", "h4x4a"), ("6x1", "h6x6a"),
+                      ("8x1", "h8x8a"), ("c5x5", "c5x5b"),
+                      ("c6x6", "c6x6b"), ("c7x7", "c7x7b")):
+    _THRESHOLD_MAPS[_alias] = _THRESHOLD_MAPS[_name]
+
+
+def threshold_map_names():
+    return sorted(_THRESHOLD_MAPS)
+
+
+def ordered_dither(img: torch.Tensor, map_name: str = "o8x8",
+                   levels: int = 2) -> torch.Tensor:
+    """OrderedDitherImage (threshold.c): posterize with a tiled threshold
+    map, the integer ladder of threshold.c:1774: i = trunc(v*(L*(D-1)+1)),
+    level = i // (D-1), out = (level + (i mod (D-1) >= map)) / L."""
+    map_name = map_name.lower()
+    if map_name not in _THRESHOLD_MAPS:
+        raise ValueError(f"unknown threshold map {map_name!r}")
+    divisor, rows = _THRESHOLD_MAPS[map_name]
+    m = np.asarray(rows, np.float32)
+    mh, mw = m.shape
+    h, w = img.shape[-3], img.shape[-2]
+    tiled = np.tile(m, (-(-h // mh), -(-w // mw)))[:h, :w]
+    t = torch.from_numpy(np.ascontiguousarray(tiled)).to(img.device)[..., None]
+    lv = float(levels)
+    if abs(lv) >= 1.0:
+        lv -= 1.0
+    if abs(lv) < 1e-12:
+        return img
+    d1 = float(divisor - 1)
+    ti = torch.floor(img.clamp(0.0, 1.0) * (lv * d1 + 1.0))
+    level = torch.floor(ti / d1)
+    rem = ti - level * d1
+    out = (level + (rem >= t).to(img.dtype)) / lv
+    return out.clamp(0.0, 1.0)
+
+
+def color_threshold(img: torch.Tensor, start: Sequence[float],
+                    stop: Sequence[float]) -> torch.Tensor:
+    """ColorThresholdImage: white where start <= pixel <= stop, else
+    black, as one channel."""
+    lo = torch.as_tensor(start, dtype=img.dtype, device=img.device)
+    hi = torch.as_tensor(stop, dtype=img.dtype, device=img.device)
+    inside = torch.all((img[..., :lo.shape[0]] >= lo) &
+                       (img[..., :hi.shape[0]] <= hi), dim=-1, keepdim=True)
+    return inside.to(img.dtype)

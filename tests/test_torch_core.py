@@ -1,4 +1,6 @@
-"""Port parity: spec, geometry and virtual-pixel pads against the JAX package."""
+"""Port parity: spec, geometry, virtual-pixel pads and the Image class's
+members against the JAX package.  The members slice, concatenate and
+scale pixels by powers of ten and two, so they are held to equality."""
 
 import numpy as np
 import pytest
@@ -9,9 +11,11 @@ import jax.numpy as jnp
 from imagemagick_tpu.core import geometry as jgeo
 from imagemagick_tpu.core import spec as jspec
 from imagemagick_tpu.core import virtual_pixel as jvp
+from imagemagick_tpu.core.image import Image as JImage
 from imagemagick_tpu_torch.core import geometry as tgeo
 from imagemagick_tpu_torch.core import spec as tspec
 from imagemagick_tpu_torch.core import virtual_pixel as tvp
+from imagemagick_tpu_torch.core.image import Image as TImage
 
 
 def test_spec_tables_equal():
@@ -47,3 +51,94 @@ def test_pad_spatial_matches(method):
     ref = np.asarray(jvp.pad_spatial(jnp.asarray(x), *pads, method, bg))
     got = tvp.pad_spatial(torch.from_numpy(x), *pads, method, bg).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def _pair(shape, spec_kw, seed=9, lo=0.0, hi=1.0):
+    x = np.random.default_rng(seed).uniform(lo, hi, shape).astype(np.float32)
+    meta = {"comment": "c"}
+    j = JImage(jnp.asarray(x), jspec.ImageSpec(**spec_kw), properties=meta,
+               page=(9, 8, 1, 2), delay=3)
+    t = TImage(torch.from_numpy(x), tspec.ImageSpec(**spec_kw),
+               properties=meta, page=(9, 8, 1, 2), delay=3)
+    return j, t
+
+
+def _same(t, j):
+    """A port Image equal to a JAX Image: pixels, spec and metadata."""
+    assert isinstance(t.data, torch.Tensor)
+    assert np.array_equal(t.data.numpy(), np.asarray(j.data))
+    assert t.spec == tspec.ImageSpec(*j.spec.astuple())
+    assert (t.properties, t.page, t.delay) == (j.properties, j.page,
+                                               j.delay)
+
+
+SPECS = [((5, 6, 3), {}), ((2, 5, 6, 4), dict(alpha=True)),
+         ((5, 6, 2), dict(colorspace="gray", alpha=True)),
+         ((5, 6, 5), dict(colorspace="cmyk", meta_channels=1)),
+         ((5, 6, 6), dict(alpha=True, meta_channels=2))]
+
+
+@pytest.mark.parametrize("shape,spec_kw", SPECS)
+def test_image_properties_and_channel_views(shape, spec_kw):
+    j, t = _pair(shape, spec_kw)
+    assert (t.colorspace, t.alpha, t.batched) == (j.colorspace, j.alpha,
+                                                  j.batched)
+    for name in ("alpha_data", "meta_data", "color_data"):
+        jv, tv = getattr(j, name)(), getattr(t, name)()
+        assert (jv is None) == (tv is None)
+        if jv is not None:
+            assert np.array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("shape,spec_kw", SPECS)
+def test_image_with_meta_color_and_alpha(shape, spec_kw):
+    j, t = _pair(shape, spec_kw)
+    meta = np.random.default_rng(10).uniform(
+        0, 1, shape[:-1] + (3,)).astype(np.float32)
+    _same(t.with_meta(torch.from_numpy(meta)),
+          j.with_meta(jnp.asarray(meta)))
+    _same(t.with_meta(None), j.with_meta(None))
+    color = np.full(shape[:-1] + (t.spec.color_channels,), 0.25, np.float32)
+    _same(t.with_color(torch.from_numpy(color)),
+          j.with_color(jnp.asarray(color)))
+    for enable, value in ((True, 0.5), (False, 1.0)):
+        _same(t.set_alpha(enable, value), j.set_alpha(enable, value))
+
+
+def test_transform_colorspace_keeps_metadata():
+    j, t = _pair((5, 6, 4), dict(alpha=True))
+    for key in ("cmyk", "hsl", "gray", "ycc"):
+        jo, to = j.transform_colorspace(key), t.transform_colorspace(key)
+        assert to.spec == tspec.ImageSpec(*jo.spec.astuple())
+        assert (to.properties, to.page, to.delay) == (jo.properties,
+                                                      jo.page, jo.delay)
+        np.testing.assert_allclose(to.data.numpy(), np.asarray(jo.data),
+                                   atol=1e-5)
+
+
+def test_to_uint8_and_uint16():
+    j, t = _pair((2, 5, 6, 3), {}, lo=-0.2, hi=1.2)
+    assert np.array_equal(t.to_uint8(), j.to_uint8())
+    assert np.array_equal(t.to_uint16(), j.to_uint16())
+    assert t.to_uint8().dtype == np.uint8
+    assert t.to_uint16().dtype == np.uint16
+
+
+@pytest.mark.parametrize("shape", [(5, 6), (5, 6, 1), (5, 6, 2), (5, 6, 3),
+                                   (5, 6, 4), (2, 5, 6, 5)])
+def test_from_uint16_and_uint8(shape):
+    rng = np.random.default_rng(11)
+    a16 = rng.integers(0, 65536, shape).astype(np.uint16)
+    _same(TImage.from_uint16(a16, device="cpu"), JImage.from_uint16(a16))
+    a8 = rng.integers(0, 256, shape).astype(np.uint8)
+    _same(TImage.from_uint8(a8, device="cpu"), JImage.from_uint8(a8))
+    spec = tspec.ImageSpec("gray", alpha=False)
+    assert TImage.from_uint16(a16[..., :1], spec, device="cpu").spec is spec
+
+
+def test_from_uint16_defaults_to_the_card():
+    if torch.cuda.is_available():
+        assert TImage.from_uint16(np.zeros((2, 2, 3), np.uint16)).data.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            TImage.from_uint16(np.zeros((2, 2, 3), np.uint16))

@@ -14,7 +14,14 @@ exact: both are held to equality (K4 also to one CUDA kernel a call, by
 a p-term sum for a prime factor above 7) in another order than their
 plain versions, with FMAs: their spectra within 1e-5 of max|F|; K6c's
 [0, 1] output within 1e-5, also against a float64 inverse of a spectrum
-with no symmetry.
+with no symmetry.  The CLI's tone and threshold chains (``cli_tone``)
+run on the card against the same chains on the CPU: the thumbnail chain
+in one K1 launch within 1e-4 (K1's 2e-5 through auto-level's stretch,
+the card's expf and powf); the document chain in one K1 and one K4
+launch, at most 0.1 % of its 0/1 pixels apart; gathers, selects and the
+ordered dither equal; the mesh resize within 1e-6; colorspaces within
+their round-trip tolerances of ``chip_smoke.py``; the distance transform
+within 1e-6 (its sums and minima are the CPU's).
 """
 
 import numpy as np
@@ -724,3 +731,76 @@ def test_serve_session_on_card(dev):
     serve._SESSIONS.pop("gpu_test")
     diff = fetched[str(dev)].astype(int) - fetched["cpu"]
     assert fetched["cpu"].size == 4 * 32 * 32 and np.abs(diff).max() <= 1
+
+
+# -- cli_tone: the tone and threshold chains of the CLI ----------------------
+
+def _cli_chain(argv, x, where, specs=None):
+    from imagemagick_tpu_torch.cli import main as cli
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+
+    st = cli.CLIState()
+    for im in x.to(where):
+        st.images.append(cli.LazyImage(Image(
+            im, specs or ImageSpec(colorspace="srgb"))))
+    before = dict(gk.LAUNCHES)
+    cli.process(argv, st)
+    out = torch.stack([o.data for o in cli.materialize_all(st.images)])
+    if torch.device(where).type == "cuda":
+        torch.cuda.synchronize()
+    return out, {k: gk.LAUNCHES[k] - before[k] for k in before}
+
+
+def test_cli_thumbnail_chain_is_one_launch_on_card(dev):
+    """The thumbnail's tag over the group in one K1 launch, the tone
+    options after it image by image: within 1e-4 of the CPU run (K1's
+    2e-5 through auto-level's stretch, the card's expf and powf)."""
+    argv = ("-thumbnail 48x48 -auto-level -modulate 100,120 "
+            "-sigmoidal-contrast 3x50% -gamma 1.1").split()
+    x = torch.from_numpy(_rand((3, 96, 128, 3), 10))
+    got, launched = _cli_chain(argv, x, dev)
+    want, _ = _cli_chain(argv, x, "cpu")
+    assert launched["k1"] == 1 and sum(launched.values()) == 1
+    assert got.shape == (3, 36, 48, 3)
+    assert (got.cpu() - want).abs().max() <= 1e-4
+
+
+def test_cli_document_chain_is_one_k1_and_one_k4_launch(dev):
+    argv = "-scale 50% -colorspace gray -normalize -auto-threshold otsu"
+    x = torch.from_numpy(_rand((4, 96, 128, 3), 11))
+    x = torch.where(x > 0.6, 0.9, 0.2) + 0.05 * x
+    got, launched = _cli_chain(argv.split(), x, dev)
+    want, _ = _cli_chain(argv.split(), x, "cpu")
+    assert launched["k1"] == 1 and launched["k4"] == 1
+    assert sum(launched.values()) == 2
+    assert got.shape == (4, 48, 64, 1)
+    assert float((got.cpu() != want).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("argv,tol", [
+    ("-sample 50%", 0.0), ("-magnify", 0.0), ("-ordered-dither o8x8", 0.0),
+    ("-adaptive-resize 75%", 1e-6), ("-colorspace jzazbz", 2e-4),
+    ("-colorspace lab", 5e-5), ("-colorspace ycc", 1e-3),
+    # an intensity an ulp from a bin edge moves one pixel's count in the
+    # cumulative map: 1 / (64 * 48)
+    ("-equalize", 1.0 / 3072), ("-white-balance", 5e-5),
+    # L on the host from the same pixels, Lab's a and b on the card
+    ("-clahe 16x16+64+2", 1e-4)])
+def test_cli_tone_options_on_card(dev, argv, tol):
+    x = torch.from_numpy(_rand((2, 64, 48, 3), 12))
+    got, _ = _cli_chain(argv.split(), x, dev)
+    want, _ = _cli_chain(argv.split(), x, "cpu")
+    assert got.is_cuda and got.shape == want.shape
+    assert (got.cpu() - want).abs().max() <= tol
+
+
+def test_distance_transform_on_card(dev):
+    from imagemagick_tpu_torch.ops import morphology as mo
+
+    x = torch.from_numpy((_rand((2, 64, 48, 1), 13) > 0.4).astype(
+        np.float32))
+    for metric in ("chebyshev", "manhattan", "euclidean"):
+        got = mo.distance_transform(x.to(dev), metric)
+        want = mo.distance_transform(x, metric)
+        assert (got.cpu() - want).abs().max() <= 1e-6

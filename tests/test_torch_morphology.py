@@ -1,6 +1,13 @@
 """Port parity: the morphology module against the JAX package, bit-exact
 on binary and 8-bit images (min, max and small-integer sums are exact;
-the convolutions add their taps in the JAX package's order)."""
+the convolutions add their taps in the JAX package's order).
+
+The distance transform takes each row's left side as one cumulative
+minimum rounded once, where the JAX package's min-plus scan rounds after
+each combine: with integer seeds and costs (a binary image under
+Chebyshev or Manhattan) every value is an integer and the two are held
+to equality; otherwise (Euclidean's sqrt(2), 8-bit seeds) to 2.5e-7 of
+the [0, 1] result, two float32 ulps of a distance near 1."""
 
 import numpy as np
 import pytest
@@ -114,9 +121,38 @@ def test_primitives_direct():
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-def test_distance_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmo.morphology(torch.zeros((1, 4, 4, 1)), "distance", "euclidean")
+@pytest.mark.parametrize("metric", ["chebyshev", "manhattan", "euclidean"])
+@pytest.mark.parametrize("radius", [1, 3])
+@pytest.mark.parametrize("kind", ["binary", "8bit"])
+def test_distance_transform_matches(metric, radius, kind):
+    x = _image(kind, 40, (2, 23, 29, 2))
+    x[0, :, :3] = 0.0                     # a background strip
+    for scale in (0.01, 0.1):
+        ref = np.asarray(jmo.distance_transform(jnp.asarray(x), metric,
+                                                scale, radius))
+        got = tmo.distance_transform(torch.from_numpy(x), metric, scale,
+                                     radius).numpy()
+        assert got.shape == x.shape
+        if kind == "binary" and metric != "euclidean":
+            assert np.array_equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, atol=2.5e-7)
+
+
+@pytest.mark.parametrize("spec", ["euclidean", "chebyshev:1,500",
+                                  "manhattan:3", "euclidean:4,200",
+                                  "octagon:2"])
+def test_morphology_distance_matches(spec):
+    """The ``distance`` method reads metric, radius and scale from the
+    kernel spec (an unknown metric name means Euclidean)."""
+    x = _image("binary", 41)
+    ref = np.asarray(jmo.morphology(jnp.asarray(x), "distance", spec))
+    got = tmo.morphology(torch.from_numpy(x), "distance", spec).numpy()
+    if spec.startswith(("chebyshev", "manhattan")):
+        assert np.array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, atol=2.5e-7)
+    assert got.max() > 0.0
 
 
 def test_unknown_method_raises():
@@ -129,16 +165,16 @@ def test_roadmap_pointers_name_live_entries():
     each title is still there."""
     from pathlib import Path
 
+    from imagemagick_tpu_torch.cli import main as tm
     from imagemagick_tpu_torch.ops import fused_pipeline as tfp
 
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md"
                ).read_text()
-    with pytest.raises(NotImplementedError) as err:
-        tmo.distance_transform(torch.zeros((1, 4, 4, 1)))
-    assert "'morphology.distance_transform' entry" in str(err.value)
-    assert "**`morphology.distance_transform` and the `distance` method.**" \
-        in roadmap
-    assert "morphology.distance_transform" in tmo.__doc__
+    msg = str(tm.unported("-motion-blur"))
+    for title in ("The rest of the modules that the slices touched",
+                  "The other op families under ops/"):
+        assert f"'{title}'" in msg
+        assert f"**{title}" in roadmap.replace("`", "")
     doc = " ".join(tfp.fused_blur_unsharp_pipeline.__doc__.split())
     assert '"A capability gap, not a rank"' in doc
     assert "**A capability gap, not a rank.**" in roadmap

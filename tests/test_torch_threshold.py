@@ -4,7 +4,12 @@ The JAX package finds the auto-threshold bins in float32, the port in
 exact integer sums and float64; on these inputs no two bins' scores lie
 close enough for that to pick another bin.  The port takes a bin's value
 as XLA compiles ``argmax / 255``, so every value, and every pixel of
-every thresholded image, is equal."""
+every thresholded image, is equal.  The ordered dither, the adaptive
+(local mean) and the color thresholds are equal too.  The random
+threshold's values come from torch's generator, not JAX's PRNG, so it is
+held to its definition instead: equal to ``bilevel`` when low == high,
+the same output for the same seed, and a count of pixels above within
+five standard deviations of its binomial expectation."""
 
 import numpy as np
 import pytest
@@ -166,3 +171,81 @@ def test_point_ops(channels):
 def test_unknown_method_raises():
     with pytest.raises(ValueError):
         tth.auto_threshold(torch.zeros((4, 4, 1)), "no-such-method")
+
+
+def test_threshold_maps_are_a_copy():
+    assert tth._THRESHOLD_MAPS == jth._THRESHOLD_MAPS
+    assert tth.threshold_map_names() == jth.threshold_map_names()
+
+
+@pytest.mark.parametrize("name", jth.threshold_map_names())
+def test_ordered_dither_exact(name):
+    x = np.random.default_rng(30).uniform(0, 1, (2, 19, 23, 3)).astype(
+        np.float32)
+    x[0, 0, :4, 0] = [0.0, 1.0, -0.2, 1.3]
+    for levels in (2, 3, 7, 1, 0):
+        ref = np.asarray(jth.ordered_dither(jnp.asarray(x), name, levels))
+        got = tth.ordered_dither(torch.from_numpy(x), name, levels).numpy()
+        assert np.array_equal(got, ref), (name, levels)
+
+
+def test_ordered_dither_unknown_map_raises():
+    with pytest.raises(ValueError):
+        tth.ordered_dither(torch.zeros(4, 4, 1), "o9x9")
+
+
+@pytest.mark.parametrize("width,height,bias", [(3, 3, 0.0), (5, 7, 0.02),
+                                               (15, 15, -0.05)])
+def test_adaptive_threshold_exact(width, height, bias):
+    x = _batch("bimodal", 31, (2, 29, 31, 3))
+    ref = np.asarray(jth.adaptive_threshold(jnp.asarray(x), width, height,
+                                            bias))
+    got = tth.adaptive_threshold(torch.from_numpy(x), width, height,
+                                 bias).numpy()
+    assert np.array_equal(got, ref)
+
+
+def test_color_threshold_exact():
+    x = _batch("uniform", 32, (2, 13, 17, 3))
+    for start, stop in (((0.2, 0.1, 0.3), (0.8, 0.9, 0.7)),
+                        ((0.5,), (1.0,))):
+        ref = np.asarray(jth.color_threshold(jnp.asarray(x), start, stop))
+        got = tth.color_threshold(torch.from_numpy(x), start, stop).numpy()
+        assert got.shape == x.shape[:-1] + (1,)
+        assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("t", [0.0, 0.3, 128 / 255.0, 1.0])
+def test_random_threshold_with_low_equal_high_is_bilevel(t):
+    x = _batch("8bit", 33, (2, 17, 19, 1))
+    got = tth.random_threshold(torch.from_numpy(x), t, t)
+    assert torch.equal(got, tth.bilevel(torch.from_numpy(x), t))
+
+
+def test_random_threshold_repeats_for_one_seed():
+    x = torch.from_numpy(_batch("uniform", 34, (2, 17, 19, 3)))
+    a = tth.random_threshold(x, 0.2, 0.8,
+                             torch.Generator().manual_seed(5))
+    b = tth.random_threshold(x, 0.2, 0.8,
+                             torch.Generator().manual_seed(5))
+    c = tth.random_threshold(x, 0.2, 0.8,
+                             torch.Generator().manual_seed(6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # without a generator: a new one seeded with 0, so one run repeats
+    assert torch.equal(tth.random_threshold(x, 0.2, 0.8),
+                       tth.random_threshold(x, 0.2, 0.8,
+                                            torch.Generator().manual_seed(0)))
+
+
+@pytest.mark.parametrize("low,high", [(0.0, 1.0), (0.2, 0.8), (0.45, 0.55)])
+def test_random_threshold_fraction_within_binomial_bound(low, high):
+    """A pixel of value v goes white with p = clip((v-low)/(high-low),
+    0, 1): the count of white values lies within five standard
+    deviations of its expectation."""
+    x = _batch("uniform", 35, (4, 64, 64, 3)).astype(np.float64)
+    got = tth.random_threshold(torch.from_numpy(x.astype(np.float32)), low,
+                               high).numpy()
+    assert set(np.unique(got)) <= {0.0, 1.0}
+    p = np.clip((x - low) / (high - low), 0.0, 1.0)
+    mean, sd = p.sum(), np.sqrt((p * (1 - p)).sum())
+    assert abs(got.sum() - mean) <= 5.0 * sd + 1.0
