@@ -194,6 +194,41 @@ TONE_D = [["-sample", "50%"], ["-adaptive-resize", "75%"], ["-magnify"],
 TONE_D_TOL = {"-adaptive-resize": 1e-6}   # mesh weights: float32 sums of
                                           # three products; the rest equal
 LAT_TOL = 2e-5      # cuDNN's float32 mean of 225 taps in another order
+# effects: every effect of ops/blur.py's slice on config #2's frames
+EFFECTS = [("sharpen", (0.0, 1.0)), ("adaptive_blur", (0.0, 2.0)),
+           ("adaptive_sharpen", (0.0, 2.0)), ("emboss", (1.0, 1.0)),
+           ("motion_blur", (0.0, 3.0, 45.0)), ("rotational_blur", (10.0,)),
+           ("selective_blur", (0.0, 1.0)), ("despeckle", ()),
+           ("spread", (2.0,)), ("shade", (30.0, 30.0)),
+           ("kuwahara", (3.0,)), ("bilateral_blur", (5, 5)),
+           ("local_contrast", ())]
+EFFECT_K3 = ("adaptive_blur", "adaptive_sharpen", "kuwahara")  # one each
+EFFECT_TOL = 1e-5   # K3's and cuDNN's float32 sums in another order
+# effects that select per pixel from values computed on each device (the
+# adaptive level, the bilateral intensity byte, Kuwahara's quadrant, a
+# rotational sample): pixels where the card selects otherwise are
+# counted, at most this share of the pixels
+EFFECT_SELECTS = ("adaptive_blur", "adaptive_sharpen", "bilateral_blur",
+                  "kuwahara", "rotational_blur")
+SELECT_SHARE = 1e-3
+EFFECT_RUNS = 5
+# composite: every operator on a pair of RGBA frames of config #2's size
+COMPOSITE_N = 2
+COMPOSITE_TOL = 1e-4    # the card's cosf, sqrtf and divisions, and the
+                        # HCL round trip's, against the CPU's
+COMPOSITE_ARGS = {"dissolve": (35.0,), "blend": (35.0,),
+                  "mathematics": (0.5, 0.25, -0.3, 0.1),
+                  "modulate": (60.0, 80.0), "displace": (10.0, 5.0)}
+# config #5 with a watermark: a 64x64 RGBA PNG dissolved at 35 % in the
+# southeast corner of every thumbnail
+WATERMARK = 64
+# cli_effects: config1_cli's images through blur's effects and a median,
+# then two of them composited
+CLI_EFFECTS = ["-resize", "256x256", "-sharpen", "0x1", "-adaptive-blur",
+               "0x2", "-median", "1"]
+CLI_COMPOSE = ["-gravity", "southeast", "-compose", "dissolve", "-define",
+               "compose:args=35", "-composite"]
+CLI_EFFECTS_N1, CLI_EFFECTS_N2 = 8, 32
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -550,6 +585,8 @@ def config5_end_to_end(seed: int, dev, gen, name_limit: str,
             require(thumb.shape == (THUMB, THUMB, C), f"thumb {thumb.shape}")
             own.append(psnr(thumb / 255.0, got[i] / 255.0))
             other.append(psnr(thumb / 255.0, got[(i + 1) % CORPUS5] / 255.0))
+        wm_stats, wm_launches, wm_levels, wm_wall = config5_watermark(
+            rng, td, paths, cfg, staged, h5, w5, dev)
     print(f"config #5 step vs plain step: {levels} u8 levels at most "
           f"({CORPUS5} images, staged {STAGED5}); thumbnails against their "
           f"own step output {min(own):.2f}-{max(own):.2f} dB, against the "
@@ -591,7 +628,59 @@ def config5_end_to_end(seed: int, dev, gen, name_limit: str,
           f"{stats['overlap_efficiency']}, device_drain_wait_s "
           f"{stats['device_drain_wait_s']}, staged_MB {stats['staged_MB']} "
           f"[{name_limit}]")
-    return {"k1": launches["k1"], "k1_err": err}
+    print(f"config #5 with a {WATERMARK}x{WATERMARK} RGBA watermark "
+          f"(run(watermark_path=...), dissolve 35 % southeast): launches "
+          f"{wm_launches}; step vs plain step {wm_levels} u8 levels at most; "
+          f"{wm_wall:.4f} s = {CORPUS5 / wm_wall:.2f} images/s against "
+          f"{CORPUS5 / wall:.2f} without; overlap_efficiency "
+          f"{wm_stats['overlap_efficiency']}, device_drain_wait_s "
+          f"{wm_stats['device_drain_wait_s']} [{name_limit}]")
+    return {"k1": launches["k1"], "k1_err": err, "k1_wm": wm_launches["k1"]}
+
+
+def config5_watermark(rng, td: str, paths, cfg, staged, h5: int, w5: int,
+                      dev):
+    """Config #5 with a watermark: a WATERMARK x WATERMARK RGBA PNG written
+    from ``rng``, one warm ``run``, then one timed ``run`` with the launch
+    counts set to 0 just before it; the step with the watermark on the
+    card against the plain step on the CPU, on the same staged bytes."""
+    import os
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch.models import thumbnailer as tn
+
+    wm = rng.integers(0, 256, (WATERMARK, WATERMARK, 4)).astype(np.uint8)
+    wm[..., 3] = np.linspace(64, 255, WATERMARK).astype(np.uint8)[None, :]
+    wm_path = os.path.join(td, "watermark.png")
+    PImage.fromarray(wm, "RGBA").save(wm_path)
+    tn.run(paths, os.path.join(td, "warm_wm"), cfg, watermark_path=wm_path)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = tn.run(paths, os.path.join(td, "out_wm"), cfg,
+                   watermark_path=wm_path)
+    wall = time.perf_counter() - t0
+    launches = launched()
+    require(launches["k1"] == CORPUS5 // N5 and
+            sum(launches.values()) == launches["k1"],
+            f"config #5 watermark launches {launches}")
+    require(stats["images"] == CORPUS5, f"config #5 watermark {stats}")
+    arr = tn.read_watermark(wm_path)
+    step = tn.make_flat_step(cfg, h5, w5, arr, device=dev)
+    plain = tn.make_flat_step(cfg, h5, w5, arr, device="cpu")
+    got = torch.cat([step(staged[i:i + N5]).cpu()
+                     for i in range(0, CORPUS5, N5)]).numpy()
+    want = torch.cat([plain(staged[i:i + N5])
+                      for i in range(0, CORPUS5, N5)]).numpy()
+    levels = int(np.abs(got.astype(int) - want).max())
+    require(got.shape == (CORPUS5, THUMB, THUMB, C) and
+            levels <= THUMB_LEVELS, f"config #5 watermark {levels} levels")
+    for p in paths:
+        name = os.path.splitext(os.path.basename(p))[0] + ".jpg"
+        require(os.path.getsize(os.path.join(td, "out_wm", name)) > 0,
+                f"no watermarked thumbnail {name}")
+    return stats, launches, levels, wall
 
 
 def _cli_run(argv, datas, specs=None):
@@ -982,6 +1071,165 @@ def cli_tone_phase(dev, gen, name_limit: str) -> dict:
     return {"k1": la["k1"] + lb["k1"], "k4": lb["k4"]}
 
 
+def _apart(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
+    """(max |got - want|, pixels with a channel further apart than
+    ``tol``, pixels) of two (..., C) tensors, ``got`` on the card."""
+    require(got.shape == want.shape, f"shapes {got.shape} {want.shape}")
+    d = (got.cpu() - want).abs()
+    return (float(d.max()), int((d > tol).any(-1).sum()),
+            d[..., 0].numel())
+
+
+def effects_phase(dev, gen, name_limit: str) -> dict:
+    """effects: each function of EFFECTS on N2 frames of 1080x1920x3 in
+    8-bit levels, with the launch counts set to 0 just before it (one K3
+    launch each for EFFECT_K3, none for the rest), its median ms an image
+    over EFFECT_RUNS calls, and the card on frame 0 against the CPU on a
+    copy of it."""
+    from imagemagick_tpu_torch.ops import blur as bl
+
+    frames = torch.round(torch.rand((N2, H2, W2, C), generator=gen,
+                                    device=dev) * 255.0) / 255.0
+    frame0 = frames[:1].cpu()
+    k3 = 0
+    for name, args in EFFECTS:
+        fn = getattr(bl, name)
+        reset_launches()
+        out = fn(frames, *args)
+        torch.cuda.synchronize()
+        la = launched()
+        want_k3 = 1 if name in EFFECT_K3 else 0
+        require(la["k3"] == want_k3 and sum(la.values()) == want_k3,
+                f"effect {name} launches {la}")
+        k3 += la["k3"]
+        require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
+                f"effect {name} {out.shape}")
+        del out
+        times = []
+        for _ in range(EFFECT_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(frames, *args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times) / N2
+        if name == "spread":
+            # the card and the CPU draw other streams: both gather at the
+            # same offsets, drawn on the CPU
+            oy, ox = bl.spread_offsets(frame0, *args,
+                                       torch.Generator().manual_seed(0))
+            got = bl.spread_at(frames[:1], oy.to(dev), ox.to(dev))
+            want = bl.spread_at(frame0, oy, ox)
+        else:
+            got = fn(frames[:1], *args)
+            want = fn(frame0, *args)
+        err, n_off, n_px = _apart(got, want, EFFECT_TOL)
+        if name == "despeckle":
+            require(torch.equal(got.cpu(), want), "despeckle not bit-exact")
+        elif name in EFFECT_SELECTS:
+            require(n_off <= SELECT_SHARE * n_px,
+                    f"effect {name}: {n_off} pixels select otherwise")
+        else:
+            require(err <= EFFECT_TOL, f"effect {name} max|d| {err}")
+        print(f"effects {name}{args} on {tuple(frames.shape)}: launches "
+              f"{la}; {ms:.4f} ms an image (median of {EFFECT_RUNS}); frame "
+              f"0 vs the CPU: max|d| {err:.3e}, {n_off} of {n_px} pixels "
+              f"apart by more than {EFFECT_TOL} [{name_limit}]")
+        del got, want
+    return {"k3": k3}
+
+
+def composite_phase(dev, gen, name_limit: str) -> None:
+    """composite: every operator of ``ops/composite.py`` on a pair of
+    COMPOSITE_N RGBA frames of 1080x1920 on the card, against the same
+    call on CPU copies: within COMPOSITE_TOL but for values where a
+    comparison inside the operator falls otherwise on the card (at most
+    SELECT_SHARE of the values)."""
+    from imagemagick_tpu_torch.ops import composite as comp
+
+    dst = torch.rand((COMPOSITE_N, H2, W2, 4), generator=gen, device=dev)
+    src = torch.rand((COMPOSITE_N, H2, W2, 4), generator=gen, device=dev)
+    dst_cpu, src_cpu = dst.cpu(), src.cpu()
+    worst, off = {}, {}
+    t0 = time.perf_counter()
+    for op in comp.OPERATORS:
+        args = COMPOSITE_ARGS.get(op, ())
+        got = comp.composite(dst, src, op, True, True, args)
+        want = comp.composite(dst_cpu, src_cpu, op, True, True, args)
+        require(got.shape == want.shape and
+                bool(torch.isfinite(got).all()), f"composite {op}")
+        d = (got.cpu() - want).abs()
+        far = d > COMPOSITE_TOL
+        worst[op] = float(torch.where(far, 0.0, d).max())
+        off[op] = int(far.sum())
+        require(off[op] <= SELECT_SHARE * d.numel(),
+                f"composite {op}: {off[op]} values apart")
+    torch.cuda.synchronize()
+    print(f"composite: {len(comp.OPERATORS)} operators on 2 x "
+          f"{tuple(dst.shape)} RGBA against the CPU "
+          f"({time.perf_counter() - t0:.1f} s): max|d| within "
+          f"{COMPOSITE_TOL} (values further apart in brackets) " +
+          ", ".join(f"{k} {v:.2e} ({off[k]})" for k, v in worst.items()))
+
+    def dissolve():
+        return comp.composite(dst, src, "dissolve", True, True, (35.0,))
+
+    ms, = median_ms(dissolve)
+    print(f"composite dissolve on {tuple(dst.shape)}: {ms:.4f} ms "
+          f"({ms / COMPOSITE_N:.4f} an image) [{name_limit}]")
+
+
+def cli_effects_phase(dev, gen, name_limit: str) -> dict:
+    """cli_effects: CLI_EFFECTS_N2 images of 512x768x3 through
+    CLI_EFFECTS (one K1 launch for the group's resize, one K3 launch an
+    image for the adaptive blur), then two of them through CLI_COMPOSE;
+    each against the same run on CPU copies."""
+    from imagemagick_tpu_torch.core.geometry import parse_meta_geometry
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+
+    tw, th_, _, _ = parse_meta_geometry(CLI_EFFECTS[1], W, H)
+    datas = list(torch.rand((CLI_EFFECTS_N2, H, W, C), generator=gen,
+                            device=dev))
+    reset_launches()
+    outs = _cli_run(CLI_EFFECTS, datas)
+    la = launched()
+    print(f"cli_effects {' '.join(CLI_EFFECTS)}: launches {la}")
+    require(la["k1"] == 1 and la["k3"] == CLI_EFFECTS_N2 and
+            sum(la.values()) == 1 + CLI_EFFECTS_N2,
+            f"cli_effects launches {la}")
+    got = torch.stack([o.data for o in outs])
+    cpu_outs = _cli_run(CLI_EFFECTS, [d.cpu() for d in datas])
+    want = torch.stack([o.data for o in cpu_outs])
+    require(got.shape == (CLI_EFFECTS_N2, th_, tw, C) and
+            bool(torch.isfinite(got).all()), f"cli_effects {got.shape}")
+    err, n_off, n_px = _apart(got, want, EFFECT_TOL)
+    print(f"cli_effects vs the CPU run, {CLI_EFFECTS_N2} images: max|d| "
+          f"{err:.3e}, {n_off} of {n_px} pixels apart by more than "
+          f"{EFFECT_TOL} (the adaptive level)")
+    require(n_off <= SELECT_SHARE * n_px, f"cli_effects {n_off} pixels")
+    spec = ImageSpec(colorspace="srgb")
+    reset_launches()
+    pair = _cli_run(CLI_COMPOSE, [got[0], got[1]], spec)
+    lc = launched()
+    pair_cpu = _cli_run(CLI_COMPOSE, [want[0], want[1]], spec)
+    require(len(pair) == 1 and pair[0].data.shape == (th_, tw, 4) and
+            sum(lc.values()) == 0, f"cli_effects composite {lc}")
+    err_c, off_c, px_c = _apart(pair[0].data, pair_cpu[0].data, EFFECT_TOL)
+    print(f"cli_effects {' '.join(CLI_COMPOSE)}: {tuple(pair[0].data.shape)}"
+          f", launches {lc}; vs the CPU run: max|d| {err_c:.3e}, {off_c} of "
+          f"{px_c} pixels apart by more than {EFFECT_TOL}")
+    require(off_c <= SELECT_SHARE * px_c, f"cli_effects composite {off_c}")
+    per, rounds = _marginal(lambda d: _cli_run(CLI_EFFECTS, d), datas,
+                            CLI_EFFECTS_N1, CLI_EFFECTS_N2)
+    print(f"cli_effects marginal ({CLI_EFFECTS_N2}-{CLI_EFFECTS_N1} images, "
+          f"median of 5): {per * 1e3:.4f} ms/image = "
+          f"{H * W / 1e6 / per:.1f} MP/s; rounds "
+          f"{[round(m * 1e3, 4) for m in rounds]} ms [{name_limit}]")
+    return {"k1": la["k1"], "k3": la["k3"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1199,6 +1447,9 @@ def main() -> None:
     cli1 = cli_phase(dev, gen, name_limit)
     serve1 = serve_phase(args.seed, name_limit)
     tone = cli_tone_phase(dev, gen, name_limit)
+    fx = effects_phase(dev, gen, name_limit)
+    composite_phase(dev, gen, name_limit)
+    clie = cli_effects_phase(dev, gen, name_limit)
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -1684,8 +1935,8 @@ def main() -> None:
         {"name": "k1_fused_pipeline", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
-         "launches": launches["k1"] + new5["k1"] + cli1["k1"] +
-         serve1["k1"] + tone["k1"],
+         "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
+         cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -1707,7 +1958,8 @@ def main() -> None:
         {"name": "k3_separable_blur", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
-         "launches": launches["k3"] + launches2["k3"] + cli1["k3"],
+         "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
+         fx["k3"] + clie["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,

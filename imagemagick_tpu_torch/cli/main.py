@@ -19,15 +19,29 @@ and ``-magnify``; ``-colorspace`` (all 41 colorspaces of
 options ``-negate``, ``-gamma``, ``-level``, ``-auto-level``,
 ``-auto-gamma``, ``-normalize``, ``-equalize``, ``-contrast-stretch``,
 ``-linear-stretch``, ``-sigmoidal-contrast``, ``-brightness-contrast``,
-``-modulate``, ``-white-balance``, ``-enhance`` and ``-clahe``; and the
+``-modulate``, ``-white-balance``, ``-enhance`` and ``-clahe``; the
 thresholds ``-threshold``, ``-black-threshold``, ``-white-threshold``,
 ``-auto-threshold``, ``-ordered-dither``, ``-random-threshold``, ``-lat``
-and ``-clamp``.  The settings keep the JAX defaults and no option here
-changes them, so ``-filter`` is ``undefined``, ``-virtual-pixel``
-``edge`` and ``-channel`` ``default``; write masks (``-region``) and
-``-seed`` are not ported.  A file name, or any other option, raises
-NotImplementedError naming its ROADMAP.md entry.  The tags equal the JAX
-CLI's for the same arguments.
+and ``-clamp``; blur's effects ``-sharpen``, ``-unsharp``, ``-edge``,
+``-adaptive-blur``, ``-adaptive-sharpen``, ``-motion-blur``,
+``-rotational-blur``, ``-bilateral-blur``, ``-kuwahara``, ``-despeckle``,
+``-emboss``, ``-shade``, ``-spread`` and ``-selective-blur``; the rank
+and value options ``-statistic``, ``-median``, ``-evaluate`` and
+``-function``; and the list operator ``-composite``.  None of these but
+the resize family, the blurs and ``-colorspace`` carries a K1 tag, as in
+the JAX CLI.
+
+Settings: ``-virtual-pixel``, ``-gravity``/``+gravity``,
+``-compose``/``+compose``, ``-geometry`` (stored as
+``compose-geometry``, read by ``-composite``) and ``-define key=value``
+(``CLIState.defines``; ``-composite`` reads ``compose:args``).  The other
+settings keep the JAX defaults: ``-filter`` is ``undefined`` and
+``-channel`` ``default``; write masks (``-region``) and ``-seed`` are not
+ported, so ``-spread`` and the noise operators of ``-evaluate`` draw from
+a generator seeded 0, as the JAX CLI draws from ``PRNGKey(0)``.  A file
+name, or any other option or setting, raises NotImplementedError naming
+its ROADMAP.md entry.  The tags equal the JAX CLI's for the same
+arguments.
 """
 
 from __future__ import annotations
@@ -46,9 +60,8 @@ from ..core.spec import ImageSpec, normalize_colorspace
 
 _IO_GAP = ("file names need the codecs and readers of io/, which are not "
            "ported yet: ROADMAP.md Queue 1, 'Host layers' (io/)")
-_OPS_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'The rest of the "
-            "modules that the slices touched' and 'The other op families "
-            "under ops/'")
+_OPS_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'The other op "
+            "families under ops/' and 'Host layers'")
 
 
 class CLIError(Exception):
@@ -146,6 +159,7 @@ class CLIState:
     def __init__(self):
         self.images: List[LazyImage] = []
         self.stack: List[List[LazyImage]] = []
+        self.defines: Dict[str, str] = {}
         self.settings: Dict[str, str] = {
             "background": "white",
             "fill": "black",
@@ -445,6 +459,146 @@ def _threshold_arg(st, a, p):
     return {"threshold": _percent(a)}
 
 
+def _rs(st, a, p):
+    return dict(zip(("radius", "sigma"), _geom_args(a)))
+
+
+def _rs_vp(st, a, p):
+    return dict(_rs(st, a, p), virtual_pixel=st.settings["virtual-pixel"])
+
+
+def _unsharp_args(a):
+    # operation.c:3625 — xi=gain (default 1.0), psi=threshold (default
+    # 0.05, a raw fraction of QuantumRange — NOT a percentage)
+    rho, sigma, xi, psi, _, _ = _geometry_info(a)
+    return {"radius": rho or 0.0,
+            "sigma": sigma if sigma is not None else 1.0,
+            "gain": xi if xi is not None else 1.0,
+            "threshold": psi if psi is not None else 0.05}
+
+
+def _motion_args(a):
+    g = parse_geometry(a)
+    return {"radius": g.width or 0.0,
+            "sigma": g.height if g.height is not None else 1.0,
+            "angle": float(g.x or 0)}
+
+
+def _bilateral_args(a):
+    # operation.c:1849-1864: rho=width, sigma=height (defaults to rho),
+    # xi=intensity sigma (default sqrt(w²+h²)), psi=spatial (default xi/4)
+    g = parse_geometry(a)
+    w = int(g.width or 5)
+    h = int(g.height if g.height is not None else w)
+    kw = {"width": w, "height": h}
+    if g.x is not None:
+        kw["intensity_sigma"] = float(g.x)
+    if g.y is not None:
+        kw["spatial_sigma"] = float(g.y)
+    return kw
+
+
+def _shade_args(a):
+    g = parse_geometry(a)
+    return {"azimuth": g.width or 30.0,
+            "elevation": g.height if g.height is not None else 30.0}
+
+
+def _kuwahara_args(a):
+    # operation.c:2634 — sigma defaults to rho-0.5 when absent
+    g = parse_geometry(a)
+    radius = g.width if g.width is not None else 0.0
+    sigma = g.height if g.height is not None else radius - 0.5
+    return {"radius": radius, "sigma": sigma}
+
+
+def _selective_args(a):
+    g = parse_geometry(a)
+    kw = {"radius": g.width or 0.0, "sigma": g.height or 1.0}
+    if g.x is not None:
+        kw["threshold"] = (g.x or 10) / 100.0
+    return kw
+
+
+def _median_args(st, a, p):
+    w = 2 * int(float(a)) + 1
+    return {"stat": "median", "width": w, "height": w}
+
+
+def _op_statistic(st, arg, plus):
+    """-statistic type WxH (two arguments)."""
+    from ..ops import statistic as stx
+
+    parts = arg.split(None, 1)
+    stat = parts[0]
+    g = parse_geometry(parts[1]) if len(parts) > 1 else None
+    w = int(g.width or 3) if g else 3
+    h = int(g.height or w) if g else 3
+    for li in st.images:
+        li.push(lambda x: stx.statistic(x, stat, w, h))
+
+
+def _op_evaluate(st, arg, plus):
+    """-evaluate operator value (two arguments).  StringToDoubleInterval
+    (arg, QuantumRange+1): raw numbers are quantum counts, percents are
+    fractions of 65536 (operation.c:2356)."""
+    from ..ops import statistic as stx
+
+    parts = arg.split(None, 1)
+    op = parts[0]
+    if len(parts) > 1 and parts[1].strip().endswith("%"):
+        val = float(parts[1].strip()[:-1]) * 65536.0 / 100.0
+    else:
+        val = float(parts[1]) if len(parts) > 1 else 0.0
+    for li in st.images:
+        li.push(lambda x: stx.evaluate(x, op, val))
+
+
+def _op_function(st, arg, plus):
+    """-function name parameters (two arguments)."""
+    from ..ops import statistic as stx
+
+    parts = arg.split(None, 1)
+    fname = parts[0]
+    params = [float(p) for p in parts[1].replace(",", " ").split()] \
+        if len(parts) > 1 else []
+    for li in st.images:
+        li.push(lambda x: stx.function(x, fname, params))
+
+
+_NUMBER_RE = re.compile(r"[-+]?\d*\.?\d+(?:[eE][-+]?\d+)?")
+
+
+def _op_composite_list(st, arg, plus):
+    """-composite: images[0] is the canvas, images[1] the overlay; both
+    materialize, and the list becomes their composite under the
+    ``-compose`` operator, ``-gravity``, the ``-geometry`` offset and the
+    ``compose:args`` define."""
+    from ..ops import composite as comp
+
+    if len(st.images) < 2:
+        raise CLIError("-composite needs at least two images")
+    dst = st.images[0].materialize()
+    src = st.images[1].materialize()
+    op = st.settings.get("compose", "over")
+    g = st.settings.get("compose-geometry")
+    x = y = 0
+    if g:
+        gg = parse_geometry(g)
+        x, y = gg.x or 0, gg.y or 0
+    cargs = ()
+    art = st.defines.get("compose:args")
+    if art:
+        cargs = tuple(float(v) for v in _NUMBER_RE.findall(art))
+    out = comp.composite_at(dst.data, src.data, op, x, y,
+                            st.settings["gravity"],
+                            dst_alpha=dst.spec.alpha,
+                            src_alpha=src.spec.alpha, args=cargs)
+    alpha = out.shape[-1] > dst.spec.color_channels
+    st.images = [LazyImage(Image(out, dst.spec.with_(alpha=alpha),
+                                 dst.properties, dst.profiles))]
+
+
 # option name -> (number of arguments, handler)
 OPS: Dict[str, Tuple[int, Callable]] = {
     # the resize family
@@ -497,7 +651,41 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "lat": (1, _op_simple("threshold", "adaptive_threshold",
                           lambda st, a, p: _lat_args(a))),
     "clamp": (0, _op_simple("threshold", "clamp")),
+    # blur's effects
+    "sharpen": (1, _op_simple("blur", "sharpen", _rs_vp)),
+    "unsharp": (1, _op_simple("blur", "unsharp_mask",
+                              lambda st, a, p: _unsharp_args(a))),
+    "edge": (1, _op_simple("blur", "edge_image",
+                           lambda st, a, p: {"radius": _geom_args(a)[0]})),
+    "adaptive-blur": (1, _op_simple("blur", "adaptive_blur", _rs)),
+    "adaptive-sharpen": (1, _op_simple("blur", "adaptive_sharpen", _rs)),
+    "motion-blur": (1, _op_simple("blur", "motion_blur",
+                                  lambda st, a, p: _motion_args(a))),
+    "rotational-blur": (1, _op_simple("blur", "rotational_blur",
+                                      lambda st, a, p: {"angle": float(a)})),
+    "bilateral-blur": (1, _op_simple("blur", "bilateral_blur",
+                                     lambda st, a, p: _bilateral_args(a))),
+    "kuwahara": (1, _op_simple("blur", "kuwahara",
+                               lambda st, a, p: _kuwahara_args(a))),
+    "despeckle": (0, _op_simple("blur", "despeckle")),
+    "emboss": (1, _op_simple("blur", "emboss", _rs)),
+    "shade": (1, _op_simple("blur", "shade", lambda st, a, p: _shade_args(a))),
+    "spread": (1, _op_simple("blur", "spread",
+                             lambda st, a, p: {"radius": float(a)})),
+    "selective-blur": (1, _op_simple("blur", "selective_blur",
+                                     lambda st, a, p: _selective_args(a))),
+    # rank filters and value maps
+    "statistic": (2, _op_statistic),
+    "median": (1, _op_simple("statistic", "statistic", _median_args)),
+    "evaluate": (2, _op_evaluate),
+    "function": (2, _op_function),
+    # list operators
+    "composite": (0, _op_composite_list),
 }
+
+# settings stored by ``process`` (the JAX CLI's _SETTINGS subset that a
+# ported option reads); the + forms of gravity and compose reset them
+_SETTINGS = ("virtual-pixel", "gravity", "compose")
 
 
 def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
@@ -524,11 +712,31 @@ def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
             raise unported(tok)
         plus = tok.startswith("+")
         name = tok[1:]
+        if name in _SETTINGS or name in ("define", "geometry"):
+            if plus and name in ("gravity", "compose"):
+                st.settings[name] = "undefined" if name == "gravity" \
+                    else "over"
+                continue
+            if i >= len(args):
+                raise CLIError(f"option requires an argument {tok!r}")
+            value = args[i]
+            i += 1
+            if name == "define":
+                key, _, val = value.partition("=")
+                if plus:
+                    st.defines.pop(key, None)
+                else:
+                    st.defines[key] = val
+            elif name == "geometry":
+                st.settings["compose-geometry"] = value
+            else:
+                st.settings[name] = value
+            continue
         if name in OPS:
             n_args, handler = OPS[name]
             if i + n_args > len(args):
                 raise CLIError(f"option requires an argument {tok!r}")
-            arg = args[i] if n_args else None
+            arg = " ".join(args[i:i + n_args]) if n_args else None
             i += n_args
             st.require_images("-" + name)
             handler(st, arg, plus)

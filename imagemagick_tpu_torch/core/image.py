@@ -10,8 +10,8 @@ it lies on; pixels given as a numpy array or a list go to ``device``, the
 CUDA card unless the caller asks for the CPU.  Op methods are thin
 wrappers over the functions in ``imagemagick_tpu_torch.ops`` and return
 new Images.  ``crop``, ``flip``, ``flop`` and ``rotate`` wait for
-ops/transform and ops/distort, ``sharpen`` for blur's effects (ROADMAP.md
-Queue 1); the JAX class's pytree hooks have no use here.
+ops/transform and ops/distort (ROADMAP.md Queue 1); the JAX class's
+pytree hooks have no use here.
 """
 
 from __future__ import annotations
@@ -160,6 +160,11 @@ class Image:
         from ..ops import blur as bl
 
         return self.replace(data=bl.gaussian_blur(self.data, radius, sigma))
+
+    def sharpen(self, radius: float = 0.0, sigma: float = 1.0) -> "Image":
+        from ..ops import blur as bl
+
+        return self.replace(data=bl.sharpen(self.data, radius, sigma))
 
     def unsharp_mask(self, radius: float = 0.0, sigma: float = 1.0,
                      gain: float = 1.0, threshold: float = 0.05) -> "Image":

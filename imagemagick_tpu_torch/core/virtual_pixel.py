@@ -4,7 +4,9 @@ The reference resolves out-of-canvas reads per pixel inside the cache layer
 (MagickCore/cache.c:2627-2720; policy enum in cache-view.h:27-45).  Here an
 edge policy is an explicit pad applied before a windowed op runs.  The
 simple modes are index maps along H and W (one gather per axis); the
-constant fills pad with a color.
+constant fills pad with a color.  Samplers that read at arbitrary integer
+coordinates remap them per policy instead (``vp_tap``, cache.c:2928-3066),
+reading ``vp_constant``'s color where the policy falls back to one.
 """
 
 from __future__ import annotations
@@ -33,6 +35,103 @@ _CONSTANT_FILLS = {
     "transparent": 0.0,
     "background": None,  # uses the background color argument
 }
+
+
+# cache.c:2625 DitherMatrix — DitherX/Y only index the first 8 entries
+_DITHER8 = (0, 48, 12, 60, 3, 51, 15, 63)
+
+
+def vp_constant(method: str, background=None, channels: int = 3):
+    """The virtual-pixel fill color for constant-fill methods, or None.
+
+    Matches cache.c:2851-2896: black/transparent = 0, gray =
+    QuantumRange/2 (0.5 in HDRI), white/mask = 1; 'background' uses the
+    image background color.  Alpha is opaque for all but transparent."""
+    m = (method or "edge").lower()
+    alpha = channels in (2, 4)
+    nc = channels - 1 if alpha else channels
+    if m == "black":
+        col = [0.0] * nc + ([1.0] if alpha else [])
+    elif m in ("gray", "grey"):
+        col = [0.5] * nc + ([1.0] if alpha else [])
+    elif m in ("white", "mask"):
+        col = [1.0] * nc + ([1.0] if alpha else [])
+    elif m == "transparent":
+        col = [0.0] * channels
+    elif m in ("background", "horizontaltile", "verticaltile",
+               "checkertile"):
+        # the tile-fill variants use the background color for their
+        # outside regions (cache.c:2888 default case)
+        if background is None:
+            return None
+        col = list(background)[:channels]
+        while len(col) < channels:
+            col.append(1.0)
+    else:
+        return None
+    return tuple(col)
+
+
+def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """Two's-complement int32 wrap of int64 values (the int32 product of
+    the JAX package's hash)."""
+    return torch.remainder(v + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def vp_tap(yi: torch.Tensor, xi: torch.Tensor, h: int, w: int,
+           method: str = "edge"):
+    """Remap integer tap coordinates per virtual-pixel policy.
+
+    Returns (yc, xc, const_mask): in-image int64 coordinates plus a bool
+    mask of taps that must read the vp_constant color instead (None when
+    the method never falls back to a constant).  Mirrors the coordinate
+    arithmetic of cache.c:2928-3066 (floored VirtualPixelModulo, mirror
+    quotient parity, DitherX/Y clamped offsets, tile-variant fills)."""
+    m = (method or "edge").lower()
+    yi = yi.to(torch.int64)
+    xi = xi.to(torch.int64)
+    if m in ("edge", "undefined", ""):
+        return yi.clamp(0, h - 1), xi.clamp(0, w - 1), None
+    inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+    if m in ("black", "gray", "grey", "white", "mask", "transparent",
+             "background"):
+        return yi.clamp(0, h - 1), xi.clamp(0, w - 1), ~inside
+    qy = torch.div(yi, h, rounding_mode="floor")
+    ry = torch.remainder(yi, h)
+    qx = torch.div(xi, w, rounding_mode="floor")
+    rx = torch.remainder(xi, w)
+    if m == "tile":
+        return ry, rx, None
+    if m == "mirror":
+        my = torch.where(qy & 1 == 1, h - 1 - ry, ry)
+        mx = torch.where(qx & 1 == 1, w - 1 - rx, rx)
+        return my, mx, None
+    if m == "horizontaltile":
+        return ry, rx, (yi < 0) | (yi >= h)
+    if m == "verticaltile":
+        return ry, rx, (xi < 0) | (xi >= w)
+    if m == "horizontaltileedge":
+        return yi.clamp(0, h - 1), rx, None
+    if m == "verticaltileedge":
+        return ry, xi.clamp(0, w - 1), None
+    if m == "checkertile":
+        return ry, rx, ((qx ^ qy) & 1) != 0
+    if m == "dither":
+        # only out-of-range taps take the dithered offset; in-range reads
+        # go through the normal path untouched (cache.c:2915-2957)
+        d8 = torch.tensor(_DITHER8, dtype=torch.int64, device=yi.device)
+        dy = (yi + d8[yi & 7] - 32).clamp(0, h - 1)
+        dx = (xi + d8[xi & 7] - 32).clamp(0, w - 1)
+        return torch.where(inside, yi.clamp(0, h - 1), dy), \
+            torch.where(inside, xi.clamp(0, w - 1), dx), None
+    if m == "random":
+        # the JAX package's deterministic hash stand-in for the
+        # reference's RNG stream (cache.c:2942 RandomX/Y), in int32
+        hy = torch.remainder(_wrap_int32(yi * 26544357 + xi * 40503), h)
+        hx = torch.remainder(_wrap_int32(xi * 26544357 + yi * 40503), w)
+        return torch.where(inside, yi.clamp(0, h - 1), hy), \
+            torch.where(inside, xi.clamp(0, w - 1), hx), None
+    return yi.clamp(0, h - 1), xi.clamp(0, w - 1), None
 
 
 def _pad_index(n: int, lo: int, hi: int, mode: str) -> np.ndarray:

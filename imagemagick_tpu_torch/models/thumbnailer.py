@@ -1,8 +1,8 @@
 """The flagship pipeline: corpus-scale thumbnailer (BASELINE config #5).
 
 Port of ``imagemagick_tpu/models/thumbnailer.py``.  End to end: decode N
-JPEGs -> Lanczos resize [-> sRGB->Gray] -> encode, as a producer/consumer
-pipeline:
+JPEGs -> Lanczos resize [-> watermark composite] [-> sRGB->Gray] ->
+encode, as a producer/consumer pipeline:
 
   * host threads decode with the native codec (``native/miniio.cpp``,
     PIL's ``draft`` decode where it is not built) straight into the
@@ -17,8 +17,10 @@ pipeline:
   * encode threads drain finished batches.
 
 The step is one launch of kernel K1 (``csrc/fused_pipeline.cu``) on the
-staged layout.  Where the JAX step falls back to XLA ops, this one
-raises: nothing here runs another route on a card.
+staged layout; a watermark is then composited onto the batch by
+``ops/composite.composite_at`` (dissolve 35 %, southeast) as PyTorch ops
+before the gray conversion.  Where the JAX step falls back to XLA ops,
+this one raises: nothing here runs another route on a card.
 """
 
 from __future__ import annotations
@@ -32,12 +34,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-_WATERMARK_GAP = (
-    "the thumbnailer's watermark needs composite_at from ops/composite.py, "
-    "which is not ported yet: ROADMAP.md Queue 1, 'The other op families "
-    "under ops/' (composite comes first)")
-
 
 @dataclass
 class ThumbnailerConfig:
@@ -107,17 +103,24 @@ def make_flat_step(cfg: ThumbnailerConfig, h: int, w: int, watermark=None,
     device operands once per batch size.  A step uploads the staged u8
     batch (pinned host memory copies without waiting), scales it to
     [0, 1], runs K1 once (its plain version for a CPU ``device``) and
-    rounds to u8.  ``grayscale`` folds the Rec.709 luma row into K1's
-    channel mix."""
+    rounds to u8.  Without a watermark ``grayscale`` folds the Rec.709
+    luma row into K1's channel mix.  ``watermark``, an (h, w, 3 or 4)
+    float image in [0, 1] (a tensor or an array), is moved to ``device``
+    here, once; K1 then keeps the color channels, the watermark is
+    dissolved in at 35 % in the southeast corner, and the gray
+    conversion follows, as in the JAX step."""
+    from ..ops import colorspace as cs
+    from ..ops import composite as comp
     from ..ops import fused_pipeline as fp
     from ..ops.resize import resize_matrix
 
-    if watermark is not None:
-        raise NotImplementedError(_WATERMARK_GAP)
     device = torch.device(device)
+    if watermark is not None:
+        watermark = torch.as_tensor(watermark, dtype=torch.float32).to(
+            device)
     th, tw = cfg.thumb_height, cfg.thumb_width
-    mix = np.asarray([[0.212656, 0.715158, 0.072186]]) if cfg.grayscale \
-        else np.eye(3)
+    mix = np.asarray([[0.212656, 0.715158, 0.072186]]) \
+        if cfg.grayscale and watermark is None else np.eye(3)
     h8 = _align(h, 8)
     wcp = _align(w * 3, 128)
     Mv = resize_matrix(h, th, "lanczos").astype(np.float64).T
@@ -140,10 +143,35 @@ def make_flat_step(cfg: ThumbnailerConfig, h: int, w: int, watermark=None,
         x = x.to(device, non_blocking=True)
         flat = x.reshape(b * h8, wcp).to(torch.float32) / 255.0
         y = fp.run_plan(flat, b, plan, operands[b])
+        if watermark is not None:
+            y = comp.composite_at(y, watermark, "dissolve", 0, 0,
+                                  "southeast",
+                                  src_alpha=watermark.shape[-1] == 4,
+                                  args=(35.0,))[..., :3]
+            if cfg.grayscale:
+                y = cs.convert(y, "srgb", "gray")
         return (y.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
     step.plan = plan
     return step
+
+
+def read_watermark(path: str) -> np.ndarray:
+    """A watermark file as an (h, w, 3 or 4) float32 array in [0, 1]: an
+    8-bit RGB or RGBA image read with PIL and scaled by 1/255.  The JAX
+    function reads it through ``io/``, which is not ported: any other
+    mode raises, naming its ROADMAP.md entry."""
+    from PIL import Image as PImage
+
+    with PImage.open(path) as pim:
+        if pim.mode not in ("RGB", "RGBA"):
+            raise NotImplementedError(
+                f"watermark {path!r} has PIL mode {pim.mode!r}: only 8-bit "
+                "RGB and RGBA are read here; other files need the codecs "
+                "and readers of io/, which are not ported yet: ROADMAP.md "
+                "Queue 1, 'Host layers' (io/)")
+        arr = np.asarray(pim)
+    return arr.astype(np.float32) / np.float32(255.0)
 
 
 def run(paths: Sequence[str], out_dir: str,
@@ -153,12 +181,12 @@ def run(paths: Sequence[str], out_dir: str,
 
     Pipeline: decode pool -> per-size batches -> device steps with
     ``inflight_depth`` batches in flight -> encode pool.
+    ``watermark_path`` names an 8-bit RGB or RGBA image
+    (``read_watermark``) that every step dissolves into its thumbnails.
     ``device_drain_wait_s`` is the time the host waited on the card for a
     finished batch; ``overlap_efficiency`` the share of the wall time it
     did not."""
     cfg = cfg or ThumbnailerConfig()
-    if watermark_path:
-        raise NotImplementedError(_WATERMARK_GAP)
     device = torch.device(device)
     on_card = device.type == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -167,12 +195,13 @@ def run(paths: Sequence[str], out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
     from .. import native
 
+    wm = read_watermark(watermark_path) if watermark_path else None
     steps: Dict[Tuple[int, int], object] = {}
 
     def step_for(h, w):
         key = (h, w)
         if key not in steps:
-            steps[key] = make_flat_step(cfg, h, w, device=device)
+            steps[key] = make_flat_step(cfg, h, w, wm, device=device)
         return steps[key]
 
     t0 = time.perf_counter()

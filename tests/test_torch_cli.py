@@ -183,12 +183,12 @@ def test_materialize_carries_metadata():
 @pytest.mark.parametrize("argv,entry", [
     (["in.png"], "'Host layers' (io/)"),
     (["-resize", "10x10", "out.jpg"], "'Host layers' (io/)"),
-    (["-motion-blur", "0x3+45"], "'The rest of the modules that the slices"),
+    (["-charcoal", "2"], "'The other op families under ops/'"),
     (["-flip"], "'The other op families under ops/'"),
-    (["-emboss", "1"], "'The rest of the modules that the slices"),
-    (["-sharpen", "0x1"], "'The other op families under ops/'"),
+    (["-distort", "SRT", "30"], "'Host layers'"),
+    (["-draw", "circle 5,5 2,2"], "'The other op families under ops/'"),
     (["-filter", "box"], "'The other op families under ops/'"),
-    (["-unknown-option"], "'The rest of the modules that the slices"),
+    (["-unknown-option"], "'Host layers'"),
 ])
 def test_unported_raise_naming_their_entries(argv, entry):
     st = tm.CLIState()
@@ -430,3 +430,177 @@ def test_clahe_keeps_the_device():
     tm.process(["-clahe", "16x16+64+2"], ts)
     out = ts.images[0].image.data
     assert out.device.type == "cpu" and out.shape == (48, 72, 3)
+
+
+# blur's effects, the rank filters, evaluate and function, and the
+# settings that reach them, on 48x72 images.  The JAX CLI jits each chain
+# (XLA may contract a product and a sum into one rounding), so the values
+# agree to float32 rounding but a selection from nearly equal values (an
+# adaptive level, a Kuwahara quadrant, a median of nearly equal pixels)
+# may differ: at most 0.1 % of the values may differ by more than 1e-5,
+# and the whole output is held to the 60 dB gate.
+EFFECT_ARGVS = [
+    ["-sharpen", "0x1"], ["-sharpen", "2x0.8"],
+    ["-unsharp", "0x1+1.5+0.02"], ["-unsharp", "2x1"], ["-edge", "1"],
+    ["-edge", "2"], ["-adaptive-blur", "0x2"], ["-adaptive-sharpen", "0x1"],
+    ["-motion-blur", "0x3+45"], ["-motion-blur", "2x1-30"],
+    ["-rotational-blur", "10"], ["-bilateral-blur", "5x5"],
+    ["-bilateral-blur", "4x3+10+1.5"], ["-kuwahara", "3"],
+    ["-kuwahara", "2x1"], ["-despeckle"], ["-emboss", "1"],
+    ["-shade", "30x30"], ["-shade", "120x45"],
+    ["-selective-blur", "0x1+10%"], ["-selective-blur", "2x1"],
+    ["-statistic", "median", "3x3"], ["-statistic", "mode", "2x2"],
+    ["-statistic", "stddev", "5"], ["-statistic", "nonpeak", "3x2"],
+    ["-median", "1"], ["-median", "2"],
+    ["-evaluate", "add", "10%"], ["-evaluate", "multiply", "0.8"],
+    ["-evaluate", "pow", "2"], ["-evaluate", "and", "32768"],
+    ["-evaluate", "log", "500"],
+    ["-function", "polynomial", "3,-2,0.5"],
+    ["-function", "sinusoid", "3,90"], ["-function", "arctan", "5"],
+    ["-virtual-pixel", "mirror", "-sharpen", "0x1"],
+    ["-virtual-pixel", "tile", "-blur", "0x1"],
+    ["-virtual-pixel", "black", "-gaussian-blur", "0x1", "-sharpen",
+     "0x0.7"],
+]
+CHAIN_E = ["-resize", "32x32", "-sharpen", "0x1", "-adaptive-blur", "0x2",
+           "-median", "1"]
+
+
+def _assert_effects_close(argv, got, want):
+    for g, w in zip(got, want):
+        assert repr(g.spec) == repr(w.spec)
+        g, w = g.data.numpy(), np.asarray(w.data)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert np.mean(np.abs(g - w) > 1e-5) <= 1e-3, argv
+        assert _psnr(g, w) >= 60.0, argv
+
+
+@pytest.mark.parametrize("argv", EFFECT_ARGVS + [CHAIN_E], ids=" ".join)
+def test_effect_options_match_jax(argv):
+    images = [_natural(48, 72, s) for s in range(2)]
+    js, ts = _states(images)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert _tags(ts) == _tags(js)
+    assert [(li.height, li.width) for li in ts.images] == \
+        [(li.height, li.width) for li in js.images]
+    assert ts.settings == {k: v for k, v in js.settings.items()
+                           if k in ts.settings}
+    _assert_effects_close(argv, tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images))
+
+
+def test_effect_chain_fuses_its_resize_once(monkeypatch):
+    """``-resize 32x32 -sharpen 0x1 -adaptive-blur 0x2 -median 1``: the
+    resize's tag over the group is ONE fused call; the effects run image
+    by image, each adaptive blur through one ``separable_blur`` call."""
+    from imagemagick_tpu_torch.ops import gpu_kernels
+
+    seen, blurs = [], []
+    orig = tdsp.try_fused_batch_array
+    monkeypatch.setattr(tdsp, "try_fused_batch_array",
+                        lambda x, *a, **k: seen.append(tuple(x.shape))
+                        or orig(x, *a, **k))
+    orig_blur = gpu_kernels.separable_blur
+    monkeypatch.setattr(gpu_kernels, "separable_blur",
+                        lambda x, t: blurs.append(tuple(x.shape))
+                        or orig_blur(x, t))
+    ts = tm.CLIState()
+    _add(jm.CLIState(), ts, [_natural(48, 72, s) for s in range(4)])
+    tm.process(list(CHAIN_E), ts)
+    assert [t for _, _, t in ts.images[0].pending][1:] == [None] * 3
+    before = dict(tdsp.COUNTS)
+    out = tm.materialize_all(ts.images)
+    assert seen == [(4, 48, 72, 3)]
+    assert tdsp.COUNTS == {"fused": before["fused"] + 1,
+                           "op": before["op"] + 4}
+    assert blurs == [(1, 21, 32, 3)] * 4
+    assert all(tuple(o.data.shape) == (21, 32, 3) for o in out)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-gravity", "southeast", "-compose", "dissolve", "-define",
+     "compose:args=35", "-composite"],
+    ["-composite"],
+    ["-compose", "multiply", "-geometry", "+5+3", "-composite"],
+    ["-gravity", "center", "-compose", "blend", "-define",
+     "compose:args=30x60", "-composite"],
+    ["-gravity", "north", "+gravity", "-compose", "screen", "+compose",
+     "-geometry", "-4+2", "-composite"],
+    ["-compose", "difference", "-define", "compose:args=1", "+define",
+     "compose:args", "-composite"],
+    ["-compose", "displace", "-define", "compose:args=10x5", "-composite"],
+])
+@pytest.mark.parametrize("alpha", [False, True])
+def test_composite_option_matches_jax(argv, alpha):
+    """The list operator over a canvas and a smaller overlay (a third
+    image is dropped, as in the JAX CLI), under each setting."""
+    c = 4 if alpha else 3
+    images = [_natural(48, 72, 0, c), _natural(20, 30, 1, c),
+              _natural(48, 72, 2, c)]
+    js, ts = _states(images, alpha)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert ts.defines == js.defines
+    assert ts.settings == {k: v for k, v in js.settings.items()
+                           if k in ts.settings or k in ("compose",
+                                                        "compose-geometry")}
+    assert len(ts.images) == len(js.images) == 1
+    got, want = ts.images[0].image, js.images[0].image
+    assert repr(got.spec) == repr(want.spec)
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
+                               atol=1e-6)
+
+
+def test_settings_are_stored_as_the_jax_cli_stores_them():
+    js, ts = _states([_natural(8, 8, 0)])
+    argv = ["-virtual-pixel", "Mirror", "-gravity", "East", "-compose",
+            "Multiply", "-geometry", "+1+2", "-define", "a:b=c=d",
+            "-define", "x=1", "+define", "x", "+virtual-pixel", "tile"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert ts.defines == js.defines == {"a:b": "c=d"}
+    for k in ("virtual-pixel", "gravity", "compose", "compose-geometry"):
+        assert ts.settings[k] == js.settings[k]
+    with pytest.raises(tm.CLIError, match="requires an argument"):
+        tm.process(["-gravity"], ts)
+
+
+def test_two_argument_options_take_two_tokens():
+    js, ts = _states([_natural(24, 30, 0)])
+    argv = ["-statistic", "gradient", "3x1", "-evaluate", "max", "20%",
+            "-function", "polynomial", "1,0", "-median", "1"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert len(ts.images[0].pending) == len(js.images[0].pending) == 4
+    _assert_effects_close(argv, tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images))
+    with pytest.raises(tm.CLIError, match="requires an argument"):
+        tm.process(["-statistic", "median"], ts)
+
+
+@pytest.mark.parametrize("argv", [["-spread", "2"],
+                                  ["-evaluate", "gaussian-noise", "0.5"],
+                                  ["-evaluate", "impulse-noise", "3"]])
+def test_random_options_draw_from_a_generator_seeded_0(argv):
+    """-spread and the noise operators of -evaluate draw from a generator
+    seeded 0 (the JAX CLI from PRNGKey(0), another stream): the same
+    output on every run and for every same-shape image, and -spread's
+    output holds only its own image's pixels."""
+    x = _natural(24, 30, 3)
+    outs = []
+    for _ in range(2):
+        ts = tm.CLIState()
+        _add(jm.CLIState(), ts, [x, x])
+        tm.process(list(argv), ts)
+        outs.append([o.data for o in tm.materialize_all(ts.images)])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][0], outs[0][1])
+    js = jm.CLIState()
+    _add(js, tm.CLIState(), [x])
+    jm.process(list(argv), js)
+    assert np.asarray(jm.materialize_all(js.images)[0].data).shape == x.shape
+    if argv[0] == "-spread":
+        got = outs[0][0].numpy().reshape(-1, 3)
+        assert set(map(tuple, got)) <= set(map(tuple, x.reshape(-1, 3)))
+        assert not np.array_equal(outs[0][0].numpy(), x)

@@ -142,3 +142,77 @@ def test_from_uint16_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA card"):
             TImage.from_uint16(np.zeros((2, 2, 3), np.uint16))
+
+
+VP_METHODS = ["edge", "undefined", "black", "gray", "grey", "white", "mask",
+              "transparent", "background", "tile", "mirror",
+              "horizontaltile", "verticaltile", "horizontaltileedge",
+              "verticaltileedge", "checkertile", "dither", "random",
+              "no-such-mode"]
+
+
+@pytest.mark.parametrize("method", VP_METHODS)
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_vp_constant_equal(method, channels):
+    for bg in (None, (0.25, 0.5), (0.1, 0.2, 0.3, 0.4, 0.5)):
+        assert tvp.vp_constant(method, bg, channels) == \
+            jvp.vp_constant(method, bg, channels)
+
+
+@pytest.mark.parametrize("method", VP_METHODS)
+def test_vp_tap_equal(method):
+    """Integer taps far outside the canvas (several periods, negative)
+    remap to the same coordinates and constant masks; the random mode's
+    int32 hash wraps as the JAX package's does."""
+    h, w = 7, 11
+    yy, xx = np.meshgrid(np.arange(-40, 47), np.arange(-60, 73),
+                         indexing="ij")
+    yy = yy.astype(np.int32) * 3
+    xx = xx.astype(np.int32) * 5
+    ref = jvp.vp_tap(jnp.asarray(yy), jnp.asarray(xx), h, w, method)
+    got = tvp.vp_tap(torch.from_numpy(yy), torch.from_numpy(xx), h, w,
+                     method)
+    for r, g in zip(ref, got):
+        assert (r is None) == (g is None)
+        if r is not None:
+            assert np.array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("method", VP_METHODS)
+@pytest.mark.parametrize("shape", [(9, 13, 3), (2, 9, 13, 4)])
+def test_sample_bilinear_matches(method, shape):
+    """distort.sample_bilinear at fractional points in and far outside
+    the canvas, with and without a background: float32 blends of the
+    same four taps in the same order (atol 1e-6)."""
+    from imagemagick_tpu.ops import distort as jdt
+    from imagemagick_tpu_torch.ops import distort as tdt
+
+    rng = np.random.default_rng(10)
+    x = rng.uniform(0, 1, shape).astype(np.float32)
+    u = rng.uniform(-20, 33, (15, 17)).astype(np.float32)
+    v = rng.uniform(-15, 24, (15, 17)).astype(np.float32)
+    for bg in (None, (0.2, 0.4, 0.6, 0.8)):
+        ref = np.asarray(jdt.sample_bilinear(jnp.asarray(x), jnp.asarray(u),
+                                             jnp.asarray(v), bg, method))
+        got = tdt.sample_bilinear(torch.from_numpy(x), torch.from_numpy(u),
+                                  torch.from_numpy(v), bg, method).numpy()
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+def test_sample_bilinear_reads_each_image_at_its_own_points():
+    """Points with the batch axis read each image at its own points (the
+    JAX ``take`` crosses the batches there); shared points read every
+    image at the same ones."""
+    from imagemagick_tpu_torch.ops import distort as tdt
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(0, 1, (3, 9, 13, 2)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(-3, 15, (3, 5, 6)).astype(np.float32))
+    v = torch.from_numpy(rng.uniform(-3, 11, (3, 5, 6)).astype(np.float32))
+    got = tdt.sample_bilinear(x, u, v)
+    assert got.shape == (3, 5, 6, 2)
+    for i in range(3):
+        assert torch.equal(got[i], tdt.sample_bilinear(x[i], u[i], v[i]))
+    shared = tdt.sample_bilinear(x, u[0], v[0])
+    assert torch.equal(shared[2], tdt.sample_bilinear(x[2], u[0], v[0]))

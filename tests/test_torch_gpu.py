@@ -21,7 +21,14 @@ the card's expf and powf); the document chain in one K1 and one K4
 launch, at most 0.1 % of its 0/1 pixels apart; gathers, selects and the
 ordered dither equal; the mesh resize within 1e-6; colorspaces within
 their round-trip tolerances of ``chip_smoke.py``; the distance transform
-within 1e-6 (its sums and minima are the CPU's).
+within 1e-6 (its sums and minima are the CPU's).  Blur's effects run
+on the card against the CPU within 1e-5 (K3's and cuDNN's float32 sums
+in another order); the adaptive level and Kuwahara's quadrant, selected
+from nearly equal values, may differ on at most 0.1 % of the pixels;
+each adaptive blur, adaptive sharpen and Kuwahara filter is exactly one
+K3 launch.  Composite operators agree within 1e-4 (the card's cosf and
+divisions) but where a comparison inside the operator falls otherwise,
+on at most 0.1 % of the values.
 """
 
 import numpy as np
@@ -804,3 +811,100 @@ def test_distance_transform_on_card(dev):
         got = mo.distance_transform(x.to(dev), metric)
         want = mo.distance_transform(x, metric)
         assert (got.cpu() - want).abs().max() <= 1e-6
+
+
+def _selected_apart(got, want, tol=1e-5):
+    """The share of pixels further apart than ``tol``."""
+    return float(((got.cpu() - want).abs() > tol).any(-1).float().mean())
+
+
+@pytest.mark.parametrize("name,args", [
+    ("adaptive_blur", (0.0, 2.0)), ("adaptive_sharpen", (0.0, 1.0)),
+    ("kuwahara", (3.0,))])
+def test_k3_on_the_adaptive_and_kuwahara_paths(dev, name, args):
+    """The adaptive pair's edge-map blur and Kuwahara's pre-blur are ONE
+    K3 launch a call, and nothing else launches a kernel."""
+    from imagemagick_tpu_torch.ops import blur as bl
+
+    x = torch.from_numpy(_rand((2, 96, 128, 3), 14))
+    before = dict(gk.LAUNCHES)
+    got = getattr(bl, name)(x.to(dev), *args)
+    torch.cuda.synchronize()
+    launched = {k: gk.LAUNCHES[k] - before[k] for k in before}
+    assert launched["k3"] == 1 and sum(launched.values()) == 1
+    want = getattr(bl, name)(x, *args)
+    assert got.is_cuda and got.shape == want.shape
+    assert _selected_apart(got, want) <= 1e-3
+
+
+@pytest.mark.parametrize("name,args", [
+    ("sharpen", (0.0, 1.0)), ("emboss", (1.0, 1.0)),
+    ("motion_blur", (0.0, 3.0, 45.0)), ("rotational_blur", (10.0,)),
+    ("selective_blur", (0.0, 1.0, 0.1)), ("despeckle", ()),
+    ("shade", (30.0, 30.0)), ("bilateral_blur", (5, 5)),
+    ("local_contrast", ())])
+def test_effects_on_card(dev, name, args):
+    from imagemagick_tpu_torch.ops import blur as bl
+
+    x = _rand((2, 96, 128, 3), 15)
+    if name == "despeckle":
+        x = np.round(x * 255.0).astype(np.float32) / np.float32(255.0)
+    x = torch.from_numpy(x)
+    got = getattr(bl, name)(x.to(dev), *args)
+    want = getattr(bl, name)(x, *args)
+    assert got.is_cuda and got.shape == want.shape
+    if name == "despeckle":
+        assert torch.equal(got.cpu(), want)
+    else:
+        assert _selected_apart(got, want) <= 1e-3
+
+
+def test_composite_on_card(dev):
+    from imagemagick_tpu_torch.ops import composite as comp
+
+    d = torch.from_numpy(_rand((2, 64, 96, 4), 16))
+    s = torch.from_numpy(_rand((2, 64, 96, 4), 17))
+    for op in comp.OPERATORS:
+        got = comp.composite(d.to(dev), s.to(dev), op, True, True, (35.0,))
+        want = comp.composite(d, s, op, True, True, (35.0,))
+        assert got.is_cuda and got.shape == want.shape, op
+        assert float(((got.cpu() - want).abs() > 1e-4).float().mean()) \
+            <= 1e-3, op
+
+
+def test_watermarked_thumbnail_step_on_card(dev):
+    """One K1 launch a batch, then the watermark: within 2 u8 levels of
+    the CPU step on the same staged bytes."""
+    from imagemagick_tpu_torch.models import thumbnailer as tn
+
+    cfg = tn.ThumbnailerConfig(thumb_width=64, thumb_height=48)
+    staged = (np.random.default_rng(18).uniform(0, 255, (3, 96, 384))
+              ).astype(np.uint8)
+    wm = _rand((16, 20, 4), 19)
+    before = dict(gk.LAUNCHES)
+    got = tn.make_flat_step(cfg, 96, 128, wm, device=dev)(staged)
+    torch.cuda.synchronize()
+    launched = {k: gk.LAUNCHES[k] - before[k] for k in before}
+    want = tn.make_flat_step(cfg, 96, 128, wm, device="cpu")(staged)
+    assert launched["k1"] == 1 and sum(launched.values()) == 1
+    assert got.shape == want.shape == (3, 48, 64, 3)
+    assert int((got.cpu().int() - want.int()).abs().max()) <= 2
+
+
+def test_cli_effects_chain_on_card(dev):
+    """``-resize -sharpen -adaptive-blur -median``: one K1 launch for the
+    group, one K3 launch an image; then ``-composite``."""
+    argv = "-resize 64x64 -sharpen 0x1 -adaptive-blur 0x2 -median 1".split()
+    x = torch.from_numpy(_rand((3, 96, 128, 3), 20))
+    got, launched = _cli_chain(argv, x, dev)
+    want, _ = _cli_chain(argv, x, "cpu")
+    assert launched["k1"] == 1 and launched["k3"] == 3
+    assert sum(launched.values()) == 4
+    assert got.shape == (3, 48, 64, 3)
+    assert _selected_apart(got, want) <= 1e-3
+    argv = ("-gravity southeast -compose dissolve -define compose:args=35 "
+            "-composite").split()
+    got, _ = _cli_chain(argv, got[:2], dev)
+    want, _ = _cli_chain(argv, want[:2], "cpu")
+    assert got.shape == (1, 48, 64, 4)       # the dissolve adds alpha
+    assert _selected_apart(got, want) <= 1e-3

@@ -166,7 +166,7 @@ def test_convert_and_identify_answer_501(server, path):
 
 def test_apply_args_are_checked(server):
     _store(server, "args", _pixels(5).tobytes())
-    status, body = _apply(server, "args", "-sharpen 0x1")
+    status, body = _apply(server, "args", "-charcoal 2")
     assert status == 501 and "ROADMAP.md Queue 1" in json.loads(body)["error"]
     status, body = _apply(server, "args", "-resize 10x10 in.png")
     assert status == 400 and "filename" in json.loads(body)["error"]

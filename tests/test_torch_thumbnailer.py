@@ -148,11 +148,93 @@ def test_run_matches_jax(tmp_path, monkeypatch, grayscale):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 2
 
 
-def test_watermark_is_not_ported(tmp_path):
-    cfg = tt.ThumbnailerConfig()
-    with pytest.raises(NotImplementedError, match="The other op families"):
-        tt.make_flat_step(cfg, 64, 96, watermark=np.zeros((8, 8, 4)),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ops/composite.py"):
-        tt.run([], str(tmp_path), cfg, watermark_path="wm.png",
-               device="cpu")
+def _watermark(channels, seed=3, h=9, w=12):
+    """A small watermark of 8-bit levels in [0, 1], with a transparent
+    corner when it has alpha."""
+    rng = np.random.default_rng(seed)
+    wm = rng.integers(0, 256, (h, w, channels)).astype(np.float32) / 255.0
+    if channels == 4:
+        wm[:3, :3, 3] = 0.0
+    return wm.astype(np.float32)
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("grayscale", [False, True])
+def test_watermarked_flat_step_matches_jax(channels, grayscale):
+    """K1 with the identity mix, the dissolve at 35 % in the southeast
+    corner, then gray: within 1 u8 level of the JAX step, as without a
+    watermark; the corner differs from the unwatermarked step."""
+    import jax.numpy as jnp
+
+    th, tw = 24, 32
+    cfg = tt.ThumbnailerConfig(thumb_width=tw, thumb_height=th,
+                               grayscale=grayscale)
+    jcfg = jt.ThumbnailerConfig(thumb_width=tw, thumb_height=th,
+                                grayscale=grayscale)
+    wm = _watermark(channels)
+    staged = _staged(64, 96, 3, seed=5)
+    step = tt.make_flat_step(cfg, 64, 96, watermark=wm, device="cpu")
+    assert step.plan.OUT == tw * 3      # K1's mix: identity, not gray
+    got = step(staged)
+    want = np.asarray(jt.make_flat_step(jcfg, 64, 96,
+                                        jnp.asarray(wm))(staged))
+    assert got.dtype == torch.uint8
+    assert tuple(got.shape) == want.shape == (3, th, tw,
+                                              1 if grayscale else 3)
+    assert np.abs(got.numpy().astype(int) - want).max() <= 1
+    plain = tt.make_flat_step(cfg, 64, 96, device="cpu")(staged).numpy()
+    corner = np.abs(got.numpy().astype(int) - plain)[:, -9:, -12:]
+    assert corner.max() > 2 and np.array_equal(got.numpy()[:, :-9],
+                                               plain[:, :-9])
+
+
+def _write_watermark(path, channels):
+    from PIL import Image as PImage
+
+    arr = (_watermark(channels) * 255.0 + 0.5).astype(np.uint8)
+    PImage.fromarray(arr, "RGBA" if channels == 4 else "RGB").save(path)
+
+
+@pytest.mark.parametrize("grayscale", [False, True])
+def test_run_with_watermark_matches_jax(tmp_path, grayscale):
+    """run(watermark_path=...) against the JAX run, which reads the PNG
+    through its io/: within 2 levels after each side's JPEG round trip,
+    one plan per source size."""
+    wm_path = str(tmp_path / "wm.png")
+    _write_watermark(wm_path, 4)
+    paths = _corpus(tmp_path)
+    kw = dict(thumb_width=32, thumb_height=24, batch_size=2,
+              grayscale=grayscale, decode_workers=2, encode_workers=2)
+    got = tt.run(paths, str(tmp_path / "port"), tt.ThumbnailerConfig(**kw),
+                 watermark_path=wm_path, device="cpu")
+    want = jt.run(paths, str(tmp_path / "jax"), jt.ThumbnailerConfig(**kw),
+                  watermark_path=wm_path)
+    assert got["images"] == want["images"] == 6
+    assert got["size_groups"] == want["size_groups"] == 2
+    for p in paths:
+        name = os.path.splitext(os.path.basename(p))[0] + ".jpg"
+        a = tnat.decode_jpeg((tmp_path / "port" / name).read_bytes())
+        b = tnat.decode_jpeg((tmp_path / "jax" / name).read_bytes())
+        assert a.shape == b.shape == (24, 32, 3)
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 2
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "L", "LA", "P"])
+def test_read_watermark(tmp_path, mode):
+    """8-bit RGB and RGBA read as the JAX reader reads them (levels over
+    255); any other mode names the io/ entry."""
+    from PIL import Image as PImage
+
+    from imagemagick_tpu import io as jio
+
+    path = str(tmp_path / f"wm_{mode}.png")
+    _write_watermark(path, 4)
+    PImage.open(path).convert(mode).save(path)
+    if mode in ("RGB", "RGBA"):
+        got = tt.read_watermark(path)
+        want = np.asarray(jio.read_images(path)[0].data)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-7)
+    else:
+        with pytest.raises(NotImplementedError, match="'Host layers'"):
+            tt.read_watermark(path)
