@@ -64,6 +64,28 @@ and the serve daemon):
   ``-random-threshold`` (a binomial bound), ``-lat`` and the distance
   transform on 4 pages of 1056x816, each against its CPU run; the
   per-image marginals of (a) and (b) and the distance transform's time.
+* effects, composite, cli_effects — blur's effects on 8 frames of 1080p,
+  every composite operator on RGBA pairs, config #5 with a watermark and
+  the CLI's effects chain, each against the CPU.
+* transform — every function of ``ops/transform.py`` on 8 frames of
+  1080x1920x3, required equal to the CPU, ms an image; trim on 4 pages.
+* distort — rotate (30 degrees by EWA, RGB and RGBA, and 90 exact),
+  every method of ``distort`` (+distort for srt, perspective and polar),
+  swirl, implode, wave, the five sparse-color methods, shear 20x10 and
+  deskew on 8 frames of 1080x1920x3, ms an image; frame 0 against the
+  CPU within 1e-5 but at most 0.1 % of the pixels, where a selection
+  falls otherwise (the per-pixel-EWA methods on a 270x480 frame); the
+  CUDA kernels of a polar and an arc call; liquid rescale of one 256x171
+  image by 32 columns, its seams equal to the CPU's.
+* cli_distort — config1_cli's 32 images through ``-resize 384x256 -flop
+  -background white -rotate 12 -gravity center -extent 384x256 -distort
+  Barrel "0.05 0.0 0.0" -bordercolor navy -border 4``: one K1 launch for
+  the group's resize, every image against the CPU run, the per-image
+  marginal between 8 and 32 images.
+* cli_deskew — 16 letter pages of 1056x816x1, each rotated by a seeded
+  angle in [-3, 3] degrees, through ``-deskew 40% -trim -shave 8x8``:
+  each page's skew angle equal to the CPU's, the outputs against the
+  CPU run, ms a page.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -229,6 +251,20 @@ CLI_EFFECTS = ["-resize", "256x256", "-sharpen", "0x1", "-adaptive-blur",
 CLI_COMPOSE = ["-gravity", "southeast", "-compose", "dissolve", "-define",
                "compose:args=35", "-composite"]
 CLI_EFFECTS_N1, CLI_EFFECTS_N2 = 8, 32
+# transform, distort, cli_distort, cli_deskew (config #2's frames,
+# config1_cli's images, config #3's pages)
+DISTORT_TOL = 1e-5      # float32 sums of EWA taps in another order, an ulp
+#                         of the card's sinf/cosf/powf under a bilinear blend
+DISTORT_RUNS = 3
+DISTORT_SMALL = (270, 480)   # per-pixel-EWA methods compared at this size
+LIQUID = (171, 256, 32)      # one image of 256x171, 32 columns removed
+CLI_DISTORT = ["-resize", "384x256", "-flop", "-background", "white",
+               "-rotate", "12", "-gravity", "center", "-extent", "384x256",
+               "-distort", "Barrel", "0.05 0.0 0.0", "-bordercolor", "navy",
+               "-border", "4"]
+CLI_DISTORT_N1, CLI_DISTORT_N2 = 8, 32
+CLI_DESKEW = ["-deskew", "40%", "-trim", "-shave", "8x8"]
+DESKEW_N, DESKEW_MAX = 16, 3.0
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -392,13 +428,13 @@ def fft_flops(n_elems: int, length: int) -> float:
     return 5.0 * n_elems * math.log2(length)
 
 
-def median_ms(*fns):
+def median_ms(*fns, runs: int = RUNS):
     """Median CUDA-event time of each fn, runs interleaved, after a warm-up."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     times = [[] for _ in fns]
-    for _ in range(RUNS):
+    for _ in range(runs):
         for i, fn in enumerate(fns):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1230,6 +1266,268 @@ def cli_effects_phase(dev, gen, name_limit: str) -> dict:
     return {"k1": la["k1"], "k3": la["k3"]}
 
 
+def _call_ms(fn, runs: int = DISTORT_RUNS) -> float:
+    """Median CUDA-event ms of ``runs`` calls of fn (host work included),
+    after a warm-up call."""
+    return median_ms(fn, runs=runs)[0]
+
+
+def transform_phase(dev, gen, name_limit: str) -> None:
+    """transform: every function of ``ops/transform.py`` on N2 frames of
+    1080x1920x3, required equal to the same call on CPU copies, with its
+    ms an image (the output made contiguous: a transpose is a view); trim
+    on 4 bordered pages of 1056x816x1."""
+    from imagemagick_tpu_torch.ops import transform as tf
+
+    frames = torch.rand((N2, H2, W2, C), generator=gen, device=dev)
+    cpu = frames.cpu()
+    calls = [("crop", (100, 50, 1280, 720)), ("crop", (-64, -32, 1280, 720)),
+             ("crop", (1800, 1000, 256, 256)), ("chop", (200, 100, 64, 32)),
+             ("excerpt", (10, 20, 960, 540)), ("extent", (-16, -8, 1952, 1096)),
+             ("flip", ()), ("flop", ()), ("roll", (37, -21)),
+             ("shave", (8, 8)), ("splice", (100, 50, 16, 8)),
+             ("transpose", ()), ("transverse", ()), ("rotate90", ()),
+             ("rotate180", ()), ("rotate270", ()), ("auto_orient", (6,)),
+             ("auto_orient", (7,)), ("trim", ())]
+    parts = []
+    for name, args in calls:
+        fn = getattr(tf, name)
+        got = fn(frames, *args)
+        require(torch.equal(got.cpu(), fn(cpu, *args)),
+                f"transform {name}{args} differs from the CPU")
+        ms = _call_ms(lambda: fn(frames, *args).contiguous())
+        parts.append(f"{name}{args} {ms / N2:.4f}")
+        del got
+    print(f"transform on {tuple(frames.shape)}: every function equal to the "
+          f"CPU; ms an image: " + ", ".join(parts) + f" [{name_limit}]")
+    pages = torch.ones((4, H3, W3, 1), device=dev)
+    pages[:, 40:H3 - 60, 30:W3 - 50] = torch.rand(
+        (4, H3 - 100, W3 - 80, 1), generator=gen, device=dev)
+    boxes = [tf.trim_bounds(pages[i]) for i in range(4)]
+    require(boxes == [tf.trim_bounds(pages[i].cpu()) for i in range(4)] and
+            tf.trim_bounds(pages) == boxes[0] == (30, 40, W3 - 80, H3 - 100),
+            f"trim boxes {boxes}")
+    ms = _call_ms(lambda: [tf.trim(pages[i]) for i in range(4)])
+    print(f"transform trim on 4 pages {tuple(pages.shape[1:])}: boxes "
+          f"{boxes} equal to the CPU's; {ms / 4:.4f} ms a page [{name_limit}]")
+
+
+def _distort_methods(h: int, w: int) -> list:
+    """(label, method, args, bestfit, per-pixel EWA) at an h x w frame."""
+    quad = [0, 0, 0.05 * w, 0.04 * h, w, 0, 0.93 * w, 0.06 * h,
+            0, h, 0.02 * w, 0.95 * h, w, h, 0.97 * w, 0.92 * h]
+    tri = [0, 0, 0.05 * w, 0.03 * h, w, 0, 0.95 * w, 0.02 * h,
+           0, h, 0.03 * w, 0.97 * h]
+    return [
+        ("srt", "srt", [0.9, 30], False, False),
+        ("+srt", "srt", [0.9, 30], True, False),
+        ("affine", "affine", tri, False, False),
+        ("perspective", "perspective", quad, False, True),
+        ("+perspective", "perspective", quad, True, True),
+        ("affineprojection", "affineprojection",
+         [0.9, 0.1, -0.1, 0.9, 0.05 * w, 0.03 * h], False, False),
+        ("perspectiveprojection", "perspectiveprojection",
+         [0.95, 0.03, 0.01 * w, 0.02, 0.97, 0.005 * h, 3e-5 * 1920 / w,
+          2e-5 * 1080 / h], False, True),
+        ("rigidaffine", "rigidaffine", tri, False, False),
+        ("bilinearforward", "bilinearforward", quad, False, True),
+        ("bilinear", "bilinear", quad, False, True),
+        ("polynomial", "polynomial",
+         [2] + quad + [0.5 * w, 0.5 * h, 0.52 * w, 0.49 * h,
+                       0.25 * w, 0.75 * h, 0.26 * w, 0.77 * h], False, False),
+        ("shepards", "shepards", [0.25 * w, 0.25 * h, 0.27 * w, 0.26 * h,
+                                  0.75 * w, 0.6 * h, 0.73 * w, 0.62 * h],
+         False, True),
+        ("resize", "resize", [w // 2, h // 2], False, False),
+        ("arc", "arc", [60], False, True),
+        ("polar", "polar", [0], False, True),
+        ("+polar", "polar", [0], True, True),
+        ("depolar", "depolar", [0], False, True),
+        ("barrel", "barrel", [0.05, 0.0, 0.0], False, True),
+        ("barrelinverse", "barrelinverse", [0.05, 0.0, 0.0], False, True),
+        ("cylinder2plane", "cylinder2plane", [60], False, True),
+        ("plane2cylinder", "plane2cylinder", [60], False, True),
+    ]
+
+
+def _hold(label: str, got: torch.Tensor, want: torch.Tensor) -> str:
+    """Require ``got`` (on the card) within DISTORT_TOL of ``want`` but
+    for at most SELECT_SHARE of the pixels (where a selection falls
+    otherwise); returns the figures."""
+    require(bool(torch.isfinite(got).all()), f"distort {label} not finite")
+    err, n_off, n_px = _apart(got, want, DISTORT_TOL)
+    require(n_off <= SELECT_SHARE * n_px,
+            f"distort {label}: {n_off} of {n_px} pixels apart")
+    return f"max|d| {err:.3e}, {n_off} of {n_px} px apart by more than " \
+        f"{DISTORT_TOL}"
+
+
+def distort_phase(dev, gen, name_limit: str) -> None:
+    """distort: rotate (30 degrees by EWA, also on an RGBA batch, and 90
+    exact), every method of ``distort`` (+distort for srt, perspective and
+    polar), swirl, implode, wave, the five sparse-color methods, shear and
+    deskew on N2 frames of 1080x1920x3, each with its ms an image; frame 0
+    against the same call on the CPU (the per-pixel-EWA methods on a frame
+    of DISTORT_SMALL); the launches of polar and arc; liquid rescale on
+    one LIQUID image, its seams equal to the CPU's."""
+    from imagemagick_tpu_torch.ops import distort as dt
+    from imagemagick_tpu_torch.ops import shear as sh
+
+    frames = torch.rand((N2, H2, W2, C), generator=gen, device=dev)
+    f0 = frames[:1].cpu()
+    small = torch.rand((1,) + DISTORT_SMALL + (C,), generator=gen,
+                       device=dev)
+    small_cpu = small.cpu()
+    rgba = torch.cat([frames, torch.rand((N2, H2, W2, 1), generator=gen,
+                                         device=dev)], -1)
+    white = (1.0,) * 4
+    t0 = time.perf_counter()
+
+    def run(label, fn, x, x0, per_image=True):
+        ms = _call_ms(lambda: fn(x))
+        fig = _hold(label, fn(x0.to(dev)), fn(x0))
+        n = x.shape[0] if per_image and x.dim() == 4 else 1
+        print(f"distort {label} on {tuple(x.shape)}: {ms / n:.4f} ms an "
+              f"image; {tuple(x0.shape)} vs the CPU: {fig} [{name_limit}]")
+
+    run("rotate 30", lambda x: dt.rotate(x, 30.0, white[:3]), frames, f0)
+    run("rotate 30 RGBA", lambda x: dt.rotate(x, 30.0, white), rgba,
+        rgba[:1].cpu())
+    got = dt.rotate(frames, 90.0)
+    require(torch.equal(got[:1].cpu(), dt.rotate(f0, 90.0)), "rotate 90")
+    print(f"distort rotate 90: equal to the CPU; "
+          f"{_call_ms(lambda: dt.rotate(frames, 90.0).contiguous()) / N2:.4f}"
+          f" ms an image [{name_limit}]")
+    del got
+    small_args = {m[0]: m[2] for m in _distort_methods(*DISTORT_SMALL)}
+    for label, method, args, bestfit, var in _distort_methods(H2, W2):
+        ms = _call_ms(lambda: dt.distort(frames, method, args,
+                                         bestfit=bestfit))
+        if var:
+            x0, a0 = small_cpu, small_args[label]
+        else:
+            x0, a0 = f0, args
+        fig = _hold(label, dt.distort(x0.to(dev), method, a0,
+                                      bestfit=bestfit),
+                    dt.distort(x0, method, a0, bestfit=bestfit))
+        extra = ""
+        if label in ("arc", "polar"):
+            n_k = len(cuda_events(lambda: dt.distort(
+                frames, method, args, bestfit=bestfit), 1))
+            extra = f"; {n_k} CUDA kernels, copies and memsets a call"
+        print(f"distort {label}{args[:3]} on {tuple(frames.shape)}: "
+              f"{ms / N2:.4f} ms an image{extra}; {tuple(x0.shape)} vs the "
+              f"CPU: {fig} [{name_limit}]")
+    for label, fn in (("swirl 60", lambda x: dt.swirl(x, 60.0)),
+                      ("implode 0.5", lambda x: dt.implode(x, 0.5)),
+                      ("wave 25x150", lambda x: dt.wave(x, 25.0, 150.0)),
+                      ("shear 20x10", lambda x: sh.shear(x, 20.0, 10.0,
+                                                         white[:3]))):
+        run(label, fn, frames, f0)
+    pts = [(0.1 * W2, 0.1 * H2, (1.0, 0.0, 0.0)),
+           (0.9 * W2, 0.2 * H2, (0.0, 1.0, 0.0)),
+           (0.3 * W2, 0.8 * H2, (0.0, 0.0, 1.0)),
+           (0.7 * W2, 0.6 * H2, (1.0, 1.0, 0.0))]
+    for m in ("shepards", "voronoi", "inverse", "barycentric", "bilinear"):
+        run(f"sparse-color {m}", lambda x: dt.sparse_color(x, m, pts),
+            frames[0], f0[0])
+    a_card = sh.deskew_angle_reference(frames[0])
+    a_cpu = sh.deskew_angle_reference(f0[0])
+    require(a_card == a_cpu, f"deskew angle {a_card} != {a_cpu}")
+    run(f"deskew ({a_card:.4f} degrees, equal to the CPU's)",
+        lambda x: sh.deskew(x), frames[0], f0[0])
+    hl, wl, nl = LIQUID
+    img = torch.rand((hl, wl, C), generator=gen, device=dev)
+    got = dt.liquid_rescale(img, wl - nl, hl)
+    want = dt.liquid_rescale(img.cpu(), wl - nl, hl)
+    require(torch.equal(got.cpu(), want), "liquid rescale seams differ")
+    ms = _call_ms(lambda: dt.liquid_rescale(img, wl - nl, hl), 1)
+    n_k = len(cuda_events(lambda: dt.liquid_rescale(img, wl - 2, hl), 1))
+    print(f"distort liquid-rescale {wl}x{hl} -> {wl - nl}x{hl}: seams equal "
+          f"to the CPU's; {ms:.4f} ms ({ms / nl:.4f} a seam; {n_k / 2:.0f} "
+          f"CUDA kernels, copies and memsets a seam) [{name_limit}]")
+    print(f"distort phase: {time.perf_counter() - t0:.1f} s")
+
+
+def cli_distort_phase(dev, gen, name_limit: str) -> dict:
+    """cli_distort: CLI_DISTORT_N2 images of 512x768x3 through CLI_DISTORT
+    (one K1 launch for the group's resize, nothing else on a kernel),
+    every image against the same run on CPU copies, and the per-image
+    marginal between CLI_DISTORT_N1 and CLI_DISTORT_N2 images."""
+    datas = list(torch.rand((CLI_DISTORT_N2, H, W, C), generator=gen,
+                            device=dev))
+    reset_launches()
+    outs = _cli_run(CLI_DISTORT, datas)
+    la = launched()
+    print(f"cli_distort {' '.join(CLI_DISTORT)}: launches {la}")
+    require(la["k1"] == 1 and sum(la.values()) == 1,
+            f"cli_distort launches {la}")
+    got = torch.stack([o.data for o in outs])
+    want = torch.stack([o.data for o in
+                        _cli_run(CLI_DISTORT, [d.cpu() for d in datas])])
+    require(got.shape == want.shape == (CLI_DISTORT_N2, 264, 392, C),
+            f"cli_distort {got.shape}")
+    print(f"cli_distort vs the CPU run, {CLI_DISTORT_N2} images of "
+          f"{tuple(got.shape[1:])}: {_hold('cli_distort', got, want)}")
+    per, rounds = _marginal(lambda d: _cli_run(CLI_DISTORT, d), datas,
+                            CLI_DISTORT_N1, CLI_DISTORT_N2)
+    print(f"cli_distort marginal ({CLI_DISTORT_N2}-{CLI_DISTORT_N1} images, "
+          f"median of 5): {per * 1e3:.4f} ms/image = "
+          f"{H * W / 1e6 / per:.1f} MP/s; rounds "
+          f"{[round(m * 1e3, 4) for m in rounds]} ms [{name_limit}]")
+    return {"k1": la["k1"]}
+
+
+def cli_deskew_phase(dev, gen, name_limit: str) -> None:
+    """cli_deskew: DESKEW_N letter pages of 1056x816x1 (text lines on
+    paper), each rotated by a seeded angle in [-DESKEW_MAX, DESKEW_MAX]
+    degrees with the port's rotate, through CLI_DESKEW; each page's skew
+    angle equal to the CPU's, each output against the CPU run."""
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.ops import distort as dt
+    from imagemagick_tpu_torch.ops import shear as sh
+
+    spec = ImageSpec(colorspace="gray")
+    angles = ((torch.rand(DESKEW_N, generator=gen, device=dev) * 2 - 1) *
+              DESKEW_MAX).tolist()
+    ink = torch.rand((DESKEW_N, H3 // 12, W3 // 8, 1), generator=gen,
+                     device=dev) < 0.35
+    ink = ink.repeat_interleave(12, 1).repeat_interleave(8, 2)
+    ink &= (torch.arange(H3, device=dev) % 24 < 14)[None, :, None, None]
+    ink[:, :48] = False
+    ink[:, -48:] = False
+    ink[:, :, :40] = False
+    ink[:, :, -40:] = False
+    paper = 0.92 + 0.02 * torch.randn((DESKEW_N, H3, W3, 1), generator=gen,
+                                      device=dev)
+    pages = torch.where(ink, 0.12, paper).clamp(0.0, 1.0)
+    pages = [dt.rotate(pages[i], a, (1.0,)) for i, a in enumerate(angles)]
+    found = [sh.deskew_angle_reference(p, 0.4) for p in pages]
+    found_cpu = [sh.deskew_angle_reference(p.cpu(), 0.4) for p in pages]
+    require(found == found_cpu, f"deskew angles {found} != {found_cpu}")
+    reset_launches()
+    outs = _cli_run(CLI_DESKEW, pages, spec)
+    la = launched()
+    require(sum(la.values()) == 0, f"cli_deskew launches {la}")
+    outs_cpu = _cli_run(CLI_DESKEW, [p.cpu() for p in pages], spec)
+    worst = (0.0, 0)
+    for i, (g, w_) in enumerate(zip(outs, outs_cpu)):
+        require(g.data.shape == w_.data.shape,
+                f"cli_deskew page {i}: {g.data.shape} {w_.data.shape}")
+        _hold(f"cli_deskew page {i}", g.data, w_.data)
+        err, n_off, _ = _apart(g.data, w_.data, DISTORT_TOL)
+        worst = (max(worst[0], err), max(worst[1], n_off))
+    ms = _call_ms(lambda: _cli_run(CLI_DESKEW, pages, spec), 1)
+    print(f"cli_deskew {' '.join(CLI_DESKEW)} on {DESKEW_N} pages of "
+          f"{H3}x{W3}x1 rotated by "
+          f"{[round(a, 3) for a in angles]} degrees: found "
+          f"{[round(a, 3) for a in found]}, equal to the CPU's; outputs "
+          f"{[tuple(o.data.shape) for o in outs[:3]]}...; vs the CPU: "
+          f"max|d| {worst[0]:.3e}, at most {worst[1]} px of a page apart by "
+          f"more than {DISTORT_TOL}; {ms / DESKEW_N:.4f} ms a page "
+          f"[{name_limit}]")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1450,6 +1748,10 @@ def main() -> None:
     fx = effects_phase(dev, gen, name_limit)
     composite_phase(dev, gen, name_limit)
     clie = cli_effects_phase(dev, gen, name_limit)
+    transform_phase(dev, gen, name_limit)
+    distort_phase(dev, gen, name_limit)
+    clid = cli_distort_phase(dev, gen, name_limit)
+    cli_deskew_phase(dev, gen, name_limit)
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -1936,7 +2238,7 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
-         cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"],
+         cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,

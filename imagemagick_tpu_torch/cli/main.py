@@ -27,26 +27,38 @@ and ``-clamp``; blur's effects ``-sharpen``, ``-unsharp``, ``-edge``,
 ``-rotational-blur``, ``-bilateral-blur``, ``-kuwahara``, ``-despeckle``,
 ``-emboss``, ``-shade``, ``-spread`` and ``-selective-blur``; the rank
 and value options ``-statistic``, ``-median``, ``-evaluate`` and
-``-function``; and the list operator ``-composite``.  None of these but
+``-function``; the list operator ``-composite``; the geometry options
+``-crop`` (tiles, the ``@`` form and gravity), ``-chop``, ``-extent``,
+``-shave``, ``-splice``, ``-roll``, ``-trim``, ``-flip``, ``-flop``,
+``-transpose``, ``-transverse``, ``-rotate``, ``-border`` and
+``-auto-orient``; and the distortions ``-distort``/``+distort``,
+``-sparse-color``, ``-liquid-rescale``, ``-transform``, ``-implode``,
+``-swirl``, ``-wave``, ``-shear`` and ``-deskew``.  None of these but
 the resize family, the blurs and ``-colorspace`` carries a K1 tag, as in
-the JAX CLI.
+the JAX CLI.  The geometry options stay lazy, with their new shapes
+pushed; the options that read pixels or whose output shape depends on
+them (``-rotate``, ``-border``, ``-trim``, ``-distort``, ``-deskew``,
+...) materialize the list through ``materialize_all``, so a resize
+before them still runs as one K1 launch for a group.
 
 Settings: ``-virtual-pixel``, ``-gravity``/``+gravity``,
 ``-compose``/``+compose``, ``-geometry`` (stored as
-``compose-geometry``, read by ``-composite``) and ``-define key=value``
-(``CLIState.defines``; ``-composite`` reads ``compose:args``).  The other
-settings keep the JAX defaults: ``-filter`` is ``undefined`` and
-``-channel`` ``default``; write masks (``-region``) and ``-seed`` are not
-ported, so ``-spread`` and the noise operators of ``-evaluate`` draw from
-a generator seeded 0, as the JAX CLI draws from ``PRNGKey(0)``.  A file
-name, or any other option or setting, raises NotImplementedError naming
-its ROADMAP.md entry.  The tags equal the JAX CLI's for the same
-arguments.
+``compose-geometry``, read by ``-composite``), ``-define key=value``
+(``CLIState.defines``; ``-composite`` reads ``compose:args``),
+``-background``, ``-bordercolor`` and ``-affine`` (read by
+``-transform``, default ``1,0,0,1,0,0``).  The other settings keep the
+JAX defaults: ``-filter`` is ``undefined`` and ``-channel`` ``default``;
+write masks (``-region``) and ``-seed`` are not ported, so ``-spread``
+and the noise operators of ``-evaluate`` draw from a generator seeded 0,
+as the JAX CLI draws from ``PRNGKey(0)``.  A file name, or any other
+option or setting, raises NotImplementedError naming its ROADMAP.md
+entry.  The tags equal the JAX CLI's for the same arguments.
 """
 
 from __future__ import annotations
 
 import importlib
+import math
 import re
 from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -54,7 +66,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..core.color import parse_color
-from ..core.geometry import parse_geometry, parse_meta_geometry
+from ..core.geometry import (parse_geometry, parse_meta_geometry,
+                             parse_page_geometry)
 from ..core.image import Image
 from ..core.spec import ImageSpec, normalize_colorspace
 
@@ -599,6 +612,270 @@ def _op_composite_list(st, arg, plus):
                                  dst.properties, dst.profiles))]
 
 
+def _materialized(st) -> List[Tuple[LazyImage, Image]]:
+    """Every image of the list materialized (``materialize_all``: a
+    group's tagged prefix in one K1 launch), beside its LazyImage."""
+    return list(zip(st.images, materialize_all(st.images)))
+
+
+def _pixel_round(x: float) -> int:
+    """PixelRoundOffset (transform.c:780): round-half-away via floor/ceil
+    distance compare."""
+    return int(math.floor(x)) if (x - math.floor(x)) < (math.ceil(x) - x) \
+        else int(math.ceil(x))
+
+
+def _crop_tiles(arg, cw, ch, gravity):
+    """CropImageToTiles (transform.c:790) geometry resolution: returns a
+    list of (x, y, w, h) crop rects — one for offset crops, a full tiling
+    for offset-less WxH, an NxM split for the '@' form."""
+    from ..ops.composite import gravity_offset
+
+    has_xy = bool(re.search(r"[-+][\d.]", arg))
+    at_form = "@" in arg
+    w, h, x, y = parse_page_geometry(arg.replace("@", "").replace("!", ""),
+                                     cw, ch)
+    if at_form:
+        nx, ny = max(w, 1) if w else 1, max(h, 1) if h else 1
+        # NxM tiles: delta stepping with PixelRoundOffset boundaries
+        dx = max(cw / nx, 1.0)
+        dy = max(ch / ny, 1.0)
+        tiles = []
+        oy = 0.0
+        while oy < ch:
+            ty = _pixel_round(oy)
+            oy += dy
+            th = _pixel_round(oy) - ty
+            ox = 0.0
+            while ox < cw:
+                tx = _pixel_round(ox)
+                ox += dx
+                tw = _pixel_round(ox) - tx
+                tiles.append((tx, ty, tw, th))
+        return tiles
+    if (w == 0 and h == 0) or has_xy:
+        gx, gy = gravity_offset(gravity, cw, ch, w, h, x, y)
+        return [(gx, gy, w, h)]
+    if cw > w or ch > h:
+        w = w or cw
+        h = h or ch
+        return [(tx, ty, min(w, cw - tx), min(h, ch - ty))
+                for ty in range(0, ch, h) for tx in range(0, cw, w)]
+    return [(0, 0, min(w, cw), min(h, ch))]
+
+
+def _op_geometry_slice(st, arg, plus, op):
+    """The geometry slices stay LAZY with their new shapes pushed (static
+    output shapes), but for trim, whose bounding box is data-dependent
+    (the box is read back), and a -crop that tiles, which materializes
+    the images it splits."""
+    from ..ops import transform as tf
+    from ..ops.composite import gravity_offset
+
+    gravity = st.settings.get("gravity", "northwest")
+
+    if op == "crop":
+        # CropImageToTiles (transform.c:790): offset-less geometry tiles
+        # the image; '@' tiles into NxM pieces; offsets = one gravity-
+        # adjusted region
+        tiles = [_crop_tiles(arg, li.width, li.height, gravity)
+                 for li in st.images]
+        split = [li for li, t in zip(st.images, tiles) if len(t) > 1]
+        imgs = dict(zip(map(id, split), materialize_all(split)))
+        new_images = []
+        for li, tl in zip(st.images, tiles):
+            if len(tl) == 1:
+                x, y, w, h = tl[0]
+                li.push(lambda d, a=(x, y, w, h): tf.crop(d, *a),
+                        new_shape=(h, w))
+                new_images.append(li)
+            else:
+                img = imgs[id(li)]
+                for x, y, w, h in tl:
+                    new_images.append(LazyImage(img.replace(
+                        data=tf.crop(img.data, x, y, w, h))))
+        st.images = new_images
+        return
+
+    if op == "trim":
+        for li, img in _materialized(st):
+            li.image = img.replace(data=tf.trim(img.data))
+        return
+
+    for li in st.images:
+        cw, ch = li.width, li.height
+        nch = li.spec.channels
+        if op == "chop":
+            w, h, x, y = parse_page_geometry(arg, cw, ch)
+            x, y = gravity_offset(gravity, cw, ch, w, h, x, y)
+            out_h = ch - (min(y + h, ch) - max(y, 0))
+            out_w = cw - (min(x + w, cw) - max(x, 0))
+            li.push(lambda d, a=(x, y, w, h): tf.chop(d, *a),
+                    new_shape=(out_h, out_w))
+        elif op == "extent":
+            w, h, x, y = parse_page_geometry(arg, cw, ch)
+            gx, gy = gravity_offset(st.settings["gravity"], w, h,
+                                    cw, ch, -x, -y)
+            bgc = st.bg()[:nch]
+            li.push(lambda d, a=(-gx, -gy, w, h), b=bgc:
+                    tf.extent(d, *a, background=b), new_shape=(h, w))
+        elif op == "shave":
+            g = parse_geometry(arg)
+            sx = int(g.width or 0)
+            sy = int(g.height or g.width or 0)
+            li.push(lambda d, a=(sx, sy): tf.shave(d, *a),
+                    new_shape=(max(ch - 2 * sy, 1), max(cw - 2 * sx, 1)))
+        elif op == "splice":
+            w, h, x, y = parse_page_geometry(arg, cw, ch)
+            bgc = st.bg()[:nch]
+            li.push(lambda d, a=(x, y, w, h), b=bgc:
+                    tf.splice(d, *a, background=b),
+                    new_shape=(ch + h, cw + w))
+        else:   # roll
+            g = parse_geometry(arg, offsets_first=True)
+            li.push(lambda d, a=(g.x or 0, g.y or 0): tf.roll(d, *a))
+
+
+def _op_transpose(fname: str):
+    """-transpose / -transverse: lazy, with the swapped shape pushed (the
+    JAX CLI queues them without it, so a later option there computes its
+    geometry against the shape before the swap)."""
+
+    def handler(st, arg, plus):
+        from ..ops import transform as tf
+
+        fn = getattr(tf, fname)
+        for li in st.images:
+            li.push(fn, new_shape=(li.width, li.height))
+
+    return handler
+
+
+def _op_rotate(st, arg, plus):
+    """-rotate DEG (the ``<`` and ``>`` suffixes are stripped, as in the
+    JAX CLI): every image materialized, then rotated on its device."""
+    from ..ops import distort as dt
+
+    deg = float(arg.rstrip("<>"))
+    for li, img in _materialized(st):
+        li.image = img.replace(data=dt.rotate(
+            img.data, deg, background=st.bg()[: img.channels]))
+
+
+def _op_border(st, arg, plus):
+    """-border WxH: an extent in the -bordercolor setting (default
+    #dfdfdf, image-private.h:33), not -background."""
+    from ..ops import transform as tf
+
+    g = parse_geometry(arg)
+    bw = int(g.width or 0)
+    bh = int(g.height if g.height is not None else bw)
+    bc = parse_color(st.settings.get("bordercolor", "#dfdfdf"))
+    for li, img in _materialized(st):
+        li.image = img.replace(data=tf.extent(
+            img.data, -bw, -bh, img.width + 2 * bw, img.height + 2 * bh,
+            background=bc[: img.channels]))
+
+
+def _op_auto_orient(st, arg, plus):
+    """-auto-orient: applies and resets ``exif:Orientation``."""
+    from ..ops import transform as tf
+
+    for li, img in _materialized(st):
+        o = int(img.properties.get("exif:Orientation", 1))
+        li.image = img.replace(data=tf.auto_orient(img.data, o))
+        li.image.properties["exif:Orientation"] = 1
+
+
+def _op_sparse_color(st, arg, plus):
+    """-sparse-color METHOD 'x,y,color ...' (two arguments)."""
+    from ..ops import distort as dt
+
+    parts = arg.split(None, 1)
+    method = parts[0]
+    toks = parts[1].replace(",", " ").split() if len(parts) > 1 else []
+    pts = []
+    i = 0
+    while i + 2 <= len(toks):
+        pts.append((float(toks[i]), float(toks[i + 1]),
+                    parse_color(toks[i + 2])))
+        i += 3
+    for li, img in _materialized(st):
+        li.image = img.replace(data=dt.sparse_color(img.data, method, pts))
+
+
+def _op_liquid(st, arg, plus):
+    from ..ops import distort as dt
+
+    for li, img in _materialized(st):
+        w, h, _, _ = parse_meta_geometry(arg, img.width, img.height)
+        li.image = img.replace(data=dt.liquid_rescale(img.data, w, h))
+
+
+def _op_deskew(st, arg, plus):
+    from ..ops import shear as sh
+
+    thr = _percent(arg) if arg else 0.4
+    for li, img in _materialized(st):
+        li.image = img.replace(data=sh.deskew(
+            img.data, thr, background=st.bg()[: img.channels]))
+
+
+def _op_shear(st, arg, plus):
+    from ..ops import shear as sh
+
+    g = parse_geometry(arg)
+    xdeg = g.width or 0.0
+    # operation.c:3430 — sigma defaults to rho when absent
+    ydeg = g.height if g.height is not None else xdeg
+    for li, img in _materialized(st):
+        li.image = img.replace(data=sh.shear(
+            img.data, xdeg, ydeg, background=st.bg()[: img.channels]))
+
+
+def _op_distort(st, arg, plus):
+    """-distort METHOD 'args' (two arguments); +distort takes the bestfit
+    viewport.  The transparent virtual pixel returns an image with
+    alpha."""
+    from ..ops import distort as dt
+
+    parts = arg.split(None, 1)
+    method = parts[0]
+    args = [float(x) for x in parts[1].replace(",", " ").split()] \
+        if len(parts) > 1 else []
+    vp = st.settings.get("virtual-pixel", "edge").lower()
+    for li, img in _materialized(st):
+        bg = None if vp in ("edge", "") else st.bg()[: img.channels]
+        data = dt.distort(img.data, method, args, background=bg,
+                          bestfit=bool(plus), vp=vp)
+        li.image = img.replace(data=data)
+        if data.shape[-1] != img.channels:   # transparent vp adds alpha
+            li.image.spec = img.spec.with_(alpha=True)
+
+
+def _op_transform(st, arg, plus):
+    """-transform: apply the -affine matrix (AffineTransformImage)."""
+    from ..ops import distort as dt
+
+    aff = st.settings.get("affine", "1,0,0,1,0,0")
+    vals = [float(v) for v in aff.replace(",", " ").split()]
+    for li, img in _materialized(st):
+        li.image = img.replace(data=dt.affine_transform(img.data, vals))
+
+
+def _op_wave(st, arg, plus):
+    """-wave AxL: lazy, with the grown canvas (H + 2|A| rows) pushed; the
+    JAX CLI queues it without its new shape.  The background is the
+    setting's first three channels, as the JAX CLI passes it."""
+    from ..ops import distort as dt
+
+    amp, lam = _geom_args(arg)
+    bg = st.bg()[:3]
+    for li in st.images:
+        li.push(lambda x: dt.wave(x, amp, lam, bg),
+                new_shape=(li.height + int(2.0 * abs(amp)), li.width))
+
+
 # option name -> (number of arguments, handler)
 OPS: Dict[str, Tuple[int, Callable]] = {
     # the resize family
@@ -681,11 +958,39 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "function": (2, _op_function),
     # list operators
     "composite": (0, _op_composite_list),
+    # geometry
+    "crop": (1, partial(_op_geometry_slice, op="crop")),
+    "chop": (1, partial(_op_geometry_slice, op="chop")),
+    "extent": (1, partial(_op_geometry_slice, op="extent")),
+    "shave": (1, partial(_op_geometry_slice, op="shave")),
+    "splice": (1, partial(_op_geometry_slice, op="splice")),
+    "roll": (1, partial(_op_geometry_slice, op="roll")),
+    "trim": (0, partial(_op_geometry_slice, op="trim")),
+    "flip": (0, _op_simple("transform", "flip")),
+    "flop": (0, _op_simple("transform", "flop")),
+    "transpose": (0, _op_transpose("transpose")),
+    "transverse": (0, _op_transpose("transverse")),
+    "rotate": (1, _op_rotate),
+    "border": (1, _op_border),
+    "auto-orient": (0, _op_auto_orient),
+    # distortions
+    "implode": (1, _op_simple("distort", "implode",
+                              lambda st, a, p: {"amount": float(a)})),
+    "swirl": (1, _op_simple("distort", "swirl",
+                            lambda st, a, p: {"degrees": float(a)})),
+    "wave": (1, _op_wave),
+    "distort": (2, _op_distort),
+    "sparse-color": (2, _op_sparse_color),
+    "liquid-rescale": (1, _op_liquid),
+    "transform": (0, _op_transform),
+    "shear": (1, _op_shear),
+    "deskew": (1, _op_deskew),
 }
 
 # settings stored by ``process`` (the JAX CLI's _SETTINGS subset that a
 # ported option reads); the + forms of gravity and compose reset them
-_SETTINGS = ("virtual-pixel", "gravity", "compose")
+_SETTINGS = ("virtual-pixel", "gravity", "compose", "background",
+             "bordercolor", "affine")
 
 
 def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:

@@ -1,10 +1,9 @@
-"""Geometry-string parsing with ImageMagick semantics (resize subset).
+"""Geometry-string parsing with ImageMagick semantics.
 
-A copy of the parts of ``imagemagick_tpu/core/geometry.py`` that
-``Image.resize_geometry`` needs: ``parse_geometry`` and
+A copy of ``imagemagick_tpu/core/geometry.py``: ``parse_geometry``,
 ``parse_meta_geometry`` (ParseGeometry / ParseMetaGeometry,
-MagickCore/geometry.c).  Geometry strings look like ``WxH+X+Y`` with
-modifier flags:
+MagickCore/geometry.c) and ``parse_page_geometry`` (the crop grammar).
+Geometry strings look like ``WxH+X+Y`` with modifier flags:
 
   %   width/height are percentages of the current size
   ^   minimum-fit: cover the box, may exceed one dimension
@@ -164,3 +163,21 @@ def parse_meta_geometry(
     if g.less and (width >= tw and height >= th):
         return width, height, x, y
     return nw, nh, x, y
+
+
+def parse_page_geometry(
+    geometry: str, width: int, height: int
+) -> Tuple[int, int, int, int]:
+    """Crop-style geometry: missing W/H default to the full canvas size."""
+    g = parse_geometry(geometry, offsets_first=True)
+    x = g.x or 0
+    y = g.y or 0
+    if g.percent:
+        w = max(1, int(width * (g.width if g.width is not None else 100.0)
+                       / 100.0 + 0.5))
+        h = max(1, int(height * (g.height if g.height is not None else 100.0)
+                       / 100.0 + 0.5))
+        return w, h, x, y
+    w = int(g.width) if g.width is not None else width
+    h = int(g.height) if g.height is not None else height
+    return max(1, w), max(1, h), x, y

@@ -9,8 +9,7 @@ that ops carry along.  A tensor keeps the device
 it lies on; pixels given as a numpy array or a list go to ``device``, the
 CUDA card unless the caller asks for the CPU.  Op methods are thin
 wrappers over the functions in ``imagemagick_tpu_torch.ops`` and return
-new Images.  ``crop``, ``flip``, ``flop`` and ``rotate`` wait for
-ops/transform and ops/distort (ROADMAP.md Queue 1); the JAX class's
+new Images.  The class has 31 of the JAX class's 33 members: its two
 pytree hooks have no use here.
 """
 
@@ -172,6 +171,28 @@ class Image:
 
         return self.replace(data=bl.unsharp_mask(self.data, radius, sigma,
                                                  gain, threshold))
+
+    def crop(self, geometry: str) -> "Image":
+        from .geometry import parse_page_geometry
+        from ..ops import transform as tf
+
+        w, h, x, y = parse_page_geometry(geometry, self.width, self.height)
+        return self.replace(data=tf.crop(self.data, x, y, w, h))
+
+    def flip(self) -> "Image":
+        from ..ops import transform as tf
+
+        return self.replace(data=tf.flip(self.data))
+
+    def flop(self) -> "Image":
+        from ..ops import transform as tf
+
+        return self.replace(data=tf.flop(self.data))
+
+    def rotate(self, degrees: float, background=None) -> "Image":
+        from ..ops import distort as dt
+
+        return self.replace(data=dt.rotate(self.data, degrees, background))
 
     # -- host conversion ------------------------------------------------------
     def to_numpy(self) -> np.ndarray:

@@ -184,8 +184,8 @@ def test_materialize_carries_metadata():
     (["in.png"], "'Host layers' (io/)"),
     (["-resize", "10x10", "out.jpg"], "'Host layers' (io/)"),
     (["-charcoal", "2"], "'The other op families under ops/'"),
-    (["-flip"], "'The other op families under ops/'"),
-    (["-distort", "SRT", "30"], "'Host layers'"),
+    (["-fx", "u*2"], "'The other op families under ops/'"),
+    (["-vignette", "0x2"], "'Host layers'"),
     (["-draw", "circle 5,5 2,2"], "'The other op families under ops/'"),
     (["-filter", "box"], "'The other op families under ops/'"),
     (["-unknown-option"], "'Host layers'"),
@@ -604,3 +604,164 @@ def test_random_options_draw_from_a_generator_seeded_0(argv):
         got = outs[0][0].numpy().reshape(-1, 3)
         assert set(map(tuple, got)) <= set(map(tuple, x.reshape(-1, 3)))
         assert not np.array_equal(outs[0][0].numpy(), x)
+
+
+# the geometry and distortion options, on 48x72 images (pages for -trim
+# and -deskew).  The JAX CLI jits its lazy chains, so a transcendental may
+# move a bilinear floor by an ulp: at most 0.1 % of the pixels may differ
+# by more than 1e-5 (the distort bound); they come out equal here.
+GEOMETRY_ARGVS = [
+    ["-crop", "20x16+2+2"], ["-crop", "30x20"], ["-crop", "2x2@"],
+    ["-crop", "3x2@"], ["-gravity", "center", "-crop", "30x20+1+1"],
+    ["-crop", "100x100-10-10"], ["-chop", "10x5+3+2"],
+    ["-gravity", "southeast", "-chop", "10x5"], ["-extent", "80x60"],
+    ["-gravity", "center", "-extent", "40x30"],
+    ["-background", "navy", "-extent", "90x50-5-5"], ["-shave", "3x2"],
+    ["-shave", "4"], ["-splice", "4x3+10+5"],
+    ["-background", "red", "-splice", "2x0+0+0"], ["-roll", "+5-3"],
+    ["-roll", "-100+7"], ["-flip"], ["-flop"], ["-rotate", "30"],
+    ["-rotate", "90>"], ["-rotate", "-12.5<"], ["-border", "3"],
+    ["-bordercolor", "navy", "-border", "4x2"], ["-auto-orient"],
+    ["-implode", "0.5"], ["-swirl", "60"], ["-distort", "SRT", "20"],
+    ["+distort", "SRT", "0.8,20"], ["-distort", "Barrel", "0.05 0.0 0.0"],
+    ["+distort", "Perspective", "0,0,3,2 71,0,68,5 0,47,2,44 71,47,66,40"],
+    ["-distort", "Arc", "60"], ["-virtual-pixel", "black", "-distort",
+                                "Polar", "20"],
+    ["-virtual-pixel", "transparent", "-distort", "SRT", "20"],
+    ["-sparse-color", "voronoi", "5,5,red 40,30,blue"],
+    ["-sparse-color", "shepards", "5,5,red 40,30,blue 60,10,#00ff00"],
+    ["-affine", "1,0.1,0,1,2,3", "-transform"], ["-transform"],
+    ["-shear", "20x10"], ["-shear", "15"],
+]
+CLI_DISTORT = ["-resize", "40x30!", "-flop", "-background", "white",
+               "-rotate", "12", "-gravity", "center", "-extent", "40x30",
+               "-distort", "Barrel", "0.05 0.0 0.0", "-bordercolor", "navy",
+               "-border", "4"]
+
+
+def _assert_distort_close(argv, got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert repr(g.spec) == repr(w.spec)
+        g, w = g.data.numpy(), np.asarray(w.data)
+        assert g.shape == w.shape and np.isfinite(g).all(), argv
+        d = np.abs(g - w).reshape(-1, g.shape[-1])
+        assert (d > 1e-5).any(-1).mean() <= 1e-3, argv
+
+
+@pytest.mark.parametrize("argv", GEOMETRY_ARGVS + [CLI_DISTORT],
+                         ids=" ".join)
+def test_geometry_options_match_jax(argv):
+    images = [_natural(48, 72, s) for s in range(2)]
+    js, ts = _states(images)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert _tags(ts) == _tags(js)
+    assert [(li.height, li.width) for li in ts.images] == \
+        [(li.height, li.width) for li in js.images]
+    assert ts.settings == {k: v for k, v in js.settings.items()
+                           if k in ts.settings}
+    _assert_distort_close(argv, tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images))
+
+
+def _pages(n, h=60, w=88, border=6, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        p = np.ones((h, w, 3), np.float32)
+        for r in range(border + 2, h - border - 4, 7):
+            p[r:r + 3, border + 3:w - border - 3 - 2 * i] = rng.uniform(
+                0.0, 0.2, (3, w - 2 * border - 6 - 2 * i, 3))
+        out.append(p)
+    return out
+
+
+@pytest.mark.parametrize("argv", [["-trim"], ["-deskew", "40%"],
+                                  ["-deskew", "40%", "-trim", "-shave",
+                                   "2x2"],
+                                  ["-liquid-rescale", "80x60"]],
+                         ids=" ".join)
+def test_page_options_match_jax(argv):
+    """-trim and -deskew on pages with a white border (the second page
+    rotated by 3 degrees first); -liquid-rescale carves each image."""
+    from imagemagick_tpu_torch.ops import distort as tdst
+
+    pages = _pages(2)
+    pages[1] = tdst.rotate(torch.from_numpy(pages[1]), 3.0,
+                           (1.0, 1.0, 1.0)).numpy()
+    js, ts = _states(pages)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert _tags(ts) == _tags(js)
+    assert [(li.height, li.width) for li in ts.images] == \
+        [(li.height, li.width) for li in js.images]
+    _assert_distort_close(argv, tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images))
+
+
+def test_geometry_settings_are_stored_as_the_jax_cli_stores_them():
+    js, ts = _states([_natural(8, 8, 0)])
+    argv = ["-background", "navy", "-bordercolor", "#123456", "-affine",
+            "1,0,0.2,1,0,0", "+background", "red"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    for k in ("background", "bordercolor", "affine"):
+        assert ts.settings[k] == js.settings[k]
+    assert ts.settings["background"] == "red"
+    with pytest.raises(tm.CLIError, match="requires an argument"):
+        tm.process(["-affine"], ts)
+
+
+def test_auto_orient_reads_and_resets_the_exif_orientation():
+    x = _natural(48, 72, 4)
+    js, ts = jm.CLIState(), tm.CLIState()
+    for o in (6, 3, 1, 8):
+        js.images.append(jm.LazyImage(JImage(
+            jnp.asarray(x), JSpec(colorspace="srgb"),
+            properties={"exif:Orientation": str(o)})))
+        ts.images.append(tm.LazyImage(TImage(
+            torch.from_numpy(x), TSpec(colorspace="srgb"),
+            properties={"exif:Orientation": str(o)})))
+    jm.process(["-auto-orient"], js)
+    tm.process(["-auto-orient"], ts)
+    for t, j in zip(ts.images, js.images):
+        assert t.image.properties["exif:Orientation"] == \
+            j.image.properties["exif:Orientation"] == 1
+        np.testing.assert_array_equal(t.image.data.numpy(),
+                                      np.asarray(j.image.data))
+
+
+def test_cli_distort_chain_fuses_its_resize_once(monkeypatch):
+    """The chain's resize over the group is ONE fused call; -rotate,
+    -distort and -border materialize through materialize_all."""
+    seen = []
+    orig = tdsp.try_fused_batch_array
+    monkeypatch.setattr(tdsp, "try_fused_batch_array",
+                        lambda x, *a, **k: seen.append(tuple(x.shape))
+                        or orig(x, *a, **k))
+    ts = tm.CLIState()
+    _add(jm.CLIState(), ts, [_natural(48, 72, s) for s in range(4)])
+    before = dict(tdsp.COUNTS)
+    tm.process(list(CLI_DISTORT), ts)
+    out = tm.materialize_all(ts.images)
+    assert seen == [(4, 48, 72, 3)]
+    assert tdsp.COUNTS["fused"] == before["fused"] + 1
+    assert all(tuple(o.data.shape) == (38, 48, 3) for o in out)
+
+
+@pytest.mark.parametrize("argv,swapped", [
+    (["-transpose", "-resize", "50%"], (36, 24)),
+    (["-transverse", "-extent", "50%x50%"], (36, 24)),
+    (["-wave", "5x20", "-crop", "50%x50%"], (29, 36))])
+def test_jax_cli_keeps_stale_shapes_after_shape_changes(argv, swapped):
+    """The JAX CLI queues -transpose, -transverse and -wave without their
+    new shapes, so a later geometry there is computed against the shape
+    before them; the port pushes the new shape."""
+    images = [_natural(48, 72, 0)]
+    js, ts = _states(images)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert (ts.images[0].height, ts.images[0].width) == swapped
+    assert (js.images[0].height, js.images[0].width) != swapped
+    assert tuple(tm.materialize_all(ts.images)[0].data.shape[:2]) == swapped

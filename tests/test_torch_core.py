@@ -216,3 +216,48 @@ def test_sample_bilinear_reads_each_image_at_its_own_points():
         assert torch.equal(got[i], tdt.sample_bilinear(x[i], u[i], v[i]))
     shared = tdt.sample_bilinear(x, u[0], v[0])
     assert torch.equal(shared[2], tdt.sample_bilinear(x[2], u[0], v[0]))
+
+
+@pytest.mark.parametrize("geometry", ["3x4+1+2", "50%", "10x10-2-3", "4x3",
+                                      "+2+1", "20x20+10+10"])
+@pytest.mark.parametrize("shape,spec_kw", SPECS[:3])
+def test_image_crop_equals_jax(shape, spec_kw, geometry):
+    j, t = _pair(shape, spec_kw)
+    _same(t.crop(geometry), j.crop(geometry))
+
+
+@pytest.mark.parametrize("shape,spec_kw", SPECS)
+def test_image_flip_and_flop_equal_jax(shape, spec_kw):
+    j, t = _pair(shape, spec_kw)
+    _same(t.flip(), j.flip())
+    _same(t.flop(), j.flop())
+    _same(t.flip().flop(), j.flop().flip())
+
+
+@pytest.mark.parametrize("degrees", [0, 90, 180, 270, -90, 25.0])
+@pytest.mark.parametrize("shape,spec_kw", SPECS[:2])
+def test_image_rotate_equals_jax(shape, spec_kw, degrees):
+    """90° multiples are exact transposes; an arbitrary angle resamples
+    (EWA, premultiplied with alpha) and equals the JAX values here."""
+    j, t = _pair(shape, spec_kw)
+    bg = (1.0,) * shape[-1]
+    jo, to = j.rotate(degrees, bg), t.rotate(degrees, bg)
+    assert tuple(to.data.shape) == tuple(jo.data.shape)
+    np.testing.assert_allclose(to.data.numpy(), np.asarray(jo.data),
+                               atol=1e-5)
+    assert to.spec == tspec.ImageSpec(*jo.spec.astuple())
+    assert (to.properties, to.page, to.delay) == (jo.properties, jo.page,
+                                                  jo.delay)
+
+
+def test_image_has_31_of_the_jax_members():
+    """The JAX class defines 33 members besides its slots (``__init__``
+    and ``__repr__`` among them); the port has all but the two pytree
+    hooks."""
+    def members(cls):
+        return {n for n in cls.__dict__ if n not in cls.__slots__ and
+                (not n.startswith("__") or n in ("__init__", "__repr__"))}
+
+    want, got = members(JImage), members(TImage)
+    assert want - got == {"tree_flatten", "tree_unflatten"}
+    assert len(want) == 33 and len(want & got) == 31

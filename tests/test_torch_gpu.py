@@ -28,7 +28,12 @@ from nearly equal values, may differ on at most 0.1 % of the pixels;
 each adaptive blur, adaptive sharpen and Kuwahara filter is exactly one
 K3 launch.  Composite operators agree within 1e-4 (the card's cosf and
 divisions) but where a comparison inside the operator falls otherwise,
-on at most 0.1 % of the values.
+on at most 0.1 % of the values.  The transforms are copies, slices and
+flips: equal on the card.  Distortions, shears and the samplers agree
+within 1e-5 but on at most 0.1 % of the pixels, where a selection (an
+EWA bin, a scan bound, a bilinear floor) falls otherwise; the deskew
+angle and the liquid-rescale seams are equal; the EWA mask is the CPU's
+at Q just below 0 and at and above 1024.
 """
 
 import numpy as np
@@ -908,3 +913,115 @@ def test_cli_effects_chain_on_card(dev):
     want, _ = _cli_chain(argv, want[:2], "cpu")
     assert got.shape == (1, 48, 64, 4)       # the dissolve adds alpha
     assert _selected_apart(got, want) <= 1e-3
+
+
+def test_cli_distort_chain_is_one_launch_on_card(dev):
+    """``-resize -flop -rotate -extent -distort Barrel -border``: the
+    group's resize in one K1 launch, the rest with no kernel."""
+    argv = ["-resize", "96x64!", "-flop", "-background", "white", "-rotate",
+            "12", "-gravity", "center", "-extent", "96x64", "-distort",
+            "Barrel", "0.05 0.0 0.0", "-bordercolor", "navy", "-border", "4"]
+    x = torch.from_numpy(_rand((3, 128, 192, 3), 21))
+    got, launched = _cli_chain(argv, x, dev)
+    want, _ = _cli_chain(argv, x, "cpu")
+    assert launched["k1"] == 1 and sum(launched.values()) == 1
+    assert got.shape == (3, 72, 104, 3)
+    assert _selected_apart(got, want) <= 1e-3
+
+
+def test_ewa_weight_mask_on_card(dev):
+    """Q just below 0 reads bin 0, Q at and above 1024 no bin: the card
+    masks as the CPU does (a cast of an out-of-range float is undefined,
+    so the mask comes from Q)."""
+    from imagemagick_tpu_torch.ops import distort as dt
+
+    q = torch.tensor([-1.5, -1.0, -0.99999994, -0.5, -1e-30, -0.0, 0.0,
+                      1e-7, 1023.0, 1023.99994, 1024.0, 1024.0001, 1e10,
+                      -1e10, float("inf"), float("-inf"), float("nan")])
+    want = dt._ewa_weight(q, dt._robidoux_lut())
+    got = dt._ewa_weight(q.to(dev), dt._robidoux_lut(dev))
+    assert torch.equal(got.cpu(), want)
+    assert float(want[2]) == float(dt._robidoux_lut()[0]) != 0.0
+    assert float(want[10]) == float(want[11]) == 0.0
+
+
+@pytest.mark.parametrize("name,args", [
+    ("crop", (-5, 7, 40, 30)), ("chop", (5, 7, 10, 8)),
+    ("extent", (-5, -3, 140, 100)), ("flip", ()), ("flop", ()),
+    ("roll", (5, -3)), ("shave", (3, 2)), ("splice", (5, 4, 3, 2)),
+    ("transpose", ()), ("transverse", ()), ("rotate90", ()),
+    ("rotate180", ()), ("rotate270", ())])
+def test_transforms_equal_on_card(dev, name, args):
+    from imagemagick_tpu_torch.ops import transform as tf
+
+    x = torch.from_numpy(_rand((2, 96, 128, 3), 22))
+    got = getattr(tf, name)(x.to(dev), *args)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), getattr(tf, name)(x, *args))
+
+
+def test_trim_bounds_equal_on_card(dev):
+    from imagemagick_tpu_torch.ops import transform as tf
+
+    x = np.ones((2, 80, 100, 4), np.float32)
+    x[:, 10:50, 20:70] = _rand((2, 40, 50, 4), 23)
+    t = torch.from_numpy(x)
+    for fuzz in (0.0, 0.1):
+        assert tf.trim_bounds(t.to(dev), fuzz) == tf.trim_bounds(t, fuzz)
+
+
+@pytest.mark.parametrize("method,args,bestfit", [
+    ("srt", [30], False), ("srt", [0.7, 20], True),
+    ("perspective", [0, 0, 5, 3, 127, 0, 120, 8, 0, 95, 4, 90,
+                     127, 95, 118, 84], True),
+    ("polar", [40], False), ("arc", [60], False),
+    ("barrel", [0.05, 0.0, 0.0], False), ("depolar", [-1], True),
+    ("shepards", [20, 20, 24, 26, 80, 60, 76, 55], False),
+    ("polynomial", [1.5, 0, 0, 5, 3, 127, 0, 120, 8, 0, 95, 4, 90,
+                    127, 95, 118, 84], False)])
+def test_distort_on_card(dev, method, args, bestfit):
+    from imagemagick_tpu_torch.ops import distort as dt
+
+    x = torch.from_numpy(_rand((2, 96, 128, 4), 24))
+    got = dt.distort(x.to(dev), method, args, bestfit=bestfit)
+    want = dt.distort(x, method, args, bestfit=bestfit)
+    assert got.is_cuda and got.shape == want.shape
+    assert _selected_apart(got, want) <= 1e-3
+
+
+def test_effects_shear_and_sparse_color_on_card(dev):
+    from imagemagick_tpu_torch.ops import distort as dt
+    from imagemagick_tpu_torch.ops import shear as sh
+
+    x = torch.from_numpy(_rand((2, 96, 128, 3), 25))
+    pts = [(5, 5, (1.0, 0.0, 0.0)), (100, 20, (0.0, 1.0, 0.0)),
+           (40, 80, (0.0, 0.0, 1.0)), (120, 90, (1.0, 1.0, 0.0))]
+    for fn, args in ((dt.swirl, (60.0,)), (dt.implode, (0.5,)),
+                     (dt.wave, (5.0, 20.0)), (dt.rotate, (30.0,)),
+                     (sh.shear, (20.0, 10.0)), (sh.x_shear, (15.0,)),
+                     (dt.sparse_color, ("shepards", pts)),
+                     (dt.sparse_color, ("voronoi", pts)),
+                     (dt.sparse_color, ("barycentric", pts))):
+        got = fn(x.to(dev), *args)
+        want = fn(x, *args)
+        assert got.is_cuda and got.shape == want.shape, fn
+        assert _selected_apart(got, want) <= 1e-3, fn
+
+
+def test_deskew_and_liquid_rescale_equal_on_card(dev):
+    """The skew angle and the carved seams equal the CPU's."""
+    from imagemagick_tpu_torch.ops import distort as dt
+    from imagemagick_tpu_torch.ops import shear as sh
+
+    page = np.ones((120, 200, 1), np.float32)
+    page[10:110:9, 20:180] = 0.1
+    p = dt.rotate(torch.from_numpy(page), 2.5, (1.0,))
+    assert sh.deskew_angle_reference(p.to(dev)) == \
+        sh.deskew_angle_reference(p) != 0.0
+    assert sh.deskew_angle(p.to(dev)) == sh.deskew_angle(p)
+    got = sh.deskew(p.to(dev))
+    want = sh.deskew(p)
+    assert got.shape == want.shape and _selected_apart(got, want) <= 1e-3
+    x = torch.from_numpy(_rand((2, 40, 48, 3), 26))
+    assert torch.equal(dt.liquid_rescale(x.to(dev), 40, 40).cpu(),
+                       dt.liquid_rescale(x, 40, 40))
