@@ -74,7 +74,9 @@ and the serve daemon):
   swirl, implode, wave, the five sparse-color methods, shear 20x10 and
   deskew on 8 frames of 1080x1920x3, ms an image; frame 0 against the
   CPU within 1e-5 but at most 0.1 % of the pixels, where a selection
-  falls otherwise (the per-pixel-EWA methods on a 270x480 frame); the
+  falls otherwise (the per-pixel-EWA methods on a 270x480 frame, also
+  with smaller EWA blocks, so that every scan of the timed call, one
+  block, scanline blocks or pixel chunks, is compared on the card); the
   CUDA kernels of a polar and an arc call; liquid rescale of one 256x171
   image by 32 columns, its seams equal to the CPU's.
 * cli_distort — config1_cli's 32 images through ``-resize 384x256 -flop
@@ -124,6 +126,7 @@ and its bound; the last line is
 """
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -257,6 +260,10 @@ DISTORT_TOL = 1e-5      # float32 sums of EWA taps in another order, an ulp
 #                         of the card's sinf/cosf/powf under a bilinear blend
 DISTORT_RUNS = 3
 DISTORT_SMALL = (270, 480)   # per-pixel-EWA methods compared at this size
+# ... with these _EWA_BLOCKs too (None: the module's), so that the small
+# frame's buckets take the pixel chunks and scanline blocks that the
+# timed 8 x 1080p call takes
+DISTORT_BLOCKS = (None, 1 << 22, 1 << 19)
 LIQUID = (171, 256, 32)      # one image of 256x171, 32 columns removed
 CLI_DISTORT = ["-resize", "384x256", "-flop", "-background", "white",
                "-rotate", "12", "-gravity", "center", "-extent", "384x256",
@@ -1350,6 +1357,36 @@ def _distort_methods(h: int, w: int) -> list:
     ]
 
 
+def ewa_scan(n: int, chunk: int, nvb: int, kb: int) -> str:
+    """The scan that ``ops/distort._ewa_plan``'s (chunk, kb) gives a
+    bucket of ``n`` pixels and ``nvb`` scanlines."""
+    if chunk < n:
+        return "pixel chunks"
+    return "scanline blocks" if kb < nvb else "one block"
+
+
+@contextlib.contextmanager
+def ewa_scans(dt, block=None):
+    """Yields the set of scans (``ewa_scan``) that the per-pixel EWA calls
+    made within take, with ``dt._EWA_BLOCK`` set to ``block`` unless it
+    is None."""
+    seen = set()
+    plan, old = dt._ewa_plan, dt._EWA_BLOCK
+
+    def spy(n, nbc, nvb, uwb):
+        chunk, kb = plan(n, nbc, nvb, uwb)
+        seen.add(ewa_scan(n, chunk, nvb, kb))
+        return chunk, kb
+
+    dt._ewa_plan = spy
+    if block is not None:
+        dt._EWA_BLOCK = block
+    try:
+        yield seen
+    finally:
+        dt._ewa_plan, dt._EWA_BLOCK = plan, old
+
+
 def _hold(label: str, got: torch.Tensor, want: torch.Tensor) -> str:
     """Require ``got`` (on the card) within DISTORT_TOL of ``want`` but
     for at most SELECT_SHARE of the pixels (where a selection falls
@@ -1368,8 +1405,10 @@ def distort_phase(dev, gen, name_limit: str) -> None:
     polar), swirl, implode, wave, the five sparse-color methods, shear and
     deskew on N2 frames of 1080x1920x3, each with its ms an image; frame 0
     against the same call on the CPU (the per-pixel-EWA methods on a frame
-    of DISTORT_SMALL); the launches of polar and arc; liquid rescale on
-    one LIQUID image, its seams equal to the CPU's."""
+    of DISTORT_SMALL, on the card at each of DISTORT_BLOCKS, required to
+    cover every scan that the timed call takes); the launches of polar and
+    arc; liquid rescale on one LIQUID image, its seams equal to the
+    CPU's."""
     from imagemagick_tpu_torch.ops import distort as dt
     from imagemagick_tpu_torch.ops import shear as sh
 
@@ -1401,15 +1440,23 @@ def distort_phase(dev, gen, name_limit: str) -> None:
     del got
     small_args = {m[0]: m[2] for m in _distort_methods(*DISTORT_SMALL)}
     for label, method, args, bestfit, var in _distort_methods(H2, W2):
-        ms = _call_ms(lambda: dt.distort(frames, method, args,
-                                         bestfit=bestfit))
+        with ewa_scans(dt) as timed:
+            ms = _call_ms(lambda: dt.distort(frames, method, args,
+                                             bestfit=bestfit))
+        x0, a0 = (small_cpu, small_args[label]) if var else (f0, args)
+        want = dt.distort(x0, method, a0, bestfit=bestfit)
+        compared, figs = set(), []
+        for block in DISTORT_BLOCKS if var else (None,):
+            with ewa_scans(dt, block) as seen:
+                got = dt.distort(x0.to(dev), method, a0, bestfit=bestfit)
+            compared |= seen
+            figs.append(_hold(f"{label} block {block}", got, want))
+        fig = "; ".join(figs)
+        require(timed <= compared, f"distort {label}: scans {timed} timed, "
+                f"{compared} compared")
         if var:
-            x0, a0 = small_cpu, small_args[label]
-        else:
-            x0, a0 = f0, args
-        fig = _hold(label, dt.distort(x0.to(dev), method, a0,
-                                      bestfit=bestfit),
-                    dt.distort(x0, method, a0, bestfit=bestfit))
+            fig += (f"; scans timed {sorted(timed)}, compared "
+                    f"{sorted(compared)} (blocks {DISTORT_BLOCKS})")
         extra = ""
         if label in ("arc", "polar"):
             n_k = len(cuda_events(lambda: dt.distort(

@@ -36,9 +36,6 @@ import torch.nn.functional as F
 # elements of one block of gathered taps in the per-pixel EWA scan
 # (batch x pixels x scanlines x taps x channels: 128 MiB of float32)
 _EWA_BLOCK = 1 << 25
-# a bucket too large for one block but of at most this many taps scans
-# tap by tap over all its pixels, in the JAX order; others in blocks
-_EWA_SEQ_TAPS = 256
 
 
 def _grid(h, w, dtype=torch.float32, device=None):
@@ -375,29 +372,6 @@ def _ewa_buckets(nv: np.ndarray, uw: np.ndarray, norm: np.ndarray):
             for a, b in zip(starts, ends)]
 
 
-def _ewa_taps_seq(gather, t, nvb: int, uwb: int, lut):
-    """One bucket's scan tap by tap, in the JAX order.  ``t`` holds the
-    bucket's float32 tables (cu, cv, cAs, cBs, cCs, csl, cUw, v1, v2),
-    each (n,).  Returns (acc, den): (..., n, C) and (n, 1)."""
-    cu, cv, cAs, cBs, cCs, csl, cUw, v1, v2 = t
-    acc = den = None
-    for k in range(nvb):
-        vv = v1 + k
-        vmask = vv <= v2
-        ustart = torch.ceil(cu + (vv - cv) * csl - cUw)
-        V = vv - cv
-        vi = _index(vv)
-        for j in range(uwb):
-            uu = ustart + j
-            U = uu - cu
-            Q = (cAs * U + cBs * V) * U + cCs * V * V
-            wgt = _ewa_weight(Q, lut, vmask)[..., None]
-            px = gather(vi, _index(uu))
-            acc = wgt * px if acc is None else acc + wgt * px
-            den = wgt if den is None else den + wgt
-    return acc, den
-
-
 def _ewa_taps_block(gather, t, k0: int, kb: int, uwb: int, lut):
     """Scanlines k0..k0+kb of one bucket (or of a chunk of its pixels)
     at once, the ``uwb`` taps of each scanline on a tensor axis: the same
@@ -425,24 +399,25 @@ def _ewa_taps_block(gather, t, k0: int, kb: int, uwb: int, lut):
     return acc, w2.sum(-1, keepdim=True)
 
 
-def _ewa_bucket(gather, t, nvb: int, uwb: int, lut, nbc: int):
-    """One bucket's (acc, den).  A bucket whose gathered taps (``nbc`` =
-    batch x channels each) fit _EWA_BLOCK runs as one block: about 25
-    launches however many taps it has (the few pixels near the centre of
-    a polar or arc map take hundreds a scanline).  A larger one of at
-    most _EWA_SEQ_TAPS taps (the bulk of a map) runs tap by tap over all
-    its pixels, in the JAX order; a larger and wider one in blocks of
-    scanlines and pixels that fit _EWA_BLOCK."""
-    n = t[0].shape[0]
-    fits = n * max(nbc, 1) * nvb * uwb <= _EWA_BLOCK
-    if not fits and nvb * uwb <= _EWA_SEQ_TAPS:
-        return _ewa_taps_seq(gather, t, nvb, uwb, lut)
+def _ewa_plan(n: int, nbc: int, nvb: int, uwb: int) -> Tuple[int, int]:
+    """(pixels, scanlines) of one block of a bucket of ``n`` pixels,
+    ``nvb`` scanlines of ``uwb`` taps, ``nbc`` = batch x channels values a
+    tap: as many pixels as fit _EWA_BLOCK elements with one scanline
+    each, then as many of their scanlines as fit.  A bucket that fits
+    whole (the few pixels near the centre of a polar or arc map, which
+    scan hundreds of taps a line) is one block of about 25 launches."""
     per_line = max(nbc, 1) * uwb
     chunk = max(1, min(n, _EWA_BLOCK // per_line))
+    return chunk, max(1, min(nvb, _EWA_BLOCK // (per_line * chunk)))
+
+
+def _ewa_bucket(gather, t, nvb: int, uwb: int, lut, nbc: int):
+    """One bucket's (acc, den), in the blocks of ``_ewa_plan``."""
+    n = t[0].shape[0]
+    chunk, kb = _ewa_plan(n, nbc, nvb, uwb)
     accs, dens = [], []
     for p0 in range(0, n, chunk):
         tc = [x[p0:p0 + chunk] for x in t]
-        kb = max(1, min(nvb, _EWA_BLOCK // (per_line * tc[0].shape[0])))
         acc = den = None
         for k0 in range(0, nvb, kb):
             a, d = _ewa_taps_block(gather, tc, k0, min(kb, nvb - k0), uwb,
@@ -471,11 +446,10 @@ def sample_ewa_reference_var(img: torch.Tensor, u, v, jac,
     (the JAX function's power-of-two buckets: a pixel scans all of its
     bucket's taps, and the extra taps can carry weight), each bucket's
     tables go to the device in one copy, and its results scatter into the
-    output.  A bucket scans either tap by tap in the JAX order or a block
-    of scanlines at a time with the taps of a scanline on a tensor axis,
-    within _EWA_BLOCK elements (``_ewa_bucket`` says which): the weights
-    and selections equal the JAX ones, and a block sums them in another
-    order.
+    output.  A bucket scans a block of pixels and scanlines at a time
+    with the taps of a scanline on a tensor axis, within _EWA_BLOCK
+    elements (``_ewa_plan``): the weights and selections equal the JAX
+    ones, and a block sums them in another order.
 
     limit_reached pixels (parallelogram area > 4×image area,
     resample.c:1197) use the 4-neighbour average interpolation the

@@ -6,10 +6,9 @@ where a selection differs between the packages (an EWA bin, a scan
 bound's ceil or floor, a bilinear floor moved by an ulp of a
 transcendental): those are counted and must be at most 0.1 % of the
 pixels.  The host geometry (control-point fits, per-pixel ellipses,
-the polar family's maps) is the JAX module's float64 numpy code, and
-the taps of a bucket of at most ``_EWA_SEQ_TAPS`` run in the JAX order,
-so most methods come out equal; wider buckets sum their taps in another
-order."""
+the polar family's maps) is the JAX module's float64 numpy code; the
+per-pixel EWA sums a bucket's taps in blocks, in another order than the
+JAX loop."""
 
 import numpy as np
 import pytest

@@ -197,12 +197,14 @@ def test_limit_reached_pixels_match_jax():
                                                  (a, b, c, d), vp=vp))
 
 
-@pytest.mark.parametrize("block,seq_taps", [
-    (1 << 25, 256), (0, 1 << 20), (3 * 2 * 8 * 5, 0), (1, 0)],
-    ids=["one-block", "tap-by-tap", "chunks", "single-rows"])
-def test_ewa_scan_paths_match_the_jax_loop(monkeypatch, block, seq_taps):
-    """Every bucket as one block, tap by tap in the JAX order (equal to
-    the JAX loop), or in blocks of a few scanlines and pixel chunks."""
+@pytest.mark.parametrize("block,scan", [
+    (1 << 25, "one block"), (6 * 16 * 18 * 3, "scanline blocks"),
+    (6 * 8 * 5, "pixel chunks"), (1, "pixel chunks")],
+    ids=["one-block", "scanline-blocks", "chunks", "single-rows"])
+def test_ewa_scan_paths_match_the_jax_loop(monkeypatch, block, scan):
+    """Every bucket as one block, in blocks of a few scanlines, or in
+    chunks of a few pixels (down to one pixel and one scanline a block):
+    the JAX loop's weights and taps, summed in another order."""
     x = _img((2, 24, 32, 3), 15)
     h, w = 16, 20
     rng = np.random.default_rng(16)
@@ -210,11 +212,18 @@ def test_ewa_scan_paths_match_the_jax_loop(monkeypatch, block, seq_taps):
     v = rng.uniform(-3, 26, (h, w))
     jac = _jac_maps(h, w, 17)
     want = jd.sample_ewa_reference_var(jnp.asarray(x), u, v, jac)
-    monkeypatch.setattr(td, "_EWA_SEQ_TAPS", seq_taps)
+    plan, scans = td._ewa_plan, set()
+
+    def spy(n, nbc, nvb, uwb):
+        chunk, kb = plan(n, nbc, nvb, uwb)
+        scans.add("pixel chunks" if chunk < n else
+                  "scanline blocks" if kb < nvb else "one block")
+        return chunk, kb
+
     monkeypatch.setattr(td, "_EWA_BLOCK", block)
+    monkeypatch.setattr(td, "_ewa_plan", spy)
     got = td.sample_ewa_reference_var(torch.from_numpy(x), u, v, jac)
-    if block == 0:
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert scan in scans
     assert_close(got, want)
 
 

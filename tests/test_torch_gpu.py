@@ -979,12 +979,20 @@ def test_trim_bounds_equal_on_card(dev):
     ("shepards", [20, 20, 24, 26, 80, 60, 76, 55], False),
     ("polynomial", [1.5, 0, 0, 5, 3, 127, 0, 120, 8, 0, 95, 4, 90,
                     127, 95, 118, 84], False)])
-def test_distort_on_card(dev, method, args, bestfit):
+@pytest.mark.parametrize("block", [None, 1 << 20, 1 << 14],
+                         ids=["module-block", "block-2-20", "block-2-14"])
+def test_distort_on_card(dev, monkeypatch, method, args, bestfit, block):
+    """Each method on the card against the CPU; the per-pixel EWA at the
+    module's block and at blocks small enough that its buckets run in
+    scanline blocks and pixel chunks on the card (the CPU at the
+    module's)."""
     from imagemagick_tpu_torch.ops import distort as dt
 
     x = torch.from_numpy(_rand((2, 96, 128, 4), 24))
-    got = dt.distort(x.to(dev), method, args, bestfit=bestfit)
     want = dt.distort(x, method, args, bestfit=bestfit)
+    if block is not None:
+        monkeypatch.setattr(dt, "_EWA_BLOCK", block)
+    got = dt.distort(x.to(dev), method, args, bestfit=bestfit)
     assert got.is_cuda and got.shape == want.shape
     assert _selected_apart(got, want) <= 1e-3
 
