@@ -88,6 +88,27 @@ and the serve daemon):
   angle in [-3, 3] degrees, through ``-deskew 40% -trim -shave 8x8``:
   each page's skew angle equal to the CPU's, the outputs against the
   CPU run, ms a page.
+* fx — thirteen expressions (arithmetic, channel suffixes, ternaries,
+  coordinates, two images, relative and absolute references, functions,
+  variables, hue, luminance, transcendentals, rand) over 8 frames of
+  1080x1920x3: ms an image, CUDA kernels a call, frame 0 against the CPU
+  (at most 0.1 % of the pixels apart by 1e-5), rand by its moments.
+* compare — every metric on a pair of 8 frames of 1080p against its
+  formula in float64 numpy (1e-5 relative; phash on frame 0, ssim on one
+  pair), compare_images and similarity_image (a 128x128 crop found at its
+  offset), ms a call.
+* quantize — the octree (native, on the host) with each dither and
+  posterize 4 with each dither on 4 frames (host seconds a frame, equal
+  to the CPU), kmeans_quantize 16 on 8 frames and kmeans_reference 8 on
+  one (labels or pixels apart and the iterations against the CPU),
+  unique_colors_count, image_type, image_depth, set_image_type.
+* cli_channel — chain A (``-resize 256x256 -channel R -negate -channel
+  All -channel-fx red<=>blue -alpha set -posterize 8 -type grayscale``)
+  on config1_cli's 32 images, one K1 launch, and chain B's list ops
+  (``-separate -combine -colors 64``, ``-fx (u+v)/2``, ``-metric rmse
+  -compare``), one K1 launch a run; each against the CPU run (a chain
+  with a native stage after the resize: its rest replayed on the CPU
+  from the card's resize, equal), the per-image marginal of chain A.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -272,6 +293,29 @@ CLI_DISTORT = ["-resize", "384x256", "-flop", "-background", "white",
 CLI_DISTORT_N1, CLI_DISTORT_N2 = 8, 32
 CLI_DESKEW = ["-deskew", "40%", "-trim", "-shave", "8x8"]
 DESKEW_N, DESKEW_MAX = 16, 3.0
+# fx: one expression of each kind that tests/test_analysis_ops.py covers,
+# an absolute reference, hue, luminance, transcendentals and rand
+FX_EXPRS = [("arithmetic", "u/2+0.25"), ("channel suffix", "u.g"),
+            ("ternary", "u>0.5?1.0:0.0"), ("coordinates", "i/w+j/h"),
+            ("two images", "(u+v)/2"), ("relative ref", "p[1,0]"),
+            ("functions", "sqrt(u)*sin(pi/2)"), ("variables", "t=u*2; t-u"),
+            ("absolute ref", "p{i/2,j/2}"), ("hue", "hue"),
+            ("luminance", "luminance"),
+            ("transcendentals", "pow(u,2.2)*exp(-v)+erf(u-0.5)+sinc(v)"),
+            ("rand", "rand()")]
+FX_TOL = 1e-5           # the card's float32 transcendentals, an ulp apart
+COMPARE_REL = 1e-5      # a float32 metric against its float64 formula
+SSIM_FRAMES = 1         # pairs that ssim's float64 numpy reference covers
+CLI_CHANNEL_ROUNDS = 3  # rounds of chain A's marginal (68 ms an image)
+QUANT_N = 4             # frames of 1080p for the octree and posterize
+CLI_CHANNEL_A = ["-resize", "256x256", "-channel", "R", "-negate",
+                 "-channel", "All", "-channel-fx", "red<=>blue", "-alpha",
+                 "set", "-posterize", "8", "-type", "grayscale"]
+CLI_CHANNEL_B = [(["-resize", "256x256", "-separate", "-combine", "-colors",
+                   "64"], 1),
+                 (["-resize", "256x256", "-fx", "(u+v)/2"], 2),
+                 (["-resize", "256x256", "-metric", "rmse", "-compare"], 2)]
+CLI_CHANNEL_N1, CLI_CHANNEL_N2 = 8, 32
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -744,13 +788,13 @@ def _cli_run(argv, datas, specs=None):
     return outs
 
 
-def _marginal(run, datas, n1: int, n2: int) -> tuple:
-    """Per-image marginal seconds between n1 and n2 images (median of 5
-    rounds of the best of 3), and the rounds."""
+def _marginal(run, datas, n1: int, n2: int, rounds: int = 5) -> tuple:
+    """Per-image marginal seconds between n1 and n2 images (median of
+    ``rounds`` rounds of the best of 3), and the rounds."""
     import timeit
 
     margs = []
-    for _ in range(5):
+    for _ in range(rounds):
         t1 = min(timeit.repeat(lambda: run(datas[:n1]), number=1, repeat=3))
         t2 = min(timeit.repeat(lambda: run(datas[:n2]), number=1, repeat=3))
         margs.append(max((t2 - t1) / (n2 - n1), 1e-9))
@@ -1575,6 +1619,362 @@ def cli_deskew_phase(dev, gen, name_limit: str) -> None:
           f"[{name_limit}]")
 
 
+def _timed(label: str, fn):
+    """Run fn, print its seconds on the host clock, return its result."""
+    t0 = time.perf_counter()
+    out = fn()
+    print(f"{label} phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def fx_phase(dev, gen, name_limit: str) -> None:
+    """fx: each expression of FX_EXPRS over N2 frames of 1080x1920x3 (u)
+    and a second batch (v) on the card, with no kernel of the port's:
+    ms an image, CUDA kernels a call, and frame 0 against the same call
+    on CPU copies (at most SELECT_SHARE of the pixels further apart than
+    FX_TOL); rand by its moments and equal channels."""
+    from imagemagick_tpu_torch.ops import fx
+
+    u = torch.rand((N2, H2, W2, C), generator=gen, device=dev)
+    v = torch.rand((N2, H2, W2, C), generator=gen, device=dev)
+    u0, v0 = u[:1].cpu(), v[:1].cpu()
+    for label, expr in FX_EXPRS:
+        reset_launches()
+        out = fx.fx([u, v], expr)
+        torch.cuda.synchronize()
+        la = launched()
+        require(sum(la.values()) == 0, f"fx {expr} launches {la}")
+        require(out.shape == u.shape and bool(torch.isfinite(out).all()),
+                f"fx {expr} {out.shape}")
+        ms = _call_ms(lambda: fx.fx([u, v], expr)) / N2
+        nk = len(cuda_events(lambda: fx.fx([u, v], expr), 1))
+        if expr == "rand()":
+            mean, var = float(out.mean()), float(out.var())
+            n = out[..., 0].numel()
+            require(abs(mean - 0.5) < 5 * (1 / 12 / n) ** 0.5 and
+                    abs(var - 1 / 12) < 5 * (1 / 180 / n) ** 0.5 and
+                    torch.equal(out[..., 0], out[..., 2]),
+                    f"fx rand moments {mean} {var}")
+            held = f"mean {mean:.6f}, variance {var:.6f} (1/12 = " \
+                f"{1 / 12:.6f}), channels equal"
+        else:
+            err, n_off, n_px = _apart(out[:1], fx.fx([u0, v0], expr), FX_TOL)
+            require(n_off <= SELECT_SHARE * n_px,
+                    f"fx {expr}: {n_off} of {n_px} pixels apart")
+            held = f"frame 0 vs the CPU: max|d| {err:.3e}, {n_off} of " \
+                f"{n_px} px apart by more than {FX_TOL}"
+        print(f"fx {label} {expr!r} on 2 x {tuple(u.shape)}: {ms:.4f} ms an "
+              f"image, {nk} CUDA kernels a call; {held} [{name_limit}]")
+        del out
+
+
+def _ssim_f64(a: np.ndarray, b: np.ndarray) -> float:
+    """SSIM's formula in float64 numpy: the sampled 11x11 gaussian
+    (sigma 1.5) applied as two 11-tap passes with edge padding."""
+    u = np.arange(-5, 6, dtype=np.float64)
+    k = np.exp(-(u * u) / (2.0 * 1.5 * 1.5))
+    k /= k.sum()
+
+    def win(x):
+        p = np.pad(x, [(0, 0), (5, 5), (5, 5), (0, 0)], mode="edge")
+        h, w = x.shape[1], x.shape[2]
+        r = sum(k[i] * p[:, i:i + h] for i in range(11))
+        return sum(k[i] * r[:, :, i:i + w] for i in range(11))
+
+    mu_a, mu_b = win(a), win(b)
+    var_a = win(a * a) - mu_a * mu_a
+    var_b = win(b * b) - mu_b * mu_b
+    cov = win(a * b) - mu_a * mu_b
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    num = (2.0 * mu_a * mu_b + c1) * (2.0 * cov + c2)
+    den = (mu_a * mu_a + mu_b * mu_b + c1) * (var_a + var_b + c2)
+    return float(np.mean(num / np.maximum(den, 1e-30)))
+
+
+def _metrics_f64(a: np.ndarray, b: np.ndarray) -> dict:
+    """Each metric of compare.py's _METRICS but phash and ssim, its
+    formula evaluated in float64 numpy."""
+    d = a - b
+    axes = tuple(range(a.ndim - 1))
+    mse_c = np.mean(d * d, axis=axes)
+    am = a - a.mean(axis=axes)
+    bm = b - b.mean(axis=axes)
+    ncc = float(np.mean(np.sum(am * bm, axis=axes) / np.sqrt(
+        np.sum(am * am, axis=axes) * np.sum(bm * bm, axis=axes))))
+    fa = np.fft.rfft2(a.mean(-1))
+    fb = np.fft.rfft2(b.mean(-1))
+    cross = fa * np.conj(fb)
+    cross /= np.maximum(np.abs(cross), 1e-30)
+    mse = float(np.mean(d * d))
+    return {
+        "ae": float(np.any(d != 0, axis=-1).sum()),
+        "mae": float(np.mean(np.abs(d))), "mse": mse,
+        "rmse": math.sqrt(mse), "pae": float(np.abs(d).max()),
+        "psnr": float(np.mean(np.where(mse_c >= 1e-12, -10.0 * np.log10(
+            np.maximum(mse_c, 1e-12)) / 48.1647, 0.0))),
+        "ncc": ncc, "dpc": ncc, "fuzz": math.sqrt(mse),
+        "phase": float(np.fft.irfft2(cross, s=a.shape[-3:-1]).max()),
+        "mepp": float(np.abs(d).sum() * 65535.0)}
+
+
+def compare_phase(dev, gen, name_limit: str) -> None:
+    """compare: every metric of _METRICS on a pair of N2 frames of
+    1080x1920x3 on the card (phash on frame 0: its pipeline takes one
+    image; one call on the host clock), ms a call, against its formula in
+    float64 numpy within COMPARE_REL relative (ae as a count; ssim and
+    dssim on SSIM_FRAMES pairs, dssim through 1 - 2 dssim); compare_images against the CPU
+    (equal) and similarity_image finding a 128x128 crop at its offset."""
+    from imagemagick_tpu_torch.ops import compare as cm
+    from imagemagick_tpu_torch.ops import statistic as stx
+
+    a = torch.rand((N2, H2, W2, C), generator=gen, device=dev)
+    b = torch.clamp(a + 0.1 * (torch.rand(a.shape, generator=gen,
+                                          device=dev) - 0.5), 0.0, 1.0)
+    a64 = a.cpu().numpy().astype(np.float64)
+    b64 = b.cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    refs = _metrics_f64(a64, b64)
+    ns = SSIM_FRAMES
+    refs["ssim"] = _ssim_f64(a64[:ns], b64[:ns])
+    refs["dssim"] = (1.0 - refs["ssim"]) / 2.0
+    ha = stx._phash_host(a64[0, ..., :3])
+    hb = stx._phash_host(b64[0, ..., :3])
+    refs["phash"] = float(np.sum((ha - hb) ** 2))
+    print(f"compare float64 references: {time.perf_counter() - t0:.1f} s")
+    parts = []
+    for m in sorted(cm._METRICS):
+        aa, bb = (a[0], b[0]) if m == "phash" else \
+            (a[:ns], b[:ns]) if m in ("ssim", "dssim") else (a, b)
+        reset_launches()
+        got = float(cm.get_distortion(aa, bb, m))
+        la = launched()
+        require(sum(la.values()) == 0, f"compare {m} launches {la}")
+        want = refs[m]
+        if m == "ae":
+            require(got == want, f"compare ae {got} != {want}")
+            rel = 0.0
+        elif m == "dssim":
+            rel = abs((1 - 2 * got) - (1 - 2 * want)) / abs(1 - 2 * want)
+        else:
+            rel = abs(got - want) / max(abs(want), 1e-30)
+        require(rel <= COMPARE_REL, f"compare {m}: {got} vs {want}")
+        if m == "phash":     # seconds on the host: time the call above
+            t0 = time.perf_counter()
+            cm.get_distortion(aa, bb, m)
+            ms = (time.perf_counter() - t0) * 1e3
+        else:
+            ms = _call_ms(lambda: cm.get_distortion(aa, bb, m))
+        parts.append(f"{m} {got:.7g} (float64 {want:.7g}, rel {rel:.1e}, "
+                     f"{ms:.4f} ms)")
+    print(f"compare metrics on 2 x {tuple(a.shape)} (phash frame 0, ssim "
+          f"and dssim {ns} pairs): " + "; ".join(parts) + f" [{name_limit}]")
+    vis, _ = cm.compare_images(a, b, "rmse")
+    want_vis, _ = cm.compare_images(a[:1].cpu(), b[:1].cpu(), "rmse")
+    require(torch.equal(vis[:1].cpu(), want_vis), "compare_images")
+    ms_ci = _call_ms(lambda: cm.compare_images(a, b, "rmse"))
+    y0, x0 = [int(float(t) * (n - 128)) for t, n in zip(
+        torch.rand(2, generator=gen, device=dev), (H2, W2))]
+    tpl = a[0, y0:y0 + 128, x0:x0 + 128]
+    (y, x), _ = cm.similarity_image(a[0], tpl)
+    (yc, xc), _ = cm.similarity_image(a[0].cpu(), tpl.cpu())
+    require((y, x) == (yc, xc) == (y0, x0),
+            f"similarity {(y, x)} {(yc, xc)} {(y0, x0)}")
+    ms_si = _call_ms(lambda: cm.similarity_image(a[0], tpl))
+    print(f"compare_images on {tuple(a.shape)}: {ms_ci:.4f} ms, frame 0 "
+          f"equal to the CPU; similarity_image of a 128x128 crop in frame 0: "
+          f"found at {(y, x)} as on the CPU, {ms_si:.4f} ms [{name_limit}]")
+
+
+def quantize_phase(dev, gen, name_limit: str) -> None:
+    """quantize: the octree to 256 colors with each dither and posterize
+    4 with each dither on QUANT_N frames of 1080x1920x3 (the native
+    library on the host, on the host clock; frame 0 equal to the CPU call
+    bit for bit); kmeans_quantize 16 on N2 frames (labels apart against the CPU
+    on frame 0); kmeans_reference 8 on one frame (the device path;
+    pixels apart and the iterations of each); unique_colors_count
+    (exact); image_type, image_depth and each set_image_type target."""
+    from imagemagick_tpu_torch import native
+    from imagemagick_tpu_torch.ops import attribute as at
+    from imagemagick_tpu_torch.ops import quantize as qz
+
+    frames = torch.rand((N2, H2, W2, C), generator=gen, device=dev)
+    host = frames[:QUANT_N].cpu()
+    arrs = host.numpy()
+    for dither in ("none", "riemersma", "fs"):
+        t0 = time.perf_counter()
+        outs = [native.octree_quantize(arrs[i], 256, dither)
+                for i in range(QUANT_N)]
+        sec = (time.perf_counter() - t0) / QUANT_N
+        again = native.octree_quantize(arrs[0].copy(), 256, dither)
+        require(np.array_equal(outs[0][0], again[0]) and
+                np.array_equal(outs[0][1], again[1]), f"octree {dither}")
+        print(f"quantize octree 256 colors, dither {dither}, on {QUANT_N} x "
+              f"{(H2, W2, C)}: {sec:.3f} s a frame on the host, "
+              f"{len(outs[0][1])} colors in frame 0, equal to a second call")
+    for dither in (False, True, "fs"):
+        reset_launches()
+        t0 = time.perf_counter()
+        got = qz.posterize(frames[:QUANT_N], 4, dither)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / QUANT_N
+        require(sum(launched().values()) == 0 and got.device == frames.device,
+                f"posterize {dither}")
+        require(torch.equal(got[:1].cpu(), qz.posterize(host[:1], 4, dither)),
+                f"posterize {dither} differs from the CPU")
+        print(f"quantize posterize 4, dither {dither}, on {QUANT_N} x "
+              f"{(H2, W2, C)}: {sec * 1e3:.3f} ms a frame (host clock, the "
+              f"copies included), frame 0 equal to the CPU [{name_limit}]")
+    reset_launches()
+    ms = _call_ms(lambda: qz.kmeans_quantize(frames, 16), 1)
+    require(sum(launched().values()) == 0, "kmeans launches")
+    pal, lab = qz.kmeans(frames[:1], 16)
+    cpal, clab = qz.kmeans(frames[:1].cpu(), 16)
+    apart = int((lab.cpu() != clab).sum())
+    require(apart <= SELECT_SHARE * clab.numel(), f"kmeans {apart} labels")
+    print(f"quantize kmeans_quantize 16 on {tuple(frames.shape)}: {ms:.4f} "
+          f"ms ({ms / N2:.4f} an image); kmeans 16 on frame 0 against the "
+          f"CPU: {apart} of {clab.numel()} labels apart, palettes max|d| "
+          f"{float((pal.cpu() - cpal).abs().max()):.3e} [{name_limit}]")
+    st_card, st_cpu = {}, {}
+    t0 = time.perf_counter()
+    got = qz.kmeans_reference(frames[0], 8, stats=st_card)
+    torch.cuda.synchronize()
+    sec_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = qz.kmeans_reference(frames[0].cpu(), 8, stats=st_cpu)
+    sec_cpu = time.perf_counter() - t0
+    err, n_off, n_px = _apart(got, want, 1e-5)
+    route = "device" if H2 * W2 > (1 << 20) else "host"
+    require(st_card["route"] == route and
+            n_off <= SELECT_SHARE * n_px, f"kmeans_reference {n_off}")
+    print(f"quantize kmeans_reference 8 on {(H2, W2, C)} ({route} path): "
+          f"{sec_card:.3f} s, {st_card['iterations']} iterations; the CPU "
+          f"{sec_cpu:.3f} s, {st_cpu['iterations']} iterations; {n_off} of "
+          f"{n_px} pixels apart by more than 1e-5 (max|d| {err:.3e}) "
+          f"[{name_limit}]")
+    post = torch.round(frames * 7) / 7
+    for label, img in (("random", frames), ("posterized", post)):
+        t0 = time.perf_counter()
+        n = int(qz.unique_colors_count(img))
+        sec = time.perf_counter() - t0
+        require(n == int(qz.unique_colors_count(img.cpu())),
+                f"unique colors {label}")
+        print(f"quantize unique_colors_count of {label} "
+              f"{tuple(img.shape)}: {n}, equal to the CPU's; {sec:.3f} s")
+    f0, p0 = frames[0], post[0]
+    types = [at.image_type(f0), at.image_type(p0)]
+    depths = [at.image_depth(f0), at.image_depth(p0)]
+    require(types == [at.image_type(f0.cpu()), at.image_type(p0.cpu())] and
+            depths == [at.image_depth(f0.cpu()), at.image_depth(p0.cpu())],
+            f"image_type {types} depth {depths}")
+    parts = []
+    for t in ("bilevel", "grayscale", "palette", "truecolor"):
+        t0 = time.perf_counter()
+        got = at.set_image_type(f0, t)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        err, n_off, n_px = _apart(got, at.set_image_type(f0.cpu(), t), 1e-5)
+        require(got.device == f0.device and n_off <= SELECT_SHARE * n_px,
+                f"set_image_type {t}: {n_off}")
+        parts.append(f"{t} {tuple(got.shape)} {sec:.3f} s, {n_off} px apart")
+    print(f"attribute on {(H2, W2, C)}: types {types}, depths {depths} as on "
+          f"the CPU; set_image_type " + "; ".join(parts) + f" [{name_limit}]")
+
+
+def _cli_quiet(argv, datas):
+    """``_cli_run`` with -compare's distortion caught; (outs, stderr)."""
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        outs = _cli_run(argv, datas)
+    return outs, err.getvalue()
+
+
+def _hold_from_resize(label: str, argv, datas, outs) -> str:
+    """Hold a chain whose head is ``-resize 256x256`` (K1 on the card, its
+    plain version on the CPU): the resize within K1_TOL of the CPU's, and
+    the rest of the chain run on the CPU from the card's resized images
+    equal to the card's outputs (the octree and dither walks choose
+    otherwise on inputs an ulp apart, so the whole chain on the CPU is
+    only counted)."""
+    head, rest = argv[:2], argv[2:]
+    resized = [o.data for o in _cli_run(head, datas)]
+    err = max_err(torch.stack(resized).cpu(), torch.stack(
+        [o.data for o in _cli_run(head, [d.cpu() for d in datas])]))
+    require(err <= K1_TOL, f"{label} resize max|d| {err}")
+    replay, _ = _cli_quiet(rest, [r.cpu() for r in resized])
+    require(len(replay) == len(outs), f"{label} {len(replay)} outputs")
+    eq = all(torch.equal(o.data.cpu(), r.data) for o, r in zip(outs, replay))
+    worst = max(_apart(o.data, r.data, 1e-5)[1] for o, r in zip(outs, replay))
+    require(worst <= SELECT_SHARE * outs[0].data[..., 0].numel(),
+            f"{label}: {worst} px apart from the replay")
+    full, _ = _cli_quiet(argv, [d.cpu() for d in datas])
+    apart = sum(_apart(o.data, f.data, 1e-5)[1] for o, f in zip(outs, full))
+    n_px = sum(o.data[..., 0].numel() for o in outs)
+    return f"resize vs the CPU max|d| {err:.3e}; the rest replayed on the " \
+        f"CPU from the card's resize: {'equal' if eq else f'{worst} px'}; " \
+        f"the whole chain on the CPU: {apart} of {n_px} px apart by more " \
+        f"than 1e-5"
+
+
+def cli_channel_phase(dev, gen, name_limit: str) -> dict:
+    """cli_channel: CLI_CHANNEL_N2 images of 512x768x3 through chain A
+    (each image on its own: one K1 launch for the group's resize), the
+    per-image marginal between CLI_CHANNEL_N1 and CLI_CHANNEL_N2 images;
+    then chain B's list ops, one run each (one K1 launch each)."""
+    from imagemagick_tpu_torch.core.geometry import parse_meta_geometry
+
+    tw, th_, _, _ = parse_meta_geometry(CLI_CHANNEL_A[1], W, H)
+    datas = list(torch.rand((CLI_CHANNEL_N2, H, W, C), generator=gen,
+                            device=dev))
+    reset_launches()
+    outs = _cli_run(CLI_CHANNEL_A, datas)
+    la = launched()
+    require(la["k1"] == 1 and sum(la.values()) == 1,
+            f"cli_channel A launches {la}")
+    require(all(tuple(o.data.shape) == (th_, tw, 1) and
+                o.spec.colorspace == "gray" for o in outs),
+            f"cli_channel A {outs[0].data.shape}")
+    k1 = la["k1"]
+    print(f"cli_channel A {' '.join(CLI_CHANNEL_A)} on {CLI_CHANNEL_N2} "
+          f"images: launches {la}; "
+          f"{_hold_from_resize('cli_channel A', CLI_CHANNEL_A, datas, outs)}")
+    per, rounds = _marginal(lambda d: _cli_run(CLI_CHANNEL_A, d), datas,
+                            CLI_CHANNEL_N1, CLI_CHANNEL_N2,
+                            CLI_CHANNEL_ROUNDS)
+    print(f"cli_channel A marginal ({CLI_CHANNEL_N2}-{CLI_CHANNEL_N1} "
+          f"images, median of {CLI_CHANNEL_ROUNDS}): {per * 1e3:.4f} "
+          f"ms/image = "
+          f"{H * W / 1e6 / per:.1f} MP/s; rounds "
+          f"{[round(m * 1e3, 4) for m in rounds]} ms [{name_limit}]")
+    for argv, n in CLI_CHANNEL_B:
+        reset_launches()
+        outs, err_text = _cli_quiet(argv, datas[:n])
+        la = launched()
+        require(la["k1"] == 1 and sum(la.values()) == 1 and len(outs) == 1
+                and tuple(outs[0].data.shape) == (th_, tw, C),
+                f"cli_channel {argv} launches {la}")
+        k1 += la["k1"]
+        if "-colors" in argv:
+            held = _hold_from_resize("cli_channel B", argv, datas[:n], outs)
+        else:
+            want, want_err = _cli_quiet(argv, [d.cpu() for d in datas[:n]])
+            e, n_off, n_px = _apart(outs[0].data, want[0].data, K1_TOL)
+            require(n_off <= SELECT_SHARE * n_px, f"{argv}: {n_off} px")
+            held = f"vs the CPU run: max|d| {e:.3e}, {n_off} of {n_px} px " \
+                f"apart by more than {K1_TOL}"
+            if err_text:
+                d = abs(float(err_text) - float(want_err))
+                require(d <= K1_TOL, f"{argv} distortion {err_text}")
+                held += f"; distortion {float(err_text):.7g} (the CPU's " \
+                    f"{float(want_err):.7g})"
+        ms = _call_ms(lambda: _cli_quiet(argv, datas[:n]))
+        print(f"cli_channel B {' '.join(argv)} on {n} image(s): launches "
+              f"{la}, {ms:.4f} ms a call; {held} [{name_limit}]")
+    return {"k1": k1}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1799,6 +2199,11 @@ def main() -> None:
     distort_phase(dev, gen, name_limit)
     clid = cli_distort_phase(dev, gen, name_limit)
     cli_deskew_phase(dev, gen, name_limit)
+    _timed("fx", lambda: fx_phase(dev, gen, name_limit))
+    _timed("compare", lambda: compare_phase(dev, gen, name_limit))
+    _timed("quantize", lambda: quantize_phase(dev, gen, name_limit))
+    clich = _timed("cli_channel",
+                   lambda: cli_channel_phase(dev, gen, name_limit))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -2285,7 +2690,8 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/fused_pipeline.cu",
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
-         cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"],
+         cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
+         clich["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,

@@ -31,28 +31,42 @@ and value options ``-statistic``, ``-median``, ``-evaluate`` and
 ``-crop`` (tiles, the ``@`` form and gravity), ``-chop``, ``-extent``,
 ``-shave``, ``-splice``, ``-roll``, ``-trim``, ``-flip``, ``-flop``,
 ``-transpose``, ``-transverse``, ``-rotate``, ``-border`` and
-``-auto-orient``; and the distortions ``-distort``/``+distort``,
+``-auto-orient``; the distortions ``-distort``/``+distort``,
 ``-sparse-color``, ``-liquid-rescale``, ``-transform``, ``-implode``,
-``-swirl``, ``-wave``, ``-shear`` and ``-deskew``.  None of these but
-the resize family, the blurs and ``-colorspace`` carries a K1 tag, as in
-the JAX CLI.  The geometry options stay lazy, with their new shapes
-pushed; the options that read pixels or whose output shape depends on
-them (``-rotate``, ``-border``, ``-trim``, ``-distort``, ``-deskew``,
-...) materialize the list through ``materialize_all``, so a resize
-before them still runs as one K1 launch for a group.
+``-swirl``, ``-wave``, ``-shear`` and ``-deskew``; the channel options
+``-separate``, ``-combine``, ``-alpha``, ``-matte``/``+matte`` and
+``-channel-fx``; the list operators ``-compare``, ``-fx``, ``-morph``,
+``-evaluate-sequence``, ``-average``, ``-maximum`` and ``-minimum``; and
+the quantizers and attributes ``-posterize``, ``-colors``, ``-kmeans``,
+``-unique-colors`` and ``-type``.  None of these but the resize family,
+the blurs and ``-colorspace`` carries a K1 tag, as in the JAX CLI.  The
+geometry options stay lazy, with their new shapes pushed; the options
+that read pixels or whose output shape depends on them (``-rotate``,
+``-border``, ``-trim``, ``-distort``, ``-deskew``, the channel, list and
+quantizer options, ...) materialize the list through
+``materialize_all``, so a resize before them still runs as one K1 launch
+for a group.  ``-posterize`` with a dither, ``-colors`` on an RGB frame
+and ``-kmeans``'s seeds run the native octree library on the host, as in
+the JAX CLI.
 
 Settings: ``-virtual-pixel``, ``-gravity``/``+gravity``,
 ``-compose``/``+compose``, ``-geometry`` (stored as
 ``compose-geometry``, read by ``-composite``), ``-define key=value``
 (``CLIState.defines``; ``-composite`` reads ``compose:args``),
-``-background``, ``-bordercolor`` and ``-affine`` (read by
-``-transform``, default ``1,0,0,1,0,0``).  The other settings keep the
-JAX defaults: ``-filter`` is ``undefined`` and ``-channel`` ``default``;
-write masks (``-region``) and ``-seed`` are not ported, so ``-spread``
-and the noise operators of ``-evaluate`` draw from a generator seeded 0,
-as the JAX CLI draws from ``PRNGKey(0)``.  A file name, or any other
-option or setting, raises NotImplementedError naming its ROADMAP.md
-entry.  The tags equal the JAX CLI's for the same arguments.
+``-background``, ``-bordercolor``, ``-affine`` (read by ``-transform``,
+default ``1,0,0,1,0,0``), ``-channel`` (the mask that ``-separate`` and
+every per-pixel option of ``_op_simple`` honour; default ``default``),
+``-metric`` (read by ``-compare``, default ``rmse``), ``-dither``/
+``+dither`` (read by ``-posterize`` and ``-colors``, default
+``riemersma``; ``+dither`` is ``none``) and ``-quantize`` (the colorspace
+``-colors`` quantizes in).  The other settings keep the JAX defaults:
+``-filter`` is ``undefined``; write masks (``-region``) and ``-seed``
+are not ported, so ``-spread``, ``-fx``'s ``rand`` and the noise
+operators of ``-evaluate`` draw from a generator seeded 0, as the JAX CLI
+draws from ``PRNGKey(0)``.  ``-remap``/``-map`` read a palette file and
+raise, naming ``io/``.  A file name, or any other option or setting,
+raises NotImplementedError naming its ROADMAP.md entry.  The tags equal
+the JAX CLI's for the same arguments.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ from __future__ import annotations
 import importlib
 import math
 import re
+import sys
 from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -261,10 +276,12 @@ def _op_magnify(st, arg, plus):
 
 
 def _op_blur(fname: str, rule: str):
-    """A lazy -blur / -gaussian-blur handler.  A separable gaussian with
-    edge-replicate pads is exactly what K1's band matrices encode
-    (fused_pipeline.blur_band_matrix), so the op is tagged for K1 unless
-    it is the + form, sigma is 0 or the virtual pixel is not ``edge``."""
+    """A lazy -blur / -gaussian-blur handler under the -channel mask.  A
+    separable gaussian with edge-replicate pads is exactly what K1's band
+    matrices encode (fused_pipeline.blur_band_matrix), so the op is
+    tagged for K1 unless it is the + form, sigma is 0, the virtual pixel
+    is not ``edge`` or a channel mask is set (``cli/main.py:432-434`` of
+    the JAX CLI, which reads the mask of a 4-channel image)."""
 
     def handler(st, arg, plus):
         from ..ops import blur as bl
@@ -272,11 +289,14 @@ def _op_blur(fname: str, rule: str):
         fn = getattr(bl, fname)
         r, s = _geom_args(arg)
         vp = st.settings["virtual-pixel"]
-        tag = None if plus or s <= 0 or vp != "edge" else \
+        setting = st.settings.get("channel", "default")
+        tag = None if plus or s <= 0 or vp != "edge" or \
+            _channel_indices(setting, 4) is not None else \
             ("gblur", (float(r), float(s), rule))
+        run = _masked(lambda x: fn(x, radius=r, sigma=s, virtual_pixel=vp),
+                      setting)
         for li in st.images:
-            li.push(lambda x: fn(x, radius=r, sigma=s, virtual_pixel=vp),
-                    tag=tag)
+            li.push(run, tag=tag)
 
     return handler
 
@@ -312,19 +332,62 @@ def _op_colorspace(st, arg, plus):
                 tag=tag)
 
 
+_CHANNEL_LETTERS = {"r": 0, "g": 1, "b": 2, "c": 0, "m": 1, "y": 2,
+                    "k": 3, "a": -1, "o": -1}
+
+
+def _channel_indices(setting: str, nch: int):
+    """Parse a -channel setting ('RGB', 'Red,Green', 'All', ...) to the
+    sorted indices it selects in an ``nch``-channel image, or None for
+    every channel."""
+    s = (setting or "default").strip().lower()
+    if s in ("default", "all", "sync", ""):
+        return None
+    idx = set()
+    for name in re.split(r"[,|\s]+", s):
+        if name in ("red", "green", "blue", "cyan", "magenta", "yellow",
+                    "black", "alpha", "opacity", "gray"):
+            i = _CHANNEL_LETTERS[name[0]]
+            idx.add(nch - 1 if i == -1 else i)
+        elif name and all(ch in _CHANNEL_LETTERS for ch in name):
+            for ch in name:
+                i = _CHANNEL_LETTERS[ch]
+                idx.add(nch - 1 if i == -1 else i)
+    return sorted(i for i in idx if i < nch) or None
+
+
+def _masked(fn, setting: str):
+    """``fn`` under a -channel mask: where ``fn`` keeps the shape, the
+    channels outside the mask keep their input values (the JAX CLI's
+    ``_op_simple``, ``cli/main.py:438-452``)."""
+
+    def run(x):
+        out = fn(x)
+        sel = _channel_indices(setting, x.shape[-1]) \
+            if out.shape == x.shape else None
+        if sel is None:
+            return out
+        mask = torch.zeros(x.shape[-1], dtype=torch.bool, device=x.device)
+        mask[sel] = True
+        return torch.where(mask, out, x)
+
+    return run
+
+
 def _op_simple(module: str, fname: str, argmap=None):
     """A lazy per-pixel or neighborhood op: ``ops.<module>.<fname>(x,
-    **argmap(st, arg, plus))`` on each image.  The JAX handler also
-    honors ``-channel`` and write masks; here the channel setting is
-    always ``default`` (no ported option changes it) and write masks are
-    not ported, so the op runs on every channel of every pixel."""
+    **argmap(st, arg, plus))`` on each image, under the -channel mask
+    (``_masked``).  None of these ops carries a K1 tag, as in the JAX
+    CLI; write masks (``-region``) are not ported."""
 
     def handler(st, arg, plus):
         fn = getattr(importlib.import_module(f"..ops.{module}", __package__),
                      fname)
         kwargs = argmap(st, arg, plus) if argmap else {}
+        run = _masked(lambda x: fn(x, **kwargs),
+                      st.settings.get("channel", "default"))
         for li in st.images:
-            li.push(lambda x: fn(x, **kwargs))
+            li.push(run)
 
     return handler
 
@@ -739,14 +802,16 @@ def _op_geometry_slice(st, arg, plus, op):
 def _op_transpose(fname: str):
     """-transpose / -transverse: lazy, with the swapped shape pushed (the
     JAX CLI queues them without it, so a later option there computes its
-    geometry against the shape before the swap)."""
+    geometry against the shape before the swap); under the -channel mask
+    where the image is square."""
 
     def handler(st, arg, plus):
         from ..ops import transform as tf
 
-        fn = getattr(tf, fname)
+        run = _masked(getattr(tf, fname),
+                      st.settings.get("channel", "default"))
         for li in st.images:
-            li.push(fn, new_shape=(li.width, li.height))
+            li.push(run, new_shape=(li.width, li.height))
 
     return handler
 
@@ -876,6 +941,243 @@ def _op_wave(st, arg, plus):
                 new_shape=(li.height + int(2.0 * abs(amp)), li.width))
 
 
+def _op_separate(st, arg, plus):
+    """-separate: SeparateImages (channel.c), one gray image per channel
+    in the -channel mask ("-channel R -separate" yields one image)."""
+    from ..ops import channel as chan
+
+    setting = st.settings.get("channel", "default")
+    new_images = []
+    for li, img in _materialized(st):
+        comps = chan.separate_all(img.data)
+        sel = _channel_indices(setting, img.data.shape[-1])
+        if sel is not None:
+            comps = [comps[i] for i in sel]
+        gspec = img.spec.with_(colorspace="gray", alpha=False)
+        new_images += [LazyImage(Image(comp, gspec)) for comp in comps]
+    st.images = new_images
+
+
+def _op_combine(st, arg, plus):
+    """-combine: CombineImages, the list's first channels stacked into
+    one image."""
+    from ..ops import channel as chan
+
+    imgs = materialize_all(st.images)
+    data = chan.combine([im.data for im in imgs])
+    cs_name = "srgb" if data.shape[-1] >= 3 else "gray"
+    alpha = data.shape[-1] in (2, 4)
+    st.images = [LazyImage(Image(data, imgs[0].spec.with_(
+        colorspace=cs_name, alpha=alpha)))]
+
+
+def _op_alpha(st, arg, plus):
+    """-alpha OP (and -matte / +matte): SetImageAlphaChannel; the
+    background of ``remove`` and ``flatten`` is the -background
+    setting."""
+    from ..ops import channel as chan
+
+    op = arg.lower()
+    for li, img in _materialized(st):
+        data = chan.set_alpha(img.data, arg, img.spec.alpha,
+                              background=st.bg()[:3])
+        if op == "extract":
+            li.image = Image(data, ImageSpec(colorspace="gray"))
+            continue
+        alpha = op in ("set", "on", "activate", "opaque", "copy",
+                       "transparent")
+        li.image = Image(data, img.spec.with_(alpha=alpha), img.properties,
+                         img.profiles, img.page, img.delay)
+
+
+def _op_channel_fx(st, arg, plus):
+    from ..ops import channel as chan
+
+    for li, img in _materialized(st):
+        li.image = img.replace(data=chan.channel_fx(img.data, arg,
+                                                    img.spec.alpha))
+
+
+def _op_compare_list(st, arg, plus):
+    """-compare: the last two images become their difference image
+    (CompareImages), and the distortion under the -metric setting
+    (default rmse) goes to stderr."""
+    from ..ops import compare as cmx
+
+    if len(st.images) < 2:
+        raise CLIError("-compare needs two images")
+    a, b = materialize_all(st.images[-2:])
+    st.images.pop()
+    metric = st.settings.get("metric", "rmse")
+    dist = float(cmx.get_distortion(a.data, b.data, metric))
+    diff = cmx.compare_images(a.data, b.data, metric)[0]
+    print(f"{dist:g}", file=sys.stderr)
+    st.images[-1].image = a.replace(data=diff)
+
+
+def _op_fx(st, arg, plus):
+    """-fx EXPR over the whole list (u the first image, v the second);
+    the list becomes one image.  ``rand`` draws from a generator seeded
+    0, as the JAX CLI draws from ``PRNGKey(0)``."""
+    from ..ops import fx as fxm
+
+    imgs = materialize_all(st.images)
+    data = fxm.fx([im.data for im in imgs], arg)
+    st.images = [LazyImage(Image(data, imgs[0].spec, imgs[0].properties))]
+
+
+def _normalize_list_channels(imgs):
+    """Promote a mixed image list to a common layout (gray -> RGB when any
+    member is color, opaque alpha added when any member carries alpha)
+    so that sequence reductions can stack them; returns (datas, spec)."""
+    any_color = any(im.spec.color_channels >= 3 for im in imgs)
+    any_alpha = any(im.spec.alpha for im in imgs)
+    datas = []
+    for im in imgs:
+        d = im.data
+        a = d[..., -1:] if im.spec.alpha else None
+        col = d[..., :-1] if im.spec.alpha else d
+        if any_color and col.shape[-1] == 1:
+            col = col.repeat_interleave(3, dim=-1)
+        if any_alpha:
+            if a is None:
+                a = torch.ones(col.shape[:-1] + (1,), dtype=col.dtype,
+                               device=col.device)
+            col = torch.cat([col, a], -1)
+        datas.append(col)
+    spec = imgs[0].spec.with_(alpha=any_alpha)
+    if any_color and spec.colorspace == "gray":
+        spec = spec.with_(colorspace="srgb")
+    return datas, spec
+
+
+def _op_eval_seq(st, arg, plus):
+    """-evaluate-sequence OP (and -average, -maximum, -minimum): the list
+    reduced to one image (``statistic.evaluate_images``)."""
+    from ..ops import statistic as stx
+
+    datas, spec = _normalize_list_channels(materialize_all(st.images))
+    st.images = [LazyImage(Image(stx.evaluate_images(torch.stack(datas),
+                                                     arg), spec))]
+
+
+def _op_morph(st, arg, plus):
+    """-morph N: N crossfaded frames between each neighbouring pair
+    (MorphImages, fx.c)."""
+    n = int(arg)
+    datas, spec = _normalize_list_channels(materialize_all(st.images))
+    out = []
+    for a, b in zip(datas, datas[1:]):
+        out.append(Image(a, spec))
+        for k in range(1, n + 1):
+            t = k / (n + 1)
+            out.append(Image((1 - t) * a + t * b, spec))
+    out.append(Image(datas[-1], spec))
+    st.images = [LazyImage(im) for im in out]
+
+
+_DITHER = {"none": "none", "false": "none", "": "none",
+           "floydsteinberg": "fs", "fs": "fs"}
+
+
+def _op_posterize(st, arg, plus):
+    """-posterize N: dithers by default with the Riemersma walk (native,
+    on the host) like the reference; +dither or -dither none rounds,
+    -dither FloydSteinberg takes the serpentine walk and -dither ordered
+    the o8x8 threshold map."""
+    from ..ops import quantize as qz
+
+    levels = int(arg)
+    meth = st.settings.get("dither", "riemersma").lower()
+    dither = {"none": False, "false": False, "": False,
+              "ordered": "ordered", "floydsteinberg": "floydsteinberg",
+              "fs": "floydsteinberg"}.get(meth, True)
+    for li, img in _materialized(st):
+        li.image = img.replace(data=qz.posterize(img.data, levels, dither))
+
+
+def _op_colors(st, arg, plus):
+    """-colors N: the reference octree quantizer (native, on the host)
+    for an RGB frame, with the -dither setting (Riemersma by default) and
+    the -quantize colorspace; k-means on the device for other layouts,
+    the JAX CLI's routes by shape."""
+    from .. import native
+    from ..ops import colorspace as cs
+    from ..ops import quantize as qz
+
+    n = int(arg.split()[0])
+    dither = _DITHER.get(st.settings.get("dither", "riemersma").lower(),
+                         "riemersma")
+    qspace = normalize_colorspace(st.settings["quantize"]) \
+        if st.settings.get("quantize") else None
+    for li, img in _materialized(st):
+        nc = img.spec.color_channels
+        data = img.data[..., :nc] if img.spec.alpha else img.data
+        src_cs = img.spec.colorspace
+        if qspace and qspace != src_cs:
+            data = cs.convert(data[..., :3], src_cs, qspace)
+        if data.dim() == 3 and data.shape[-1] == 3:
+            out, _ = native.octree_quantize(
+                data.detach().cpu().numpy(), n, dither)
+            out = torch.from_numpy(out).to(data.device)
+        else:
+            out = qz.kmeans_quantize(data, n)
+        if qspace and qspace != src_cs:
+            out = cs.convert(out, qspace, src_cs)
+        if img.spec.alpha:
+            out = torch.cat([out, img.data[..., -1:]], -1)
+        li.image = img.replace(data=out)
+
+
+def _op_kmeans(st, arg, plus):
+    """-kmeans COLORSxITERATIONS+TOLERANCE (operation.c:2618-2632: 300
+    iterations and 0.0001 by default; no dither)."""
+    from ..ops import quantize as qz
+
+    g = parse_geometry(arg)
+    n = int(g.width or 8)
+    iters = int(g.height) if g.height is not None else 300
+    tol = float(g.x) if g.x is not None else 0.0001
+    for li, img in _materialized(st):
+        li.image = img.replace(data=qz.kmeans_reference(
+            img.data, n, max_iters=iters, tolerance=tol))
+
+
+def _op_unique_colors(st, arg, plus):
+    """-unique-colors: each image becomes one row of its distinct colors
+    in the reference's order (``histogram.unique_colors``, on the host)."""
+    from ..ops import histogram as hg
+
+    for li, img in _materialized(st):
+        colors, _ = hg.unique_colors(img.data)
+        li.image = Image(torch.from_numpy(colors.reshape(
+            1, -1, colors.shape[-1])).to(img.data.device), img.spec)
+
+
+def _op_type(st, arg, plus):
+    """-type TYPE: SetImageType (``attribute.set_image_type``)."""
+    from ..ops import attribute as at
+
+    t = arg.lower()
+    for li, img in _materialized(st):
+        data = at.set_image_type(img.data, t, img.spec.alpha)
+        spec = img.spec
+        if t.startswith(("bilevel", "grayscale")):
+            spec = spec.with_(colorspace="gray")
+        elif data.shape[-1] >= 3 and spec.color_channels == 1:
+            spec = spec.with_(colorspace="srgb")
+        li.image = Image(data, spec, img.properties, img.profiles)
+
+
+def _op_remap(st, arg, plus):
+    """-remap / -map FILE: the palette comes from a file, and its dithered
+    walks are not ported."""
+    from ..ops.quantize import REMAP_DITHER_GAP
+
+    raise NotImplementedError(f"-remap {arg!r}: {_IO_GAP}; and "
+                              f"{REMAP_DITHER_GAP}")
+
+
 # option name -> (number of arguments, handler)
 OPS: Dict[str, Tuple[int, Callable]] = {
     # the resize family
@@ -958,6 +1260,27 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "function": (2, _op_function),
     # list operators
     "composite": (0, _op_composite_list),
+    "compare": (0, _op_compare_list),
+    "fx": (1, _op_fx),
+    "morph": (1, _op_morph),
+    "evaluate-sequence": (1, _op_eval_seq),
+    "average": (0, lambda st, a, p: _op_eval_seq(st, "mean", p)),
+    "maximum": (0, lambda st, a, p: _op_eval_seq(st, "max", p)),
+    "minimum": (0, lambda st, a, p: _op_eval_seq(st, "min", p)),
+    # channels
+    "separate": (0, _op_separate),
+    "combine": (0, _op_combine),
+    "alpha": (1, _op_alpha),
+    "matte": (0, lambda st, a, p: _op_alpha(st, "off" if p else "set", p)),
+    "channel-fx": (1, _op_channel_fx),
+    # quantization and attributes
+    "posterize": (1, _op_posterize),
+    "colors": (1, _op_colors),
+    "kmeans": (1, _op_kmeans),
+    "unique-colors": (0, _op_unique_colors),
+    "type": (1, _op_type),
+    "remap": (1, _op_remap),
+    "map": (1, _op_remap),
     # geometry
     "crop": (1, partial(_op_geometry_slice, op="crop")),
     "chop": (1, partial(_op_geometry_slice, op="chop")),
@@ -990,7 +1313,8 @@ OPS: Dict[str, Tuple[int, Callable]] = {
 # settings stored by ``process`` (the JAX CLI's _SETTINGS subset that a
 # ported option reads); the + forms of gravity and compose reset them
 _SETTINGS = ("virtual-pixel", "gravity", "compose", "background",
-             "bordercolor", "affine")
+             "bordercolor", "affine", "channel", "metric", "dither",
+             "quantize")
 
 
 def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
@@ -1018,6 +1342,9 @@ def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
         plus = tok.startswith("+")
         name = tok[1:]
         if name in _SETTINGS or name in ("define", "geometry"):
+            if plus and name == "dither":
+                st.settings[name] = "none"
+                continue
             if plus and name in ("gravity", "compose"):
                 st.settings[name] = "undefined" if name == "gravity" \
                     else "over"

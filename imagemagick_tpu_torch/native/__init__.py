@@ -1,17 +1,28 @@
-"""Native JPEG codec (ctypes over ``miniio.cpp``).
+"""Native host libraries (ctypes over ``miniio.cpp`` and ``riemersma.cpp``).
 
-Port of ``imagemagick_tpu/native/__init__.py``, the JPEG part that the
-thumbnailer needs: ``available``, ``decode_jpeg``, ``decode_jpeg_scaled``
-and ``encode_jpeg``.  ``miniio.cpp`` is the JAX package's source, copied.
+Port of ``imagemagick_tpu/native/__init__.py``: the JPEG codec that the
+thumbnailer needs (``available``, ``decode_jpeg``, ``decode_jpeg_scaled``,
+``encode_jpeg``) and the octree quantizer with its error-diffusion dithers
+(``riemersma_available``, ``riemersma_posterize``,
+``floyd_steinberg_posterize``, ``octree_quantize``, ``octree_remap``).
+Both sources are the JAX package's, copied.
 
-On first use the library is compiled with ``g++ -O3 -fPIC -shared``
-against the system libjpeg and libpng into ``imagemagick_tpu_torch/_build/``,
-under a name that holds a hash of the source and the command, and loaded
-with ``ctypes``.  The compiler writes a file of its own, which is then
-renamed into place, so processes that build at once each load a whole
-library.  Without ``g++``, libjpeg or libpng the build fails, ``available()``
-is False and every call returns None: callers (``models/thumbnailer.py``)
-then decode with PIL.
+One helper, ``_Library``, builds each source on first use with ``g++``
+into ``imagemagick_tpu_torch/_build/``, under a name that holds a hash of
+the source and the command, and loads it with ``ctypes``.  The compiler
+writes a file of its own, which is then renamed into place, so processes
+that build at once each load a whole library.
+
+The codec is built with ``-O3`` against the system libjpeg and libpng.
+Without ``g++``, libjpeg or libpng its build fails, ``available()`` is
+False and every codec call returns None: callers
+(``models/thumbnailer.py``) then decode with PIL.  The quantizer needs
+only the C++ standard library and is built with the JAX package's
+``g++ -O2 -fPIC -shared`` (no ``-march=native``, no ``-ffast-math``), so
+the same float32 input gives the same bits in both packages.  Its build
+must succeed: if it fails, every quantizer call raises RuntimeError with
+the compiler's message.  The quantizer runs on the host, on float32
+numpy arrays, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,89 +33,118 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "miniio.cpp"
-_OUT = Path(__file__).resolve().parent.parent / "_build"
-_CMD = ("g++", "-O3", "-fPIC", "-shared")
-_LIBS = ("-ljpeg", "-lpng")
+_HERE = Path(__file__).resolve().parent
+_OUT = _HERE.parent / "_build"
 ABI_VERSION = 2
 
-_lib = None
-_lock = threading.Lock()
-_build_failed = False
-_build_error: Optional[str] = None
+
+class _Library:
+    """One C++ source, built on first use into ``_OUT`` under a hashed
+    name and loaded once a process.  ``bind`` declares the C entries'
+    types on the loaded library and returns an error text, or None."""
+
+    def __init__(self, name: str, source: str, cmd: Tuple[str, ...],
+                 libs: Tuple[str, ...], bind: Callable):
+        self.name, self.src = name, _HERE / source
+        self.cmd, self.libs, self.bind = cmd, libs, bind
+        self.lock = threading.Lock()
+        self.lib = None
+        self.failed = False
+        self.error: Optional[str] = None
+
+    def path(self) -> Path:
+        """Where the library for this source and command lives."""
+        h = hashlib.sha256(" ".join(self.cmd + self.libs).encode() +
+                           self.src.read_bytes())
+        return _OUT / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+
+    def _build(self, so: Path) -> bool:
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.so.tmp")
+        cmd = [*self.cmd, str(self.src), *self.libs, "-o", str(tmp)]
+        try:
+            _OUT.mkdir(exist_ok=True)
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=120)
+        except (OSError, subprocess.TimeoutExpired) as exc:
+            self.error = f"{' '.join(cmd)}: {exc}"
+            tmp.unlink(missing_ok=True)
+            return False
+        if res.returncode != 0:
+            self.error = res.stderr.strip() or f"exit code {res.returncode}"
+            tmp.unlink(missing_ok=True)
+            return False
+        os.replace(tmp, so)
+        return True
+
+    def load(self):
+        """The loaded library, or None when it failed to build or load
+        (``error`` says why).  Threads that call at once build once."""
+        with self.lock:
+            if self.lib is not None or self.failed:
+                return self.lib
+            so = self.path()
+            if not so.exists() and not self._build(so):
+                self.failed = True
+                return None
+            try:
+                lib = ctypes.CDLL(str(so))
+            except OSError as exc:
+                self.error = str(exc)
+                self.failed = True
+                return None
+            err = self.bind(lib)
+            if err is not None:
+                self.error = f"{so.name}: {err}"
+                self.failed = True
+                return None
+            self.lib = lib
+            return lib
+
+
+# ---------------------------------------------------------------------------
+# The JPEG codec (miniio.cpp)
+# ---------------------------------------------------------------------------
+
+def _bind_miniio(lib) -> Optional[str]:
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    c_ip = ctypes.POINTER(ctypes.c_int)
+    lib.miniio_decode_jpeg.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(c_u8p),
+        c_ip, c_ip, c_ip]
+    lib.miniio_decode_jpeg.restype = ctypes.c_int
+    lib.miniio_decode_jpeg_scaled.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(c_u8p), c_ip, c_ip, c_ip]
+    lib.miniio_decode_jpeg_scaled.restype = ctypes.c_int
+    lib.miniio_encode_jpeg.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(c_u8p),
+        ctypes.POINTER(ctypes.c_size_t)]
+    lib.miniio_encode_jpeg.restype = ctypes.c_int
+    lib.miniio_free.argtypes = [ctypes.c_void_p]
+    lib.miniio_free.restype = None
+    lib.miniio_abi_version.argtypes = []
+    lib.miniio_abi_version.restype = ctypes.c_int
+    if lib.miniio_abi_version() != ABI_VERSION:
+        return f"ABI version {lib.miniio_abi_version()}, not {ABI_VERSION}"
+    return None
+
+
+_MINIIO = _Library("miniio", "miniio.cpp", ("g++", "-O3", "-fPIC", "-shared"),
+                   ("-ljpeg", "-lpng"), _bind_miniio)
 
 
 def library_path() -> Path:
-    """Where the library for this source and command lives."""
-    h = hashlib.sha256(" ".join(_CMD + _LIBS).encode() + _SRC.read_bytes())
-    return _OUT / f"libminiio_{h.hexdigest()[:16]}.so"
-
-
-def _build(so: Path) -> bool:
-    global _build_error
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.so.tmp")
-    cmd = [*_CMD, str(_SRC), *_LIBS, "-o", str(tmp)]
-    try:
-        _OUT.mkdir(exist_ok=True)
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=120)
-    except (OSError, subprocess.TimeoutExpired) as exc:
-        _build_error = f"{' '.join(cmd)}: {exc}"
-        tmp.unlink(missing_ok=True)
-        return False
-    if res.returncode != 0:
-        _build_error = res.stderr.strip() or f"exit code {res.returncode}"
-        tmp.unlink(missing_ok=True)
-        return False
-    os.replace(tmp, so)
-    return True
+    """Where the codec library for this source and command lives."""
+    return _MINIIO.path()
 
 
 def _load():
-    global _lib, _build_failed, _build_error
-    with _lock:
-        if _lib is not None or _build_failed:
-            return _lib
-        so = library_path()
-        if not so.exists() and not _build(so):
-            _build_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(str(so))
-        except OSError as exc:
-            _build_error = str(exc)
-            _build_failed = True
-            return None
-        c_u8p = ctypes.POINTER(ctypes.c_uint8)
-        c_ip = ctypes.POINTER(ctypes.c_int)
-        lib.miniio_decode_jpeg.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(c_u8p),
-            c_ip, c_ip, c_ip]
-        lib.miniio_decode_jpeg.restype = ctypes.c_int
-        lib.miniio_decode_jpeg_scaled.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(c_u8p), c_ip, c_ip, c_ip]
-        lib.miniio_decode_jpeg_scaled.restype = ctypes.c_int
-        lib.miniio_encode_jpeg.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(c_u8p),
-            ctypes.POINTER(ctypes.c_size_t)]
-        lib.miniio_encode_jpeg.restype = ctypes.c_int
-        lib.miniio_free.argtypes = [ctypes.c_void_p]
-        lib.miniio_free.restype = None
-        lib.miniio_abi_version.argtypes = []
-        lib.miniio_abi_version.restype = ctypes.c_int
-        if lib.miniio_abi_version() != ABI_VERSION:
-            _build_error = f"{so.name}: ABI version " \
-                f"{lib.miniio_abi_version()}, not {ABI_VERSION}"
-            _build_failed = True
-            return None
-        _lib = lib
-        return _lib
+    return _MINIIO.load()
 
 
 def available() -> bool:
@@ -112,8 +152,8 @@ def available() -> bool:
 
 
 def build_error() -> Optional[str]:
-    """What the compiler said when the library failed to build, else None."""
-    return _build_error
+    """What the compiler said when the codec failed to build, else None."""
+    return _MINIIO.error
 
 
 def _take(lib, out, w, h, c) -> np.ndarray:
@@ -174,3 +214,124 @@ def encode_jpeg(arr: np.ndarray, quality: int = 92) -> Optional[bytes]:
     data = ctypes.string_at(out, size.value)
     lib.miniio_free(out)
     return data
+
+
+# ---------------------------------------------------------------------------
+# The octree quantizer and its dithers (riemersma.cpp): host-sequential
+# classify / reduce / assign and error diffusion along a Hilbert curve or
+# a serpentine scan
+# ---------------------------------------------------------------------------
+
+def _bind_riemersma(lib) -> Optional[str]:
+    f32p, clong = ctypes.POINTER(ctypes.c_float), ctypes.c_long
+    for fn in ("rz_riemersma_posterize", "rz_floyd_steinberg_posterize"):
+        f = getattr(lib, fn)
+        f.argtypes = [f32p, clong, clong, clong, ctypes.c_int,
+                      ctypes.c_double]
+        f.restype = ctypes.c_int
+    lib.rz_quantize.argtypes = [
+        f32p, clong, clong, clong, clong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_double, f32p, ctypes.POINTER(clong)]
+    lib.rz_quantize.restype = ctypes.c_int
+    lib.rz_remap.argtypes = [f32p, clong, clong, clong, f32p, clong, clong,
+                             ctypes.c_int, ctypes.c_double]
+    lib.rz_remap.restype = ctypes.c_int
+    return None
+
+
+_RIEMERSMA = _Library("riemersma", "riemersma.cpp",
+                      ("g++", "-O2", "-fPIC", "-shared"), (), _bind_riemersma)
+_DITHERS = {"none": 0, "": 0, "riemersma": 1, "floydsteinberg": 2, "fs": 2}
+
+
+def _rz_load():
+    """The quantizer library; raises RuntimeError with the compiler's
+    message when it does not build."""
+    lib = _RIEMERSMA.load()
+    if lib is None:
+        raise RuntimeError(f"native/riemersma.cpp did not build or load: "
+                           f"{_RIEMERSMA.error}")
+    return lib
+
+
+def riemersma_available() -> bool:
+    """True once the quantizer library is built and loaded; it raises
+    RuntimeError with the compiler's message when it does not build."""
+    return _rz_load() is not None
+
+
+def _frame(arr: np.ndarray) -> Tuple[np.ndarray, int, int, int]:
+    """A float32 copy of an (H, W) or (H, W, C) frame and its extents."""
+    out = np.ascontiguousarray(arr, dtype=np.float32).copy()
+    if out.ndim not in (2, 3):
+        raise ValueError(f"native quantizer: one (H, W[, C]) frame, not "
+                         f"{out.shape}")
+    c = 1 if out.ndim == 2 else out.shape[2]
+    return out, out.shape[0], out.shape[1], c
+
+
+def _check(rc: int, fname: str) -> None:
+    if rc != 0:
+        raise ValueError(f"native {fname}: arguments refused (levels < 2, "
+                         f"colors < 1, or not 1-4 channels)")
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _dither_posterize(arr, levels, diffusion, fname) -> np.ndarray:
+    lib = _rz_load()
+    out, h, w, c = _frame(arr)
+    _check(getattr(lib, fname)(_f32p(out), h, w, c, int(levels),
+                               float(diffusion)), fname)
+    return out
+
+
+def riemersma_posterize(arr: np.ndarray, levels: int,
+                        diffusion: float = 1.0) -> np.ndarray:
+    """Dither ``arr`` ((H, W[, C]) float32 in [0, 1], C <= 4) to a
+    ``levels``-per-channel lattice along a Hilbert curve."""
+    return _dither_posterize(arr, levels, diffusion,
+                             "rz_riemersma_posterize")
+
+
+def floyd_steinberg_posterize(arr: np.ndarray, levels: int,
+                              diffusion: float = 1.0) -> np.ndarray:
+    """Serpentine Floyd-Steinberg posterize via the same octree/cache
+    color assignment as the Riemersma path."""
+    return _dither_posterize(arr, levels, diffusion,
+                             "rz_floyd_steinberg_posterize")
+
+
+def octree_quantize(arr: np.ndarray, max_colors: int, dither: str = "riemersma",
+                    tree_depth: int = 0, diffusion: float = 1.0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference-semantics octree quantization (quantize.c QuantizeImage):
+    classify / reduce / colormap / assign, with optional Riemersma or
+    Floyd-Steinberg dithering.  Returns (out_image, palette), the palette
+    as (n, 4) float32 RGBA."""
+    lib = _rz_load()
+    meth = _DITHERS.get(str(dither).lower(), 1)
+    out, h, w, c = _frame(arr)
+    pal = np.zeros((max(int(max_colors), 256), 4), np.float32)
+    n = ctypes.c_long(0)
+    _check(lib.rz_quantize(_f32p(out), h, w, c, int(max_colors), meth,
+                           int(tree_depth), float(diffusion), _f32p(pal),
+                           ctypes.byref(n)), "rz_quantize")
+    return out, pal[:n.value]
+
+
+def octree_remap(arr: np.ndarray, palette: np.ndarray,
+                 dither: str = "riemersma", diffusion: float = 1.0
+                 ) -> np.ndarray:
+    """RemapImage with reference octree/cache semantics.  ``palette`` is
+    (N, C) float32 in [0, 1].  Returns the remapped image."""
+    lib = _rz_load()
+    meth = _DITHERS.get(str(dither).lower(), 1)
+    out, h, w, c = _frame(arr)
+    pal = np.ascontiguousarray(palette, dtype=np.float32)
+    pc = 1 if pal.ndim == 1 else pal.shape[1]
+    _check(lib.rz_remap(_f32p(out), h, w, c, _f32p(pal), pal.shape[0], pc,
+                        meth, float(diffusion)), "rz_remap")
+    return out

@@ -7,6 +7,9 @@ into a build must go into the hash.  These tests compile nothing.
 
 import shutil
 
+import numpy as np
+import pytest
+
 from imagemagick_tpu_torch import _build
 
 
@@ -85,3 +88,69 @@ def test_threads_loading_at_once_build_once(tmp_path, monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert len(builds) == 1 and len(got) == 8
     assert all(lib is got[0] for lib in got)
+
+
+def _quantizer(tmp_path, cmd=("g++", "-O2", "-fPIC", "-shared")):
+    from imagemagick_tpu_torch import native
+
+    return native._Library("riemersma", "riemersma.cpp", cmd, (),
+                           native._bind_riemersma)
+
+
+def test_threads_loading_the_quantizer_at_once_build_once(tmp_path,
+                                                          monkeypatch):
+    """The native libraries share one build helper: threads that reach
+    the quantizer at once build it once (into an empty directory) and
+    all load that library."""
+    import threading
+
+    from imagemagick_tpu_torch import native
+
+    monkeypatch.setattr(native, "_OUT", tmp_path)
+    lib = _quantizer(tmp_path)
+    builds = []
+    orig = lib._build
+    monkeypatch.setattr(lib, "_build",
+                        lambda so: builds.append(so) or orig(so))
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(lib.load()))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=180)
+    assert not any(t.is_alive() for t in threads)
+    assert len(builds) == 1 and len(got) == 8
+    assert got[0] is not None and all(g is got[0] for g in got)
+    assert [p.name for p in tmp_path.iterdir()] == [lib.path().name]
+
+
+def test_a_failed_quantizer_build_raises_with_the_compilers_message(
+        tmp_path, monkeypatch):
+    """Unlike the codec (whose callers fall back to PIL), the quantizer
+    must build: a failed build raises RuntimeError carrying what the
+    compiler said, and leaves no file behind."""
+    from imagemagick_tpu_torch import native
+
+    monkeypatch.setattr(native, "_OUT", tmp_path)
+    lib = _quantizer(tmp_path, ("g++", "-O2", "-fPIC", "-shared",
+                                "-DNOT_A_FLAG", "-no-such-option"))
+    monkeypatch.setattr(native, "_RIEMERSMA", lib)
+    with pytest.raises(RuntimeError, match="no-such-option"):
+        native.octree_quantize(np.zeros((4, 4, 3), np.float32), 4)
+    assert lib.failed and "no-such-option" in lib.error
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_the_codec_still_returns_none_when_it_does_not_build(tmp_path,
+                                                            monkeypatch):
+    from imagemagick_tpu_torch import native
+
+    monkeypatch.setattr(native, "_OUT", tmp_path)
+    lib = native._Library("miniio", "miniio.cpp",
+                          ("g++", "-no-such-option"), ("-ljpeg",),
+                          native._bind_miniio)
+    monkeypatch.setattr(native, "_MINIIO", lib)
+    assert not native.available()
+    assert native.decode_jpeg(b"\xff\xd8") is None
+    assert "no-such-option" in native.build_error()

@@ -184,7 +184,7 @@ def test_materialize_carries_metadata():
     (["in.png"], "'Host layers' (io/)"),
     (["-resize", "10x10", "out.jpg"], "'Host layers' (io/)"),
     (["-charcoal", "2"], "'The other op families under ops/'"),
-    (["-fx", "u*2"], "'The other op families under ops/'"),
+    (["-segment", "1x1.5"], "'The other op families under ops/'"),
     (["-vignette", "0x2"], "'Host layers'"),
     (["-draw", "circle 5,5 2,2"], "'The other op families under ops/'"),
     (["-filter", "box"], "'The other op families under ops/'"),
@@ -765,3 +765,216 @@ def test_jax_cli_keeps_stale_shapes_after_shape_changes(argv, swapped):
     assert (ts.images[0].height, ts.images[0].width) == swapped
     assert (js.images[0].height, js.images[0].width) != swapped
     assert tuple(tm.materialize_all(ts.images)[0].data.shape[:2]) == swapped
+
+
+# the channel, list, quantizer and attribute options and the -channel,
+# -metric, -dither and -quantize settings.  Each is held to the JAX CLI
+# bit for bit but where a float32 reduction or transcendental differs by
+# an ulp between XLA and PyTorch, or where the JAX CLI jits a chain of
+# per-pixel ops and the port runs them eagerly (-fx, -compare's
+# distortion, -morph's and the sequence reductions' sums, the tone ops
+# and blurs under a mask: 1e-6), where K1 resizes (the fused route, >= 60
+# dB as test_materialize_all_matches_jax holds it, and at most 0.1 % of
+# the pixels further than 1e-5 apart), and where an option takes such
+# values on to a selection (a threshold, the octree of -colors under
+# -quantize or after a resize): at most 0.1 % of the pixels further than
+# 1e-5 apart.
+CHANNEL_ARGVS = [
+    ["-channel", "R", "-negate"], ["-channel", "RG", "-gamma", "2"],
+    ["-channel", "Red,Blue", "-threshold", "50%"],
+    ["-channel", "All", "-negate"], ["-channel", "gb", "-level", "10%,90%"],
+    ["-resize", "32x24", "-channel", "B", "-negate"],
+    ["-channel", "R", "-resize", "32x24", "-gaussian-blur", "0x1"],
+    ["-channel", "bogus", "-gaussian-blur", "0x1"],
+    ["-channel", "G", "-blur", "0x1", "-flip"],
+    ["-resize", "40x40!", "-channel", "B", "-transpose", "-flop"],
+    ["-separate"], ["-channel", "R", "-separate"],
+    ["-channel", "GB", "-separate", "-combine"], ["-separate", "-combine"],
+    ["-alpha", "set"], ["-alpha", "off"], ["-alpha", "extract"],
+    ["-alpha", "copy"], ["-alpha", "transparent"], ["-matte"], ["+matte"],
+    ["-background", "navy", "-alpha", "set", "-alpha", "remove"],
+    ["-alpha", "set", "-alpha", "opaque", "-alpha", "deactivate"],
+    ["-channel-fx", "red<=>blue"], ["-channel-fx", "rgb=>bgr"],
+    ["-channel-fx", "red=>green,blue=>red"],
+    ["-posterize", "4"], ["+dither", "-posterize", "4"],
+    ["-dither", "FloydSteinberg", "-posterize", "3"],
+    ["-dither", "ordered", "-posterize", "4"],
+    ["-dither", "none", "-posterize", "5"], ["-colors", "16"],
+    ["+dither", "-colors", "8"], ["-dither", "fs", "-colors", "32"],
+    ["-kmeans", "8"], ["-kmeans", "4x20+0.001"], ["-unique-colors"],
+    ["-posterize", "3", "-unique-colors"], ["-type", "grayscale"],
+    ["-type", "bilevel"], ["-type", "palette"], ["-type", "truecolor"],
+    ["-separate", "-type", "truecolor"],
+    ["-fx", "(u+v)/2"], ["-fx", "u.r*0.5+p[1,0]*0.5"], ["-fx", "i/w*v"],
+    ["-morph", "2"], ["-evaluate-sequence", "mean"], ["-average"],
+    ["-maximum"], ["-minimum"], ["-evaluate-sequence", "median"],
+    ["-separate", "-average"],
+]
+CLI_CHAIN_A = ["-resize", "32x32", "-channel", "R", "-negate", "-channel",
+               "All", "-channel-fx", "red<=>blue", "-alpha", "set",
+               "-posterize", "8", "-type", "grayscale"]
+CLI_CHAIN_B = [["-resize", "32x32", "-separate", "-combine", "-colors", "64"],
+               ["-resize", "32x32", "-fx", "(u+v)/2"],
+               ["-resize", "32x32", "-metric", "rmse", "-compare"]]
+_ULP_OPTS = ("-fx", "-morph", "-evaluate-sequence", "-average", "-compare",
+             "-gamma", "-level", "-gaussian-blur", "-blur")
+_SELECT_OPTS = ("-quantize", "-threshold", "-resize")
+
+
+def _assert_channel_close(argv, got, want, select=False):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert repr(g.spec) == repr(w.spec)
+        g, w = g.data.numpy(), np.asarray(w.data)
+        assert g.shape == w.shape, argv
+        if select or any(o in argv for o in _SELECT_OPTS):
+            d = np.abs(g - w).reshape(-1, g.shape[-1])
+            assert (d > 1e-5).any(-1).mean() <= 1e-3, argv
+            assert _psnr(g, w) >= 60.0, argv
+        elif any(o in argv for o in _ULP_OPTS):
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("argv", CHANNEL_ARGVS + [CLI_CHAIN_A] + CLI_CHAIN_B,
+                         ids=" ".join)
+def test_channel_and_quantize_options_match_jax(argv, capsys):
+    images = [_natural(40, 56, s) for s in range(2)]
+    js, ts = _states(images)
+    jm.process(list(argv), js)
+    jerr = capsys.readouterr().err
+    tm.process(list(argv), ts)
+    terr = capsys.readouterr().err
+    assert _tags(ts) == _tags(js)
+    assert [(li.height, li.width) for li in ts.images] == \
+        [(li.height, li.width) for li in js.images]
+    assert ts.settings == {k: v for k, v in js.settings.items()
+                           if k in ts.settings}
+    if "-compare" in argv:      # the distortion printed on stderr
+        np.testing.assert_allclose(float(terr), float(jerr), rtol=1e-6)
+    _assert_channel_close(argv, tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images))
+
+
+@pytest.mark.parametrize("argv", [
+    ["-alpha", "off"], ["-alpha", "remove"], ["-background", "red", "-alpha",
+                                              "flatten"],
+    ["-alpha", "extract"], ["-alpha", "copy"], ["-alpha", "opaque"],
+    ["-channel", "A", "-negate"], ["-channel", "rgba", "-separate"],
+    ["-posterize", "4"], ["-colors", "16"], ["-kmeans", "4"],
+    ["-type", "palette"], ["-type", "grayscale"], ["-channel-fx", "a<=>r"],
+    ["-average"], ["-morph", "1"]], ids=" ".join)
+def test_channel_options_on_alpha_images_match_jax(argv):
+    """RGBA images; -type palette takes k-means there (float64 cluster
+    sums in the port): the selection rule."""
+    images = [_natural(40, 56, s, 4) for s in range(2)]
+    js, ts = _states(images, alpha=True)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert _tags(ts) == _tags(js)
+    _assert_channel_close(argv, tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images),
+                          select="palette" in argv)
+
+
+@pytest.mark.parametrize("metric", ["ae", "mae", "mse", "rmse", "pae", "psnr",
+                                    "ncc", "ssim", "dssim", "fuzz", "dpc",
+                                    "phase", "mepp", "phash"])
+def test_compare_option_prints_each_metric_as_jax(metric, capsys):
+    images = [_natural(40, 56, 0), _natural(40, 56, 1)]
+    js, ts = _states(images)
+    jm.process(["-metric", metric, "-compare"], js)
+    jerr = float(capsys.readouterr().err)
+    tm.process(["-metric", metric, "-compare"], ts)
+    terr = float(capsys.readouterr().err)
+    tol = 1e-5 if metric == "dssim" else 1e-6
+    np.testing.assert_allclose(terr, jerr, rtol=tol)
+    assert len(ts.images) == 1
+    np.testing.assert_array_equal(ts.images[0].image.data.numpy(),
+                                  np.asarray(js.images[0].image.data))
+
+
+def test_mixed_lists_are_normalized_as_jax():
+    """-average over a gray, an RGB and an RGBA image: gray goes to RGB
+    and an opaque alpha is added, as in the JAX CLI."""
+    js, ts = jm.CLIState(), tm.CLIState()
+    g = _natural(24, 32, 0, 1)
+    c = _natural(24, 32, 1)
+    a = _natural(24, 32, 2, 4)
+    for st, mod, img_cls, spec_cls, conv in (
+            (js, jm, JImage, JSpec, jnp.asarray),
+            (ts, tm, TImage, TSpec, torch.from_numpy)):
+        st.images.append(mod.LazyImage(img_cls(conv(g), spec_cls(
+            colorspace="gray"))))
+        st.images.append(mod.LazyImage(img_cls(conv(c), spec_cls(
+            colorspace="srgb"))))
+        st.images.append(mod.LazyImage(img_cls(conv(a), spec_cls(
+            colorspace="srgb", alpha=True))))
+    jm.process(["-average"], js)
+    tm.process(["-average"], ts)
+    _assert_channel_close(["-average"], tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images))
+
+
+def test_quantize_setting_colors_in_another_space():
+    """-quantize lab -colors 16: the octree runs on Lab values that the
+    two packages convert an ulp apart, so a few pixels may fall in
+    another cell (at most 0.1 %)."""
+    images = [_natural(40, 56, s) for s in range(2)]
+    argv = ["-quantize", "lab", "-colors", "16"]
+    js, ts = _states(images)
+    jm.process(argv, js)
+    tm.process(argv, ts)
+    assert ts.settings["quantize"] == js.settings["quantize"] == "lab"
+    _assert_channel_close(argv, tm.materialize_all(ts.images),
+                          jm.materialize_all(js.images))
+
+
+def test_channel_settings_are_stored_as_the_jax_cli_stores_them():
+    js, ts = _states([_natural(8, 8, 0)])
+    argv = ["-channel", "RG", "-metric", "AE", "-dither", "FloydSteinberg",
+            "-quantize", "YCbCr", "+dither", "-channel", "All"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    for k in ("channel", "metric", "dither", "quantize"):
+        assert ts.settings[k] == js.settings[k]
+    assert ts.settings["dither"] == "none"
+
+
+@pytest.mark.parametrize("setting,nch,want", [
+    ("default", 3, None), ("All", 4, None), ("R", 3, [0]),
+    ("RGB", 4, [0, 1, 2]), ("Red,Blue", 3, [0, 2]), ("A", 4, [3]),
+    ("alpha", 3, [2]), ("rgba", 3, [0, 1, 2]), ("cmyk", 4, [0, 1, 2, 3]),
+    ("gray", 3, [1]), ("Red|Green", 3, [0, 1]), ("k", 3, None),
+    ("bogus", 3, None)])
+def test_channel_indices_equal_jax(setting, nch, want):
+    assert tm._channel_indices(setting, nch) == \
+        jm._channel_indices(setting, nch) == want
+
+
+def test_remap_raises_naming_io_and_the_walks():
+    st = tm.CLIState()
+    st.images.append(tm.LazyImage(TImage(torch.zeros(8, 8, 3))))
+    for opt in ("-remap", "-map"):
+        with pytest.raises(NotImplementedError,
+                           match="io/.*palette error-diffusion walks"):
+            tm.process([opt, "palette.png"], st)
+
+
+def test_chain_a_fuses_its_resize_once(monkeypatch):
+    """Chain A's resize over the group is ONE fused call; the masked
+    negate, the channel swap, the alpha, the posterize and the type run
+    image by image."""
+    seen = []
+    orig = tdsp.try_fused_batch_array
+    monkeypatch.setattr(tdsp, "try_fused_batch_array",
+                        lambda x, *a, **k: seen.append(tuple(x.shape))
+                        or orig(x, *a, **k))
+    ts = tm.CLIState()
+    _add(jm.CLIState(), ts, [_natural(40, 56, s) for s in range(4)])
+    tm.process(list(CLI_CHAIN_A), ts)
+    out = tm.materialize_all(ts.images)
+    assert seen == [(4, 40, 56, 3)]
+    assert all(tuple(o.data.shape) == (23, 32, 1) for o in out)
+    assert all(o.spec.colorspace == "gray" for o in out)

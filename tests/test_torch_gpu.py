@@ -33,7 +33,12 @@ flips: equal on the card.  Distortions, shears and the samplers agree
 within 1e-5 but on at most 0.1 % of the pixels, where a selection (an
 EWA bin, a scan bound, a bilinear floor) falls otherwise; the deskew
 angle and the liquid-rescale seams are equal; the EWA mask is the CPU's
-at Q just below 0 and at and above 1024.
+at Q just below 0 and at and above 1024.  The channel ops are equal on
+the card; the compare metrics within 1e-5 relative of the CPU's (float32
+sums in another order); fx, k-means, ``kmeans_reference``'s device path
+and ``set_image_type`` at most 0.1 % of the pixels or labels apart; the
+native posterize (host) and ``remap`` equal; the CLI's channel chains
+one K1 launch each, at most 0.1 % apart from the CPU run.
 """
 
 import numpy as np
@@ -1033,3 +1038,126 @@ def test_deskew_and_liquid_rescale_equal_on_card(dev):
     x = torch.from_numpy(_rand((2, 40, 48, 3), 26))
     assert torch.equal(dt.liquid_rescale(x.to(dev), 40, 40).cpu(),
                        dt.liquid_rescale(x, 40, 40))
+
+
+# -- channel, compare, fx, quantize and attribute on the card -------------
+
+def test_channel_ops_equal_on_card(dev):
+    """Slices, indexes and concatenations: equal on the card."""
+    from imagemagick_tpu_torch.ops import channel as ch
+
+    x = torch.from_numpy(_rand((2, 96, 128, 4), 30))
+    xd = x.to(dev)
+    for expr in ("red<=>blue", "rgba=>bgra", "g=>r,b=>g"):
+        assert torch.equal(ch.channel_fx(xd, expr).cpu(),
+                           ch.channel_fx(x, expr))
+    for op in ("set", "off", "remove", "extract", "copy", "transparent"):
+        for alpha in (False, True):
+            assert torch.equal(ch.set_alpha(xd, op, alpha).cpu(),
+                               ch.set_alpha(x, op, alpha)), (op, alpha)
+    assert torch.equal(ch.combine(ch.separate_all(xd)).cpu(), x)
+    assert torch.equal(ch.channel_mean(xd).cpu(), ch.channel_mean(x))
+
+
+def test_compare_metrics_on_card(dev):
+    """Each metric within 1e-5 relative of the CPU's (float32 sums in
+    another order; dssim through 1 - 2 dssim); ae equal."""
+    from imagemagick_tpu_torch.ops import compare as cm
+
+    a = torch.from_numpy(_rand((2, 96, 128, 3), 31))
+    b = torch.clamp(a + 0.05 * torch.from_numpy(_rand((2, 96, 128, 3), 32))
+                    - 0.025, 0, 1)
+    for m in sorted(cm._METRICS):
+        aa, bb = (a[0], b[0]) if m == "phash" else (a, b)
+        got = float(cm.get_distortion(aa.to(dev), bb.to(dev), m))
+        want = float(cm.get_distortion(aa, bb, m))
+        if m == "ae":
+            assert got == want
+        elif m == "dssim":
+            assert abs((1 - 2 * got) - (1 - 2 * want)) <= 1e-5
+        else:
+            assert abs(got - want) <= 1e-5 * max(abs(want), 1e-2), m
+    x = a[0]
+    (y, xx), _ = cm.similarity_image(x.to(dev), x[20:52, 30:70].to(dev))
+    assert (y, xx) == (20, 30)
+
+
+def test_fx_on_card(dev):
+    """fx on the card: at most 0.1 % of the values further than 1e-5 from
+    the CPU's; rand by moments and equal channels."""
+    from imagemagick_tpu_torch.ops import fx
+
+    u = torch.from_numpy(_rand((2, 96, 128, 3), 33))
+    v = torch.from_numpy(_rand((2, 96, 128, 3), 34))
+    for expr in ("u*2-v/3", "u.g", "u>0.5?v:1-u", "i/w*j/h", "(u+v)/2",
+                 "p[1,-1]", "p{5,7}", "sin(u*pi)*pow(v,2.2)",
+                 "t=u*u; t+v", "hue", "luminance", "u[1]*0.5",
+                 "gcd(u*20, 12)", "round(u*7)/7"):
+        got = fx.fx([u.to(dev), v.to(dev)], expr)
+        want = fx.fx([u, v], expr)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert _selected_apart(got, want) <= 1e-3, expr
+    r = fx.fx(u.to(dev), "rand()")
+    assert torch.equal(r[..., 0], r[..., 2])
+    assert abs(float(r.mean()) - 0.5) < 0.01
+    assert abs(float(r.var()) - 1 / 12) < 0.005
+
+
+def test_quantize_on_card(dev):
+    """posterize by rounding equal; the native walks (host) equal; k-means
+    labels at most 0.1 % apart; unique colours exact; kmeans_reference's
+    device path at most 0.1 % of the pixels apart."""
+    from imagemagick_tpu_torch.ops import quantize as qz
+
+    x = torch.from_numpy(_rand((2, 96, 128, 3), 35))
+    xd = x.to(dev)
+    for d in (False, True, "fs"):
+        got = qz.posterize(xd, 4, d)
+        assert got.is_cuda and torch.equal(got.cpu(), qz.posterize(x, 4, d))
+    pal, lab = qz.kmeans(xd, 16)
+    cpal, clab = qz.kmeans(x, 16)
+    assert float((lab.cpu() != clab).float().mean()) <= 1e-3
+    assert float((pal.cpu() - cpal).abs().max()) <= 1e-5
+    assert int(qz.unique_colors_count(xd)) == int(qz.unique_colors_count(x))
+    big = torch.from_numpy(_rand((1088, 1024, 3), 36))
+    stats, cstats = {}, {}
+    got = qz.kmeans_reference(big.to(dev), 4, 8, stats=stats)
+    want = qz.kmeans_reference(big, 4, 8, stats=cstats)
+    assert stats["route"] == "device"
+    assert _selected_apart(got, want) <= 1e-3
+    assert torch.equal(qz.remap(xd, pal).cpu(), qz.remap(x, pal.cpu()))
+
+
+def test_attribute_on_card(dev):
+    from imagemagick_tpu_torch.ops import attribute as at
+
+    x = torch.from_numpy(np.round(_rand((96, 128, 3), 37) * 3) / 3)
+    xd = x.to(dev)
+    assert at.image_type(xd) == at.image_type(x) == "palette"
+    assert at.image_depth(xd) == at.image_depth(x)
+    for t in ("bilevel", "grayscale", "palette", "truecolor"):
+        got = at.set_image_type(xd, t)
+        assert got.is_cuda
+        assert _selected_apart(got, at.set_image_type(x, t)) <= 1e-3, t
+    assert at.bounding_box(xd) == at.bounding_box(x)
+
+
+def test_cli_channel_chains_on_card(dev):
+    """Chain A (one K1 launch for the group's resize) and chain B's list
+    ops, each against the CPU run."""
+    argv = ("-resize 64x64 -channel R -negate -channel All -channel-fx "
+            "red<=>blue -alpha set -posterize 8 -type grayscale").split()
+    x = torch.from_numpy(_rand((3, 96, 128, 3), 38))
+    got, launched = _cli_chain(argv, x, dev)
+    want, _ = _cli_chain(argv, x, "cpu")
+    assert launched["k1"] == 1 and sum(launched.values()) == 1
+    assert got.shape == (3, 48, 64, 1)
+    assert _selected_apart(got, want) <= 1e-3
+    for argv, n in (("-resize 64x64 -separate -combine -colors 64", 1),
+                    ("-resize 64x64 -fx (u+v)/2", 2),
+                    ("-resize 64x64 -metric rmse -compare", 2)):
+        got, launched = _cli_chain(argv.split(), x[:n], dev)
+        want, _ = _cli_chain(argv.split(), x[:n], "cpu")
+        assert launched["k1"] == 1 and sum(launched.values()) == 1, argv
+        assert got.shape == want.shape == (1, 48, 64, 3), argv
+        assert _selected_apart(got, want) <= 1e-3, argv

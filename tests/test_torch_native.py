@@ -120,3 +120,90 @@ def test_two_processes_build_at_once(tmp_path):
         assert out.split()[:4] == ["True", "(8,", "8,", "3)"], out
     names = {out.split()[-1] for out, _ in outs}
     assert [p.name for p in tmp_path.iterdir()] == list(names)
+
+
+# -- the octree quantizer (riemersma.cpp): the same source built with the
+# same flags (g++ -O2 -fPIC -shared) as the JAX package's, so the same
+# float32 input gives the same bits
+
+def _frame(shape, seed=0):
+    return np.random.default_rng(seed).random(shape).astype(np.float32)
+
+
+def test_quantizer_builds_under_a_hashed_name():
+    assert tn.riemersma_available()
+    path = tn._RIEMERSMA.path()
+    assert path.exists() and path.parent == tn._OUT
+    assert path.name.startswith("libriemersma_") and tn._RIEMERSMA.error is None
+    # the port's copy differs from the JAX package's only in comments
+    def code(path):
+        return [ln for ln in path.read_text().splitlines()
+                if not ln.lstrip().startswith("//")]
+
+    assert code(tn._HERE / "riemersma.cpp") == \
+        code(REPO / "imagemagick_tpu" / "native" / "riemersma.cpp")
+
+
+@pytest.mark.parametrize("colors", [2, 16, 256])
+@pytest.mark.parametrize("dither", ["none", "riemersma", "fs",
+                                    "FloydSteinberg", ""])
+@pytest.mark.parametrize("shape", [(48, 64, 3), (40, 56, 1), (33, 47, 4)],
+                         ids=str)
+def test_octree_quantize_equals_jax(colors, dither, shape):
+    x = _frame(shape, colors)
+    out, pal = tn.octree_quantize(x, colors, dither)
+    jout, jpal = jn.octree_quantize(x, colors, dither)
+    assert out.dtype == np.float32 and pal.shape[1] == 4
+    assert len(pal) <= colors
+    np.testing.assert_array_equal(out, jout)
+    np.testing.assert_array_equal(pal, jpal)
+
+
+@pytest.mark.parametrize("depth", [2, 3, 5, 8])
+def test_octree_quantize_tree_depth_equals_jax(depth):
+    x = _frame((48, 64, 3), 3)
+    for got, want in zip(tn.octree_quantize(x, 8, "none", depth),
+                         jn.octree_quantize(x, 8, "none", depth)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("levels", [2, 3, 8])
+@pytest.mark.parametrize("shape", [(48, 64, 3), (40, 56), (33, 47, 4)],
+                         ids=str)
+def test_dithered_posterize_equals_jax(levels, shape):
+    x = _frame(shape, levels)
+    np.testing.assert_array_equal(tn.riemersma_posterize(x, levels),
+                                  jn.riemersma_posterize(x, levels))
+    np.testing.assert_array_equal(tn.floyd_steinberg_posterize(x, levels),
+                                  jn.floyd_steinberg_posterize(x, levels))
+    np.testing.assert_array_equal(tn.riemersma_posterize(x, levels, 0.5),
+                                  jn.riemersma_posterize(x, levels, 0.5))
+
+
+@pytest.mark.parametrize("dither", ["none", "riemersma", "fs"])
+@pytest.mark.parametrize("pal_c", [3, 4, 1])
+def test_octree_remap_equals_jax(dither, pal_c):
+    x = _frame((40, 56, 3), 5)
+    pal = _frame((9, pal_c), 6)
+    np.testing.assert_array_equal(tn.octree_remap(x, pal, dither),
+                                  jn.octree_remap(x, pal, dither))
+
+
+def test_refused_arguments_raise_where_jax_returns_none():
+    x = _frame((8, 8, 3))
+    with pytest.raises(ValueError, match="arguments refused"):
+        tn.riemersma_posterize(x, 1)
+    assert jn.riemersma_posterize(x, 1) is None
+    with pytest.raises(ValueError, match="arguments refused"):
+        tn.octree_quantize(_frame((8, 8, 5)), 4)
+    assert jn.octree_quantize(_frame((8, 8, 5)), 4) is None
+    with pytest.raises(ValueError, match="one"):
+        tn.octree_quantize(_frame((2, 8, 8, 3)), 4)
+
+
+def test_quantizer_inputs_stay_untouched():
+    x = _frame((24, 32, 3), 7)
+    before = x.copy()
+    tn.octree_quantize(x, 8)
+    tn.riemersma_posterize(x, 4)
+    np.testing.assert_array_equal(x, before)
