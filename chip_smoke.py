@@ -109,6 +109,32 @@ and the serve daemon):
   -compare``), one K1 launch a run; each against the CPU run (a chain
   with a native stage after the resize: its rest replayed on the CPU
   from the card's resize, equal), the per-image marginal of chain A.
+* vision — on 8 frames of 1080x1920x3 (a mosaic of flat blocks, a
+  shading and noise): Canny (its blur one K3 launch; the rest replayed on
+  the CPU from the card's blur, equal; the whole CPU run's pixels apart
+  counted), mean shift (a 270x480 crop of frame 0 equal to the CPU's),
+  segment (frame 0 equal to the CPU's) and the GLCM (counts and metrics
+  equal); on 16 binary letter pages of 1056x816x1, CCL at 4 and 8
+  neighbours (two pages' labels equal to the CPU's), the merge of objects
+  under 24 pixels (host), the area threshold and the Hough lines (page 0
+  equal); ms an image each.
+* draw — one MVG program of every primitive family (gradient, pattern,
+  roundrectangle, circle, ellipse, arc, both fill rules, bezier, path,
+  dashed polylines with each cap and join, a clip path, text) over 8
+  frames of 1080p, frame 0 within 1e-6 of the CPU's float64 run; then
+  annotate, frame, raise, oil paint (radius 3), opaque and transparent
+  paint and the flood fill, frame 0 equal to the CPU's; the font used.
+* cli_vision — 16 scanned pages through ``-auto-threshold otsu -define
+  connected-components:area-threshold=24 -connected-components 8`` (one
+  K4 launch; two pages equal to the CPU run) and 8 frames through
+  ``-resize 50% -canny 0x1+10%+30% -hough-lines 9x9+150`` (one K1 launch,
+  one K3 launch an image: the resize within K1's tolerance of the CPU's,
+  Canny replayed from the card's blur and the lines from the card's edges
+  equal, the whole CPU chain counted).
+* cli_draw — 8 frames through ``-resize 50% -fill gold -stroke navy
+  -strokewidth 3 -draw ... -pointsize 48 -annotate +20+60 ... -frame
+  12x12+3+3`` (one K1 launch; the rest replayed on the CPU from the card's
+  resize equal).
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -316,6 +342,57 @@ CLI_CHANNEL_B = [(["-resize", "256x256", "-separate", "-combine", "-colors",
                  (["-resize", "256x256", "-fx", "(u+v)/2"], 2),
                  (["-resize", "256x256", "-metric", "rmse", "-compare"], 2)]
 CLI_CHANNEL_N1, CLI_CHANNEL_N2 = 8, 32
+# segment, feature, vision, paint, draw and decorate
+MS_CROP = (270, 480)    # mean shift held to the CPU on this crop of frame 0
+CCL_CPU_PAGES = 2       # pages whose labels the CPU run reproduces
+SPECKS = 0.002          # share of a page's pixels flipped into specks
+AREA_MIN = 24           # connected-components:area-threshold
+PAGE_HOUGH = (9, 9, 0)  # -hough-lines WxH+0 on the pages (threshold H/4)
+FUZZ = 0.2              # the paint functions' fuzz
+DRAW_TOL = 1e-6         # draw's float64 coverage blended in float32
+# one MVG program of every primitive family at 1080p
+MVG_1080 = (
+    "push defs "
+    "push gradient sky linear 0,0 1919,0 stop-color '#2050a0' 0 "
+    "stop-color '#f0c060' 1 pop gradient "
+    "push pattern checks 0 0 40 40 fill white rectangle 0,0 19,19 "
+    "fill gray30 rectangle 20,20 39,39 pop pattern "
+    "push clip-path lens circle 1500,820 1500,1000 pop clip-path pop defs "
+    "fill 'url(#sky)' rectangle 40,40 900,300 "
+    "fill 'url(#checks)' stroke black stroke-width 2 "
+    "roundrectangle 960,40 1880,300 40,30 "
+    "fill tomato stroke navy stroke-width 4 circle 250,520 250,680 "
+    "fill gold stroke black stroke-width 3 ellipse 700,520 200,110 0,360 "
+    "fill none stroke darkgreen stroke-width 6 arc 950,380 1350,660 20,300 "
+    "fill-rule nonzero fill purple stroke none "
+    "polygon 1500,340 1620,700 1380,460 1640,460 1420,700 "
+    "fill-rule evenodd fill teal "
+    "polygon 1760,340 1880,700 1640,460 1900,460 1680,700 "
+    "fill none stroke maroon stroke-width 5 "
+    "bezier 60,1000 300,700 600,1050 900,760 "
+    "fill orange stroke black stroke-width 2 path 'M 100 760 C 200 720 300 "
+    "720 400 780 S 500 900 380 960 Q 250 1000 180 900 T 100 760 Z' "
+    "fill none stroke blue stroke-width 8 stroke-dasharray 30 12 "
+    "stroke-linecap butt stroke-linejoin miter "
+    "polyline 1000,760 1100,880 1200,770 1300,900 "
+    "stroke red stroke-linecap round stroke-linejoin round "
+    "polyline 1000,960 1100,1040 1200,960 1300,1050 "
+    "stroke green stroke-linecap square stroke-linejoin bevel "
+    "polyline 1000,1060 1100,1000 1200,1070 1300,1010 "
+    "stroke-dasharray none push graphic-context clip-path url(#lens) "
+    "fill white stroke none rectangle 1300,620 1700,1020 fill black "
+    "font-size 64 text 1330,850 'clip' pop graphic-context "
+    "fill black stroke none font-size 48 text 60,1060 'draw 1080p'")
+CLI_VISION_PAGES = ["-auto-threshold", "otsu", "-define",
+                    f"connected-components:area-threshold={AREA_MIN}",
+                    "-connected-components", "8"]
+CLI_VISION_FRAMES = ["-resize", "50%", "-canny", "0x1+10%+30%",
+                     "-hough-lines", "9x9+150"]
+CLI_DRAW = ["-resize", "50%", "-fill", "gold", "-stroke", "navy",
+            "-strokewidth", "3", "-draw",
+            "circle 240,135 240,215 polygon 500,40 700,240 420,200",
+            "-pointsize", "48", "-annotate", "+20+60", "imagemagick",
+            "-frame", "12x12+3+3"]
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -1975,6 +2052,334 @@ def cli_channel_phase(dev, gen, name_limit: str) -> dict:
     return {"k1": k1}
 
 
+def _scenes(gen, dev, n: int) -> torch.Tensor:
+    """n frames of H2 x W2 x 3 in 8-bit levels: a mosaic of flat 60-pixel
+    blocks (straight edges for Canny and Hough), a smooth shading and mild
+    noise (pixels from ``gen``)."""
+    blocks = torch.rand((n, H2 // 60 + 1, W2 // 60 + 1, 3), generator=gen,
+                        device=dev)
+    mosaic = blocks.repeat_interleave(60, 1).repeat_interleave(60, 2)
+    yy = torch.arange(H2, device=dev)[:, None] / H2
+    xx = torch.arange(W2, device=dev)[None, :] / W2
+    shade = 0.15 * torch.sin(6.0 * yy + 3.0 * xx)[None, ..., None]
+    noise = 0.01 * torch.randn((n, H2, W2, 3), generator=gen, device=dev)
+    x = 0.7 * mosaic[:, :H2, :W2] + shade + noise + 0.15
+    return torch.round(x.clamp(0.0, 1.0) * 255.0) / 255.0
+
+
+def _pages(gen, dev, n: int) -> torch.Tensor:
+    """n binary letter pages of H3 x W3 x 1: ``_scans``' glyph blocks
+    thresholded at half intensity, SPECKS of the pixels flipped."""
+    page = (_scans(gen, dev, n).mean(-1, keepdim=True) > 0.5).float()
+    flip = torch.rand(page.shape, generator=gen, device=dev) < SPECKS
+    return torch.where(flip, 1.0 - page, page)
+
+
+def _once_ms(fn) -> float:
+    """CUDA-event ms of one call of fn (host work included)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _equal_count(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Elements of ``got`` (on the card) that differ from ``want``."""
+    require(got.shape == want.shape, f"shapes {got.shape} {want.shape}")
+    return int((got.cpu() != want).sum())
+
+
+def vision_phase(dev, gen, name_limit: str) -> dict:
+    """vision: on N2 frames of 1080x1920x3 Canny (its blur one K3 launch;
+    the rest replayed on the CPU from the card's blur, equal; the whole
+    CPU run's pixels apart counted), mean shift (equal to the CPU on a
+    MS_CROP crop of frame 0), segment (frame 0 equal to the CPU's) and
+    the GLCM (counts and metrics equal); on N3 binary letter pages CCL at
+    4 and 8 neighbours (pages [:CCL_CPU_PAGES] equal to the CPU's), the
+    merge of objects under AREA_MIN pixels (host, each page), the area
+    threshold and HoughLineImage (page 0 equal).  ms an image each."""
+    from imagemagick_tpu_torch.ops import blur as bl
+    from imagemagick_tpu_torch.ops import enhance as en
+    from imagemagick_tpu_torch.ops import feature as ft
+    from imagemagick_tpu_torch.ops import segment as sg
+    from imagemagick_tpu_torch.ops import vision as vi
+
+    frames = _scenes(gen, dev, N2)
+    cpu0 = frames[:1].cpu()
+    canny = (0.0, 1.0, 0.1, 0.3)
+    reset_launches()
+    edges = ft.canny_edge(frames, *canny)
+    torch.cuda.synchronize()
+    la = launched()
+    require(la["k3"] == 1 and sum(la.values()) == 1,
+            f"vision canny launches {la}")
+    k3 = la["k3"]
+    ms = _call_ms(lambda: ft.canny_edge(frames, *canny)) / N2
+    smooth = bl.blur(en.grayscale(frames), 0.0, 1.0)[..., 0].cpu()
+    replay = ft.canny_from_smooth(smooth, 0.1, 0.3)
+    n_replay = _equal_count(edges[..., 0] > 0, replay)
+    require(n_replay == 0, f"vision canny: {n_replay} px apart from the "
+            f"replay from the card's blur")
+    n_full = _equal_count(edges, ft.canny_edge(frames.cpu(), *canny))
+    print(f"vision canny_edge{canny} on {tuple(frames.shape)}: launches {la}, "
+          f"{ms:.4f} ms an image, {int(edges.sum())} edge px; the rest "
+          f"replayed on the CPU from the card's blur: {n_replay} px apart; "
+          f"the whole CPU run: {n_full} of {edges.numel()} px apart "
+          f"[{name_limit}]")
+    del edges, smooth, replay
+
+    reset_launches()
+    ms = _once_ms(lambda: ft.mean_shift(frames, 7, 7, 0.1)) / N2
+    require(sum(launched().values()) == 0, f"mean shift {launched()}")
+    crop = frames[:1, :MS_CROP[0], :MS_CROP[1]]
+    n_ms = _equal_count(ft.mean_shift(crop, 7, 7, 0.1),
+                        ft.mean_shift(crop.cpu(), 7, 7, 0.1))
+    require(n_ms == 0, f"mean shift: {n_ms} values apart")
+    print(f"vision mean_shift(7x7, 0.1) on {tuple(frames.shape)}: {ms:.4f} "
+          f"ms an image (one call); a {MS_CROP[0]}x{MS_CROP[1]} crop of "
+          f"frame 0 vs the CPU: {n_ms} of {crop.numel()} values apart "
+          f"[{name_limit}]")
+
+    reset_launches()
+    out = sg.segment(frames)
+    torch.cuda.synchronize()
+    require(sum(launched().values()) == 0 and out.shape == frames.shape,
+            f"segment {launched()} {out.shape}")
+    ms = _once_ms(lambda: sg.segment(frames)) / N2
+    n_colors = int(torch.unique(out.reshape(-1, C), dim=0).shape[0])
+    n_seg = _equal_count(sg.segment(frames[:1]), sg.segment(cpu0))
+    require(n_seg == 0, f"segment: {n_seg} values apart")
+    print(f"vision segment on {tuple(frames.shape)}: {ms:.4f} ms an image "
+          f"(one call), {n_colors} cluster colors; frame 0 alone vs the "
+          f"CPU: {n_seg} of {cpu0.numel()} values apart [{name_limit}]")
+    del out
+
+    counts = ft.glcm_counts(frames)
+    require(torch.equal(counts.cpu(), ft.glcm_counts(frames.cpu())),
+            "glcm counts")
+    got, want = ft.glcm_features(frames), ft.glcm_features(frames.cpu())
+    require(all(float(got[k]) == float(want[k]) for k in want),
+            "glcm features")
+    ms = _call_ms(lambda: ft.glcm_features(frames)) / N2
+    print(f"vision glcm_features on {tuple(frames.shape)}: {ms:.4f} ms an "
+          f"image; counts (sum {int(counts.sum())}) and the six metrics "
+          f"equal to the CPU's; contrast {float(got['contrast']):.6f} "
+          f"[{name_limit}]")
+    del frames, cpu0
+
+    pages = _pages(gen, dev, N3)
+    want_pages = pages[:CCL_CPU_PAGES].cpu()
+    for conn in (4, 8):
+        reset_launches()
+        labels = vi.connected_components(pages, conn)
+        torch.cuda.synchronize()
+        require(sum(launched().values()) == 0, f"ccl {launched()}")
+        ms = _once_ms(lambda: vi.connected_components(pages, conn)) / N3
+        n_l = _equal_count(labels[:CCL_CPU_PAGES],
+                           vi.connected_components(want_pages, conn))
+        require(n_l == 0, f"ccl {conn}: {n_l} labels apart")
+        n_obj = [int(torch.unique(labels[i]).numel()) for i in range(N3)]
+        print(f"vision connected_components({conn}) on "
+              f"{tuple(pages.shape)}: {ms:.4f} ms a page (one call), "
+              f"{min(n_obj)}-{max(n_obj)} objects a page; pages "
+              f"[:{CCL_CPU_PAGES}] vs the CPU: {n_l} of "
+              f"{want_pages.numel()} labels apart [{name_limit}]")
+    t0 = time.perf_counter()
+    merged = [vi.relabel_sequential(vi.merge_small_components(
+        vi.relabel_sequential(labels[i]), AREA_MIN, 8)) for i in range(N3)]
+    torch.cuda.synchronize()
+    merge_s = (time.perf_counter() - t0) / N3
+    for i in range(CCL_CPU_PAGES):
+        want = vi.relabel_sequential(vi.merge_small_components(
+            vi.relabel_sequential(labels[i].cpu()), AREA_MIN, 8))
+        require(torch.equal(merged[i].cpu(), want), f"merge page {i}")
+    kept = [int(m.max()) + 1 for m in merged]
+    reset_launches()
+    ms = _call_ms(lambda: vi.area_threshold(pages, labels, AREA_MIN)) / N3
+    n_a = _equal_count(vi.area_threshold(pages, labels, AREA_MIN)
+                       [:CCL_CPU_PAGES],
+                       vi.area_threshold(want_pages,
+                                         labels[:CCL_CPU_PAGES].cpu(),
+                                         AREA_MIN))
+    require(n_a == 0 and sum(launched().values()) == 0,
+            f"area threshold {n_a}")
+    print(f"vision merge_small_components({AREA_MIN}, 8): {merge_s * 1e3:.1f} "
+          f"ms a page on the host, {min(kept)}-{max(kept)} objects kept a "
+          f"page; area_threshold {ms:.4f} ms a page; pages "
+          f"[:{CCL_CPU_PAGES}] vs the CPU: merged labels equal, area "
+          f"threshold {n_a} of {want_pages.numel()} px apart "
+          f"[{name_limit}]")
+    t0 = time.perf_counter()
+    segs = [ft.hough_line_segments(pages[i], *PAGE_HOUGH) for i in range(N3)]
+    hough_s = (time.perf_counter() - t0) / N3
+    require(segs[0] == ft.hough_line_segments(want_pages[0], *PAGE_HOUGH),
+            "hough segments page 0")
+    print(f"vision hough_line_segments{PAGE_HOUGH} on {tuple(pages.shape)}: "
+          f"{hough_s * 1e3:.1f} ms a page (host clock), "
+          f"{min(map(len, segs))}-{max(map(len, segs))} lines a page; page 0 "
+          f"vs the CPU: equal [{name_limit}]")
+    return {"k3": k3}
+
+
+def draw_phase(dev, gen, name_limit: str) -> None:
+    """draw: MVG_1080 over N2 frames of 1080x1920x3 (coverage computed
+    once, blended into each frame), frame 0 within DRAW_TOL of the CPU's
+    float64 run; then annotate, frame, raise_image, oil_paint (radius 3),
+    opaque_paint, transparent_paint and floodfill on the frames, frame 0
+    equal to the CPU's.  None launches a kernel of the port's."""
+    from imagemagick_tpu_torch.ops import decorate as dc
+    from imagemagick_tpu_torch.ops import draw as dw
+    from imagemagick_tpu_torch.ops import paint as pt
+
+    frames = _scenes(gen, dev, N2)
+    cpu0 = frames[:1].cpu()
+    print(f"draw: text from {dw.loaded_font(None, 48)}")
+    reset_launches()
+    out = dw.draw(frames, MVG_1080)
+    torch.cuda.synchronize()
+    require(sum(launched().values()) == 0 and out.shape == frames.shape,
+            f"draw {launched()} {out.shape}")
+    ms = _once_ms(lambda: dw.draw(frames, MVG_1080)) / N2
+    t0 = time.perf_counter()
+    want = dw.draw(cpu0, MVG_1080)
+    cpu_s = time.perf_counter() - t0
+    err, n_off, n_px = _apart(out[:1], want, DRAW_TOL)
+    require(err <= DRAW_TOL, f"draw max|d| {err}")
+    n_ink = int(((out[0] - frames[0]).abs() > 1e-6).any(-1).sum())
+    print(f"draw MVG (every primitive family) on {tuple(frames.shape)}: "
+          f"{ms:.4f} ms an image (one call; the CPU's run of frame 0 "
+          f"{cpu_s:.1f} s), {n_ink} px drawn; frame 0 vs the CPU: max|d| "
+          f"{err:.3e}, {n_off} of {n_px} px apart by more than {DRAW_TOL} "
+          f"[{name_limit}]")
+    del out
+    alpha = torch.cat([frames, torch.ones_like(frames[..., :1])], -1)
+    seed_color = frames[0, 0, 0].tolist()
+    calls = [
+        ("annotate", lambda x: dw.annotate(x, "annotate 1080p", 40, 80,
+                                           (0, 0, 0.5, 1), 48,
+                                           gravity="south"), frames),
+        ("frame", lambda x: dc.frame(x, 12, 12, 3, 3), frames),
+        ("raise_image", lambda x: dc.raise_image(x, 20, 20), frames),
+        ("oil_paint", lambda x: pt.oil_paint(x, 3.0), frames),
+        ("opaque_paint", lambda x: pt.opaque_paint(
+            x, seed_color, (1, 0, 0), FUZZ), frames),
+        ("transparent_paint", lambda x: pt.transparent_paint(
+            x, seed_color, 0.0, FUZZ), alpha),
+        ("floodfill", lambda x: pt.floodfill(x, 0, 0, (0, 1, 0), FUZZ),
+         frames)]
+    for name, fn, x in calls:
+        reset_launches()
+        got = fn(x)
+        torch.cuda.synchronize()
+        require(sum(launched().values()) == 0, f"{name} {launched()}")
+        ms = _once_ms(lambda: fn(x)) / N2
+        n = _equal_count(got[:1], fn(x[:1].cpu()))
+        require(n == 0, f"{name}: {n} values apart from the CPU")
+        print(f"draw {name} on {tuple(x.shape)}: {ms:.4f} ms an image (one "
+              f"call); frame 0 vs the CPU: {n} of {x[:1].numel()} values "
+              f"apart [{name_limit}]")
+        del got
+
+
+def cli_vision_phase(dev, gen, name_limit: str) -> dict:
+    """cli_vision: N3 scanned letter pages through CLI_VISION_PAGES (one
+    K4 launch for the group's Otsu values; pages [:CCL_CPU_PAGES] equal to
+    the CPU run), and N2 frames through CLI_VISION_FRAMES (one K1 launch
+    for the group's resize, one K3 launch an image for Canny's blur): the
+    resize within K1_TOL of the CPU's, Canny replayed on the CPU from the
+    card's blur equal, the Hough lines replayed on the CPU from the card's
+    edges equal, the whole CPU chain's pixels apart counted."""
+    from imagemagick_tpu_torch.ops import blur as bl
+    from imagemagick_tpu_torch.ops import enhance as en
+    from imagemagick_tpu_torch.ops import feature as ft
+
+    pages = list(_scans(gen, dev, N3))
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = _cli_run(CLI_VISION_PAGES, pages)
+    wall = (time.perf_counter() - t0) / N3
+    la = launched()
+    require(la["k4"] == 1 and sum(la.values()) == 1,
+            f"cli_vision pages launches {la}")
+    k4 = la["k4"]
+    want = _cli_run(CLI_VISION_PAGES, [p.cpu() for p in pages[:CCL_CPU_PAGES]])
+    n = sum(_equal_count(o.data, w.data) for o, w in zip(outs, want))
+    require(n == 0, f"cli_vision pages: {n} px apart")
+    ids = [int(round(float(o.data.max()) * 65535)) + 1 for o in outs]
+    print(f"cli_vision {' '.join(CLI_VISION_PAGES)} on {N3} pages of "
+          f"{tuple(pages[0].shape)}: launches {la}, {wall * 1e3:.1f} ms a "
+          f"page (one run, host clock), {min(ids)}-{max(ids)} objects a "
+          f"page; pages [:{CCL_CPU_PAGES}] vs the CPU run: {n} px apart "
+          f"[{name_limit}]")
+    del outs, pages
+
+    frames = list(_scenes(gen, dev, N2))
+    reset_launches()
+    outs = _cli_run(CLI_VISION_FRAMES, frames)
+    la = launched()
+    require(la["k1"] == 1 and la["k3"] == N2 and sum(la.values()) == 1 + N2,
+            f"cli_vision frames launches {la}")
+    ms = _call_ms(lambda: _cli_run(CLI_VISION_FRAMES, frames)) / N2
+    head = [o.data for o in _cli_run(CLI_VISION_FRAMES[:2], frames)]
+    err = max_err(torch.stack(head).cpu(), torch.stack(
+        [o.data for o in _cli_run(CLI_VISION_FRAMES[:2],
+                                  [f.cpu() for f in frames])]))
+    require(err <= K1_TOL, f"cli_vision resize max|d| {err}")
+    edges = [o.data for o in _cli_run(CLI_VISION_FRAMES[:4], frames)]
+    for h, e in zip(head, edges):
+        smooth = bl.blur(en.grayscale(h), 0.0, 1.0)[..., 0].cpu()
+        require(torch.equal(e[..., 0].cpu() > 0,
+                            ft.canny_from_smooth(smooth, 0.1, 0.3)),
+                "cli_vision canny replay")
+    replay = _cli_run(CLI_VISION_FRAMES[4:], [e.cpu() for e in edges])
+    require(all(torch.equal(o.data.cpu(), r.data)
+                for o, r in zip(outs, replay)), "cli_vision hough replay")
+    full = _cli_run(CLI_VISION_FRAMES, [f.cpu() for f in frames])
+    apart = sum(_apart(o.data, f.data, 1e-6)[1] for o, f in zip(outs, full))
+    n_px = sum(o.data[..., 0].numel() for o in outs)
+    lines = [int((e > 0).sum()) for e in edges]
+    print(f"cli_vision {' '.join(CLI_VISION_FRAMES)} on {N2} frames: "
+          f"launches {la}, {ms:.4f} ms an image; resize vs the CPU max|d| "
+          f"{err:.3e}; Canny replayed on the CPU from the card's blur and "
+          f"the Hough lines from the card's edges: equal ({min(lines)}-"
+          f"{max(lines)} edge px an image); the whole chain on the CPU: "
+          f"{apart} of {n_px} px apart [{name_limit}]")
+    return {"k1": la["k1"], "k3": la["k3"], "k4": k4}
+
+
+def cli_draw_phase(dev, gen, name_limit: str) -> dict:
+    """cli_draw: N2 frames through CLI_DRAW (one K1 launch for the group's
+    resize; -draw, -annotate and -frame image by image): the resize
+    within K1_TOL of the CPU's, the rest replayed on the CPU from the
+    card's resize equal, the whole CPU chain of frame 0 counted."""
+    frames = list(_scenes(gen, dev, N2))
+    reset_launches()
+    outs = _cli_run(CLI_DRAW, frames)
+    la = launched()
+    require(la["k1"] == 1 and sum(la.values()) == 1,
+            f"cli_draw launches {la}")
+    ms = _call_ms(lambda: _cli_run(CLI_DRAW, frames)) / N2
+    head = [o.data for o in _cli_run(CLI_DRAW[:2], frames)]
+    err = max_err(torch.stack(head).cpu(), torch.stack(
+        [o.data for o in _cli_run(CLI_DRAW[:2], [f.cpu() for f in frames])]))
+    require(err <= K1_TOL, f"cli_draw resize max|d| {err}")
+    replay = _cli_run(CLI_DRAW[2:], [h.cpu() for h in head])
+    n = sum(_equal_count(o.data, r.data) for o, r in zip(outs, replay))
+    require(n == 0, f"cli_draw: {n} values apart from the replay")
+    full = _cli_run(CLI_DRAW, [frames[0].cpu()])
+    apart, n_px = _apart(outs[0].data, full[0].data, 1e-6)[1:]
+    print(f"cli_draw {' '.join(CLI_DRAW)} on {N2} frames: launches {la}, "
+          f"{ms:.4f} ms an image; resize vs the CPU max|d| {err:.3e}; the "
+          f"rest replayed on the CPU from the card's resize: {n} values "
+          f"apart; frame 0's whole chain on the CPU: {apart} of {n_px} px "
+          f"apart by more than 1e-6 [{name_limit}]")
+    return {"k1": la["k1"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2204,6 +2609,11 @@ def main() -> None:
     _timed("quantize", lambda: quantize_phase(dev, gen, name_limit))
     clich = _timed("cli_channel",
                    lambda: cli_channel_phase(dev, gen, name_limit))
+    vis = _timed("vision", lambda: vision_phase(dev, gen, name_limit))
+    _timed("draw", lambda: draw_phase(dev, gen, name_limit))
+    cliv = _timed("cli_vision",
+                  lambda: cli_vision_phase(dev, gen, name_limit))
+    clidr = _timed("cli_draw", lambda: cli_draw_phase(dev, gen, name_limit))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -2691,7 +3101,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
-         clich["k1"],
+         clich["k1"] + cliv["k1"] + clidr["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -2714,7 +3124,7 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
-         fx["k3"] + clie["k3"],
+         fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,
@@ -2722,7 +3132,8 @@ def main() -> None:
         {"name": "k4_histogram256", "route": "cuda",
          "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
-         "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"],
+         "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
+         cliv["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

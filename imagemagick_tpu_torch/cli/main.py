@@ -38,7 +38,14 @@ and value options ``-statistic``, ``-median``, ``-evaluate`` and
 ``-channel-fx``; the list operators ``-compare``, ``-fx``, ``-morph``,
 ``-evaluate-sequence``, ``-average``, ``-maximum`` and ``-minimum``; and
 the quantizers and attributes ``-posterize``, ``-colors``, ``-kmeans``,
-``-unique-colors`` and ``-type``.  None of these but the resize family,
+``-unique-colors`` and ``-type``; the paint options ``-paint``/
+``-oil-paint``, ``-opaque``/``+opaque``, ``-transparent``/
+``+transparent`` and ``-floodfill``; the analysis options ``-canny``,
+``-mean-shift``, ``-connected-components`` (with its defines
+``connected-components:verbose``, ``:mean-color`` and
+``:area-threshold``), ``-segment``, ``-hough-lines`` and ``-features``;
+and ``-draw``, ``-annotate``, ``-frame`` and ``-raise``/``+raise``.  None
+of these but the resize family,
 the blurs and ``-colorspace`` carries a K1 tag, as in the JAX CLI.  The
 geometry options stay lazy, with their new shapes pushed; the options
 that read pixels or whose output shape depends on them (``-rotate``,
@@ -58,8 +65,12 @@ default ``1,0,0,1,0,0``), ``-channel`` (the mask that ``-separate`` and
 every per-pixel option of ``_op_simple`` honour; default ``default``),
 ``-metric`` (read by ``-compare``, default ``rmse``), ``-dither``/
 ``+dither`` (read by ``-posterize`` and ``-colors``, default
-``riemersma``; ``+dither`` is ``none``) and ``-quantize`` (the colorspace
-``-colors`` quantizes in).  The other settings keep the JAX defaults:
+``riemersma``; ``+dither`` is ``none``), ``-quantize`` (the colorspace
+``-colors`` quantizes in), ``-fill`` (default black), ``-fuzz`` (read as
+a percentage by every option that matches colors), ``-stroke``,
+``-strokewidth``, ``-pointsize``, ``-font`` (read by ``-draw``,
+``-annotate`` and ``-hough-lines``), ``-mattecolor`` (read by ``-frame``,
+default ``#bdbdbd``) and ``-direction`` (read by ``-annotate``).  The other settings keep the JAX defaults:
 ``-filter`` is ``undefined``; write masks (``-region``) and ``-seed``
 are not ported, so ``-spread``, ``-fx``'s ``rand`` and the noise
 operators of ``-evaluate`` draw from a generator seeded 0, as the JAX CLI
@@ -78,6 +89,7 @@ import sys
 from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.color import parse_color
@@ -1178,6 +1190,232 @@ def _op_remap(st, arg, plus):
                               f"{REMAP_DITHER_GAP}")
 
 
+# -- paint, feature, vision, segment, draw and decorate ------------------------
+
+def _fuzz(st) -> float:
+    """The -fuzz setting as a fraction (``_percent``: "10%" and "10" are
+    both 0.1)."""
+    return _percent(st.settings.get("fuzz", "0") or "0")
+
+
+def _canny_args(a):
+    g = parse_geometry(a)
+    kw = {"radius": g.width or 0.0,
+          "sigma": g.height if g.height is not None else 1.0}
+    if g.x is not None:
+        kw["lower_percent"] = abs(g.x) / 100.0
+    if g.y is not None:
+        kw["upper_percent"] = abs(g.y) / 100.0
+    return kw
+
+
+def _meanshift_args(a):
+    g = parse_geometry(a)
+    kw = {"width": int(g.width or 7), "height": int(g.height or g.width or 7)}
+    if g.x is not None:
+        kw["color_distance"] = abs(g.x) / 100.0
+    return kw
+
+
+def _op_opaque(st, arg, plus):
+    """-opaque COLOR: the matching pixels take -fill (+opaque: the others)."""
+    from ..ops import paint as pt
+
+    target = parse_color(arg)
+    for li, img in _materialized(st):
+        li.image = img.replace(data=pt.opaque_paint(
+            img.data, target[: img.channels], st.fill()[: img.channels],
+            fuzz=_fuzz(st), invert=plus))
+
+
+def _op_transparent(st, arg, plus):
+    """-transparent COLOR: the matching pixels become transparent (an
+    alpha channel is added first where the image has none)."""
+    from ..ops import paint as pt
+
+    target = parse_color(arg)
+    for li, img in _materialized(st):
+        if not img.spec.alpha:
+            img = img.set_alpha(True)
+        li.image = img.replace(data=pt.transparent_paint(
+            img.data, target[:3], 0.0, fuzz=_fuzz(st), invert=plus))
+
+
+def _op_floodfill(st, arg, plus):
+    """-floodfill +X+Y COLOR (two arguments): FloodfillPaintImage from the
+    seed, through the pixels within -fuzz of COLOR, with -fill."""
+    from ..ops import paint as pt
+
+    geom, _, color_s = arg.partition(" ")
+    g = parse_geometry(geom)
+    target = parse_color(color_s.strip()) if color_s.strip() else None
+    for li, img in _materialized(st):
+        li.image = img.replace(data=pt.floodfill(
+            img.data, int(g.x or 0), int(g.y or 0),
+            st.fill()[:img.channels], fuzz=_fuzz(st), target_color=target))
+
+
+def _op_ccl(st, arg, plus):
+    """-connected-components 4|8 with the defines
+    ``connected-components:area-threshold`` (merge smaller objects into
+    their dominant neighbour), ``:verbose`` (print each object) and
+    ``:mean-color`` (paint each object its mean color, else the gray ramp
+    id/65535).  -fuzz is read with ``_percent``, as every other option
+    reads it (the JAX CLI's ``float(fuzz)/100`` raises on "10%")."""
+    from ..ops import vision as vi
+
+    conn = int(arg) if arg and arg.strip().isdigit() else 4
+    verbose = st.defines.get("connected-components:verbose", "") == "true"
+    mean_color = st.defines.get("connected-components:mean-color",
+                                "") == "true"
+    area_thresh = st.defines.get("connected-components:area-threshold", "")
+    for li, img in _materialized(st):
+        labels = vi.connected_components(img.data, connectivity=conn,
+                                         fuzz=_fuzz(st))
+        seq = vi.relabel_sequential(labels)
+        if area_thresh:
+            seq = vi.relabel_sequential(vi.merge_small_components(
+                seq, int(float(area_thresh)), conn))
+        if verbose:
+            for s in vi.component_statistics(img.data, seq):
+                bx, by, bw, bh = s["bbox"]
+                print(f"  {s['id']}: {bw}x{bh}+{bx}+{by} "
+                      f"{s['centroid'][0]:.1f},{s['centroid'][1]:.1f} "
+                      f"{s['area']} "
+                      f"srgb{tuple(round(c, 3) for c in s['mean_color'])}")
+        if mean_color:
+            # each object its mean color (vision.c:717), float64 sums on
+            # the host as in the JAX CLI
+            arr = img.data.cpu().numpy()
+            flat = seq.cpu().numpy().reshape(-1)
+            n = int(flat.max()) + 1
+            cnt = np.bincount(flat, minlength=n).astype(np.float64)
+            out = np.empty_like(arr)
+            for c in range(arr.shape[-1]):
+                s = np.bincount(flat, weights=arr[..., c].reshape(-1),
+                                minlength=n)
+                out[..., c] = (s / np.maximum(cnt, 1))[flat] \
+                    .reshape(arr.shape[:-1])
+            li.image = img.replace(data=torch.from_numpy(
+                out.astype(np.float32)).to(img.data.device))
+        else:
+            # the default gray colormap ramp: value = id / 65535
+            norm = seq.to(torch.float32) / torch.tensor(
+                65535.0, device=seq.device)
+            li.image = Image(norm[..., None], ImageSpec(colorspace="gray"))
+
+
+def _op_segment(st, arg, plus):
+    """-segment CLUSTERxSMOOTH: SegmentImage, each image on its own."""
+    from ..ops import segment as sg
+
+    parts = [p for p in arg.replace(",", "x").split("x") if p]
+    ct = float(parts[0]) if parts else 1.0
+    sm = float(parts[1]) if len(parts) > 1 else 1.5
+    for li, img in _materialized(st):
+        li.image = img.replace(data=sg.segment(img.data, cluster_threshold=ct,
+                                               smooth_threshold=sm))
+
+
+def _stroke_prelude(st) -> List[str]:
+    prelude = [f"fill '{st.settings.get('fill', 'black')}'"]
+    if st.settings.get("stroke"):
+        prelude.append(f"stroke '{st.settings['stroke']}'")
+    if st.settings.get("strokewidth"):
+        prelude.append(f"stroke-width {st.settings['strokewidth']}")
+    return prelude
+
+
+def _op_hough(st, arg, plus):
+    """-hough-lines WxH+THRESHOLD: HoughLineImage finds each image's lines
+    and draws them as MVG ``line`` primitives (-fill, -stroke,
+    -strokewidth) on a -background canvas of the image's size."""
+    from ..ops import draw as dw
+    from ..ops import feature as ft
+
+    g = parse_geometry(arg)
+    w = int(g.width or 5)
+    h = int(g.height or w)
+    thr = int(g.x or 0)
+    for li, img in _materialized(st):
+        segs = ft.hough_line_segments(img.data, w, h, thr)
+        canvas = torch.tensor(list(st.bg()[:3]), dtype=torch.float32,
+                              device=img.data.device) \
+            .expand(img.height, img.width, 3).contiguous()
+        mvg = " ".join(_stroke_prelude(st)) + " " + " ".join(
+            f"line {x1:g},{y1:g} {x2:g},{y2:g}"
+            for x1, y1, x2, y2, _, _, _ in segs)
+        out = dw.draw(canvas, mvg, False) if segs else canvas
+        li.image = Image(out, img.spec.with_(colorspace="srgb", alpha=False))
+
+
+def _op_features(st, arg, plus):
+    """-features DISTANCE: prints each image's Haralick metrics."""
+    from ..ops import feature as ft
+
+    dist = int(float(arg or 1))
+    for _, img in _materialized(st):
+        feats = ft.glcm_features(img.data, offset=(0, dist))
+        for k, v in feats.items():
+            print(f"  {k}: {v.cpu().numpy().ravel()[:4]}")
+
+
+def _op_draw(st, arg, plus):
+    """-draw MVG under the -fill, -stroke, -strokewidth, -pointsize, -font
+    and -fuzz settings."""
+    from ..ops import draw as dw
+
+    prelude = _stroke_prelude(st)
+    if st.settings.get("pointsize"):
+        prelude.append(f"font-size {st.settings['pointsize']}")
+    if st.settings.get("font"):
+        prelude.append(f"font '{st.settings['font']}'")
+    mvg = " ".join(prelude) + " " + arg
+    for li, img in _materialized(st):
+        li.image = img.replace(data=dw.draw(img.data, mvg, img.spec.alpha,
+                                            fuzz=_fuzz(st)))
+
+
+def _op_annotate(st, arg, plus):
+    """-annotate GEOMETRY TEXT (two arguments) in -fill, at -pointsize
+    (default 12) in -font, placed by -gravity, shaped in -direction."""
+    from ..ops import draw as dw
+
+    geom, _, text = arg.partition(" ")
+    g = parse_geometry(geom)
+    for li, img in _materialized(st):
+        li.image = img.replace(data=dw.annotate(
+            img.data, text.strip("'\""), g.x or 0, g.y or 0,
+            color=st.fill(), size=float(st.settings.get("pointsize", "12")),
+            font=st.settings.get("font"), gravity=st.settings["gravity"],
+            direction=st.settings.get("direction")))
+
+
+def _op_frame(st, arg, plus):
+    """-frame WxH+OUTER+INNER in -mattecolor (default #bdbdbd)."""
+    from ..ops import decorate as dec
+
+    g = parse_geometry(arg)
+    mc = parse_color(st.settings.get("mattecolor", "#bdbdbd"))
+    for li, img in _materialized(st):
+        li.image = img.replace(data=dec.frame(
+            img.data, int(g.width or 6), int(g.height or g.width or 6),
+            outer_bevel=abs(g.x) if g.x is not None else 2,
+            inner_bevel=abs(g.y) if g.y is not None else 2,
+            matte_color=mc))
+
+
+def _op_raise(st, arg, plus):
+    """-raise WxH (+raise: sunken)."""
+    from ..ops import decorate as dec
+
+    g = parse_geometry(arg)
+    for li, img in _materialized(st):
+        li.image = img.replace(data=dec.raise_image(
+            img.data, int(g.width or 6), int(g.height or g.width or 6),
+            not plus))
+
+
 # option name -> (number of arguments, handler)
 OPS: Dict[str, Tuple[int, Callable]] = {
     # the resize family
@@ -1308,13 +1546,35 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "transform": (0, _op_transform),
     "shear": (1, _op_shear),
     "deskew": (1, _op_deskew),
+    # paint, feature, vision and segment
+    "paint": (1, _op_simple("paint", "oil_paint", lambda st, a, p: {
+        "radius": max(_geom_args(a)[0], 1.0)})),
+    "oil-paint": (1, _op_simple("paint", "oil_paint", lambda st, a, p: {
+        "radius": max(_geom_args(a)[0], 1.0)})),
+    "opaque": (1, _op_opaque),
+    "transparent": (1, _op_transparent),
+    "floodfill": (2, _op_floodfill),
+    "canny": (1, _op_simple("feature", "canny_edge",
+                            lambda st, a, p: _canny_args(a))),
+    "mean-shift": (1, _op_simple("feature", "mean_shift",
+                                 lambda st, a, p: _meanshift_args(a))),
+    "connected-components": (1, _op_ccl),
+    "segment": (1, _op_segment),
+    "hough-lines": (1, _op_hough),
+    "features": (1, _op_features),
+    # draw and decorate
+    "draw": (1, _op_draw),
+    "annotate": (2, _op_annotate),
+    "frame": (1, _op_frame),
+    "raise": (1, _op_raise),
 }
 
 # settings stored by ``process`` (the JAX CLI's _SETTINGS subset that a
 # ported option reads); the + forms of gravity and compose reset them
 _SETTINGS = ("virtual-pixel", "gravity", "compose", "background",
              "bordercolor", "affine", "channel", "metric", "dither",
-             "quantize")
+             "quantize", "fill", "fuzz", "stroke", "strokewidth",
+             "pointsize", "font", "mattecolor", "direction")
 
 
 def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:

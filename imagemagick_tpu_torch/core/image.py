@@ -232,15 +232,22 @@ class Image:
         return cls._from_int(arr, 65535.0, spec, device)
 
 
-def _to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """Host pixels as a float32 tensor on ``device``; a CUDA device
-    without a card raises rather than leaving the pixels on the CPU."""
+def checked_device(device, what: str = "Image") -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    rather than leaving the work on the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "Image: no CUDA card for device 'cuda'; pass device='cpu' to "
+            f"{what}: no CUDA card for device 'cuda'; pass device='cpu' to "
             "keep the pixels on the CPU")
-    return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
+    return device
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Host pixels as a float32 tensor on ``device``; a CUDA device
+    without a card raises rather than leaving the pixels on the CPU."""
+    return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
+        checked_device(device))
 
 
 def _infer_spec(channels: int) -> ImageSpec:

@@ -184,9 +184,9 @@ def test_materialize_carries_metadata():
     (["in.png"], "'Host layers' (io/)"),
     (["-resize", "10x10", "out.jpg"], "'Host layers' (io/)"),
     (["-charcoal", "2"], "'The other op families under ops/'"),
-    (["-segment", "1x1.5"], "'The other op families under ops/'"),
+    (["-polaroid", "5"], "'The other op families under ops/'"),
     (["-vignette", "0x2"], "'Host layers'"),
-    (["-draw", "circle 5,5 2,2"], "'The other op families under ops/'"),
+    (["-layers", "merge"], "'The other op families under ops/'"),
     (["-filter", "box"], "'The other op families under ops/'"),
     (["-unknown-option"], "'Host layers'"),
 ])
@@ -978,3 +978,147 @@ def test_chain_a_fuses_its_resize_once(monkeypatch):
     assert seen == [(4, 40, 56, 3)]
     assert all(tuple(o.data.shape) == (23, 32, 1) for o in out)
     assert all(o.spec.colorspace == "gray" for o in out)
+
+
+# -- paint, feature, vision, segment, draw and decorate ----------------------
+
+PAINT_ARGVS = [
+    ["-paint", "2"], ["-oil-paint", "1"],
+    ["-fill", "red", "-fuzz", "20%", "-opaque", "gray50"],
+    ["-fill", "red", "-fuzz", "20%", "+opaque", "gray50"],
+    ["-fuzz", "15%", "-transparent", "white"],
+    ["-fuzz", "15", "+transparent", "white"],
+    ["-fill", "blue", "-fuzz", "30%", "-floodfill", "+3+4", "gray60"],
+    ["-fill", "blue", "-fuzz", "30%", "-floodfill", "+3+4", ""],
+    ["-canny", "0x1+10%+30%"], ["-resize", "50%", "-canny", "0x1+10%+30%"],
+    ["-mean-shift", "5x5+10%"],
+    ["-connected-components", "4"],
+    ["-threshold", "50%", "-connected-components", "8"],
+    ["-threshold", "50%", "-define", "connected-components:area-threshold=5",
+     "-connected-components", "4"],
+    ["-threshold", "50%", "-define", "connected-components:mean-color=true",
+     "-connected-components", "4"],
+    ["-threshold", "50%", "-fuzz", "10", "-connected-components", "4"],
+    ["-segment", "1x1.5"], ["-segment", "0.5"],
+    ["-canny", "0x1+10%+30%", "-hough-lines", "9x9+10"],
+    ["-threshold", "50%", "-stroke", "red", "-strokewidth", "2",
+     "-hough-lines", "5x5+20"],
+    ["-fill", "red", "-stroke", "navy", "-strokewidth", "3", "-draw",
+     "circle 20,20 20,30"],
+    ["-fill", "green", "-draw", "rectangle 4,4 30,20"],
+    ["-fill", "red", "-fuzz", "30%", "-draw", "color 3,3 floodfill"],
+    ["-pointsize", "20", "-draw", "text 2,30 'Ab'"],
+    ["-font", "DejaVu-Sans", "-draw", "text 2,20 'Ab'"],
+    ["-pointsize", "14", "-fill", "black", "-annotate", "+5+20", "Hi"],
+    ["-gravity", "center", "-fill", "black", "-font", "DejaVu-Sans",
+     "-annotate", "+0+0", "Hi"],
+    ["-direction", "right-to-left", "-annotate", "+2+12", "ab"],
+    ["-frame", "6x6+2+2"], ["-mattecolor", "navy", "-frame", "8x5+3+1"],
+    ["-raise", "5x4"], ["+raise", "5x4"],
+]
+
+
+@pytest.mark.parametrize("argv", PAINT_ARGVS, ids=" ".join)
+def test_paint_vision_and_draw_options_match_jax(argv):
+    """Each option and setting of the slice on 2 images: tags, shapes,
+    settings, specs and pixels equal to the JAX CLI's."""
+    images = [_natural(40, 56, s) for s in range(2)]
+    js, ts = _states(images)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert _tags(ts) == _tags(js)
+    assert ts.settings == {k: v for k, v in js.settings.items()
+                           if k in ts.settings}
+    got, want = tm.materialize_all(ts.images), jm.materialize_all(js.images)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert repr(g.spec) == repr(w.spec)
+        np.testing.assert_array_equal(g.data.numpy(), np.asarray(w.data))
+
+
+def test_slice_settings_are_stored_as_the_jax_cli_stores_them():
+    js, ts = _states([_natural(8, 8, 0)])
+    argv = ["-fill", "red", "-fuzz", "12%", "-stroke", "blue",
+            "-strokewidth", "3", "-pointsize", "30", "-font", "Sans",
+            "-mattecolor", "navy", "-direction", "right-to-left",
+            "+fill", "green"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    for k in ("fill", "fuzz", "stroke", "strokewidth", "pointsize", "font",
+              "mattecolor", "direction"):
+        assert ts.settings[k] == js.settings[k], k
+    assert ts.settings["fill"] == "green"
+
+
+def test_verbose_components_print_as_jax(capsys):
+    argv = ["-threshold", "50%", "-define", "connected-components:verbose=true",
+            "-connected-components", "4"]
+    js, ts = _states([_natural(40, 56, 0)])
+    jm.process(list(argv), js)
+    jm.materialize_all(js.images)
+    want = capsys.readouterr().out
+    tm.process(list(argv), ts)
+    tm.materialize_all(ts.images)
+    assert capsys.readouterr().out == want
+    assert want.count("srgb(") > 5
+
+
+def test_features_print_as_jax(capsys):
+    """Six metrics in the JAX CLI's format; equal values but the entropy,
+    within 1e-6 relative (XLA's float32 log against numpy's)."""
+    js, ts = _states([_natural(40, 56, s) for s in range(2)])
+    jm.process(["-features", "1"], js)
+    jm.materialize_all(js.images)
+    want = capsys.readouterr().out.splitlines()
+    tm.process(["-features", "1"], ts)
+    tm.materialize_all(ts.images)
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 12
+    for g, w in zip(got, want):
+        gk, _, gv = g.partition(": ")
+        wk, _, wv = w.partition(": ")
+        assert gk == wk
+        if "entropy" in gk:
+            np.testing.assert_allclose(float(gv.strip("[]")),
+                                       float(wv.strip("[]")), rtol=1e-6)
+        else:
+            assert gv == wv
+
+
+def test_jax_ccl_fuzz_percent_raises_the_port_reads_a_percent():
+    """The JAX -connected-components reads -fuzz with float(...)/100, so
+    "10%" raises there; the port reads it with ``_percent`` as every
+    other option does, "10%" and "10" alike."""
+    argv = ["-threshold", "50%", "-fuzz", "10%", "-connected-components", "4"]
+    js, ts = _states([_natural(24, 32, 0)])
+    with pytest.raises(ValueError):
+        jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    got = tm.materialize_all(ts.images)
+    js2, ts2 = _states([_natural(24, 32, 0)])
+    argv2 = ["-threshold", "50%", "-fuzz", "10", "-connected-components", "4"]
+    jm.process(argv2, js2)
+    tm.process(argv2, ts2)
+    want = jm.materialize_all(js2.images)
+    np.testing.assert_array_equal(got[0].data.numpy(),
+                                  np.asarray(want[0].data))
+    np.testing.assert_array_equal(tm.materialize_all(ts2.images)[0].data
+                                  .numpy(), np.asarray(want[0].data))
+
+
+def test_cli_vision_chain_fuses_its_resize_once(monkeypatch):
+    """-resize 50% -canny ... -hough-lines: the group's resize in one
+    fused call, then Canny and Hough image by image."""
+    calls = []
+    real = tdsp.try_fused_batch
+    monkeypatch.setattr(tdsp, "try_fused_batch",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    js, ts = _states([_natural(80, 112, s) for s in range(3)])
+    argv = ["-resize", "50%", "-canny", "0x1+10%+30%", "-hough-lines",
+            "9x9+10"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    got = tm.materialize_all(ts.images)
+    assert len(calls) == 1
+    for g, w in zip(got, jm.materialize_all(js.images)):
+        assert tuple(g.data.shape) == tuple(np.asarray(w.data).shape)

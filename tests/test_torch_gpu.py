@@ -38,7 +38,10 @@ the card; the compare metrics within 1e-5 relative of the CPU's (float32
 sums in another order); fx, k-means, ``kmeans_reference``'s device path
 and ``set_image_type`` at most 0.1 % of the pixels or labels apart; the
 native posterize (host) and ``remap`` equal; the CLI's channel chains
-one K1 launch each, at most 0.1 % apart from the CPU run.
+one K1 launch each, at most 0.1 % apart from the CPU run.  Decorate,
+paint, vision, segment, Hough, mean shift, the GLCM and draw's float64
+coverage are equal on the card; Canny's blur is one K3 launch and the
+rest of Canny, replayed on the CPU from the card's blur, is equal.
 """
 
 import numpy as np
@@ -1161,3 +1164,145 @@ def test_cli_channel_chains_on_card(dev):
         assert launched["k1"] == 1 and sum(launched.values()) == 1, argv
         assert got.shape == want.shape == (1, 48, 64, 3), argv
         assert _selected_apart(got, want) <= 1e-3, argv
+
+
+# -- segment, feature, vision, paint, draw and decorate on the card ----------
+
+def test_decorate_and_paint_equal_on_card(dev):
+    """Pads, masks, the flood fill's fixpoint and oil paint's integer
+    counts: equal on the card; the gradient canvas too (host cosines,
+    divisions by device tensors)."""
+    from imagemagick_tpu_torch.ops import decorate as dc
+    from imagemagick_tpu_torch.ops import paint as pt
+
+    x = torch.from_numpy(np.round(_rand((2, 96, 128, 3), 40) * 3) / 3)
+    xd = x.to(dev)
+    calls = [(dc.border, (5, 3)), (dc.frame, (9, 7, 2, 3)),
+             (dc.raise_image, (6, 4, False)),
+             (pt.opaque_paint, ([0.5] * 3, [1, 0, 0], 0.3)),
+             (pt.floodfill, (3, 4, [0, 0, 1], 0.4)),
+             (pt.floodfill, (90, 60, [0, 1, 0], 0.3, None, [1, 1, 1])),
+             (pt.oil_paint, (3.0,))]
+    for fn, args in calls:
+        got = fn(xd, *args)
+        assert got.is_cuda and torch.equal(got.cpu(), fn(x, *args)), fn
+    xa = torch.cat([x, torch.ones_like(x[..., :1])], -1)
+    assert torch.equal(pt.transparent_paint(xa.to(dev), [1, 1, 1], 0.0, 0.2)
+                       .cpu(), pt.transparent_paint(xa, [1, 1, 1], 0.0, 0.2))
+    for kind in ("linear", "radial"):
+        args = (60, 80, [1, 0, 0, 1], [0, 0, 1, 1], kind, 30.0)
+        assert torch.equal(pt.gradient_image(*args, device=dev).cpu(),
+                           pt.gradient_image(*args, device="cpu"))
+
+
+def test_vision_equal_on_card(dev):
+    """Labels (4 and 8 neighbours), the relabeling, the merge and the area
+    threshold: equal on the card."""
+    from imagemagick_tpu_torch.ops import vision as vi
+
+    x = torch.from_numpy((_rand((3, 96, 128, 1), 41) > 0.55)
+                         .astype(np.float32))
+    for conn in (4, 8):
+        lab = vi.connected_components(x.to(dev), conn)
+        want = vi.connected_components(x, conn)
+        assert lab.is_cuda and torch.equal(lab.cpu(), want)
+        seq = vi.relabel_sequential(lab)
+        assert torch.equal(seq.cpu(), vi.relabel_sequential(want))
+        assert torch.equal(vi.merge_small_components(seq[0], 5, conn).cpu(),
+                           vi.merge_small_components(seq[0].cpu(), 5, conn))
+        assert torch.equal(vi.area_threshold(x.to(dev), lab, 4).cpu(),
+                           vi.area_threshold(x, want, 4))
+
+
+def test_feature_on_card(dev):
+    """Canny's blur is one K3 launch, and the rest of Canny replayed on the
+    CPU from the card's blur is equal; Hough segments and accumulator,
+    mean shift and the GLCM equal."""
+    from imagemagick_tpu_torch.ops import blur as bl
+    from imagemagick_tpu_torch.ops import enhance as en
+    from imagemagick_tpu_torch.ops import feature as ft
+
+    x = torch.from_numpy(_rand((2, 96, 128, 3), 42))
+    xd = x.to(dev)
+    before = dict(gk.LAUNCHES)
+    edges = ft.canny_edge(xd, 0.0, 1.0, 0.1, 0.3)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k3"] - before["k3"] == 1
+    smooth = bl.blur(en.grayscale(xd), 0.0, 1.0)[..., 0].cpu()
+    replay = ft.canny_from_smooth(smooth, 0.1, 0.3)
+    assert torch.equal(edges.cpu()[..., 0] > 0, replay)
+    e1 = edges[0]
+    assert ft.hough_line_segments(e1, 9, 9, 20) == \
+        ft.hough_line_segments(e1.cpu(), 9, 9, 20)
+    assert torch.equal(ft.hough_accumulator(edges).cpu(),
+                       ft.hough_accumulator(edges.cpu()))
+    assert torch.equal(ft.mean_shift(xd, 5, 5, 0.1).cpu(),
+                       ft.mean_shift(x, 5, 5, 0.1))
+    assert torch.equal(ft.glcm_counts(xd).cpu(), ft.glcm_counts(x))
+    got, want = ft.glcm_features(xd), ft.glcm_features(x)
+    assert all(float(got[k]) == float(want[k]) for k in want)
+
+
+def test_segment_equal_on_card(dev):
+    from imagemagick_tpu_torch.ops import segment as sg
+
+    x = torch.from_numpy(np.round(_rand((2, 96, 128, 3), 43) * 4) / 4 +
+                         0.01 * _rand((2, 96, 128, 3), 44)).clamp(0, 1)
+    for ct, sm in ((1.0, 1.5), (0.5, 1.0)):
+        got = sg.segment(x.to(dev), cluster_threshold=ct, smooth_threshold=sm)
+        assert got.is_cuda and torch.equal(
+            got.cpu(), sg.segment(x, cluster_threshold=ct,
+                                  smooth_threshold=sm))
+
+
+def test_draw_equal_on_card(dev):
+    """float64 coverage, each step its own op: equal on the card."""
+    from imagemagick_tpu_torch.ops import draw as dw
+
+    x = torch.from_numpy(_rand((96, 128, 4), 45))
+    for mvg in (
+            "fill red stroke navy stroke-width 3 circle 60,50 60,80",
+            "fill-rule evenodd fill black polygon 16,2 90,90 2,40 120,40 "
+            "40,90",
+            "stroke black stroke-width 6 fill none stroke-linejoin miter "
+            "stroke-dasharray 12 5 polyline 8,80 60,10 120,80",
+            "push defs push gradient g linear 0,0 127,0 stop-color red 0 "
+            "stop-color blue 1 pop gradient pop defs fill 'url(#g)' "
+            "roundrectangle 5,5 120,90 20,15",
+            "push defs push clip-path c circle 64,48 64,90 pop clip-path "
+            "pop defs clip-path url(#c) fill black font-size 30 "
+            "text 10,60 'Card'",
+            "fill red color 3,3 floodfill"):
+        got = dw.draw(x.to(dev), mvg)
+        assert got.is_cuda and torch.equal(got.cpu(), dw.draw(x, mvg)), mvg
+
+
+def test_cli_vision_and_draw_chains_on_card(dev):
+    """-resize 50% -canny ... -hough-lines: one K1 launch for the group's
+    resize and one K3 launch an image; -auto-threshold then
+    -connected-components: one K4 launch; -draw, -annotate and -frame
+    after a resize: one K1 launch.  Each against the CPU run, the canny
+    chain by replaying its rest on the CPU from the card's resize (its
+    blur there is the CPU's, an ulp from K3's: at most 0.1 % apart)."""
+    x = torch.from_numpy(_rand((3, 96, 128, 3), 46))
+    argv = "-resize 50% -canny 0x1+10%+30% -hough-lines 9x9+20".split()
+    got, launched = _cli_chain(argv, x, dev)
+    assert launched["k1"] == 1 and launched["k3"] == 3
+    head, _ = _cli_chain(argv[:2], x, dev)
+    replay, _ = _cli_chain(argv[2:], head.cpu(), "cpu")
+    assert _selected_apart(got, replay) <= 1e-3
+    argv = ["-auto-threshold", "otsu", "-define",
+            "connected-components:area-threshold=6",
+            "-connected-components", "8"]
+    got, launched = _cli_chain(argv, x, dev)
+    want, _ = _cli_chain(argv, x, "cpu")
+    assert launched["k4"] == 1
+    assert torch.equal(got.cpu(), want)
+    argv = ["-resize", "50%", "-fill", "red", "-stroke", "navy",
+            "-strokewidth", "3", "-draw", "circle 30,20 30,40",
+            "-pointsize", "20", "-annotate", "+5+25", "Card", "-frame",
+            "6x6+2+2"]
+    got, launched = _cli_chain(argv, x, dev)
+    want, _ = _cli_chain(argv, x, "cpu")
+    assert launched["k1"] == 1 and sum(launched.values()) == 1
+    assert _selected_apart(got, want) <= 1e-3
