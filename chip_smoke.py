@@ -135,6 +135,26 @@ and the serve daemon):
   -strokewidth 3 -draw ... -pointsize 48 -annotate +20+60 ... -frame
   12x12+3+3`` (one K1 launch; the rest replayed on the CPU from the card's
   resize equal).
+* visual_effects — every effect of ``ops/visual_effects.py`` on 8 frames
+  of 1080x1920x3 (a photo editor's effects; shadow and polaroid on RGBA),
+  ms an image: the seven noise types and the sketch on variates drawn on
+  the card and handed to the CPU function; frame 0 against the CPU, or a
+  540x960 crop of it where the CPU's run takes seconds (sketch,
+  polaroid); one K3 launch for charcoal, shadow and polaroid each.
+* layers — a GIF export: 24 frames of 512x768x4, a sprite moving over a
+  still background (the first frame whole, each later one the changed box
+  at its page offset, pauses that repeat a frame), through coalesce,
+  optimize, optimize-transparency, remove-dups, deconstruct, flatten,
+  mosaic, append and smush, ms a frame, each against the CPU run; and a
+  contact sheet: ``montage`` of config1_cli's 32 images of 512x768x3 on an
+  8x4 tile of 120x120+4+3, against the CPU.
+* cli_layers — config1_cli's 32 images through three chains that start
+  with ``-resize 50%`` (one K1 launch a group): a contact sheet (``-charcoal
+  1 -tile 8x4 -montage``, one K3 launch an image), polaroids flattened onto
+  a background (``-polaroid 5 -background white -flatten``, one K3 launch
+  an image) and the options that need no file (``-morphology close disk:2
+  -level-colors navy,gold -cdl ... -fft``): the resize within K1_TOL of the
+  CPU's, the rest replayed on the CPU from the card's resize, ms an image.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -393,6 +413,30 @@ CLI_DRAW = ["-resize", "50%", "-fill", "gold", "-stroke", "navy",
             "circle 240,135 240,215 polygon 500,40 700,240 420,200",
             "-pointsize", "48", "-annotate", "+20+60", "imagemagick",
             "-frame", "12x12+3+3"]
+# visual_effects: the CPU holds frame 0, or this crop of it where its run
+# takes seconds (sketch's 2160x3840 noise, polaroid's rotations)
+VFX_CROP = (540, 960)
+VFX_TOL = 1e-5     # float32 blurs, normalizations and resamples on the
+                   # card against the CPU: sums in another order, an ulp
+VFX_RUNS = 3
+NOISE_TYPES = ("uniform", "gaussian", "impulse", "laplacian",
+               "multiplicative", "poisson", "random")
+VFX_K3 = ("charcoal", "shadow", "polaroid")   # one K3 launch a call each
+VFX_EXACT = ("solarize", "stegano", "stereo")  # selections and copies
+# layers: a GIF export of LAYER_N frames of H x W x 4, a SPRITE moving over
+# a still background, pausing at LAYER_PAUSES (a repeated frame each)
+LAYER_N = 24
+SPRITE = (96, 128)
+LAYER_PAUSES = (8, 9, 16)
+LAYER_DELAY = 4      # 1/100 s a frame; the frames after a pause: 0
+MONTAGE_TILE, MONTAGE_GEOMETRY = "8x4", "120x120+4+3"
+# cli_layers: config1_cli's images through chains that start with a resize
+CLI_LAYERS = [
+    (["-resize", "50%", "-charcoal", "1", "-tile", "8x4", "-montage"], 1),
+    (["-resize", "50%", "-polaroid", "5", "-background", "white",
+      "-flatten"], 1),
+    (["-resize", "50%", "-morphology", "close", "disk:2", "-level-colors",
+      "navy,gold", "-cdl", "1.1,0.05,0.9:0.8", "-fft"], 0)]
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -2380,6 +2424,275 @@ def cli_draw_phase(dev, gen, name_limit: str) -> dict:
     return {"k1": la["k1"]}
 
 
+def _rgba(frames: torch.Tensor) -> torch.Tensor:
+    """frames with an alpha channel of their green blocks' levels."""
+    return torch.cat([frames, frames[..., 1:2]], -1)
+
+
+def _held(label: str, got: torch.Tensor, want: torch.Tensor,
+          exact: bool = False) -> str:
+    """Hold the card's ``got`` to the CPU's ``want``: equal where
+    ``exact``, else within VFX_TOL but for at most SELECT_SHARE of the
+    pixels (a histogram bin of a normalize, a selection)."""
+    err, n_off, n_px = _apart(got, want, VFX_TOL)
+    if exact:
+        require(err == 0.0, f"{label}: max|d| {err}, not equal")
+    require(n_off <= SELECT_SHARE * n_px, f"{label}: {n_off} px apart")
+    return f"max|d| {err:.3e}, {n_off} of {n_px} px apart by more than " \
+        f"{VFX_TOL}"
+
+
+def visual_effects_phase(dev, gen, name_limit: str) -> dict:
+    """visual_effects: every effect of ``ops/visual_effects.py`` on N2
+    frames of 1080x1920x3 (shadow and polaroid on RGBA), with the launch
+    counts set to 0 just before each (one K3 launch for VFX_K3, none for
+    the rest), its median ms an image over VFX_RUNS calls, and frame 0 (a
+    VFX_CROP crop where marked) against the CPU.  The noise types and the
+    sketch draw their variates on the card; the card's and the CPU's
+    deterministic halves run on the same variates."""
+    from imagemagick_tpu_torch.ops import visual_effects as vfx
+
+    frames = _scenes(gen, dev, N2)
+    rgba = _rgba(frames)
+    ch, cw = VFX_CROP
+    wm = frames.flip(0)[0]
+    sketch_val = vfx.sketch_variates(frames, gen)
+    effects = [
+        ("blue_shift", lambda x: vfx.blue_shift(x, 1.5), frames, False),
+        ("charcoal", lambda x: vfx.charcoal(x, 0.0, 1.0), frames, False),
+        ("colorize", lambda x: vfx.colorize(x, (0.9, 0.4, 0.1), 0.3),
+         frames, False),
+        ("color_matrix", lambda x: vfx.color_matrix(x, np.array(
+            [[0.5, 0.3, 0.2], [0.1, 0.8, 0.1], [0.2, 0.2, 0.6]])),
+         frames, False),
+        ("sepia_tone", lambda x: vfx.sepia_tone(x, 0.8), frames, False),
+        ("solarize", lambda x: vfx.solarize(x, 0.5), frames, False),
+        ("stegano", lambda x: vfx.stegano(x, wm.to(x.device)), frames,
+         False),
+        ("stereo", lambda x: vfx.stereo(x, x.flip(-2), 12, 4), frames,
+         False),
+        ("tint", lambda x: vfx.tint(x, (1.0, 0.5, 0.0), (60.0,)), frames,
+         False),
+        ("vignette", lambda x: vfx.vignette(x, 0.0, 10.0), frames, False),
+        ("wavelet_denoise", lambda x: vfx.wavelet_denoise(x, 0.05, 0.0),
+         frames, False),
+        ("sketch", lambda x: vfx.sketch_from(
+            x, sketch_val[:x.shape[0], :2 * x.shape[1], :2 * x.shape[2]]
+            .to(x.device), 0.0, 1.0, 30.0), frames, True),
+        ("shadow", lambda x: vfx.shadow(x, 80.0, 3.0, 5, 5), rgba, False),
+        ("polaroid", lambda x: vfx.polaroid(x, 8.0), rgba, True)]
+    k3 = 0
+    for name, fn, x, crop in effects:
+        reset_launches()
+        out = fn(x)
+        torch.cuda.synchronize()
+        la = launched()
+        want_k3 = 1 if name in VFX_K3 else 0
+        require(la["k3"] == want_k3 and sum(la.values()) == want_k3,
+                f"visual_effects {name} launches {la}")
+        k3 += la["k3"]
+        require(bool(torch.isfinite(out).all()), f"{name} not finite")
+        shape = tuple(out.shape)
+        del out
+        ms = _call_ms(lambda: fn(x), runs=VFX_RUNS) / N2
+        x0 = x[:1, :ch, :cw] if crop else x[:1]
+        t0 = time.perf_counter()
+        want = fn(x0.cpu())
+        cpu_s = time.perf_counter() - t0
+        held = _held(name, fn(x0), want, name in VFX_EXACT)
+        print(f"visual_effects {name} on {tuple(x.shape)} -> {shape}: "
+              f"launches {la}; {ms:.4f} ms an image (median of {VFX_RUNS});"
+              f" {'a %dx%d crop of ' % VFX_CROP if crop else ''}frame 0 vs "
+              f"the CPU ({cpu_s:.1f} s there): {held} [{name_limit}]")
+    for kind in NOISE_TYPES:
+        reset_launches()
+        vs = vfx.noise_variates(frames, kind, 1.0, gen)
+        out = vfx.add_noise_from(frames, kind, 1.0, vs)
+        torch.cuda.synchronize()
+        require(sum(launched().values()) == 0 and
+                bool(torch.isfinite(out).all()), f"noise {kind}")
+        mean_shift = float((out - frames).mean())
+        del out
+        ms = _call_ms(lambda: vfx.add_noise(frames, kind, 1.0, gen),
+                      runs=VFX_RUNS) / N2
+        held = _held(f"noise {kind}", vfx.add_noise_from(
+            frames[:1], kind, 1.0, [v[:1] for v in vs]),
+            vfx.add_noise_from(frames[:1].cpu(), kind, 1.0,
+                               [v[:1].cpu() for v in vs]))
+        print(f"visual_effects add_noise({kind}) on {tuple(frames.shape)}: "
+              f"{ms:.4f} ms an image with its draw (median of {VFX_RUNS}), "
+              f"mean change {mean_shift:.3e}; frame 0 vs the CPU on the "
+              f"card's variates: {held} [{name_limit}]")
+        del vs
+    return {"k3": k3}
+
+
+def _animation(gen, dev) -> list:
+    """LAYER_N frames of a GIF export as the port's Images: frame 0 the
+    whole H x W x 4 background with the sprite, each later frame the box
+    that changed (the sprite's old and new places) at its page offset,
+    the sprite standing still at LAYER_PAUSES (a repeated frame)."""
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+
+    spec = ImageSpec(colorspace="srgb", alpha=True)
+    bg = _rgba(_scenes(gen, dev, 1)[0, :H, :W])
+    bg[..., 3] = 1.0
+    sh, sw = SPRITE
+    yy = torch.arange(sh, device=dev)[:, None] / sh - 0.5
+    xx = torch.arange(sw, device=dev)[None, :] / sw - 0.5
+    disk = (1.0 - 4.0 * (yy * yy + xx * xx)).clamp(0.0, 1.0)
+    sprite = torch.stack([disk, 0.3 * disk + 0.2, 1.0 - disk,
+                          (disk * 2.0).clamp(max=1.0)], -1)
+    places, y, x = [], 20, 10
+    for k in range(LAYER_N):
+        if k not in LAYER_PAUSES:
+            y, x = (y + 17) % (H - sh), (x + 29) % (W - sw)
+        places.append((y, x))
+
+    def over(canvas, y, x):
+        out = canvas.clone()
+        a = sprite[..., 3:]
+        win = out[y:y + sh, x:x + sw]
+        win[..., :3] = sprite[..., :3] * a + win[..., :3] * (1.0 - a)
+        return out
+
+    frames = [Image(over(bg, *places[0]), spec, delay=LAYER_DELAY)]
+    for k in range(1, LAYER_N):
+        (y0, x0), (y1, x1) = places[k - 1], places[k]
+        top, left = min(y0, y1), min(x0, x1)
+        bottom, right = max(y0, y1) + sh, max(x0, x1) + sw
+        full = over(bg, y1, x1)
+        delay = 0 if k - 1 in LAYER_PAUSES else LAYER_DELAY
+        frames.append(Image(full[top:bottom, left:right].contiguous(), spec,
+                            page=(left, top, W, H), delay=delay))
+    return frames
+
+
+def _frames_apart(label: str, got, want, tol: float = VFX_TOL) -> str:
+    """Hold two lists of the port's Images: equal counts, pages, delays
+    and shapes, pixels within ``tol``."""
+    require(len(got) == len(want), f"{label}: {len(got)} != {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        require((g.page, g.delay, tuple(g.data.shape)) ==
+                (w.page, w.delay, tuple(w.data.shape)),
+                f"{label}: {g.page} {g.delay} {tuple(g.data.shape)} != "
+                f"{w.page} {w.delay} {tuple(w.data.shape)}")
+        worst = max(worst, float((g.data.cpu() - w.data).abs().max()))
+    require(worst <= tol, f"{label}: max|d| {worst}")
+    return f"{len(got)} frame(s), pages, delays and shapes equal, max|d| " \
+        f"{worst:.3e}"
+
+
+def layers_phase(dev, gen, name_limit: str) -> None:
+    """layers: the LAYER_N-frame GIF export of ``_animation`` through each
+    layer operator on the card, ms a frame (median of VFX_RUNS), held to
+    the same call on CPU copies; then the contact sheet, ``montage`` of
+    CLI_N2 images of 512x768x3 on a MONTAGE_TILE grid of
+    MONTAGE_GEOMETRY, against the CPU.  None launches a kernel."""
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.ops import layer as ly
+    from imagemagick_tpu_torch.ops import montage as mo
+
+    frames = _animation(gen, dev)
+    cpu = [Image(f.data.cpu(), f.spec, page=f.page, delay=f.delay)
+           for f in frames]
+    bg = (1.0, 1.0, 1.0, 1.0)
+    coalesced = ly.coalesce(frames)
+    coalesced_cpu = ly.coalesce(cpu)
+    calls = [
+        ("coalesce", lambda fr, co: ly.coalesce(fr), False),
+        ("optimize", lambda fr, co: ly.optimize_layers(fr), False),
+        ("optimize-transparency",
+         lambda fr, co: ly.optimize_transparency(fr), False),
+        ("remove-dups", lambda fr, co: ly.remove_duplicate_layers(co), True),
+        ("remove-zero", lambda fr, co: ly.remove_zero_delay_layers(co), True),
+        ("deconstruct", lambda fr, co: ly.deconstruct(co), True),
+        ("flatten", lambda fr, co: [ly.flatten(fr, bg)], False),
+        ("mosaic", lambda fr, co: [ly.mosaic(fr, bg)], False),
+        ("append", lambda fr, co: [ly.append(co, True, bg)], True),
+        ("smush", lambda fr, co: [ly.smush(fr[1:], False, 4, bg)], False)]
+    for name, fn, on_coalesced in calls:
+        reset_launches()
+        out = fn(frames, coalesced)
+        torch.cuda.synchronize()
+        require(sum(launched().values()) == 0, f"layers {name} {launched()}")
+        ms = _call_ms(lambda: fn(frames, coalesced), runs=VFX_RUNS) / LAYER_N
+        held = _frames_apart(name, out, fn(cpu, coalesced_cpu))
+        print(f"layers {name} on {LAYER_N} frames of {(H, W, 4)} "
+              f"{'(coalesced) ' if on_coalesced else ''}-> "
+              f"{tuple(out[0].data.shape)}: {ms:.4f} ms a frame (median of "
+              f"{VFX_RUNS}); vs the CPU: {held} [{name_limit}]")
+        del out
+
+    spec = ImageSpec(colorspace="srgb")
+    sheet = [Image(d, spec) for d in
+             torch.rand((CLI_N2, H, W, C), generator=gen, device=dev)]
+    reset_launches()
+    out = mo.montage(sheet, MONTAGE_TILE, MONTAGE_GEOMETRY)
+    torch.cuda.synchronize()
+    require(sum(launched().values()) == 0, f"montage {launched()}")
+    ms = _call_ms(lambda: mo.montage(sheet, MONTAGE_TILE, MONTAGE_GEOMETRY),
+                  runs=VFX_RUNS) / CLI_N2
+    want = mo.montage([Image(i.data.cpu(), spec) for i in sheet],
+                      MONTAGE_TILE, MONTAGE_GEOMETRY)
+    held = _frames_apart("montage", [out], [want])
+    print(f"layers montage of {CLI_N2} x {(H, W, C)} on {MONTAGE_TILE} "
+          f"{MONTAGE_GEOMETRY} -> {tuple(out.data.shape)}: {ms:.4f} ms an "
+          f"image (median of {VFX_RUNS}); vs the CPU: {held} [{name_limit}]")
+
+
+def _polar(mag: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """The complex values that a -fft magnitude and phase pair encodes."""
+    return torch.polar(mag.double(), 2.0 * math.pi * (phase.double() - 0.5))
+
+
+def cli_layers_phase(dev, gen, name_limit: str) -> dict:
+    """cli_layers: CLI_N2 images of 512x768x3 through each chain of
+    CLI_LAYERS (one K1 launch for the group's resize; the K3 launches an
+    image that the chain names): the resize within K1_TOL of the CPU's,
+    the rest replayed on the CPU from the card's resize (within VFX_TOL
+    but for SELECT_SHARE of the pixels; -fft's pairs as complex values
+    within VFX_TOL of max|F|), ms an image."""
+    datas = list(torch.rand((CLI_N2, H, W, C), generator=gen, device=dev))
+    k1 = k3 = 0
+    for argv, k3_each in CLI_LAYERS:
+        reset_launches()
+        outs = _cli_run(argv, datas)
+        la = launched()
+        require(la["k1"] == 1 and la["k3"] == k3_each * CLI_N2 and
+                sum(la.values()) == 1 + k3_each * CLI_N2,
+                f"cli_layers {argv} launches {la}")
+        k1 += la["k1"]
+        k3 += la["k3"]
+        ms = _call_ms(lambda: _cli_run(argv, datas), runs=VFX_RUNS) / CLI_N2
+        head = [o.data for o in _cli_run(argv[:2], datas)]
+        err = max_err(torch.stack(head).cpu(), torch.stack(
+            [o.data for o in _cli_run(argv[:2], [d.cpu() for d in datas])]))
+        require(err <= K1_TOL, f"cli_layers resize max|d| {err}")
+        replay = _cli_run(argv[2:], [h.cpu() for h in head])
+        require(len(replay) == len(outs), f"cli_layers {len(outs)} outputs")
+        pairs = list(zip(outs, replay))
+        if argv[-1] == "-fft":
+            # a phase is held through the complex value it encodes: where
+            # |F| is tiny its angle means nothing
+            for (m, r), (p, q) in zip(pairs[::2], pairs[1::2]):
+                f, g = _polar(m.data.cpu(), p.data.cpu()), \
+                    _polar(r.data, q.data)
+                rel = float((f - g).abs().max() / g.abs().max())
+                require(rel <= VFX_TOL, f"cli_layers -fft: {rel}")
+            pairs = pairs[::2]
+        held = [_held(" ".join(argv), o.data, r.data) for o, r in pairs][0]
+        print(f"cli_layers {' '.join(argv)} on {CLI_N2} images: launches "
+              f"{la}, {len(outs)} output(s) of {tuple(outs[0].data.shape)}, "
+              f"{ms:.4f} ms an image (median of {VFX_RUNS}); resize vs the "
+              f"CPU max|d| {err:.3e}; the rest replayed on the CPU from the "
+              f"card's resize (output 0): {held} [{name_limit}]")
+    return {"k1": k1, "k3": k3}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2614,6 +2927,11 @@ def main() -> None:
     cliv = _timed("cli_vision",
                   lambda: cli_vision_phase(dev, gen, name_limit))
     clidr = _timed("cli_draw", lambda: cli_draw_phase(dev, gen, name_limit))
+    vfx = _timed("visual_effects",
+                 lambda: visual_effects_phase(dev, gen, name_limit))
+    _timed("layers", lambda: layers_phase(dev, gen, name_limit))
+    clil = _timed("cli_layers",
+                  lambda: cli_layers_phase(dev, gen, name_limit))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -3101,7 +3419,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
-         clich["k1"] + cliv["k1"] + clidr["k1"],
+         clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -3124,7 +3442,8 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/separable_blur.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
-         fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"],
+         fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"] + vfx["k3"] +
+         clil["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,

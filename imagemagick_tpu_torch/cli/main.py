@@ -44,13 +44,31 @@ the quantizers and attributes ``-posterize``, ``-colors``, ``-kmeans``,
 ``-mean-shift``, ``-connected-components`` (with its defines
 ``connected-components:verbose``, ``:mean-color`` and
 ``:area-threshold``), ``-segment``, ``-hough-lines`` and ``-features``;
-and ``-draw``, ``-annotate``, ``-frame`` and ``-raise``/``+raise``.  None
-of these but the resize family,
-the blurs and ``-colorspace`` carries a K1 tag, as in the JAX CLI.  The
-geometry options stay lazy, with their new shapes pushed; the options
-that read pixels or whose output shape depends on them (``-rotate``,
-``-border``, ``-trim``, ``-distort``, ``-deskew``, the channel, list and
-quantizer options, ...) materialize the list through
+``-draw``, ``-annotate``, ``-frame`` and ``-raise``/``+raise``; the layer
+and list operators ``-layers`` (every method but ``composite``, whose
+``null:`` separator needs io/), ``-coalesce``, ``-deconstruct``,
+``-flatten``, ``-mosaic``, ``-append``/``+append``, ``-smush``/``+smush``
+and ``-montage``; the visual effects ``-sketch``, ``-charcoal``,
+``-wavelet-denoise``, ``-sepia-tone``, ``-solarize``, ``-blue-shift``,
+``-tint``, ``-colorize``, ``-color-matrix``/``-recolor``, ``-vignette``,
+``-noise``/``+noise``, ``-shadow``, ``-polaroid``, ``-stegano`` and
+``-stereo``; and the options that need no file: ``-morphology``,
+``-convolve``, ``-fft``/``+fft``, ``-ift``/``+ift``, ``-complex``,
+``-clut``, ``-hald-clut``, ``-cdl``, ``-level-colors``, ``-levelize``,
+``-contrast``/``+contrast``, ``-local-contrast``, ``-grayscale``,
+``-monochrome``, ``-range-threshold``, ``-color-threshold``,
+``-perceptible``, ``-integral``, ``-moments``, ``-sort-pixels``,
+``-resample``, ``-interpolative-resize``, ``-gaussian``, ``-poly``,
+``-noop``, ``-orient``, ``-duplicate``, ``-insert``, ``-cycle`` and
+``-preview``, and the list and metadata options of the JAX CLI's loop,
+``-clone``/``+clone``, ``-delete``/``+delete``, ``-swap``/``+swap``,
+``-reverse``, ``-set``, ``-comment``, ``-strip`` and ``-copy``.  None of
+these but the resize family, the blurs, ``-gaussian``, ``-colorspace``
+and ``-grayscale``'s two luma methods carries a K1 tag, as in the JAX
+CLI.  The geometry options stay lazy, with their new shapes pushed; the
+options that read pixels or whose output shape depends on them (``-rotate``,
+``-border``, ``-trim``, ``-distort``, ``-deskew``, the channel, list,
+quantizer and layer options, ...) materialize the list through
 ``materialize_all``, so a resize before them still runs as one K1 launch
 for a group.  ``-posterize`` with a dither, ``-colors`` on an RGB frame
 and ``-kmeans``'s seeds run the native octree library on the host, as in
@@ -70,14 +88,26 @@ every per-pixel option of ``_op_simple`` honour; default ``default``),
 a percentage by every option that matches colors), ``-stroke``,
 ``-strokewidth``, ``-pointsize``, ``-font`` (read by ``-draw``,
 ``-annotate`` and ``-hough-lines``), ``-mattecolor`` (read by ``-frame``,
-default ``#bdbdbd``) and ``-direction`` (read by ``-annotate``).  The other settings keep the JAX defaults:
-``-filter`` is ``undefined``; write masks (``-region``) and ``-seed``
-are not ported, so ``-spread``, ``-fx``'s ``rand`` and the noise
+default ``#bdbdbd``), ``-direction`` (read by ``-annotate``),
+``-tile`` (read by ``-montage``), ``-filter`` (read by the resize family
+and ``-resample``; default ``undefined``), ``-interpolate`` (read by
+``-clut`` and ``-interpolative-resize``; default ``bilinear``),
+``-density`` (read by ``-resample``, default 72), ``-attenuate`` (read
+by ``+noise``, default 1), and ``-page`` and ``-delay``, stored as the
+JAX CLI stores them (it applies them to images it reads).  ``-label``
+sets the images' ``label`` property and ``-repage``/``+repage`` their
+page (ResetImagePage's rules), each on a new Image: the caller's Images
+are not changed.  Write masks (``-region``) and ``-seed`` are not
+ported, so ``-spread``, ``-fx``'s ``rand``, ``+noise`` and the noise
 operators of ``-evaluate`` draw from a generator seeded 0, as the JAX CLI
-draws from ``PRNGKey(0)``.  ``-remap``/``-map`` read a palette file and
-raise, naming ``io/``.  A file name, or any other option or setting,
-raises NotImplementedError naming its ROADMAP.md entry.  The tags equal
-the JAX CLI's for the same arguments.
+draws from ``PRNGKey(0)`` (its ``+noise`` seeds from the clock).
+``-remap``/``-map``/``-affinity`` read a palette file and raise, naming
+``io/``.  A file name, ``-profile``, the mask and clip options,
+``-encipher``/``-decipher``, ``-process``, ``-seed``, ``-print``,
+``-format``, ``-limit``, ``-debug``, ``-log``, ``-list`` and any other
+option or setting raise NotImplementedError naming their ROADMAP.md
+entry, 'Host layers'.  The tags equal the JAX CLI's for the same
+arguments.
 """
 
 from __future__ import annotations
@@ -100,8 +130,8 @@ from ..core.spec import ImageSpec, normalize_colorspace
 
 _IO_GAP = ("file names need the codecs and readers of io/, which are not "
            "ported yet: ROADMAP.md Queue 1, 'Host layers' (io/)")
-_OPS_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'The other op "
-            "families under ops/' and 'Host layers'")
+_OPS_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'Host layers' (core/'s "
+            "services, io/ and the rest of cli/)")
 
 
 class CLIError(Exception):
@@ -1416,6 +1446,677 @@ def _op_raise(st, arg, plus):
             not plus))
 
 
+# -- layers, montage, visual effects and the options that need no file -------
+
+def _replaced(li: LazyImage, **changes) -> Image:
+    """``li``'s image as a new Image with ``changes`` to its properties,
+    page or delay (the caller's Image is left as it was)."""
+    img = li.image
+    li.image = Image(img.data, img.spec,
+                     changes.get("properties", img.properties),
+                     img.profiles, changes.get("page", img.page),
+                     changes.get("delay", img.delay))
+    return li.image
+
+
+def _op_label(st, value):
+    """-label TEXT: set on the images already in the list."""
+    for li in st.images:
+        _replaced(li, properties=dict(li.image.properties, label=value))
+
+
+def _op_repage(st, geom, plus):
+    """+repage resets the page; -repage GEOM follows ResetImagePage
+    (image.c:2171) field by field: only parsed components are
+    overwritten, an omitted height defaults to the width, '!' ADDS the
+    offsets, and a positive offset onto a zero canvas sets the canvas
+    dimension to the image's plus the offset.  Page: (x, y, w, h)."""
+    if plus:
+        for li in st.images:
+            _replaced(li, page=None)
+        return
+    gp = parse_geometry(geom, offsets_first=True)
+    for li in st.images:
+        im = li.image
+        px, py, pw, ph = im.page if im.page else (0, 0, 0, 0)
+        if gp.width is not None:
+            pw = int(gp.width)
+            ph = int(gp.height if gp.height is not None else gp.width)
+        if gp.exact:        # '!' add-offset form
+            if gp.x is not None:
+                px += int(gp.x)
+            if gp.y is not None:
+                py += int(gp.y)
+        else:
+            if gp.x is not None:
+                px = int(gp.x)
+                if pw == 0 and px > 0:
+                    pw = im.width + px
+            if gp.y is not None:
+                py = int(gp.y)
+                if ph == 0 and py > 0:
+                    ph = im.height + py
+        _replaced(li, page=(px, py, pw, ph))
+
+
+def _relist(st, images: List[Image]) -> None:
+    st.images = [LazyImage(im) for im in images]
+
+
+def _op_layers(st, arg, plus):
+    """-layers METHOD (layer.c): every method of ``ops/layer.py``;
+    ``composite`` needs a ``null:`` separator image, which comes from a
+    reader of io/."""
+    from ..ops import layer as ly
+
+    method = arg.lower().replace("_", "-")
+    if method == "composite":
+        raise NotImplementedError(
+            "-layers composite needs a null: image between its two stacks, "
+            "and null: is a reader of io/, not ported yet: ROADMAP.md Queue "
+            "1, 'Host layers' (io/)")
+    frames = materialize_all(st.images)
+    fuzz = _fuzz(st)
+    if method == "coalesce":
+        out = ly.coalesce(frames)
+    elif method in ("optimize", "optimize-frame", "optimize-image",
+                    "optimize-plus"):
+        out = ly.optimize_layers(frames, fuzz)
+    elif method == "optimize-transparency":
+        out = ly.optimize_transparency(frames, fuzz)
+    elif method in ("remove-dups", "removedups"):
+        out = ly.remove_duplicate_layers(frames, fuzz)
+    elif method in ("remove-zero", "removezero"):
+        out = ly.remove_zero_delay_layers(frames)
+    elif method in ("compare-any", "compare-clear", "compare-overlay"):
+        out = ly.deconstruct(frames, fuzz)
+    elif method in ("flatten", "merge"):
+        out = [ly.flatten(frames, background=st.bg())]
+    elif method in ("mosaic", "trim-bounds"):
+        out = [ly.mosaic(frames)]
+    elif method == "dispose":
+        out = ly.dispose_images(frames)
+    else:
+        raise CLIError(f"unknown -layers method {arg!r}")
+    _relist(st, out)
+
+
+def _op_layer_list(fname: str):
+    """-coalesce, -deconstruct: the list through ``ops/layer.<fname>``."""
+
+    def handler(st, arg, plus):
+        from ..ops import layer as ly
+
+        _relist(st, getattr(ly, fname)(materialize_all(st.images)))
+
+    return handler
+
+
+def _op_flatten(st, arg, plus):
+    """-flatten: MergeImageLayers onto a -background canvas of the first
+    frame's size, every frame at its page offsets (-mosaic: a canvas of
+    their union)."""
+    from ..ops import layer as ly
+
+    _relist(st, [ly.flatten(materialize_all(st.images), background=st.bg())])
+
+
+def _op_mosaic(st, arg, plus):
+    from ..ops import layer as ly
+
+    _relist(st, [ly.mosaic(materialize_all(st.images), background=st.bg())])
+
+
+def _op_append(st, arg, plus):
+    """-append (top to bottom) and +append (left to right): AppendImages
+    on a -background canvas, placed by -gravity."""
+    from ..ops import layer as ly
+
+    _relist(st, [ly.append(materialize_all(st.images), stack=not plus,
+                           background=st.bg(),
+                           gravity=st.settings.get("gravity", "northwest"))])
+
+
+def _op_smush(st, arg, plus):
+    """-smush OFFSET (top to bottom) and +smush (left to right)."""
+    from ..ops import layer as ly
+
+    offset = int(float(arg)) if arg else 0
+    _relist(st, [ly.smush(materialize_all(st.images), stack=not plus,
+                          offset=offset, background=st.bg(),
+                          gravity=st.settings.get("gravity", "northwest"))])
+
+
+def _op_montage(st, arg, plus):
+    """-montage: the list on a -tile grid of -geometry thumbnails
+    (default 120x120+4+3)."""
+    from ..ops import montage as mo
+
+    geom = st.settings.get("compose-geometry") or "120x120+4+3"
+    _relist(st, [mo.montage(materialize_all(st.images),
+                            tile=st.settings.get("tile", ""),
+                            geometry=geom)])
+
+
+def _wavelet_args(a):
+    """operation.c:3695 scales rho AND sigma by QuantumRange/100 under %;
+    the threshold is in quantum units (normalized here), the softness the
+    raw multiplier of visual-effects.c:3717."""
+    g = parse_geometry(a)
+    thr = g.width if g.width is not None else 0.0
+    soft = g.height if g.height is not None else 0.0
+    if g.percent:
+        thr /= 100.0
+        soft *= 65535.0 / 100.0
+    else:
+        thr /= 65535.0
+    return {"threshold": thr, "softness": soft}
+
+
+def _sketch_args(st, a, p):
+    # the first image's alpha decides, as in the JAX CLI
+    return dict(_motion_args(a), has_alpha=bool(
+        st.images and st.images[0].spec.alpha))
+
+
+def _op_noise(st, arg, plus):
+    """+noise TYPE: AddNoiseImage at the -attenuate setting (default 1),
+    drawn from a generator seeded 0, as the port's other noise options
+    draw (the JAX CLI seeds from the clock and reads a setting that only
+    its default sets); -noise RADIUS: the non-peak statistic over a
+    (2R+1)^2 window."""
+    if plus:
+        from ..ops import visual_effects as vfx
+
+        att = float(st.settings.get("attenuate", "1.0"))
+        for li in st.images:
+            li.push(lambda x: vfx.add_noise(x, arg, attenuate=att))
+    else:
+        from ..ops import statistic as stx
+
+        w = 2 * int(float(arg)) + 1
+        for li in st.images:
+            li.push(lambda x: stx.statistic(x, "nonpeak", w, w))
+
+
+def _op_tint(st, arg, plus):
+    """-tint RHO[xSIGMA+XI]: blend percentages toward -fill."""
+    from ..ops import visual_effects as vfx
+
+    g = parse_geometry(arg)
+    rho = g.width if g.width is not None else 100.0
+    blend = (rho, g.height if g.height is not None else rho,
+             float(g.x) if g.x is not None else rho)
+    fill = st.fill()[:3]
+    for li in st.images:
+        li.push(lambda x: vfx.tint(x, fill, blend))
+
+
+def _op_vignette(st, arg, plus):
+    """-vignette RxS+X+Y{%}: offsets default to a tenth of the image and
+    round to integers (operation.c:3671); blends toward -background."""
+    from ..ops import visual_effects as vfx
+
+    r, s = _geom_args(arg)
+    g = parse_geometry(arg)
+    bg = st.bg()[:3]
+    for li in st.images:
+        w, h = li.width, li.height
+        vx = float(g.x) if g.x is not None else 0.1 * w
+        vy = float(g.y) if g.y is not None else 0.1 * h
+        if g.percent:
+            vx *= w / 100.0
+            vy *= h / 100.0
+        vx, vy = math.ceil(vx - 0.5), math.ceil(vy - 0.5)
+        li.push(lambda d, a=(r, s, vx, vy): vfx.vignette(d, *a,
+                                                         background=bg))
+
+
+def _op_colorize(st, arg, plus):
+    """-colorize R[,G,B] percentages toward -fill (no clamp, as in the
+    JAX CLI)."""
+    parts = [float(p.rstrip("%")) / 100.0
+             for p in arg.replace("/", ",").split(",")]
+    if len(parts) == 1:
+        parts = parts * 3
+    for li, img in _materialized(st):
+        cc = img.spec.color_channels
+        dev = img.data.device
+        amounts = torch.tensor(parts[:cc], dtype=torch.float32, device=dev)
+        fill = torch.tensor(st.fill()[:cc], dtype=torch.float32, device=dev)
+        out = img.data[..., :cc] * (1 - amounts) + fill * amounts
+        if img.spec.alpha:
+            out = torch.cat([out, img.data[..., -1:]], -1)
+        li.image = img.replace(data=out)
+
+
+def _square_matrix(arg: str, what: str) -> np.ndarray:
+    vals = [float(v) for v in arg.replace(",", " ").split()]
+    n = int(round(len(vals) ** 0.5))
+    if n * n != len(vals):
+        raise CLIError(f"{what} needs a square matrix")
+    return np.asarray(vals, np.float32).reshape(n, n)
+
+
+def _op_color_matrix(st, arg, plus):
+    from ..ops import visual_effects as vfx
+
+    mat = _square_matrix(arg, "-color-matrix")
+    for li in st.images:
+        li.push(lambda x: vfx.color_matrix(x, mat))
+
+
+def _op_shadow(st, arg, plus):
+    """-shadow [PCTxSIGMA+X+Y] (default 80x3+5+5): each image becomes its
+    shadow in the -background color, with alpha."""
+    from ..ops import visual_effects as vfx
+
+    g = parse_geometry(arg or "80x3+5+5")
+    for li, img in _materialized(st):
+        data = img.data
+        if not img.spec.alpha:
+            data = torch.cat([data, torch.ones_like(data[..., :1])], -1)
+        out = vfx.shadow(data, g.width or 80.0, g.height or 3.0,
+                         int(g.x or 5), int(g.y or 5), color=st.bg()[:3])
+        li.image = Image(out, img.spec.with_(alpha=True))
+
+
+def _op_polaroid(st, arg, plus):
+    """-polaroid ANGLE (+polaroid: angle 0): a bent, framed, shadowed
+    print on transparency."""
+    from ..ops import visual_effects as vfx
+
+    angle = 0.0 if plus or arg is None else float(arg)
+    for li, img in _materialized(st):
+        out = vfx.polaroid(img.data, angle, background=st.bg()[:3])
+        li.image = Image(out, img.spec.with_(alpha=True))
+
+
+def _op_stegano(st, arg, plus):
+    """-stegano OFFSET: the last image is the watermark hidden in the
+    others' low bits."""
+    from ..ops import visual_effects as vfx
+
+    if len(st.images) < 2:
+        raise CLIError("-stegano needs an image and a watermark")
+    wm = st.images.pop().materialize()
+    offset = int(arg or 0)
+    for li, img in _materialized(st):
+        li.image = img.replace(data=vfx.stegano(img.data, wm.data, offset))
+
+
+def _op_stereo(st, arg, plus):
+    """-stereo +X+Y: the last two images become their anaglyph."""
+    from ..ops import visual_effects as vfx
+
+    if len(st.images) < 2:
+        raise CLIError("-stereo needs two images")
+    g = parse_geometry(arg or "+0+0", offsets_first=True)
+    right = st.images.pop().materialize()
+    left = st.images[-1].materialize()
+    st.images[-1].image = left.replace(data=vfx.stereo(
+        left.data, right.data, int(g.x or 0), int(g.y or 0)))
+
+
+def _op_morphology(st, arg, plus):
+    """-morphology METHOD[:ITERATIONS] KERNEL (two arguments)."""
+    from ..ops import morphology as mo
+
+    parts = arg.split(None, 1)
+    method = parts[0]
+    kernel = parts[1] if len(parts) > 1 else "square:1"
+    iters = 1
+    if ":" in method:
+        method, _, it = method.partition(":")
+        iters = int(it)
+    vp = st.settings["virtual-pixel"]
+    for li in st.images:
+        li.push(lambda x: mo.morphology(x, method, kernel, iterations=iters,
+                                        virtual_pixel=vp))
+
+
+def _op_convolve(st, arg, plus):
+    """-convolve 'k11,k12,...': a normalized square kernel."""
+    from ..ops import morphology as mo
+
+    kern = _square_matrix(arg, "-convolve")
+    vp = st.settings["virtual-pixel"]
+    for li in st.images:
+        li.push(lambda x: mo.convolve_kernel(x, kern, normalize=True,
+                                             virtual_pixel=vp))
+
+
+def _op_fft(st, arg, plus):
+    """-fft (+fft: real and imaginary): each image becomes its magnitude
+    and phase pair."""
+    from ..ops import fourier as ff
+
+    out = []
+    for img in materialize_all(st.images):
+        mag, ph = ff.forward_fft(img.data, modulus=not plus)
+        out += [Image(mag, img.spec), Image(ph, img.spec)]
+    _relist(st, out)
+
+
+def _op_ift(st, arg, plus):
+    """-ift (+ift): the first two images, a magnitude and phase pair (or
+    real and imaginary), become one image."""
+    from ..ops import fourier as ff
+
+    if len(st.images) < 2:
+        raise CLIError("-ift needs a magnitude/phase image pair")
+    mag, ph = materialize_all(st.images[:2])
+    _relist(st, [Image(ff.inverse_fft(mag.data, ph.data,
+                                      modulus=not plus), mag.spec)])
+
+
+def _op_complex(st, arg, plus):
+    """-complex OP over (real, imaginary) pairs: images 0-1 with 2-3
+    (zeros where absent)."""
+    from ..ops import fourier as ff
+
+    if len(st.images) < 2:
+        raise CLIError("-complex needs image pairs")
+    imgs = materialize_all(st.images)
+    a_r, a_i = imgs[0], imgs[1]
+    b_r = imgs[2].data if len(imgs) > 2 else torch.zeros_like(a_r.data)
+    b_i = imgs[3].data if len(imgs) > 3 else torch.zeros_like(a_i.data)
+    out_r, out_i = ff.complex_images(a_r.data, a_i.data, b_r, b_i,
+                                     arg.lower())
+    _relist(st, [a_r.replace(data=out_r), a_i.replace(data=out_i)])
+
+
+def _op_clut(st, arg, plus):
+    """-clut: the last image is the lookup, sampled by -interpolate
+    (default bilinear); a lookup with alpha gives the images alpha."""
+    from ..ops import enhance as en
+
+    if len(st.images) < 2:
+        raise CLIError("-clut needs an image and a lookup image")
+    lut = st.images.pop().materialize()
+    method = st.settings.get("interpolate", "bilinear") or "bilinear"
+    if method.lower() in ("undefined", ""):
+        method = "bilinear"
+    for li, img in _materialized(st):
+        out = en.clut(img.data, lut.data, method=method,
+                      lut_alpha=lut.spec.alpha, has_alpha=img.spec.alpha)
+        spec = img.spec
+        if lut.spec.alpha and not spec.alpha:
+            # ClutImage's tail: a clut with alpha activates the channel
+            out = torch.cat([out, torch.ones_like(out[..., :1])], -1)
+            spec = spec.with_(alpha=True)
+        li.image = img.replace(data=out, spec=spec)
+
+
+def _op_hald_clut(st, arg, plus):
+    """-hald-clut: the last image is the Hald CLUT."""
+    from ..ops import enhance as en
+
+    if len(st.images) < 2:
+        raise CLIError("-hald-clut needs an image and a Hald CLUT image")
+    hald = st.images.pop().materialize()
+    for li, img in _materialized(st):
+        li.image = img.replace(data=en.hald_clut(img.data, hald.data))
+
+
+def _op_cdl(st, arg, plus):
+    """-cdl 'slope,offset,power[:saturation]' (3 or 9 numbers)."""
+    from ..ops import enhance as en
+
+    body, _, sat = arg.partition(":")
+    nums = [float(v) for v in body.replace(",", " ").split()]
+    if len(nums) == 3:
+        slope, offset, power = ([nums[0]] * 3, [nums[1]] * 3, [nums[2]] * 3)
+    elif len(nums) >= 9:
+        slope, offset, power = nums[0:3], nums[3:6], nums[6:9]
+    else:
+        raise CLIError("-cdl needs 3 or 9 numbers")
+    s = float(sat) if sat else 1.0
+    for li in st.images:
+        li.push(lambda x: en.color_decision_list(
+            x, tuple(slope), tuple(offset), tuple(power), s))
+
+
+def _op_level_colors(st, arg, plus):
+    """-level-colors BLACK,WHITE: the color range stretched to the full
+    range (+level-colors: the full range mapped into the colors).  The
+    scale is PerceptibleReciprocal(white - black), sign-preserving: a
+    reversed range inverts the channel (enhance.c:3244)."""
+    lo_s, _, hi_s = arg.partition(",")
+    lo = np.asarray(parse_color(lo_s or "black")[:3], np.float32)
+    hi = np.asarray(parse_color(hi_s or "white")[:3], np.float32)
+    diff = hi - lo
+    tiny = np.abs(diff) < 1e-12
+    scale = np.where(tiny, np.sign(diff) * np.float32(1e12)
+                     + (diff == 0) * np.float32(1e12),
+                     np.float32(1.0) / np.where(tiny, np.float32(1.0), diff)
+                     ).astype(np.float32)
+
+    def fn(x):
+        c = x[..., :3]
+        t = lambda v: torch.from_numpy(v).to(x.device)
+        out = t(lo) + c * t(diff) if plus else (c - t(lo)) * t(scale)
+        out = torch.clamp(out, 0.0, 1.0)
+        return torch.cat([out, x[..., 3:]], -1) if x.shape[-1] > 3 else out
+
+    for li in st.images:
+        li.push(fn)
+
+
+def _op_contrast(st, arg, plus):
+    """-contrast (+contrast: reduce)."""
+    from ..ops import enhance as en
+
+    for li in st.images:
+        li.push(lambda x: en.contrast(x, not plus))
+
+
+def _op_grayscale(st, arg, plus):
+    """-grayscale METHOD (default rec709luma): lazy; the two luma methods
+    on a color image are a channel mix, tagged for K1 as in the JAX
+    CLI."""
+    from ..ops import colorspace as cs
+    from ..ops import enhance as en
+
+    method = arg or "rec709luma"
+    lumas = {"rec709luma": cs.REC709_LUMA, "rec601luma": cs.REC601_LUMA}
+    for li in st.images:
+        tag = None
+        if method.lower() in lumas and li.spec.color_channels == 3:
+            luma = tuple(lumas[method.lower()])
+            # en.grayscale drops alpha: one luma row either way
+            tag = ("mix", (luma + (0.0,),)) if li.spec.alpha \
+                else ("mix", (luma,))
+        li.push(lambda x: en.grayscale(x, method),
+                spec_update=lambda s: s.with_(colorspace="gray"), tag=tag)
+
+
+def _op_monochrome(st, arg, plus):
+    """-monochrome: SetImageType(BilevelType) = gray + NormalizeImage +
+    BilevelImage(QuantumRange/2) (attribute.c:2320-2330)."""
+    from ..ops import colorspace as cs
+    from ..ops import enhance as en
+    from ..ops import threshold as th
+
+    for li, img in _materialized(st):
+        gray = cs.convert(img.data[..., :img.spec.color_channels],
+                          img.spec.colorspace, "gray")
+        gray = th.bilevel(en.normalize(gray), 0.5)
+        li.image = Image(gray, img.spec.with_(colorspace="gray",
+                                              alpha=False))
+
+
+def _op_range_threshold(st, arg, plus):
+    from ..ops import threshold as th
+
+    vals = [_percent(v) for v in arg.split(",")]
+    while len(vals) < 4:
+        vals.append(vals[-1])
+    for li in st.images:
+        li.push(lambda x: th.range_threshold(x, *vals[:4]))
+
+
+def _op_color_threshold(st, arg, plus):
+    """-color-threshold START-STOP: white inside the color box, black
+    outside (a gray image)."""
+    start_s, _, stop_s = arg.partition("-")
+    lo = parse_color(start_s or "black")[:3]
+    hi = parse_color(stop_s or "white")[:3]
+
+    def fn(x):
+        c = x[..., :3]
+        t = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)
+        inside = ((c >= t(lo)) & (c <= t(hi))).all(dim=-1, keepdim=True)
+        return torch.where(inside, 1.0, 0.0)
+
+    for li in st.images:
+        li.push(fn, spec_update=lambda s: s.with_(colorspace="gray",
+                                                  alpha=False))
+
+
+def _integral(x: torch.Tensor) -> torch.Tensor:
+    """-integral: the summed-area table (IntegralImage, statistic.c)."""
+    return torch.cumsum(torch.cumsum(x, dim=-3), dim=-2)
+
+
+def _op_integral(st, arg, plus):
+    for li in st.images:
+        li.push(_integral)
+
+
+def _op_moments(st, arg, plus):
+    """-moments: prints each image's moments (the first 8 values of
+    each), as the JAX CLI prints them."""
+    from ..ops import statistic as stx
+
+    def host(v):
+        if isinstance(v, (tuple, list)):
+            return np.asarray([host(u) for u in v])
+        return v.cpu().numpy()
+
+    for _, img in _materialized(st):
+        for k, v in stx.get_moments(img.data).items():
+            print(f"  {k}: {host(v).ravel()[:8]}")
+
+
+def _sort_pixels(x: torch.Tensor) -> torch.Tensor:
+    """-sort-pixels: the pixels in order of their mean intensity (a
+    stable sort over the whole image, as in the JAX CLI)."""
+    from ..ops.channel import channel_mean
+
+    h, w, c = x.shape[-3:]
+    order = torch.argsort(channel_mean(x[..., :3]).reshape(
+        x.shape[:-3] + (-1,)), dim=-1, stable=True)
+    flat = x.reshape(x.shape[:-3] + (h * w, c))
+    out = torch.take_along_dim(flat, order[..., None], dim=-2)
+    return out.reshape(x.shape)
+
+
+def _op_sort_pixels(st, arg, plus):
+    for li in st.images:
+        li.push(_sort_pixels)
+
+
+def _op_resample(st, arg, plus):
+    """-resample XxY: a resize by the ratio to the -density setting
+    (default 72), with -filter."""
+    from ..ops import resize as rz
+
+    g = parse_geometry(arg)
+    dx = g.width or 72.0
+    dy = g.height or dx
+    cg = parse_geometry(st.settings.get("density", "72"))
+    cdx, cdy = cg.width or 72.0, (cg.height or cg.width or 72.0)
+    for li, img in _materialized(st):
+        w = max(int(img.width * dx / cdx + 0.5), 1)
+        h = max(int(img.height * dy / cdy + 0.5), 1)
+        li.image = img.replace(data=rz.resize(
+            img.data, h, w, st.settings.get("filter", "undefined")))
+
+
+def _op_interpolative_resize(st, arg, plus):
+    """-interpolative-resize GEOMETRY with the -interpolate method."""
+    from ..ops import resize as rz
+
+    for li, img in _materialized(st):
+        w, h, _, _ = parse_meta_geometry(arg, img.width, img.height)
+        li.image = img.replace(data=rz.interpolative_resize(
+            img.data, h, w, st.settings.get("interpolate", "bilinear")))
+
+
+def _op_poly(st, arg, plus):
+    """-poly 'w1,e1 w2,e2 ...': the list becomes sum(w_i * img_i^e_i)."""
+    from ..ops import statistic as stx
+
+    terms = [float(v) for v in arg.replace(",", " ").split()]
+    if len(terms) % 2:
+        raise CLIError("-poly needs weight,exponent pairs")
+    pairs = [(terms[j], terms[j + 1]) for j in range(0, len(terms), 2)]
+    imgs = materialize_all(st.images)
+    datas, spec = _normalize_list_channels(imgs)
+    _relist(st, [Image(stx.polynomial_images(datas, pairs), spec,
+                       imgs[0].properties, imgs[0].profiles)])
+
+
+def _op_orient(st, arg, plus):
+    """-orient NAME: the image turned as that EXIF orientation says."""
+    from ..ops import transform as tf
+
+    names = {"topleft": 1, "topright": 2, "bottomright": 3,
+             "bottomleft": 4, "lefttop": 5, "righttop": 6,
+             "rightbottom": 7, "leftbottom": 8}
+    o = names.get(arg.lower().replace("-", ""), 1)
+    for li, img in _materialized(st):
+        li.image = img.replace(data=tf.auto_orient(img.data, o))
+
+
+def _op_duplicate(st, arg, plus):
+    """-duplicate N: N copies of the last image."""
+    n = int(arg) if arg and arg.lstrip("+-").isdigit() else 1
+    last = st.images[-1].materialize()
+    st.images += [LazyImage(last) for _ in range(n)]
+
+
+def _op_insert(st, arg, plus):
+    """-insert INDEX: the last image moved to INDEX."""
+    idx = int(arg)
+    img = st.images.pop()
+    st.images.insert(idx if idx >= 0 else len(st.images) + idx + 1, img)
+
+
+def _op_cycle(st, arg, plus):
+    """-cycle AMOUNT: on direct-class pixels, a modular intensity shift of
+    AMOUNT/256 (the reference quantizes first, colormap.c)."""
+    amount = float(arg) / 256.0
+    for li in st.images:
+        li.push(lambda x: torch.remainder(x + amount, 1.0))
+
+
+def _op_preview(st, arg, plus):
+    """-preview TYPE: nine variations of the first image (gamma, blur,
+    brightness, saturation or hue) on a 3x3 montage."""
+    from ..ops import blur as bl
+    from ..ops import enhance as en
+    from ..ops import montage as mo
+
+    t = arg.lower()
+    img = st.images[0].materialize()
+    variants = []
+    for k in range(9):
+        if t == "blur":
+            data = bl.blur(img.data, 0.0, 0.2 + 0.4 * k)
+        elif t == "brightness":
+            data = en.brightness_contrast(img.data, -40 + 10 * k, 0)
+        elif t == "saturation":
+            data = en.modulate(img.data, 100, 40 + 15 * k, 100)
+        elif t == "hue":
+            data = en.modulate(img.data, 100, 100, 60 + 10 * k)
+        else:
+            data = en.gamma(img.data, 0.3 + 0.3 * k)
+        variants.append(Image(data, img.spec))
+    _relist(st, [mo.montage(variants, tile="3x3", geometry="120x120+2+2")])
+
+
 # option name -> (number of arguments, handler)
 OPS: Dict[str, Tuple[int, Callable]] = {
     # the resize family
@@ -1567,6 +2268,74 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "annotate": (2, _op_annotate),
     "frame": (1, _op_frame),
     "raise": (1, _op_raise),
+    # layers and montage
+    "layers": (1, _op_layers),
+    "coalesce": (0, _op_layer_list("coalesce")),
+    "deconstruct": (0, _op_layer_list("deconstruct")),
+    "flatten": (0, _op_flatten),
+    "mosaic": (0, _op_mosaic),
+    "append": (0, _op_append),
+    "smush": (1, _op_smush),
+    "montage": (0, _op_montage),
+    # visual effects
+    "sketch": (1, _op_simple("visual_effects", "sketch", _sketch_args)),
+    "charcoal": (1, _op_simple("visual_effects", "charcoal", _rs)),
+    "wavelet-denoise": (1, _op_simple("visual_effects", "wavelet_denoise",
+                                      lambda st, a, p: _wavelet_args(a))),
+    "sepia-tone": (1, _op_simple("visual_effects", "sepia_tone",
+                                 _threshold_arg)),
+    "solarize": (1, _op_simple("visual_effects", "solarize",
+                               _threshold_arg)),
+    "blue-shift": (1, _op_simple("visual_effects", "blue_shift",
+                                 lambda st, a, p: {"factor": float(a)})),
+    "tint": (1, _op_tint),
+    "colorize": (1, _op_colorize),
+    "color-matrix": (1, _op_color_matrix),
+    "recolor": (1, _op_color_matrix),
+    "vignette": (1, _op_vignette),
+    "noise": (1, _op_noise),
+    "shadow": ("?", _op_shadow),
+    "polaroid": (1, _op_polaroid),
+    "stegano": (1, _op_stegano),
+    "stereo": (1, _op_stereo),
+    # the options that need no file
+    "morphology": (2, _op_morphology),
+    "convolve": (1, _op_convolve),
+    "fft": (0, _op_fft),
+    "ift": (0, _op_ift),
+    "complex": (1, _op_complex),
+    "clut": (0, _op_clut),
+    "hald-clut": (0, _op_hald_clut),
+    "cdl": (1, _op_cdl),
+    "level-colors": (1, _op_level_colors),
+    "levelize": (1, _op_simple("enhance", "levelize", lambda st, a, p: dict(
+        zip(("black_point", "white_point", "gamma_"),
+            _parse_level_arg(a))))),
+    "contrast": (0, _op_contrast),
+    "local-contrast": (1, _op_simple("enhance", "local_contrast",
+                                     lambda st, a, p: dict(zip(
+                                         ("radius", "strength"),
+                                         _geom_args(a))))),
+    "grayscale": (1, _op_grayscale),
+    "monochrome": (0, _op_monochrome),
+    "range-threshold": (1, _op_range_threshold),
+    "color-threshold": (1, _op_color_threshold),
+    "perceptible": (1, _op_simple("threshold", "perceptible",
+                                  lambda st, a, p: {"epsilon": float(a)})),
+    "integral": (0, _op_integral),
+    "moments": (0, _op_moments),
+    "sort-pixels": (0, _op_sort_pixels),
+    "resample": (1, _op_resample),
+    "interpolative-resize": (1, _op_interpolative_resize),
+    "gaussian": (1, _op_blur("gaussian_blur", "2d")),
+    "poly": (1, _op_poly),
+    "noop": (0, lambda st, a, p: None),
+    "orient": (1, _op_orient),
+    "duplicate": (1, _op_duplicate),
+    "insert": (1, _op_insert),
+    "cycle": (1, _op_cycle),
+    "preview": (1, _op_preview),
+    "affinity": (1, _op_remap),
 }
 
 # settings stored by ``process`` (the JAX CLI's _SETTINGS subset that a
@@ -1574,7 +2343,8 @@ OPS: Dict[str, Tuple[int, Callable]] = {
 _SETTINGS = ("virtual-pixel", "gravity", "compose", "background",
              "bordercolor", "affine", "channel", "metric", "dither",
              "quantize", "fill", "fuzz", "stroke", "strokewidth",
-             "pointsize", "font", "mattecolor", "direction")
+             "pointsize", "font", "mattecolor", "direction", "tile", "page",
+             "delay", "attenuate", "filter", "interpolate", "density")
 
 
 def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
@@ -1624,8 +2394,25 @@ def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
             else:
                 st.settings[name] = value
             continue
+        if name in _LIST_OPTIONS:
+            i = _LIST_OPTIONS[name](st, args, i, plus)
+            continue
+        if name == "label":
+            if i >= len(args):
+                raise CLIError(f"option requires an argument {tok!r}")
+            _op_label(st, args[i])
+            i += 1
+            continue
+        if name == "repage":
+            if not plus and i >= len(args):
+                raise CLIError(f"option requires an argument {tok!r}")
+            _op_repage(st, None if plus else args[i], plus)
+            i += 0 if plus else 1
+            continue
         if name in OPS:
             n_args, handler = OPS[name]
+            if n_args == "?":   # one optional argument (-shadow)
+                n_args = int(i < len(args) and _optional_arg(args[i]))
             if i + n_args > len(args):
                 raise CLIError(f"option requires an argument {tok!r}")
             arg = " ".join(args[i:i + n_args]) if n_args else None
@@ -1635,6 +2422,125 @@ def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
             continue
         raise unported(tok)
     return st
+
+
+# -- the list and metadata options the JAX CLI handles in its loop ---------
+
+def _indices(spec: str, n: int) -> List[int]:
+    """A comma list of indices and ranges ("0,2", "1-3", "-1") in a list of
+    ``n``, in order, negative ones counted from the end (mogrify.c)."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if "-" in part[1:]:
+            lo, _, hi = part.rpartition("-")
+            out += list(range(int(lo), int(hi) + 1))
+        else:
+            out.append(int(part))
+    return out
+
+
+def _list_clone(st, args, i, plus):
+    """+clone / bare -clone: a copy of the last image of the list before
+    the parenthesis; -clone takes comma lists and ranges."""
+    src = st.stack[-1] if st.stack else st.images
+    spec = None
+    if not plus and i < len(args) and re.match(r"^-?\d", args[i]):
+        spec, i = args[i], i + 1
+    picks = [src[-1]] if spec is None else \
+        [src[k] for k in _indices(spec, len(src))]
+    st.images += [LazyImage(im) for im in materialize_all(picks)]
+    return i
+
+
+def _list_delete(st, args, i, plus):
+    """-delete INDEXES (+delete, or no index: the last image)."""
+    spec = "-1"
+    if i < len(args) and re.match(r"^-?\d", args[i]):
+        spec, i = args[i], i + 1
+    n = len(st.images)
+    drop = {k if k >= 0 else n + k for k in _indices(spec, n)}
+    st.images = [li for k, li in enumerate(st.images) if k not in drop]
+    return i
+
+
+def _list_swap(st, args, i, plus):
+    """-swap A,B (default -2,-1: the last two)."""
+    spec = args[i] if i < len(args) else "-2,-1"
+    if "," in spec or spec.lstrip("+-").isdigit():
+        i += 1
+    else:
+        spec = "-2,-1"
+    a, _, b = spec.partition(",")
+    ia, ib = int(a), int(b or -1)
+    st.images[ia], st.images[ib] = st.images[ib], st.images[ia]
+    return i
+
+
+def _list_reverse(st, args, i, plus):
+    st.images.reverse()
+    return i
+
+
+def _list_set(st, args, i, plus):
+    """-set KEY VALUE: a property of every image of the list."""
+    if i + 2 > len(args):
+        raise CLIError("option requires an argument '-set'")
+    key, value = args[i].lstrip("-+"), args[i + 1]
+    for li in st.images:
+        _replaced(li, properties=dict(li.image.properties, **{key: value}))
+    return i + 2
+
+
+def _list_comment(st, args, i, plus):
+    if i >= len(args):
+        raise CLIError("option requires an argument '-comment'")
+    for li in st.images:
+        _replaced(li, properties=dict(li.image.properties,
+                                      comment=args[i]))
+    return i + 1
+
+
+def _list_strip(st, args, i, plus):
+    """-strip: every image's properties and profiles dropped."""
+    for li in st.images:
+        img = li.image
+        li.image = Image(img.data, img.spec, None, None, img.page, img.delay)
+    return i
+
+
+def _list_copy(st, args, i, plus):
+    """-copy GEOMETRY OFFSET: a region of the second-to-last image copied
+    into the last at OFFSET."""
+    if i + 2 > len(args):
+        raise CLIError("option requires an argument '-copy'")
+    geom, off = args[i], args[i + 1]
+    if len(st.images) >= 2:
+        src, dst = materialize_all(st.images[-2:])
+        w, h, sx, sy = parse_page_geometry(geom, src.width, src.height)
+        og = parse_geometry(off)
+        dx, dy = int(og.x or 0), int(og.y or 0)
+        data = dst.data.clone()
+        data[dy:dy + h, dx:dx + w, :] = \
+            src.data[sy:sy + h, sx:sx + w, :dst.channels]
+        st.images[-1].image = dst.replace(data=data)
+    return i + 2
+
+
+# option name -> handler(state, args, index after the option, plus form)
+# -> the index after its arguments
+_LIST_OPTIONS = {"clone": _list_clone, "delete": _list_delete,
+                 "swap": _list_swap, "reverse": _list_reverse,
+                 "set": _list_set, "comment": _list_comment,
+                 "strip": _list_strip, "copy": _list_copy}
+
+
+def _optional_arg(tok: str) -> bool:
+    """Whether the token after an option of one optional argument is that
+    argument: not an option and not what the JAX CLI takes for an output
+    file name."""
+    return not tok.startswith(("-", "+")) and "." not in tok and \
+        ":" not in tok
 
 
 def unported(tok: str) -> NotImplementedError:

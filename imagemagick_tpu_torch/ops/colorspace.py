@@ -379,7 +379,7 @@ def oklab_to_rgb(x):
 
 def rgb_to_oklch(x):
     L, a, b = _split(rgb_to_oklab(x))
-    C = torch.sqrt((a - 0.5) ** 2 + (b - 0.5) ** 2)
+    C = torch.sqrt(((a - 0.5) ** 2 + (b - 0.5) ** 2).double()).float()
     h = 0.5 + 0.5 * torch.atan2(-(b - 0.5), -(a - 0.5)) / math.pi
     return _join(L, C, h)
 

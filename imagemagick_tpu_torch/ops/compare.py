@@ -53,7 +53,7 @@ def mean_squared_error(a, b):
 
 
 def root_mean_squared_error(a, b):
-    return torch.sqrt(mean_squared_error(a, b))
+    return torch.sqrt(mean_squared_error(a, b).double()).float()
 
 
 def peak_absolute_error(a, b):
@@ -109,7 +109,8 @@ def normalized_cross_correlation(a, b):
     am = a - a.mean(dim=axes, keepdim=True)
     bm = b - b.mean(dim=axes, keepdim=True)
     num = (am * bm).sum(dim=axes)
-    den = torch.sqrt((am * am).sum(dim=axes) * (bm * bm).sum(dim=axes))
+    den = torch.sqrt(((am * am).sum(dim=axes) * (bm * bm).sum(dim=axes))
+                     .double()).float()
     return (num / torch.clamp(den, min=1e-30)).mean()
 
 
@@ -152,7 +153,7 @@ def dssim(a, b):
 
 def fuzz_error(a, b):
     """FUZZ metric: sqrt of the mean squared error (compare.c Fuzz)."""
-    return torch.sqrt(((a - b) ** 2).mean())
+    return torch.sqrt(((a - b) ** 2).mean().double()).float()
 
 
 def dot_product_correlation(a, b):

@@ -85,7 +85,7 @@ def _f_hard_light(s, d):
 def _f_soft_light(s, d):
     """SVG soft-light (composite.c SoftLight)."""
     g = torch.where(d <= 0.25, ((16.0 * d - 12.0) * d + 4.0) * d,
-                    torch.sqrt(d.clamp(min=0.0)))
+                    torch.sqrt(d.clamp(min=0.0).double()).float())
     return torch.where(2.0 * s <= 1.0,
                        d - (1.0 - 2.0 * s) * d * (1.0 - d),
                        d + (2.0 * s - 1.0) * (g - d))
@@ -436,10 +436,12 @@ def composite(dst: torch.Tensor, src: torch.Tensor, operator: str = "over",
         diff = dc[..., :n3] - sc[..., :n3]
         terms = diff * diff
         if n3 == 3:
-            gray = torch.sqrt(terms[..., 0] + terms[..., 1]
-                              + terms[..., 2] / 3.0)[..., None]
+            gray = torch.sqrt((terms[..., 0] + terms[..., 1]
+                               + terms[..., 2] / 3.0).double())
+            gray = gray.float()[..., None]
         else:
-            gray = torch.sqrt(terms.sum(dim=-1, keepdim=True))
+            gray = torch.sqrt(terms.sum(dim=-1, keepdim=True).double()) \
+                .float()
         out = gray.expand(gray.shape[:-1] + (dc.shape[-1],))
         return unpack(out * da, da)
     if op in ("modulate",):

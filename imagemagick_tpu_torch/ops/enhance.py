@@ -146,7 +146,7 @@ def grayscale(img: torch.Tensor, method: str = "rec709luma") -> torch.Tensor:
         # ×QuantumRange blow-up (saturates all but near-black pixels)
         y = (r * r + g * g + b * b) / 3.0 * 65535.0
     elif m == "rms":
-        y = torch.sqrt((r * r + g * g + b * b) / 3.0)
+        y = torch.sqrt(((r * r + g * g + b * b) / 3.0).double()).float()
     elif m == "rec601luma":
         y = 0.298839 * r + 0.586811 * g + 0.114350 * b
     elif m == "rec601luminance":

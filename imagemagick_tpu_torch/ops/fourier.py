@@ -268,7 +268,7 @@ def complex_images(a_real: torch.Tensor, a_imag: torch.Tensor,
         d = torch.where(d < 1e-20, torch.full_like(d, 1e-20), d)
         return (ar * br + ai * bi) / d, (ai * br - ar * bi) / d
     if op == "magnitudephase":
-        return (torch.sqrt(ar * ar + ai * ai),
+        return (torch.sqrt((ar * ar + ai * ai).double()).float(),
                 torch.atan2(ai, ar) / (2 * math.pi) + 0.5)
     if op == "realimaginary":
         f = torch.polar(ar, (ai - 0.5) * 2.0 * math.pi)   # see inverse_fft

@@ -36,6 +36,14 @@ def _generator(img: torch.Tensor,
     return generator
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """A correctly rounded float32 square root, as XLA's: taken in
+    float64 and rounded.  The CPU's float32 ``torch.sqrt`` is an ulp off
+    on some values, and has been seen off by about 2e-4 in the first
+    calls of a few processes (``cpu_phase_probe.py --target sqrt``)."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def _median(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """``jnp.median`` along ``dim``: the sorted middle value, or the mean
     (a + b) * 0.5 of the two middle values of an even count."""
@@ -361,7 +369,7 @@ def evaluate_images(imgs: torch.Tensor, operator: str) -> torch.Tensor:
     if op in ("and", "or", "xor"):
         return _bitwise_images(imgs, op)
     if op == "rms":
-        return torch.sqrt((imgs ** 2).mean(dim=0))
+        return _sqrt((imgs ** 2).mean(dim=0))
     raise ValueError(f"unknown evaluate-sequence operator {operator!r}")
 
 
@@ -480,9 +488,10 @@ def statistic(img: torch.Tensor, stat: str, width: int = 3, height: int = 3,
     if s == "gradient":
         return stack.amax(dim=0) - stack.amin(dim=0)
     if s == "rootmeansquare" or s == "rms":
-        return torch.sqrt((stack ** 2).mean(dim=0))
+        return _sqrt((stack ** 2).mean(dim=0))
     if s == "standarddeviation" or s == "stddev":
-        return torch.std(stack, dim=0, correction=0)
+        centered = stack - stack.mean(dim=0)
+        return _sqrt((centered * centered).mean(dim=0))
     if s == "nonpeak":
         srt = torch.sort(stack, dim=0).values
         lo, mid, hi = srt[0], srt[srt.shape[0] // 2], srt[-1]

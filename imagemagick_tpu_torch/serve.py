@@ -63,6 +63,8 @@ def validate_args(args):
         if tok[1:] not in climain.OPS:
             raise climain.unported(tok)
         n = climain.OPS[tok[1:]][0]
+        if n == "?":    # one optional argument (-shadow)
+            n = int(i < len(args) and climain._optional_arg(args[i]))
         if i + n > len(args):
             raise ValueError("missing argument for %r" % tok)
         i += n

@@ -12,6 +12,7 @@ random threshold's values come from torch's generator, not JAX's PRNG:
 it is held to 0/1 values and a binomial bound instead."""
 
 import importlib
+import itertools
 
 import numpy as np
 import pytest
@@ -183,11 +184,15 @@ def test_materialize_carries_metadata():
 @pytest.mark.parametrize("argv,entry", [
     (["in.png"], "'Host layers' (io/)"),
     (["-resize", "10x10", "out.jpg"], "'Host layers' (io/)"),
-    (["-charcoal", "2"], "'The other op families under ops/'"),
-    (["-polaroid", "5"], "'The other op families under ops/'"),
-    (["-vignette", "0x2"], "'Host layers'"),
-    (["-layers", "merge"], "'The other op families under ops/'"),
-    (["-filter", "box"], "'The other op families under ops/'"),
+    (["-profile", "sRGB.icc"], "'Host layers'"),
+    (["-mask", "mask.png"], "'Host layers'"),
+    (["-encipher", "passphrase"], "'Host layers'"),
+    (["-seed", "4"], "'Host layers'"),
+    (["-layers", "composite"], "'Host layers' (io/)"),
+    (["-clip"], "'Host layers'"),
+    (["-print", "%w"], "'Host layers'"),
+    (["-limit", "memory", "1GB"], "'Host layers'"),
+    (["-affinity", "palette.gif"], "'Host layers' (io/)"),
     (["-unknown-option"], "'Host layers'"),
 ])
 def test_unported_raise_naming_their_entries(argv, entry):
@@ -1122,3 +1127,362 @@ def test_cli_vision_chain_fuses_its_resize_once(monkeypatch):
     assert len(calls) == 1
     for g, w in zip(got, jm.materialize_all(js.images)):
         assert tuple(g.data.shape) == tuple(np.asarray(w.data).shape)
+
+
+# -- layers, montage, visual effects and the options that need no file ------
+
+# each against the JAX CLI on the same 3 images of 40x56: tags, settings,
+# list length, shapes, specs, pages, delays and pixels.  Pixels within
+# 1e-5, the bound of the effects' own files (the JAX CLI jits each chain,
+# and an ulp there moves a normalized or blurred value by about 1e-6; most
+# come out equal), but for -integral, a float32 running sum in another
+# order (rtol 1e-6), and the phase of -fft, which is held through the
+# complex value it encodes (1e-5 of max|F|, as ``test_torch_fourier.py``
+# holds it: where |F| is tiny its angle means nothing).
+SLICE_ARGVS = [
+    ["-charcoal", "1"], ["-charcoal", "2x0.5"], ["-wavelet-denoise", "5%"],
+    ["-wavelet-denoise", "2000x0.2"], ["-sepia-tone", "80%"],
+    ["-solarize", "50%"], ["-blue-shift", "1.5"],
+    ["-fill", "red", "-tint", "60"], ["-fill", "gold", "-tint", "80x20+50"],
+    ["-fill", "blue", "-colorize", "30,20,10"],
+    ["-fill", "navy", "-colorize", "40%"],
+    ["-color-matrix", "0.5 0.3 0.2 0.1 0.8 0.1 0.2 0.2 0.6"],
+    ["-recolor", "1.2 0 0 0 0 0.1 0 0.9 0 0 0 0 0 0 1 0 0 0 0 0 0 1 0 0 "
+     "0 0 0 0 1 0 0 0 0 0 0 1"],
+    ["-vignette", "0x3+4+4"], ["-background", "navy", "-vignette", "0x2"],
+    ["-vignette", "0x2+10+10%"], ["-noise", "1"], ["-noise", "2"],
+    ["-shadow", "60x2+3+3"], ["-shadow"], ["-background", "red", "-shadow",
+                                           "80x1"],
+    ["-polaroid", "8"], ["+polaroid", "0"], ["-stegano", "0"],
+    ["-stereo", "+3+2"], ["-stereo", "-2+0"],
+    ["-morphology", "close", "disk:2"], ["-morphology", "erode:2",
+                                         "square:1"],
+    ["-virtual-pixel", "black", "-morphology", "dilate", "diamond:1"],
+    ["-convolve", "1,2,1,2,4,2,1,2,1"], ["-fft"], ["+fft"],
+    ["-fft", "-ift"], ["+fft", "+ift"], ["-complex", "multiply"],
+    ["-complex", "add"], ["-clut"], ["-interpolate", "nearest", "-clut"],
+    ["-hald-clut"], ["-cdl", "1.1,0.05,0.9:0.8"],
+    ["-cdl", "1,1,1.2,0,0,0.1,1,0.9,1"], ["-level-colors", "navy,gold"],
+    ["+level-colors", "navy,gold"], ["-level-colors", "white,black"],
+    ["-levelize", "10%,90%,1.2"], ["-contrast"], ["+contrast"],
+    ["-local-contrast", "5x30"], ["-grayscale", "rec601luma"],
+    ["-grayscale", "average"], ["-monochrome"],
+    ["-range-threshold", "10%,30%,60%,90%"],
+    ["-color-threshold", "rgb(20,20,20)-rgb(200,220,240)"],
+    ["-perceptible", "0.1"], ["-integral"], ["-sort-pixels"],
+    ["-resample", "144"], ["-density", "144", "-resample", "72x36"],
+    ["-filter", "box", "-resample", "100"],
+    ["-interpolative-resize", "30x20"],
+    ["-interpolate", "nearest", "-interpolative-resize", "50%"],
+    ["-gaussian", "0x1.5"], ["-poly", "0.5,1 0.3,2 0.2,0.5"], ["-noop"],
+    ["-orient", "right-top"], ["-duplicate", "2"], ["-insert", "0"],
+    ["-cycle", "64"], ["-preview", "blur"], ["-preview", "hue"],
+    ["-preview", "gamma"], ["-filter", "box", "-resize", "50%"],
+    ["-filter", "triangle", "-resize", "30x20!"],
+    ["-repage", "+5+3", "-coalesce"], ["-layers", "coalesce"],
+    ["-layers", "optimize"], ["-layers", "optimize-transparency"],
+    ["-layers", "remove-dups"], ["-layers", "remove-zero"],
+    ["-layers", "compare-any"], ["-layers", "merge"],
+    ["-layers", "trim-bounds"], ["-layers", "dispose"],
+    ["-fuzz", "20%", "-layers", "optimize"], ["-deconstruct"],
+    ["-repage", "+10+4", "-flatten"], ["-repage", "+10+4", "-mosaic"],
+    ["-repage", "100x80+3-2!", "-mosaic"], ["+repage", "-flatten"],
+    ["-append"], ["+append"], ["-gravity", "center", "-append"],
+    ["-gravity", "south", "+append"], ["-smush", "2"], ["+smush", "-3"],
+    ["-montage"], ["-tile", "2x2", "-geometry", "30x30+2+2", "-montage"],
+    ["-label", "abc", "-montage"],
+    ["-page", "+3+3", "-delay", "20", "-attenuate", "0.5", "-coalesce"],
+    ["-shadow", "-flatten"],
+    ["-clone", "0"], ["+clone"], ["-clone", "0-1", "-append"],
+    ["(", "-clone", "1", "-negate", ")"], ["-delete", "0"], ["+delete"],
+    ["-delete", "0,2"], ["-delete", "1-2"], ["-swap", "0,2"], ["+swap"],
+    ["-reverse"], ["-set", "caption", "x"], ["-comment", "hello"],
+    ["-set", "a", "b", "-comment", "c", "-strip"],
+    ["-copy", "10x8+2+3", "+5+4"], ["-resize", "50%", "-clone", "1"],
+]
+
+
+def _assert_slice_close(argv, got, want):
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert repr(g.spec) == repr(w.spec), argv
+        assert (g.page, g.delay, g.properties) == \
+            (w.page, w.delay, w.properties), argv
+        g, w = g.data.numpy(), np.asarray(w.data)
+        assert g.shape == w.shape, argv
+        if argv[0] == "-fft" and k % 2 and "-ift" not in argv:
+            m = got[k - 1].data.numpy()
+            polar = lambda mag, ph: mag * np.exp(2j * np.pi * (ph - 0.5))
+            wm = np.asarray(want[k - 1].data)
+            assert np.abs(polar(m, g) - polar(wm, w)).max() <= \
+                1e-5 * np.abs(wm).max(), argv
+        elif "-integral" in argv:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("argv", SLICE_ARGVS, ids=" ".join)
+@pytest.mark.parametrize("alpha", [False, True])
+def test_slice_options_match_jax(argv, alpha):
+    """Every new option, list operator and setting on 3 images (RGB or
+    RGBA, the last two holding the first's background with a moved
+    block, so that the layer operators find boxes and duplicates)."""
+    c = 4 if alpha else 3
+    base = _natural(40, 56, 0, c)
+    images = [base]
+    for k in (1, 2):
+        im = base.copy()
+        im[4 * k:4 * k + 9, 6 * k:6 * k + 13] = _natural(9, 13, k, c)
+        images.append(im)
+    js, ts = _states(images, alpha)
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert _tags(ts) == _tags(js)
+    assert ts.settings == {k: v for k, v in js.settings.items()
+                           if k in ts.settings}
+    _assert_slice_close(argv, tm.materialize_all(ts.images),
+                        jm.materialize_all(js.images))
+
+
+def _delayed_states(delays, equal=True):
+    """Three equal (or distinct) frames with the given delays, as Images
+    of each package built by the caller (kept so the test can look at
+    them afterwards)."""
+    x = _natural(20, 28, 4)
+    frames = [x if equal else _natural(20, 28, k) for k in range(3)]
+    jimgs = [JImage(jnp.asarray(f), JSpec(colorspace="srgb"), None, None,
+                    None, d) for f, d in zip(frames, delays)]
+    timgs = [TImage(torch.from_numpy(f), TSpec(colorspace="srgb"), None,
+                    None, None, d) for f, d in zip(frames, delays)]
+    js, ts = jm.CLIState(), tm.CLIState()
+    js.images = [jm.LazyImage(i) for i in jimgs]
+    ts.images = [tm.LazyImage(i) for i in timgs]
+    return js, ts, jimgs, timgs
+
+
+@pytest.mark.parametrize("method", ["remove-dups", "remove-zero",
+                                    "optimize", "coalesce"])
+def test_layers_keep_delays_as_jax(method):
+    js, ts, _, _ = _delayed_states([10, 0, 25], equal=method != "remove-dups")
+    jm.process(["-layers", method], js)
+    tm.process(["-layers", method], ts)
+    _assert_slice_close(["-layers", method], tm.materialize_all(ts.images),
+                        jm.materialize_all(js.images))
+
+
+def test_jax_layers_remove_dups_changes_the_callers_delay():
+    """The JAX -layers remove-dups adds the dropped frames' delays to the
+    caller's own first Image; the port's list gets a new frame with the
+    sum and the caller's Images keep their delays."""
+    js, ts, jimgs, timgs = _delayed_states([10, 20, 30])
+    jm.process(["-layers", "remove-dups"], js)
+    tm.process(["-layers", "remove-dups"], ts)
+    assert [li.image.delay for li in js.images] == [60]
+    assert [li.image.delay for li in ts.images] == [60]
+    assert [i.delay for i in jimgs] == [60, 20, 30]
+    assert [i.delay for i in timgs] == [10, 20, 30]
+
+
+def test_sketch_on_jax_variates_matches_jax(monkeypatch):
+    """-sketch: the port's draw replaced by the JAX CLI's (PRNGKey(7) for
+    each image), then the outputs held to the JAX CLI's (1e-5)."""
+    import jax
+
+    from imagemagick_tpu_torch.ops import visual_effects as tv
+
+    def jax_draw(img, generator=None):
+        h, w = img.shape[-3], img.shape[-2]
+        v = jax.random.uniform(jax.random.PRNGKey(7), (2 * h, 2 * w, 1),
+                               jnp.float32)
+        return torch.from_numpy(np.array(v))
+
+    monkeypatch.setattr(tv, "sketch_variates", jax_draw)
+    for alpha in (False, True):
+        images = [_natural(24, 30, s, 4 if alpha else 3) for s in range(2)]
+        js, ts = _states(images, alpha)
+        argv = ["-sketch", "0x1+30"]
+        jm.process(list(argv), js)
+        tm.process(list(argv), ts)
+        for g, w in zip(tm.materialize_all(ts.images),
+                        jm.materialize_all(js.images)):
+            np.testing.assert_allclose(g.data.numpy(), np.asarray(w.data),
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "uniform", "impulse",
+                                  "laplacian", "poisson"])
+def test_plus_noise_on_jax_variates_matches_jax(monkeypatch, kind):
+    """+noise: the JAX CLI's clock fixed and the port's draw replaced by
+    the variates the JAX key gives; the outputs equal within 1e-6."""
+    import jax
+
+    from imagemagick_tpu_torch.ops import visual_effects as tv
+
+    monkeypatch.setattr(jm.time, "time_ns", lambda: 123456789)
+    key = jax.random.PRNGKey(123456789 % (2 ** 31))
+
+    def jax_draw(img, noise_type, attenuate=1.0, generator=None):
+        x = jnp.asarray(img.numpy())
+        if noise_type == "gaussian":
+            k1, k2 = jax.random.split(key)
+            vs = (jax.random.normal(k1, x.shape),
+                  jax.random.normal(k2, x.shape))
+        elif noise_type == "laplacian":
+            vs = (jax.random.uniform(key, x.shape, minval=-0.4999,
+                                     maxval=0.4999),)
+        elif noise_type == "poisson":
+            lam = jnp.maximum(x * 255.0 / jnp.maximum(attenuate, 1e-3), 1e-6)
+            vs = (jax.random.poisson(key, lam).astype(x.dtype),)
+        else:
+            vs = (jax.random.uniform(key, x.shape),)
+        return tuple(torch.from_numpy(np.array(v)) for v in vs)
+
+    monkeypatch.setattr(tv, "noise_variates", jax_draw)
+    js, ts = _states([_natural(24, 30, s) for s in range(2)])
+    jm.process(["+noise", kind], js)
+    tm.process(["+noise", kind], ts)
+    for g, w in zip(tm.materialize_all(ts.images),
+                    jm.materialize_all(js.images)):
+        np.testing.assert_allclose(g.data.numpy(), np.asarray(w.data),
+                                   atol=1e-6)
+
+
+def test_jax_plus_noise_is_unrepeatable_the_port_repeats(monkeypatch):
+    """The JAX +noise seeds its key from the clock, so two runs differ;
+    the port draws from a generator seeded 0, so they are equal."""
+    ticks = itertools.count(1000, 7919)
+    monkeypatch.setattr(jm.time, "time_ns", lambda: next(ticks))
+    outs_j, outs_t = [], []
+    for _ in range(2):
+        js, ts = _states([_natural(24, 30, 0)])
+        jm.process(["+noise", "gaussian"], js)
+        tm.process(["+noise", "gaussian"], ts)
+        outs_j.append(np.asarray(jm.materialize_all(js.images)[0].data))
+        outs_t.append(tm.materialize_all(ts.images)[0].data)
+    assert not np.array_equal(outs_j[0], outs_j[1])
+    assert torch.equal(outs_t[0], outs_t[1])
+
+
+def test_jax_plus_noise_ignores_attenuate_the_port_reads_it(monkeypatch):
+    """-attenuate 0: the JAX CLI stores it under ``attenuate`` and its
+    +noise reads ``noise-attenuate``, so the noise is added all the same;
+    the port's +noise reads -attenuate, and a zero amplitude leaves the
+    image as it was."""
+    monkeypatch.setattr(jm.time, "time_ns", lambda: 42)
+    x = _natural(24, 30, 0)
+    outs = {}
+    for argv in (["+noise", "uniform"],
+                 ["-attenuate", "0", "+noise", "uniform"]):
+        js, ts = _states([x])
+        jm.process(list(argv), js)
+        tm.process(list(argv), ts)
+        outs[len(argv)] = (np.asarray(jm.materialize_all(js.images)[0].data),
+                           tm.materialize_all(ts.images)[0].data.numpy())
+    assert np.array_equal(outs[2][0], outs[4][0])
+    assert not np.array_equal(outs[4][0], x)
+    assert np.array_equal(outs[4][1], x)
+    assert not np.array_equal(outs[2][1], x)
+
+
+def test_layer_settings_are_stored_as_the_jax_cli_stores_them():
+    js, ts = _states([_natural(8, 8, 0), _natural(8, 8, 1)])
+    argv = ["-tile", "4x2", "-page", "+3+4", "-delay", "20",
+            "-attenuate", "0.3", "-filter", "Lanczos", "-interpolate",
+            "nearest", "-density", "300", "-label", "cat", "-repage",
+            "64x48+2+1"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    for k in ("tile", "page", "delay", "attenuate", "filter", "interpolate",
+              "density"):
+        assert ts.settings[k] == js.settings[k], k
+    for lt, lj in zip(ts.images, js.images):
+        assert lt.image.properties == lj.image.properties == {"label": "cat"}
+        assert lt.image.page == lj.image.page == (2, 1, 64, 48)
+    for argv in (["+repage"], ["-repage", "+5+0"], ["-repage", "+1+1!"]):
+        jm.process(list(argv), js)
+        tm.process(list(argv), ts)
+        assert [li.image.page for li in ts.images] == \
+            [li.image.page for li in js.images]
+    with pytest.raises(tm.CLIError, match="requires an argument"):
+        tm.process(["-label"], ts)
+
+
+def test_shadow_takes_its_argument_only_when_given():
+    """-shadow's argument is optional: an option after it is not taken."""
+    js, ts = _states([_natural(20, 24, 0)])
+    argv = ["-shadow", "-blue-shift", "1.2"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    assert _tags(ts) == _tags(js) == [[None]]
+    _assert_slice_close(argv, tm.materialize_all(ts.images),
+                        jm.materialize_all(js.images))
+
+
+def test_moments_print_as_jax(capsys):
+    """The same names and numbers (float32 sums in another order: each
+    value within 1e-4 relative)."""
+    js, ts = _states([_natural(30, 40, s) for s in range(2)])
+    jm.process(["-moments"], js)
+    want = capsys.readouterr().out.splitlines()
+    tm.process(["-moments"], ts)
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) >= 6
+    for g, w in zip(got, want):
+        # a line is "  name: [values" or a continuation of the values
+        gk, _, gv = g.rpartition(": ")
+        wk, _, wv = w.rpartition(": ")
+        assert gk == wk
+        gn = np.array([float(v) for v in _NUMBER_RE_T.findall(gv)])
+        wn = np.array([float(v) for v in _NUMBER_RE_T.findall(wv)])
+        np.testing.assert_allclose(gn, wn, rtol=1e-4, atol=1e-6)
+
+
+_NUMBER_RE_T = tm._NUMBER_RE
+
+
+@pytest.mark.parametrize("argv,calls", [
+    (["-resize", "50%", "-charcoal", "1", "-tile", "2x2", "-montage"], 1),
+    (["-resize", "50%", "-polaroid", "5", "-background", "white",
+      "-flatten"], 1),
+    (["-resize", "50%", "-morphology", "close", "disk:2", "-level-colors",
+      "navy,gold", "-fft"], 1),
+])
+def test_slice_chains_fuse_their_resize_once(monkeypatch, argv, calls):
+    """A resize before the slice's list options runs as ONE fused call
+    for the group (``materialize_all``); the rest image by image."""
+    seen = []
+    real = tdsp.try_fused_batch
+    monkeypatch.setattr(tdsp, "try_fused_batch",
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    js, ts = _states([_natural(40, 56, s) for s in range(3)])
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    got = tm.materialize_all(ts.images)
+    assert len(seen) == calls
+    want = jm.materialize_all(js.images)
+    assert [tuple(g.data.shape) for g in got] == \
+        [np.asarray(w.data).shape for w in want]
+
+
+def test_jax_tint_reads_the_fill_late_the_port_binds_it():
+    """The JAX -tint reads -fill when its chain runs, so a -fill set after
+    it (before the list materializes) tints with the later color; the
+    port binds the fill the option saw, as every other option does."""
+    x = _natural(24, 30, 0)
+    js, ts = _states([x])
+    argv = ["-fill", "red", "-tint", "60", "-fill", "blue"]
+    jm.process(list(argv), js)
+    tm.process(list(argv), ts)
+    late = jm.materialize_all(js.images)[0].data
+    got = tm.materialize_all(ts.images)[0].data.numpy()
+    js2, ts2 = _states([x])
+    for st, mod in ((js2, jm), (ts2, tm)):
+        mod.process(["-fill", "blue", "-tint", "60"], st)
+    np.testing.assert_array_equal(np.asarray(late), np.asarray(
+        jm.materialize_all(js2.images)[0].data))
+    js3, _ = _states([x])
+    jm.process(["-fill", "red", "-tint", "60"], js3)
+    np.testing.assert_allclose(got, np.asarray(
+        jm.materialize_all(js3.images)[0].data), atol=1e-6, rtol=0)
+    assert not np.allclose(got, np.asarray(late), atol=1e-3)

@@ -41,7 +41,13 @@ native posterize (host) and ``remap`` equal; the CLI's channel chains
 one K1 launch each, at most 0.1 % apart from the CPU run.  Decorate,
 paint, vision, segment, Hough, mean shift, the GLCM and draw's float64
 coverage are equal on the card; Canny's blur is one K3 launch and the
-rest of Canny, replayed on the CPU from the card's blur, is equal.
+rest of Canny, replayed on the CPU from the card's blur, is equal.  The
+visual effects agree within 1e-5 but on at most 0.1 % of the pixels (a
+normalize's histogram bin, cuDNN's sums), the random ones on variates
+drawn on the card and handed to the CPU; solarize, stegano and stereo
+are equal; charcoal, the shadow and the polaroid are one K3 launch each.
+The layer operators and the montage are copies and Over blends: within
+1e-5, with equal frame counts, pages and delays.
 """
 
 import numpy as np
@@ -1306,3 +1312,117 @@ def test_cli_vision_and_draw_chains_on_card(dev):
     want, _ = _cli_chain(argv, x, "cpu")
     assert launched["k1"] == 1 and sum(launched.values()) == 1
     assert _selected_apart(got, want) <= 1e-3
+
+
+# -- layer, montage and visual_effects --------------------------------------
+
+def test_visual_effects_on_card(dev):
+    """Each effect on the card against the CPU, the random ones on the
+    card's variates; one K3 launch for charcoal, shadow and polaroid."""
+    from imagemagick_tpu_torch.ops import visual_effects as vfx
+
+    x = torch.from_numpy(np.round(_rand((2, 96, 128, 3), 47) * 8) / 8)
+    xa = torch.cat([x, x[..., 1:2]], -1)
+    xd, xad = x.to(dev), xa.to(dev)
+    val = vfx.sketch_variates(xd, torch.Generator(dev).manual_seed(1))
+    calls = [
+        ("blue_shift", lambda v: vfx.blue_shift(v, 1.5), x),
+        ("charcoal", lambda v: vfx.charcoal(v), x),
+        ("colorize", lambda v: vfx.colorize(v, (1, 0.5, 0), 0.3), x),
+        ("color_matrix", lambda v: vfx.color_matrix(
+            v, np.eye(3) * 0.9 + 0.05), x),
+        ("sepia_tone", lambda v: vfx.sepia_tone(v), x),
+        ("solarize", lambda v: vfx.solarize(v, 0.4), x),
+        ("stegano", lambda v: vfx.stegano(v, v.flip(0)), x),
+        ("stereo", lambda v: vfx.stereo(v, v.flip(0), 5, -3), x),
+        ("tint", lambda v: vfx.tint(v, (0.2, 0.9, 0.4), (80.0,)), x),
+        ("vignette", lambda v: vfx.vignette(v, 0.0, 10.0), x),
+        ("wavelet_denoise", lambda v: vfx.wavelet_denoise(v, 0.1), x),
+        ("sketch", lambda v: vfx.sketch_from(v, val.to(v.device), 0.0, 1.0,
+                                             20.0), x),
+        ("shadow", lambda v: vfx.shadow(v, 80.0, 3.0), xa),
+        ("polaroid", lambda v: vfx.polaroid(v, 8.0), xa)]
+    for name, fn, v in calls:
+        before = dict(gk.LAUNCHES)
+        got = fn(v.to(dev))
+        torch.cuda.synchronize()
+        launched = {k: gk.LAUNCHES[k] - before[k] for k in before}
+        k3 = 1 if name in ("charcoal", "shadow", "polaroid") else 0
+        assert launched["k3"] == k3 and sum(launched.values()) == k3, name
+        want = fn(v)
+        assert got.is_cuda and got.shape == want.shape, name
+        if name in ("solarize", "stegano", "stereo"):
+            assert torch.equal(got.cpu(), want), name
+        else:
+            assert _selected_apart(got, want) <= 1e-3, name
+    gen = torch.Generator(dev).manual_seed(2)
+    for kind in ("uniform", "gaussian", "impulse", "laplacian",
+                 "multiplicative", "poisson", "random"):
+        vs = vfx.noise_variates(xd, kind, 1.0, gen)
+        got = vfx.add_noise_from(xd, kind, 1.0, vs)
+        want = vfx.add_noise_from(x, kind, 1.0, [v.cpu() for v in vs])
+        assert _selected_apart(got, want) <= 1e-3, kind
+
+
+def test_layers_and_montage_on_card(dev):
+    """Coalesce, optimize, the transparency pass, duplicates, deconstruct,
+    flatten, mosaic, append and smush of frames with page offsets, alpha
+    and delays, and a montage: the CPU's frames, pages and delays, pixels
+    within 1e-5; no kernel launch."""
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.ops import layer as ly
+    from imagemagick_tpu_torch.ops import montage as mo
+
+    spec = ImageSpec(colorspace="srgb", alpha=True)
+    base = _rand((48, 64, 4), 48)
+    base[..., 3] = 1.0
+    datas = [base] + [_rand((9, 13, 4), 49 + k) for k in range(5)]
+    datas[3] = datas[2]
+    pages = [None] + [(3 * k, 2 * k, 64, 48) for k in range(1, 6)]
+    cpu = [Image(torch.from_numpy(d), spec, page=p, delay=k % 3)
+           for k, (d, p) in enumerate(zip(datas, pages))]
+    card = [Image(i.data.to(dev), spec, page=i.page, delay=i.delay)
+            for i in cpu]
+    bg = (0.2, 0.4, 0.6, 1.0)
+    calls = [lambda f: ly.coalesce(f), lambda f: ly.optimize_layers(f),
+             lambda f: ly.optimize_transparency(f),
+             lambda f: ly.remove_duplicate_layers(ly.coalesce(f)),
+             lambda f: ly.deconstruct(ly.coalesce(f)),
+             lambda f: [ly.flatten(f, bg)], lambda f: [ly.mosaic(f, bg)],
+             lambda f: [ly.append(f, True, bg, "center")],
+             lambda f: [ly.smush(f, False, 2, bg, "south")],
+             lambda f: [mo.montage(f, "3x2", "30x30+2+1")]]
+    before = dict(gk.LAUNCHES)
+    for fn in calls:
+        got, want = fn(card), fn(cpu)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.data.is_cuda
+            assert (g.page, g.delay) == (w.page, w.delay)
+            assert g.data.shape == w.data.shape
+            assert float((g.data.cpu() - w.data).abs().max()) <= 1e-5
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before
+
+
+def test_cli_layers_chains_on_card(dev):
+    """-resize 50% then -charcoal and -montage, -polaroid and -flatten,
+    and the options that need no file: one K1 launch for the group's
+    resize, the K3 launches an image that the chain names, and the rest
+    replayed on the CPU from the card's resize within 1e-5 but on at most
+    0.1 % of the pixels."""
+    x = torch.from_numpy(_rand((3, 96, 128, 3), 55))
+    for argv, k3 in (
+            ("-resize 50% -charcoal 1 -tile 2x2 -montage".split(), 3),
+            ("-resize 50% -polaroid 5 -background white -flatten".split(),
+             3),
+            ("-resize 50% -morphology close disk:2 -level-colors navy,gold "
+             "-cdl 1.1,0.05,0.9:0.8 -sepia-tone 80% -noise 1".split(), 0)):
+        got, launched = _cli_chain(argv, x, dev)
+        assert launched["k1"] == 1 and launched["k3"] == k3
+        assert sum(launched.values()) == 1 + k3
+        head, _ = _cli_chain(argv[:2], x, dev)
+        replay, _ = _cli_chain(argv[2:], head.cpu(), "cpu")
+        assert got.shape == replay.shape
+        assert _selected_apart(got, replay) <= 1e-3

@@ -166,8 +166,11 @@ def test_convert_and_identify_answer_501(server, path):
 
 def test_apply_args_are_checked(server):
     _store(server, "args", _pixels(5).tobytes())
-    status, body = _apply(server, "args", "-charcoal 2")
+    status, body = _apply(server, "args", "-profile sRGB")
     assert status == 501 and "ROADMAP.md Queue 1" in json.loads(body)["error"]
+    # an option of one optional argument, with and without it
+    assert _apply(server, "args", "-shadow -blue-shift 1.2")[0] == 200
+    assert _apply(server, "args", "-shadow 60x2+3+3")[0] == 200
     status, body = _apply(server, "args", "-resize 10x10 in.png")
     assert status == 400 and "filename" in json.loads(body)["error"]
     assert _apply(server, "args", "-resize")[0] == 400
