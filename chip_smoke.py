@@ -155,6 +155,22 @@ and the serve daemon):
   an image) and the options that need no file (``-morphology close disk:2
   -level-colors navy,gold -cdl ... -fft``): the resize within K1_TOL of the
   CPU's, the rest replayed on the CPU from the card's resize, ms an image.
+* io — one 1080x1920x3 image from ``--seed``, encoded with PIL as PNG,
+  JPEG and PPM and written as raw RGB samples: each decoded onto the card
+  (``io.image_from_blob``, ``io.read_images`` with -size) equal bit for
+  bit to the CPU's decode, and encoded from the card to the CPU's bytes;
+  decode and encode ms an image.
+* cli_files — 32 PNGs of 512x768x3 through config #1's chain to
+  ``out-%d.png`` by ``cli.main.main(..., device="cuda")``: one K1 launch,
+  the written samples within one level of the CPU run's on 99.9 % of
+  them, images/s and the per-image marginal between 8 and 32 files; then
+  16 PGM pages of 1056x816 through config #3's chain to PBM: one K4
+  launch, the pages within 0.1 % of the CPU run's.
+* serve_convert — ``serve.make_server(port=0)``: POST /convert of a
+  1080x1920 JPEG with config #1's chain and ``of=jpeg``, one K1 launch a
+  request, the result within one level of the CPU run's; the request
+  wall beside its parts timed apart (host decode, upload, K1, download,
+  host encode) and 8 clients at once; /identify and /formats.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -194,8 +210,10 @@ and its bound; the last line is
 
 import argparse
 import contextlib
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -326,6 +344,8 @@ CLI_EFFECTS_N1, CLI_EFFECTS_N2 = 8, 32
 DISTORT_TOL = 1e-5      # float32 sums of EWA taps in another order, an ulp
 #                         of the card's sinf/cosf/powf under a bilinear blend
 DISTORT_RUNS = 3
+DISTORT_EWA_RUNS = 1    # timed calls of a per-pixel-EWA method (0.5-1.8 s
+                        # each: one keeps the script within its time)
 DISTORT_SMALL = (270, 480)   # per-pixel-EWA methods compared at this size
 # ... with these _EWA_BLOCKs too (None: the module's), so that the small
 # frame's buckets take the pixel chunks and scanline blocks that the
@@ -437,6 +457,16 @@ CLI_LAYERS = [
       "-flatten"], 1),
     (["-resize", "50%", "-morphology", "close", "disk:2", "-level-colors",
       "navy,gold", "-cdl", "1.1,0.05,0.9:0.8", "-fft"], 0)]
+# io, cli_files, serve_convert: files in and out on the card
+IO_H, IO_W = 1080, 1920
+IO_RUNS = 5            # timed runs of each part (median)
+CLI_FILES_N1, CLI_FILES_N = 8, 32
+CLI_FILES_ROUNDS = 2   # rounds of the 8-to-32-file marginal
+CLI_FILES_PAGES = 16
+CLI_PAGES = ["-auto-threshold", "otsu", "-morphology", "open", "square:1",
+             "-morphology", "close", "square:1", "-edge", "1"]
+SERVE_CONVERT_REQUESTS = 5
+SERVE_CONVERT_ROUNDS = 2   # rounds of SERVE_CLIENTS requests at once
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -1607,7 +1637,8 @@ def distort_phase(dev, gen, name_limit: str) -> None:
     for label, method, args, bestfit, var in _distort_methods(H2, W2):
         with ewa_scans(dt) as timed:
             ms = _call_ms(lambda: dt.distort(frames, method, args,
-                                             bestfit=bestfit))
+                                             bestfit=bestfit),
+                          DISTORT_EWA_RUNS if var else DISTORT_RUNS)
         x0, a0 = (small_cpu, small_args[label]) if var else (f0, args)
         want = dt.distort(x0, method, a0, bestfit=bestfit)
         compared, figs = set(), []
@@ -2693,6 +2724,307 @@ def cli_layers_phase(dev, gen, name_limit: str) -> dict:
     return {"k1": k1, "k3": k3}
 
 
+def _smooth_u8(rng, n: int, h: int, w: int, c: int) -> np.ndarray:
+    """n photo-like u8 images from ``rng``: a smooth shading per image,
+    flat blocks and a little noise (PNG compresses them as it would a
+    photo, unlike uniform noise)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.empty((n, h, w, c), np.uint8)
+    for k in range(n):
+        fy, fx = rng.uniform(20, 90, 2)
+        ph = rng.uniform(0, 6.3, c).astype(np.float32)
+        img = 0.5 + 0.35 * np.sin(yy / fy)[..., None] * np.cos(
+            xx[..., None] / fx + ph)
+        y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+        img[y0:y0 + h // 5, x0:x0 + w // 6] = rng.uniform(0.1, 0.9)
+        img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+        out[k] = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+    return out
+
+
+def _host_ms(fn, runs: int = IO_RUNS) -> tuple:
+    """Median wall ms of ``fn`` (the card synchronized after each run)
+    over ``runs`` runs after a warm-up, and its last result."""
+    out = fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _share_apart(a: np.ndarray, b: np.ndarray, levels: int = 1) -> float:
+    """The share of samples more than ``levels`` u8 levels apart."""
+    return float(np.mean(np.abs(a.astype(np.int64) - b) > levels))
+
+
+def io_phase(dev, gen, name_limit: str, seed: int) -> None:
+    """io: one 1080x1920x3 image from ``seed`` encoded with PIL as PNG,
+    JPEG (quality 90) and PPM, and as raw RGB samples; each decoded onto
+    the card (``image_from_blob``, ``read_images`` with -size for raw),
+    equal bit for bit to the same decode on the CPU, and encoded from the
+    card (``image_to_blob``) to the CPU's bytes; ms an image each."""
+    import tempfile
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch import io as tio
+
+    arr = _smooth_u8(np.random.default_rng(seed + 7), 1, IO_H, IO_W, C)[0]
+    blobs = {}
+    for fmt, pil in (("png", "PNG"), ("jpeg", "JPEG"), ("ppm", "PPM")):
+        buf = io.BytesIO()
+        PImage.fromarray(arr).save(buf, pil, **(
+            {"quality": 90} if pil == "JPEG" else {}))
+        blobs[fmt] = buf.getvalue()
+    with tempfile.TemporaryDirectory() as td:
+        raw = os.path.join(td, "frame.rgb")
+        with open(raw, "wb") as f:
+            f.write(arr.tobytes())
+        size = f"{IO_W}x{IO_H}"
+        for fmt in ("png", "jpeg", "ppm", "rgb"):
+            if fmt == "rgb":
+                def decode(d=dev):
+                    return tio.read_images(raw, size=size, device=d)[0]
+            else:
+                def decode(d=dev, fmt=fmt):
+                    return tio.image_from_blob(blobs[fmt], fmt, device=d)[0]
+            dec_ms, img = _host_ms(decode)
+            want = decode("cpu")
+            require(img.data.device == torch.device(dev) and
+                    torch.equal(img.data.cpu(), want.data),
+                    f"io {fmt}: the card's decode is not the CPU's")
+            enc_ms, blob = _host_ms(lambda: tio.image_to_blob(
+                img, fmt, quality=90))
+            require(blob == tio.image_to_blob(want, fmt, quality=90),
+                    f"io {fmt}: the card's encode is not the CPU's")
+            nbytes = len(blobs.get(fmt, b"")) or os.path.getsize(raw)
+            print(f"io {fmt} {IO_H}x{IO_W}x{C} ({nbytes} bytes): decode to "
+                  f"the card {dec_ms:.4f} ms, encode from it {enc_ms:.4f} ms "
+                  f"(median of {IO_RUNS}); equal to the CPU's decode and "
+                  f"bytes [{name_limit}]")
+
+
+def _main_ok(argv, device) -> None:
+    from imagemagick_tpu_torch.cli.main import main as cli_main
+
+    rc = cli_main(list(argv), device=device)
+    require(rc == 0, f"main {argv[-6:]} returned {rc}")
+    torch.cuda.synchronize()
+
+
+def cli_files_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """cli_files: CLI_FILES_N PNGs of 512x768x3 through config #1's chain
+    to ``out-%d.png`` by ``main(..., device="cuda")`` (one K1 launch for
+    the group), against the same run on the CPU (decoded samples within
+    one level on at least 99.9 % of them); images/s and the per-image
+    marginal between CLI_FILES_N1 and CLI_FILES_N images; then
+    CLI_FILES_PAGES PGM pages of 1056x816 through config #3's chain to
+    ``page-%d.pbm`` (one K4 launch), against the CPU run."""
+    import tempfile
+
+    from PIL import Image as PImage
+
+    rng = np.random.default_rng(seed + 8)
+    with tempfile.TemporaryDirectory() as td:
+        pngs = []
+        for k, a in enumerate(_smooth_u8(rng, CLI_FILES_N, H, W, C)):
+            pngs.append(os.path.join(td, f"in{k}.png"))
+            PImage.fromarray(a).save(pngs[-1])
+        out = os.path.join(td, "out")
+        reset_launches()
+        _main_ok(pngs + CLI_ARGV + [out + "-%d.png"], dev)
+        la1 = launched()
+        require(la1["k1"] == 1 and sum(la1.values()) == 1,
+                f"cli_files config #1 launches {la1}")
+        _main_ok(pngs + CLI_ARGV + [out + "-cpu-%d.png"], "cpu")
+        apart = 0.0
+        for k in range(CLI_FILES_N):
+            a = np.asarray(PImage.open(f"{out}-{k}.png"))
+            b = np.asarray(PImage.open(f"{out}-cpu-{k}.png"))
+            require(a.shape == b.shape == (HOUT, WOUT),
+                    f"cli_files output {k} {a.shape}")
+            apart = max(apart, _share_apart(a, b))
+        require(apart <= 1e-3, f"cli_files config #1: {apart} apart")
+
+        def run(paths):
+            _main_ok(paths + CLI_ARGV + [out + f"-{len(paths)}-%d.png"],
+                     dev)
+
+        wall = min(_once_ms(lambda: run(pngs)) for _ in range(2))
+        per, margs = _marginal(run, pngs, CLI_FILES_N1, CLI_FILES_N,
+                               rounds=CLI_FILES_ROUNDS)
+        print(f"cli_files config #1: {CLI_FILES_N} PNGs of {H}x{W}x{C} -> "
+              f"out-%d.png in one K1 launch {la1}; {wall:.4f} ms = "
+              f"{CLI_FILES_N / wall * 1e3:.2f} images/s (best of 2); "
+              f"marginal ({CLI_FILES_N}-{CLI_FILES_N1} files, median of "
+              f"{CLI_FILES_ROUNDS}) {per * 1e3:.4f} ms an image; rounds "
+              f"{[round(m * 1e3, 4) for m in margs]} ms; samples more than "
+              f"one level from the CPU run: {apart:.2e} [{name_limit}]")
+
+        pgms = []
+        for k in range(CLI_FILES_PAGES):
+            pgms.append(os.path.join(td, f"page{k}.pgm"))
+            page = _page_u8(rng)
+            PImage.fromarray(page, "L").save(pgms[-1])
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(pgms + CLI_PAGES + [out + "-page-%d.pbm"], dev)
+        page_wall = (time.perf_counter() - t0) * 1e3
+        la3 = launched()
+        require(la3["k4"] == 1 and la3["k1"] == 0,
+                f"cli_files config #3 launches {la3}")
+        _main_ok(pgms + CLI_PAGES + [out + "-cpu-page-%d.pbm"], "cpu")
+        diff = 0.0
+        for k in range(CLI_FILES_PAGES):
+            a = np.asarray(PImage.open(f"{out}-page-{k}.pbm"))
+            b = np.asarray(PImage.open(f"{out}-cpu-page-{k}.pbm"))
+            require(a.shape == b.shape == (H3, W3), f"page {k} {a.shape}")
+            diff = max(diff, float(np.mean(a != b)))
+        require(diff <= 1e-3, f"cli_files config #3: {diff} apart")
+        print(f"cli_files config #3: {CLI_FILES_PAGES} PGM pages of "
+              f"{H3}x{W3} -> page-%d.pbm, launches {la3}; {page_wall:.4f} "
+              f"ms = {page_wall / CLI_FILES_PAGES:.4f} ms a page (first "
+              f"run); pixels apart from the CPU run: {diff:.2e} "
+              f"[{name_limit}]")
+    return {"k1": la1["k1"], "k4": la3["k4"]}
+
+
+def _page_u8(rng) -> np.ndarray:
+    """A letter page of H3 x W3: light paper, lines of dark strokes and
+    scanner noise, u8."""
+    page = 0.9 + 0.03 * rng.standard_normal((H3, W3))
+    for y in range(60, H3 - 60, 24):
+        x = 60
+        while x < W3 - 80:
+            n = int(rng.integers(6, 40))
+            page[y:y + 10, x:x + n] = rng.uniform(0.05, 0.3)
+            x += n + int(rng.integers(4, 14))
+    return (np.clip(page, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+
+def serve_convert_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """serve_convert: ``make_server(port=0)`` on the card, POST /convert
+    of a 1080x1920 JPEG with config #1's chain and ``of=jpeg`` (one K1
+    launch a request, the result within one level of the same request
+    run on the CPU on at least 99.9 % of the samples), the request's wall
+    beside its parts timed apart (host decode, upload, K1, download, host
+    encode), SERVE_CONVERT_CLIENTS clients at once, and /identify and
+    /formats."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from http.client import HTTPConnection
+    from urllib.parse import quote
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch import serve
+    from imagemagick_tpu_torch.cli import main as cm
+    from imagemagick_tpu_torch.io import codecs
+
+    arr = _smooth_u8(np.random.default_rng(seed + 9), 1, IO_H, IO_W, C)[0]
+    buf = io.BytesIO()
+    PImage.fromarray(arr).save(buf, "JPEG", quality=90)
+    body = buf.getvalue()
+    args = quote(" ".join(CLI_ARGV))
+    srv = serve.make_server(port=0, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+
+    def call(method, path, data=None) -> bytes:
+        conn = HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request(method, path, body=data)
+            resp = conn.getresponse()
+            out = resp.read()
+        finally:
+            conn.close()
+        require(resp.status == 200, f"{method} {path}: {resp.status} "
+                f"{out[:300]!r}")
+        return out
+
+    def convert() -> bytes:
+        return call("POST", f"/convert?args={args}&of=jpeg", body)
+
+    try:
+        convert()                                # plan and operands
+        walls, k1 = [], 0
+        for _ in range(SERVE_CONVERT_REQUESTS):
+            reset_launches()
+            t0 = time.perf_counter()
+            got = convert()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            la = launched()
+            require(la["k1"] == 1 and sum(la.values()) == 1,
+                    f"serve_convert launches {la}")
+            k1 += la["k1"]
+        n_req = SERVE_CLIENTS * SERVE_CONVERT_ROUNDS
+        with ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+            t0 = time.perf_counter()
+            list(ex.map(lambda _: convert(), range(n_req)))
+            together = time.perf_counter() - t0
+        text = call("POST", "/identify", body).decode()
+        require(f"Geometry: {IO_W}x{IO_H}+0+0" in text,
+                f"serve /identify {text[:200]!r}")
+        formats = json.loads(call("GET", "/formats"))
+        require("jpeg" in formats["read"] and "png" in formats["write"],
+                f"serve /formats {formats}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    want = serve._run_cli(["-", *CLI_ARGV, "jpeg:-"], body, "cpu")
+    a = np.asarray(PImage.open(io.BytesIO(got)))
+    b = np.asarray(PImage.open(io.BytesIO(want)))
+    require(a.shape == b.shape == (HOUT, WOUT), f"serve_convert {a.shape}")
+    apart = _share_apart(a, b)
+    require(apart <= 1e-3, f"serve_convert: {apart} apart from the CPU")
+
+    # the request's parts, timed apart on the same body
+    def decode():
+        return codecs.decode(body, "jpeg", device="cpu")[0]
+
+    def upload(img):
+        return img.data.to(dev)
+
+    def kernel(x):
+        from imagemagick_tpu_torch.core.image import Image as TImage
+
+        st = cm.CLIState(device=dev)
+        st.images.append(cm.LazyImage(TImage(x, decoded.spec)))
+        cm.process(list(CLI_ARGV), st)
+        return st.images[0].materialize()
+
+    decoded = decode()
+    parts = {"decode": _host_ms(decode)[0]}
+    parts["upload"], x = _host_ms(lambda: upload(decoded))
+    parts["kernel"], y = _host_ms(lambda: kernel(x))
+    parts["download"], host = _host_ms(lambda: y.data.cpu())
+    from imagemagick_tpu_torch.core.image import Image as TImage
+
+    out_img = TImage(host, y.spec)
+    parts["encode"] = _host_ms(lambda: tio.image_to_blob(out_img, "jpeg"))[0]
+    per = statistics.median(walls)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+    print(f"serve_convert: POST /convert of a {IO_H}x{IO_W} JPEG "
+          f"({len(body)} bytes) through {' '.join(CLI_ARGV)} of=jpeg, one "
+          f"K1 launch a request; request wall median of "
+          f"{SERVE_CONVERT_REQUESTS} {per:.4f} ms; its parts apart (ms, "
+          f"median of {IO_RUNS}): {split}, sum "
+          f"{sum(parts.values()):.4f}; samples more than one level from the "
+          f"CPU run: {apart:.2e} [{name_limit}]")
+    print(f"serve_convert, {SERVE_CLIENTS} clients at once: {n_req} "
+          f"requests in {together * 1e3:.4f} ms = "
+          f"{n_req / together:.2f} requests/s; /identify and /formats "
+          f"answered [{name_limit}]")
+    return {"k1": k1}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2932,6 +3264,12 @@ def main() -> None:
     _timed("layers", lambda: layers_phase(dev, gen, name_limit))
     clil = _timed("cli_layers",
                   lambda: cli_layers_phase(dev, gen, name_limit))
+    _timed("io", lambda: io_phase(dev, gen, name_limit, args.seed))
+    clif = _timed("cli_files", lambda: cli_files_phase(dev, gen, name_limit,
+                                                       args.seed))
+    srvc = _timed("serve_convert",
+                  lambda: serve_convert_phase(dev, gen, name_limit,
+                                              args.seed))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -3419,7 +3757,8 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/fused_pipeline.py:564",
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
-         clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"],
+         clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
+         srvc["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -3452,7 +3791,7 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
-         cliv["k4"],
+         cliv["k4"] + clif["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

@@ -1,4 +1,5 @@
-"""The magick-compatible option interpreter: a subset of the options.
+"""The magick-compatible command line: every option of the JAX CLI's
+table, from files to files.
 
 Port of ``imagemagick_tpu/cli/main.py``'s engine: a sequential
 interpreter over an image list that *accumulates* ops per image
@@ -97,17 +98,36 @@ by ``+noise``, default 1), and ``-page`` and ``-delay``, stored as the
 JAX CLI stores them (it applies them to images it reads).  ``-label``
 sets the images' ``label`` property and ``-repage``/``+repage`` their
 page (ResetImagePage's rules), each on a new Image: the caller's Images
-are not changed.  Write masks (``-region``) and ``-seed`` are not
-ported, so ``-spread``, ``-fx``'s ``rand``, ``+noise`` and the noise
-operators of ``-evaluate`` draw from a generator seeded 0, as the JAX CLI
-draws from ``PRNGKey(0)`` (its ``+noise`` seeds from the clock).
-``-remap``/``-map``/``-affinity`` read a palette file and raise, naming
-``io/``.  A file name, ``-profile``, the mask and clip options,
-``-encipher``/``-decipher``, ``-process``, ``-seed``, ``-print``,
-``-format``, ``-limit``, ``-debug``, ``-log``, ``-list`` and any other
-option or setting raise NotImplementedError naming their ROADMAP.md
-entry, 'Host layers'.  The tags equal the JAX CLI's for the same
-arguments.
+are not changed.  ``-seed N`` seeds the generators that ``-spread``,
+``-random-threshold``, ``-sketch``, ``-fx``'s ``rand``, ``+noise`` and
+the noise operators of ``-evaluate`` draw from (0 by default: each call a
+new generator seeded so on the images' device); the JAX CLI stores it and
+draws from ``PRNGKey(0)`` whatever it says (its ``+noise`` seeds from the
+clock).  Every other setting of the JAX CLI's ``_SETTINGS`` and
+``_FLAGS`` is stored.
+
+Files: a bare token reads a file (``io.read_images``: any format of the
+port's ``io/``, a pseudo image, ``mpr:``, ``-`` for stdin) onto the list,
+on ``CLIState.device``; the last token, where it looks like an output
+name (``_looks_like_output``), writes the list there through
+``materialize_all`` (so same-shape images share their K1 launch) and
+``io.write_image`` (``%d`` names, ``-`` for stdout).  With them:
+``-size``, ``-read``, ``-extract``, ``-depth``, ``-quality``, ``-write``,
+``-texture``, ``-script``, ``-identify``, ``-format``, ``-print``,
+``-list``, ``-version``, ``-limit``, ``-debug``, ``-monitor``,
+``-verbose`` and ``-exit``; ``-profile``/``+profile`` (LittleCMS on the
+host, ``core/profile.py``); the write masks of ``-mask``,
+``-clip-mask``, ``-read-mask``, ``-write-mask`` (their + forms take no
+argument) and ``-clip``/``-clip-path``, which every option built by
+``_op_simple`` and the blurs honour, as in the JAX CLI;
+``-encipher``/``-decipher``; ``-process`` (no modules, a CLIError as in
+the JAX CLI); ``-remap``/``-map``/``-affinity`` under ``+dither`` (the
+native octree library on the host; with a dither they raise, naming the
+palette walks' entry); ``-layers composite`` with its ``null:``
+separator.  ``main(argv, device)`` runs the magick/convert dialect.
+Write masks by geometry (``-region``), ``-bench`` and the other tools
+raise NotImplementedError naming their ROADMAP.md entry, 'Host layers'.
+The tags equal the JAX CLI's for the same arguments.
 """
 
 from __future__ import annotations
@@ -126,12 +146,11 @@ from ..core.color import parse_color
 from ..core.geometry import (parse_geometry, parse_meta_geometry,
                              parse_page_geometry)
 from ..core.image import Image
+from ..core.policy import enforce_path
 from ..core.spec import ImageSpec, normalize_colorspace
 
-_IO_GAP = ("file names need the codecs and readers of io/, which are not "
-           "ported yet: ROADMAP.md Queue 1, 'Host layers' (io/)")
-_OPS_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'Host layers' (core/'s "
-            "services, io/ and the rest of cli/)")
+_CLI_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'Host layers' (the "
+            "rest of io/ and native/, the other tools, -region and -bench)")
 
 
 class CLIError(Exception):
@@ -226,9 +245,20 @@ def _run_ops(data: torch.Tensor, ops) -> torch.Tensor:
 
 
 class CLIState:
-    def __init__(self):
+    """The interpreter's state: the image list, the settings, and the
+    device that read files and pseudo images go to (the card unless the
+    caller passes ``device="cpu"``)."""
+
+    def __init__(self, device="cuda"):
+        # checked where a reader first puts pixels there
+        self.device = torch.device(device)
         self.images: List[LazyImage] = []
         self.stack: List[List[LazyImage]] = []
+        self.settings_stack: List[Dict[str, str]] = []
+        self.size: Optional[str] = None
+        self.depth: Optional[int] = None
+        self.seed = 0
+        self.exit_code = 0
         self.defines: Dict[str, str] = {}
         self.settings: Dict[str, str] = {
             "background": "white",
@@ -332,13 +362,14 @@ def _op_blur(fname: str, rule: str):
         r, s = _geom_args(arg)
         vp = st.settings["virtual-pixel"]
         setting = st.settings.get("channel", "default")
-        tag = None if plus or s <= 0 or vp != "edge" or \
+        any_mask = any(_wmask(li) is not None for li in st.images)
+        tag = None if plus or s <= 0 or vp != "edge" or any_mask or \
             _channel_indices(setting, 4) is not None else \
             ("gblur", (float(r), float(s), rule))
-        run = _masked(lambda x: fn(x, radius=r, sigma=s, virtual_pixel=vp),
-                      setting)
         for li in st.images:
-            li.push(run, tag=tag)
+            li.push(_masked(lambda x: fn(x, radius=r, sigma=s,
+                                         virtual_pixel=vp),
+                            setting, _wmask(li)), tag=tag)
 
     return handler
 
@@ -398,38 +429,60 @@ def _channel_indices(setting: str, nch: int):
     return sorted(i for i in idx if i < nch) or None
 
 
-def _masked(fn, setting: str):
-    """``fn`` under a -channel mask: where ``fn`` keeps the shape, the
-    channels outside the mask keep their input values (the JAX CLI's
-    ``_op_simple``, ``cli/main.py:438-452``)."""
+def _masked(fn, setting: str, wmask=None):
+    """``fn`` under a -channel mask and a write mask: where ``fn`` keeps
+    the shape, the channels outside the -channel mask keep their input
+    values, and so do the pixels where the write mask (``wmask``, an
+    (H, W) host array from -mask, -clip or their kin) is not above 0.5
+    (the JAX CLI's ``_op_simple``, ``cli/main.py:438-452``)."""
 
     def run(x):
         out = fn(x)
-        sel = _channel_indices(setting, x.shape[-1]) \
-            if out.shape == x.shape else None
-        if sel is None:
+        if out.shape != x.shape:
             return out
-        mask = torch.zeros(x.shape[-1], dtype=torch.bool, device=x.device)
-        mask[sel] = True
-        return torch.where(mask, out, x)
+        sel = _channel_indices(setting, x.shape[-1])
+        if sel is not None:
+            mask = torch.zeros(x.shape[-1], dtype=torch.bool,
+                               device=x.device)
+            mask[sel] = True
+            out = torch.where(mask, out, x)
+        if wmask is not None and \
+                tuple(wmask.shape[:2]) == tuple(x.shape[-3:-1]):
+            m = torch.from_numpy(np.ascontiguousarray(wmask, np.float32))
+            out = torch.where(m.to(x.device)[..., None] > 0.5, out, x)
+        return out
 
     return run
 
 
-def _op_simple(module: str, fname: str, argmap=None):
+def _wmask(li: LazyImage):
+    return li.image.properties.get("wand:mask")
+
+
+def _seeded(fn, seed: int):
+    """``fn`` given a new generator seeded ``seed`` on its input's device
+    at each call (-seed; 0 by default)."""
+    return lambda x, **kw: fn(
+        x, generator=torch.Generator(device=x.device).manual_seed(seed),
+        **kw)
+
+
+def _op_simple(module: str, fname: str, argmap=None, seeded=False):
     """A lazy per-pixel or neighborhood op: ``ops.<module>.<fname>(x,
-    **argmap(st, arg, plus))`` on each image, under the -channel mask
-    (``_masked``).  None of these ops carries a K1 tag, as in the JAX
-    CLI; write masks (``-region``) are not ported."""
+    **argmap(st, arg, plus))`` on each image, under the -channel mask and
+    the image's write mask (``_masked``).  A ``seeded`` op draws from a
+    generator seeded with -seed.  None of these ops carries a K1 tag, as
+    in the JAX CLI."""
 
     def handler(st, arg, plus):
         fn = getattr(importlib.import_module(f"..ops.{module}", __package__),
                      fname)
+        if seeded:
+            fn = _seeded(fn, st.seed)
         kwargs = argmap(st, arg, plus) if argmap else {}
-        run = _masked(lambda x: fn(x, **kwargs),
-                      st.settings.get("channel", "default"))
+        setting = st.settings.get("channel", "default")
         for li in st.images:
-            li.push(run)
+            li.push(_masked(lambda x: fn(x, **kwargs), setting, _wmask(li)))
 
     return handler
 
@@ -668,8 +721,9 @@ def _op_evaluate(st, arg, plus):
         val = float(parts[1].strip()[:-1]) * 65536.0 / 100.0
     else:
         val = float(parts[1]) if len(parts) > 1 else 0.0
+    evaluate = _seeded(stx.evaluate, st.seed)
     for li in st.images:
-        li.push(lambda x: stx.evaluate(x, op, val))
+        li.push(lambda x: evaluate(x, operator=op, value=val))
 
 
 def _op_function(st, arg, plus):
@@ -1064,7 +1118,8 @@ def _op_fx(st, arg, plus):
     from ..ops import fx as fxm
 
     imgs = materialize_all(st.images)
-    data = fxm.fx([im.data for im in imgs], arg)
+    data = fxm.fx([im.data for im in imgs], arg, generator=torch.Generator(
+        device=imgs[0].data.device).manual_seed(st.seed))
     st.images = [LazyImage(Image(data, imgs[0].spec, imgs[0].properties))]
 
 
@@ -1209,15 +1264,6 @@ def _op_type(st, arg, plus):
         elif data.shape[-1] >= 3 and spec.color_channels == 1:
             spec = spec.with_(colorspace="srgb")
         li.image = Image(data, spec, img.properties, img.profiles)
-
-
-def _op_remap(st, arg, plus):
-    """-remap / -map FILE: the palette comes from a file, and its dithered
-    walks are not ported."""
-    from ..ops.quantize import REMAP_DITHER_GAP
-
-    raise NotImplementedError(f"-remap {arg!r}: {_IO_GAP}; and "
-                              f"{REMAP_DITHER_GAP}")
 
 
 # -- paint, feature, vision, segment, draw and decorate ------------------------
@@ -1510,11 +1556,6 @@ def _op_layers(st, arg, plus):
     from ..ops import layer as ly
 
     method = arg.lower().replace("_", "-")
-    if method == "composite":
-        raise NotImplementedError(
-            "-layers composite needs a null: image between its two stacks, "
-            "and null: is a reader of io/, not ported yet: ROADMAP.md Queue "
-            "1, 'Host layers' (io/)")
     frames = materialize_all(st.images)
     fuzz = _fuzz(st)
     if method == "coalesce":
@@ -1536,9 +1577,34 @@ def _op_layers(st, arg, plus):
         out = [ly.mosaic(frames)]
     elif method == "dispose":
         out = ly.dispose_images(frames)
+    elif method == "composite":
+        out = _layers_composite(st, frames)
     else:
         raise CLIError(f"unknown -layers method {arg!r}")
     _relist(st, out)
+
+
+def _layers_composite(st, frames: List[Image]) -> List[Image]:
+    """-layers composite (layer.c CompositeLayers): the frames before the
+    ``null:`` image composited, one by one, with those after it (the last
+    source frame repeated) under -compose and -gravity."""
+    from ..ops.composite import composite_at
+
+    sep = next((i for i, im in enumerate(frames)
+                if im.properties.get("null-separator")), None)
+    if sep is None:
+        raise CLIError("-layers composite needs a null: separator "
+                       "between the destination and source stacks")
+    dst_stack, src_stack = frames[:sep], frames[sep + 1:]
+    compose = st.settings.get("compose", "over")
+    out = []
+    for i, dst in enumerate(dst_stack):
+        src = src_stack[min(i, len(src_stack) - 1)]
+        out.append(dst.replace(data=composite_at(
+            dst.data, src.data, compose, 0, 0,
+            st.settings.get("gravity", "undefined"),
+            dst_alpha=dst.spec.alpha, src_alpha=src.spec.alpha)))
+    return out
 
 
 def _op_layer_list(fname: str):
@@ -1629,8 +1695,9 @@ def _op_noise(st, arg, plus):
         from ..ops import visual_effects as vfx
 
         att = float(st.settings.get("attenuate", "1.0"))
+        noise = _seeded(vfx.add_noise, st.seed)
         for li in st.images:
-            li.push(lambda x: vfx.add_noise(x, arg, attenuate=att))
+            li.push(lambda x: noise(x, noise_type=arg, attenuate=att))
     else:
         from ..ops import statistic as stx
 
@@ -2117,6 +2184,271 @@ def _op_preview(st, arg, plus):
     _relist(st, [mo.montage(variants, tile="3x3", geometry="120x120+2+2")])
 
 
+# -- the options that read or write files, and core/'s services ------------
+
+def _op_profile(st, arg, plus):
+    """-profile FILE: the ICC transform to the file's profile (LittleCMS on
+    the host, ``core/profile.py``); +profile PATTERN removes the matching
+    profiles, each image a new Image."""
+    import fnmatch
+
+    from ..core import profile as prof
+
+    if plus:
+        for li in st.images:
+            img = li.image
+            li.image = Image(img.data, img.spec, img.properties, {
+                k: v for k, v in img.profiles.items()
+                if not fnmatch.fnmatch(k.lower(), arg.lower())},
+                img.page, img.delay)
+        return
+    enforce_path(arg)
+    with open(arg, "rb") as f:
+        blob = f.read()
+    for li, img in _materialized(st):
+        li.image = prof.profile_image(img, blob)
+
+
+def _set_mask(li: LazyImage, img: Image, mask) -> None:
+    props = {k: v for k, v in img.properties.items() if k != "wand:mask"}
+    if mask is not None:
+        props["wand:mask"] = mask
+    li.image = Image(img.data, img.spec, props, img.profiles, img.page,
+                     img.delay)
+
+
+def _op_clip(st, arg, plus):
+    """-clip / -clip-path: the image's 8BIM clip path (or its ``clip-path``
+    property) rasterized as its write mask (ClipImage / ClipImagePath);
+    +clip removes it."""
+    from ..io.coders_r4 import _clip_path_mask
+
+    for li, img in _materialized(st):
+        if plus:
+            _set_mask(li, img, None)
+            continue
+        m = _clip_path_mask(img)
+        if m is None:
+            raise CLIError("image does not have a clip mask")
+        _set_mask(li, img, m)
+
+
+def _op_clip_mask(st, arg, plus):
+    """-mask / -clip-mask / -read-mask / -write-mask FILE: the file's
+    intensity (its gray channel, or ``enhance.grayscale`` of its color, as
+    the ``mask:`` reader takes it) as each image's write mask, an (H, W) array kept on the host; the +
+    forms remove it.  The JAX CLI keeps the file's every channel, an
+    (H, W, C) array that no per-pixel option can broadcast: each raises
+    there."""
+    if plus or arg in (None, ""):
+        for li in st.images:
+            _set_mask(li, li.image, None)
+        return
+    from .. import io as iio
+    from ..ops.enhance import grayscale
+
+    mask = iio.read_images(arg, device=st.device)[0].data
+    m = (grayscale(mask) if mask.shape[-1] >= 3 else mask)[..., 0]
+    m = m.cpu().numpy()
+    for li in st.images:
+        _set_mask(li, li.image, m)
+
+
+def _read_passphrase(arg: str) -> str:
+    import os
+
+    enforce_path(arg)
+    if os.path.isfile(arg):
+        with open(arg, "r") as f:
+            return f.read()
+    return arg
+
+
+def _op_encipher(st, arg, plus, decipher=False):
+    """-encipher / -decipher PASSPHRASE (or a file holding it): AES-CTR
+    over each image's quantum rows (``utils/signature.py``), the keystream
+    and the quantization on the host."""
+    from ..utils.signature import decipher_image, encipher_image
+
+    pp = _read_passphrase(arg)
+    fn = decipher_image if decipher else encipher_image
+    for li, img in _materialized(st):
+        li.image = img.replace(data=fn(img.data, pp, depth=img.spec.depth))
+
+
+def _op_process_module(st, arg, plus):
+    raise CLIError("no filter modules are registered (-process); module.c "
+                   "dynamic loading is replaced by Python imports")
+
+
+def _op_map(st, arg, plus):
+    """-remap / -map FILE: RemapImage onto the file's colors.  Under
+    ``+dither`` the native octree library snaps each pixel on the host,
+    as in the JAX CLI; with a dither on it raises, naming the palette
+    walks' entry."""
+    from .. import io as iio
+    from .. import native
+    from ..ops.quantize import REMAP_DITHER_GAP
+
+    meth = st.settings.get("dither", "riemersma").lower()
+    if meth not in ("none", "false", ""):
+        raise NotImplementedError(f"-remap {arg!r} with -dither {meth}: "
+                                  f"{REMAP_DITHER_GAP}")
+    pal_img = iio.read_images(arg, device=st.device)[0]
+    pal = pal_img.to_numpy().reshape(-1, pal_img.channels)
+    for li, img in _materialized(st):
+        arr = img.to_numpy()
+        if arr.ndim != 3:
+            raise CLIError("-remap takes one image at a time")
+        res = native.octree_remap(arr, np.asarray(pal, np.float32), "none")
+        li.image = img.replace(data=torch.from_numpy(res).to(img.data.device))
+
+
+def _op_texture(st, path: str) -> None:
+    """-texture FILE: each image replaced by the file tiled over it."""
+    from .. import io as iio
+
+    tex = iio.read_images(path, device=st.device)[0]
+    for li, img in _materialized(st):
+        ry = -(-img.height // tex.height)
+        rx = -(-img.width // tex.width)
+        tiled = tex.data.repeat(ry, rx, 1)[:img.height, :img.width]
+        li.image = Image(tiled[..., :img.channels], img.spec)
+
+
+def _read_into(st, target: str) -> None:
+    """Read ``target`` onto the list (a bare file name or -read), on the
+    state's device; a pending -extract crops each frame."""
+    from .. import io as iio
+    from ..ops import transform as tf
+
+    frames = iio.read_images(target, size=st.size,
+                             settings=dict(st.settings, defines=st.defines),
+                             device=st.device)
+    extract = st.settings.pop("extract", None)
+    if extract:
+        cut = []
+        for im in frames:
+            w, h, x, y = parse_page_geometry(extract, im.width, im.height)
+            cut.append(im.replace(data=tf.excerpt(im.data, x, y, w, h)))
+        frames = cut
+    st.images += [LazyImage(im) for im in frames]
+
+
+def _looks_like_output(tok: str) -> bool:
+    """Whether the last bare token names where to write: a ``fmt:`` prefix
+    of a format the port or the JAX package writes (the latter raise when
+    written), a name with an extension, or ``-``."""
+    if ":" in tok:
+        from ..io import known_write_formats
+
+        return tok.split(":", 1)[0].lower() in known_write_formats()
+    return "." in tok or tok == "-"
+
+
+def _write_output(st, target: str) -> None:
+    """Write the list to ``target``: same-shape images share their K1
+    launch (``materialize_all``), and the pixels come to the host once."""
+    from .. import io as iio
+
+    imgs = materialize_all(st.images)
+    if not imgs:
+        raise CLIError("no image to write")
+    iio.write_image(imgs if len(imgs) > 1 else imgs[0], target,
+                    quality=int(st.settings["quality"]),
+                    depth=st.depth, settings={"defines": st.defines})
+
+
+def _list_main(what: str) -> None:
+    """-list: the registries that the port has (option.c MagickList)."""
+    w = what.lower()
+    if w == "format":
+        from ..io import supported_read_formats, supported_write_formats
+
+        reads = set(supported_read_formats())
+        writes = set(supported_write_formats())
+        for fmt in sorted(reads | writes):
+            mode = ("r" if fmt in reads else "-") + \
+                ("w" if fmt in writes else "-")
+            print(f"{fmt.upper():12s} {mode}")
+    elif w == "colorspace":
+        from ..ops.colorspace import supported_colorspaces
+
+        print("\n".join(supported_colorspaces()))
+    elif w == "filter":
+        from ..ops.resize import supported_filters
+
+        print("\n".join(supported_filters()))
+    elif w == "metric":
+        from ..ops.compare import _METRICS
+
+        print("\n".join(sorted(_METRICS)))
+    elif w == "color":
+        from ..core.color import color_names
+
+        print("\n".join(color_names()))
+    elif w == "kernel":
+        print("\n".join(_KERNEL_NAMES))
+    elif w == "threshold":
+        from ..ops.threshold import threshold_map_names
+
+        print("\n".join(threshold_map_names()))
+    elif w == "morphology":
+        print("\n".join(_MORPHOLOGY_METHODS))
+    elif w == "resource":
+        from ..core.resource import resources
+
+        for k, v in resources.report().items():
+            lim = "unlimited" if v["limit"] == float("inf") \
+                else f"{v['limit']:.0f}"
+            print(f"{k}: limit={lim}")
+    elif w == "policy":
+        from ..core.policy import policy as pol
+
+        for d, pat, rights in pol.rules:
+            print(f"domain={d} pattern={pat} "
+                  f"rights={','.join(sorted(rights))}")
+        if not pol.rules:
+            print("(open policy: no restrictions)")
+    elif w == "gravity":
+        from ..ops.composite import GRAVITIES
+
+        print("\n".join(GRAVITIES))
+    elif w == "compose":
+        from ..ops.composite import _BLEND_FNS
+
+        print("\n".join(sorted(_COMPOSE_BASE + list(_BLEND_FNS))))
+    elif w == "noise":
+        print("\n".join(["uniform", "gaussian", "impulse", "laplacian",
+                         "multiplicative", "poisson", "random"]))
+    elif w == "delegate":
+        raise NotImplementedError(
+            "-list delegate: the delegates of io/ are not ported yet: "
+            "ROADMAP.md Queue 1, 'Host layers' (the rest of io/ and "
+            "native/)")
+    else:
+        raise CLIError(f"unknown list type {what!r}")
+
+
+_KERNEL_NAMES = ["unity", "gaussian", "dog", "log", "blur", "comet",
+                 "laplacian", "sobel", "roberts", "prewitt", "compass",
+                 "kirsch", "freichen", "diamond", "square", "octagon",
+                 "disk", "plus", "cross", "ring", "rectangle", "corners",
+                 "lineends", "linejunctions", "edges", "peaks", "skeleton",
+                 "chebyshev", "manhattan", "euclidean"]
+_MORPHOLOGY_METHODS = ["convolve", "correlate", "erode", "dilate",
+                       "erodeintensity", "dilateintensity", "open", "close",
+                       "openintensity", "closeintensity", "smooth", "edge",
+                       "edgein", "edgeout", "tophat", "bottomhat",
+                       "hitandmiss", "thinning", "thicken", "distance"]
+_COMPOSE_BASE = ["over", "dstover", "in", "dstin", "out", "dstout", "atop",
+                 "dstatop", "xor", "plus", "copy", "dst", "clear",
+                 "dissolve", "blend", "mathematics", "threshold",
+                 "changemask", "stereo", "bumpmap", "copyred", "copygreen",
+                 "copyblue", "copyalpha", "hue", "saturate", "luminize",
+                 "colorize", "lightenintensity", "darkenintensity"]
+
+
 # option name -> (number of arguments, handler)
 OPS: Dict[str, Tuple[int, Callable]] = {
     # the resize family
@@ -2165,7 +2497,7 @@ OPS: Dict[str, Tuple[int, Callable]] = {
                                      lambda st, a, p: _dither_args(a))),
     "random-threshold": (1, _op_simple(
         "threshold", "random_threshold",
-        lambda st, a, p: _random_thresh_args(a))),
+        lambda st, a, p: _random_thresh_args(a), seeded=True)),
     "lat": (1, _op_simple("threshold", "adaptive_threshold",
                           lambda st, a, p: _lat_args(a))),
     "clamp": (0, _op_simple("threshold", "clamp")),
@@ -2189,7 +2521,8 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "emboss": (1, _op_simple("blur", "emboss", _rs)),
     "shade": (1, _op_simple("blur", "shade", lambda st, a, p: _shade_args(a))),
     "spread": (1, _op_simple("blur", "spread",
-                             lambda st, a, p: {"radius": float(a)})),
+                             lambda st, a, p: {"radius": float(a)},
+                             seeded=True)),
     "selective-blur": (1, _op_simple("blur", "selective_blur",
                                      lambda st, a, p: _selective_args(a))),
     # rank filters and value maps
@@ -2218,8 +2551,8 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "kmeans": (1, _op_kmeans),
     "unique-colors": (0, _op_unique_colors),
     "type": (1, _op_type),
-    "remap": (1, _op_remap),
-    "map": (1, _op_remap),
+    "remap": (1, _op_map),
+    "map": (1, _op_map),
     # geometry
     "crop": (1, partial(_op_geometry_slice, op="crop")),
     "chop": (1, partial(_op_geometry_slice, op="chop")),
@@ -2278,7 +2611,8 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "smush": (1, _op_smush),
     "montage": (0, _op_montage),
     # visual effects
-    "sketch": (1, _op_simple("visual_effects", "sketch", _sketch_args)),
+    "sketch": (1, _op_simple("visual_effects", "sketch", _sketch_args,
+                             seeded=True)),
     "charcoal": (1, _op_simple("visual_effects", "charcoal", _rs)),
     "wavelet-denoise": (1, _op_simple("visual_effects", "wavelet_denoise",
                                       lambda st, a, p: _wavelet_args(a))),
@@ -2335,21 +2669,119 @@ OPS: Dict[str, Tuple[int, Callable]] = {
     "insert": (1, _op_insert),
     "cycle": (1, _op_cycle),
     "preview": (1, _op_preview),
-    "affinity": (1, _op_remap),
+    "affinity": (1, _op_map),
+    # core/'s services and the options that read files
+    "profile": (1, _op_profile),
+    "clip": (0, _op_clip),
+    "clip-path": (1, _op_clip),
+    "clip-mask": (1, _op_clip_mask),
+    "read-mask": (1, _op_clip_mask),
+    "write-mask": (1, _op_clip_mask),
+    "mask": (1, _op_clip_mask),
+    "encipher": (1, partial(_op_encipher, decipher=False)),
+    "decipher": (1, partial(_op_encipher, decipher=True)),
+    "process": (1, _op_process_module),
 }
 
-# settings stored by ``process`` (the JAX CLI's _SETTINGS subset that a
-# ported option reads); the + forms of gravity and compose reset them
-_SETTINGS = ("virtual-pixel", "gravity", "compose", "background",
-             "bordercolor", "affine", "channel", "metric", "dither",
-             "quantize", "fill", "fuzz", "stroke", "strokewidth",
-             "pointsize", "font", "mattecolor", "direction", "tile", "page",
-             "delay", "attenuate", "filter", "interpolate", "density")
+# the settings ``process`` stores (the JAX CLI's ``_SETTINGS``,
+# ``cli/main.py:2357-2391``): the + forms of dither, gravity and compose
+# reset theirs; -seed seeds the random options' generators
+_SETTINGS = {
+    "background", "fill", "gravity", "filter", "quality", "fuzz", "dither",
+    "page", "tile", "texture-setting", "units", "weight", "style",
+    "endian", "antialias", "transparent-color", "interlace",
+    "colors-setting", "treedepth", "kerning", "direction",
+    "virtual-pixel", "interpolate", "compose", "font", "pointsize",
+    "bordercolor", "mattecolor", "stroke", "strokewidth", "density",
+    "dispose", "delay", "loop", "channel", "intent", "interlace",
+    "sampling-factor", "attenuate", "seed",
+    "affine", "authenticate", "blue-primary", "green-primary",
+    "red-primary", "white-point", "undercolor", "box", "compress",
+    "encoding", "family", "intensity", "metric", "mode", "path",
+    "precision", "quantize", "scene", "stretch", "tile-offset", "title",
+    "view", "render", "black-point-compensation", "highlight-color",
+    "lowlight-color", "gravity-setting", "blend", "displace", "dissolve",
+    "watermark", "modulate-setting", "remap-setting", "caption-setting",
+    "adjoin", "bias", "borderwidth", "cache", "caption",
+    "dissimilarity-threshold", "similarity-threshold", "duration",
+    "illuminant", "interline-spacing", "interword-spacing", "log",
+    "scenes", "subimage", "subimage-search", "text-font", "word-break",
+    "colormap", "reshape", "name", "sans", "sans1", "display",
+}
+
+# zero-argument flags: stored as "1" ("0" for the + form), no other effect
+_FLAGS = {
+    "quiet", "regard-warnings", "respect-parentheses", "respect-parenthesis",
+    "synchronize", "taint", "ping", "antialias-flag", "render-flag",
+    "concurrent", "flicker", "unique", "precision-flag", "sans0",
+    "backdrop", "descend", "foreground", "iconic", "immutable", "remote",
+    "screen", "shared-memory", "silent", "snaps", "update", "use-pixmap",
+    "visual", "window", "window-group", "pause",
+}
+
+# options whose + form takes no argument, as in ImageMagick (the JAX CLI
+# takes the next token as their argument: ``+mask -negate`` drops the
+# -negate there)
+_PLUS_TAKES_NONE = {"mask", "clip-mask", "read-mask", "write-mask"}
+
+
+def _arg(args: List[str], i: int, tok: str, n: int = 1) -> List[str]:
+    if i + n > len(args):
+        raise CLIError(f"option requires an argument {tok!r}")
+    return args[i:i + n]
+
+
+# the options ``process`` runs itself, by their number of arguments
+_INLINE_ARITY = {"size": 1, "read": 1, "script": 1, "extract": 1,
+                 "texture": 1, "depth": 1, "write": 1, "list": 1,
+                 "format": 1, "print": 1, "debug": 1, "limit": 2,
+                 "identify": 0, "version": 0, "monitor": 0, "verbose": 0}
+
+
+def option_arity(tok: str, args: Sequence[str], i: int) -> Optional[int]:
+    """How many of the tokens ``args[i:]`` after option ``tok`` are its
+    arguments, as ``process`` takes them; None for an option the CLI does
+    not know.  Raises NotImplementedError for an option the port lacks
+    (``-region``, ``-bench``).  The serve daemon's validators walk a
+    request with it, so they count each option's arguments as ``process``
+    does."""
+    plus = tok.startswith("+")
+    name = tok[1:]
+    nxt = args[i] if i < len(args) else None
+    if name in ("region", "bench"):
+        raise unported(tok)
+    if name in _INLINE_ARITY:
+        return _INLINE_ARITY[name]
+    if name in _SETTINGS or name in ("define", "geometry"):
+        return 0 if plus and name in ("dither", "gravity", "compose") else 1
+    if name in _FLAGS or name in ("exit", "reverse", "strip"):
+        return 0
+    if name in ("sans2", "set", "copy"):
+        return 2
+    if name in ("label", "comment"):
+        return 1
+    if name == "repage":
+        return 0 if plus else 1
+    if name in ("clone", "delete"):
+        # an optional index list; +clone takes none
+        return int(nxt is not None and not (plus and name == "clone")
+                   and re.match(r"^-?\d", nxt) is not None)
+    if name == "swap":
+        return int(nxt is not None and ("," in nxt or
+                                        nxt.lstrip("+-").isdigit()))
+    if name in OPS:
+        n = OPS[name][0]
+        if n == "?":    # one optional argument (-shadow)
+            return int(nxt is not None and _optional_arg(nxt))
+        return 0 if plus and name in _PLUS_TAKES_NONE else n
+    return None
 
 
 def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
     """ProcessCommandOptions analog: sequential option interpreter over
-    the images already in ``st`` (a new state has none)."""
+    the images already in ``st`` (a new state has none, on the card).  A
+    bare token reads a file onto the list, or, where it is the last token
+    and looks like an output name, writes the list there."""
     if st is None:
         st = CLIState()
     args = list(args)
@@ -2360,68 +2792,126 @@ def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
         if tok == "(":
             st.stack.append(st.images)
             st.images = []
+            if st.settings.get("respect-parentheses") == "1" or \
+                    st.settings.get("respect-parenthesis") == "1":
+                st.settings_stack.append(dict(st.settings))
             continue
         if tok == ")":
             if not st.stack:
                 raise CLIError("unbalanced parenthesis")
             parent = st.stack.pop()
             st.images = parent + st.images
+            if st.settings_stack:
+                st.settings = st.settings_stack.pop()
             continue
         if not tok.startswith(("-", "+")) or tok == "-":
-            raise unported(tok)
+            if i == len(args) and st.images and _looks_like_output(tok):
+                _write_output(st, tok)
+            else:
+                _read_into(st, tok)
+            continue
         plus = tok.startswith("+")
         name = tok[1:]
-        if name in _SETTINGS or name in ("define", "geometry"):
-            if plus and name == "dither":
-                st.settings[name] = "none"
-                continue
-            if plus and name in ("gravity", "compose"):
-                st.settings[name] = "undefined" if name == "gravity" \
-                    else "over"
-                continue
-            if i >= len(args):
-                raise CLIError(f"option requires an argument {tok!r}")
-            value = args[i]
-            i += 1
-            if name == "define":
-                key, _, val = value.partition("=")
-                if plus:
-                    st.defines.pop(key, None)
-                else:
-                    st.defines[key] = val
-            elif name == "geometry":
-                st.settings["compose-geometry"] = value
-            else:
-                st.settings[name] = value
-            continue
-        if name in _LIST_OPTIONS:
-            i = _LIST_OPTIONS[name](st, args, i, plus)
-            continue
-        if name == "label":
-            if i >= len(args):
-                raise CLIError(f"option requires an argument {tok!r}")
-            _op_label(st, args[i])
-            i += 1
-            continue
-        if name == "repage":
-            if not plus and i >= len(args):
-                raise CLIError(f"option requires an argument {tok!r}")
-            _op_repage(st, None if plus else args[i], plus)
-            i += 0 if plus else 1
-            continue
-        if name in OPS:
-            n_args, handler = OPS[name]
-            if n_args == "?":   # one optional argument (-shadow)
-                n_args = int(i < len(args) and _optional_arg(args[i]))
-            if i + n_args > len(args):
-                raise CLIError(f"option requires an argument {tok!r}")
-            arg = " ".join(args[i:i + n_args]) if n_args else None
-            i += n_args
+        n = option_arity(tok, args, i)
+        if n is None:
+            raise unported(tok)
+        vals = _arg(args, i, tok, n)
+        i += n
+        if name == "exit":
+            break
+        if name in _INLINE_ARITY:
+            _inline(st, name, vals, args, i)
+        elif name in _SETTINGS or name in ("define", "geometry"):
+            _setting(st, name, vals, plus)
+        elif name in _FLAGS:
+            st.settings[name] = "0" if plus else "1"
+        elif name in _LIST_OPTIONS:
+            _LIST_OPTIONS[name](st, vals, plus)
+        elif name == "label":
+            _op_label(st, vals[0])
+        elif name == "repage":
+            _op_repage(st, vals[0] if vals else None, plus)
+        elif name in OPS:
             st.require_images("-" + name)
-            handler(st, arg, plus)
-            continue
-        raise unported(tok)
+            OPS[name][1](st, " ".join(vals) if vals else None, plus)
+        # -sans2 takes two arguments and does nothing
     return st
+
+
+def _setting(st: CLIState, name: str, vals: List[str], plus: bool) -> None:
+    """Store a setting: the + forms of dither, gravity and compose reset
+    theirs, +define removes its key, -seed seeds the random options."""
+    if plus and name == "dither":
+        st.settings[name] = "none"
+    elif plus and name in ("gravity", "compose"):
+        st.settings[name] = "undefined" if name == "gravity" else "over"
+    elif name == "define":
+        key, _, val = vals[0].partition("=")
+        if plus:
+            st.defines.pop(key, None)
+        else:
+            st.defines[key] = val
+    elif name == "geometry":
+        st.settings["compose-geometry"] = vals[0]
+    else:
+        st.settings[name] = vals[0]
+        if name == "seed":
+            st.seed = int(vals[0])
+
+
+def _inline(st: CLIState, name: str, vals: List[str], args: List[str],
+            i: int) -> None:
+    """The options ``process`` handles itself: the readers' settings, the
+    writers, the services of core/ and the informational options."""
+    if name == "size":
+        st.size = vals[0]
+    elif name == "read":
+        _read_into(st, vals[0])
+    elif name == "script":
+        # the script's tokens (shell-style, with comments) run next
+        import shlex
+
+        enforce_path(vals[0])
+        with open(vals[0], "r", encoding="utf-8") as fh:
+            args[i:i] = shlex.split(fh.read(), comments=True)
+    elif name == "extract":
+        st.settings["extract"] = vals[0]
+    elif name == "texture":
+        _op_texture(st, vals[0])
+    elif name == "depth":
+        st.depth = int(vals[0])
+    elif name == "write":
+        _write_output(st, vals[0])
+    elif name == "list":
+        _list_main(vals[0])
+    elif name == "format":
+        st.settings["format"] = vals[0]
+    elif name == "print":
+        from ..core.properties import interpret
+
+        img = materialize_all(st.images[-1:])[0] if st.images else None
+        print(interpret(vals[0], img) if img is not None else vals[0],
+              end="")
+    elif name == "debug":
+        from ..core.log import log
+
+        log.set_log_event_mask(vals[0])
+    elif name == "limit":
+        from ..core.resource import resources
+
+        resources.set_limit(vals[0], vals[1])
+    elif name == "identify":
+        from ..io import identify as ident
+
+        verbose = st.settings.get("verbose") == "1"
+        for img in materialize_all(st.images):
+            print(ident.describe(img, "image", verbose))
+    elif name == "version":
+        print("Version: imagemagick_tpu_torch (magick-compatible, PyTorch "
+              "and CUDA)")
+    elif name == "verbose":
+        st.settings["verbose"] = "1"
+    # -monitor: progress display is a no-op under batch execution
 
 
 # -- the list and metadata options the JAX CLI handles in its loop ---------
@@ -2440,81 +2930,58 @@ def _indices(spec: str, n: int) -> List[int]:
     return out
 
 
-def _list_clone(st, args, i, plus):
+def _list_clone(st, vals, plus):
     """+clone / bare -clone: a copy of the last image of the list before
     the parenthesis; -clone takes comma lists and ranges."""
     src = st.stack[-1] if st.stack else st.images
-    spec = None
-    if not plus and i < len(args) and re.match(r"^-?\d", args[i]):
-        spec, i = args[i], i + 1
-    picks = [src[-1]] if spec is None else \
-        [src[k] for k in _indices(spec, len(src))]
+    picks = [src[k] for k in _indices(vals[0], len(src))] if vals \
+        else [src[-1]]
     st.images += [LazyImage(im) for im in materialize_all(picks)]
-    return i
 
 
-def _list_delete(st, args, i, plus):
+def _list_delete(st, vals, plus):
     """-delete INDEXES (+delete, or no index: the last image)."""
-    spec = "-1"
-    if i < len(args) and re.match(r"^-?\d", args[i]):
-        spec, i = args[i], i + 1
     n = len(st.images)
-    drop = {k if k >= 0 else n + k for k in _indices(spec, n)}
+    drop = {k if k >= 0 else n + k
+            for k in _indices(vals[0] if vals else "-1", n)}
     st.images = [li for k, li in enumerate(st.images) if k not in drop]
-    return i
 
 
-def _list_swap(st, args, i, plus):
+def _list_swap(st, vals, plus):
     """-swap A,B (default -2,-1: the last two)."""
-    spec = args[i] if i < len(args) else "-2,-1"
-    if "," in spec or spec.lstrip("+-").isdigit():
-        i += 1
-    else:
-        spec = "-2,-1"
-    a, _, b = spec.partition(",")
+    a, _, b = (vals[0] if vals else "-2,-1").partition(",")
     ia, ib = int(a), int(b or -1)
     st.images[ia], st.images[ib] = st.images[ib], st.images[ia]
-    return i
 
 
-def _list_reverse(st, args, i, plus):
+def _list_reverse(st, vals, plus):
     st.images.reverse()
-    return i
 
 
-def _list_set(st, args, i, plus):
+def _list_set(st, vals, plus):
     """-set KEY VALUE: a property of every image of the list."""
-    if i + 2 > len(args):
-        raise CLIError("option requires an argument '-set'")
-    key, value = args[i].lstrip("-+"), args[i + 1]
+    key, value = vals[0].lstrip("-+"), vals[1]
     for li in st.images:
         _replaced(li, properties=dict(li.image.properties, **{key: value}))
-    return i + 2
 
 
-def _list_comment(st, args, i, plus):
-    if i >= len(args):
-        raise CLIError("option requires an argument '-comment'")
+def _list_comment(st, vals, plus):
     for li in st.images:
         _replaced(li, properties=dict(li.image.properties,
-                                      comment=args[i]))
-    return i + 1
+                                      comment=vals[0]))
 
 
-def _list_strip(st, args, i, plus):
+def _list_strip(st, vals, plus):
     """-strip: every image's properties and profiles dropped."""
     for li in st.images:
         img = li.image
         li.image = Image(img.data, img.spec, None, None, img.page, img.delay)
-    return i
 
 
-def _list_copy(st, args, i, plus):
+def _list_copy(st, vals, plus):
     """-copy GEOMETRY OFFSET: a region of the second-to-last image copied
     into the last at OFFSET."""
-    if i + 2 > len(args):
-        raise CLIError("option requires an argument '-copy'")
-    geom, off = args[i], args[i + 1]
+    geom, off = vals
     if len(st.images) >= 2:
         src, dst = materialize_all(st.images[-2:])
         w, h, sx, sy = parse_page_geometry(geom, src.width, src.height)
@@ -2524,11 +2991,10 @@ def _list_copy(st, args, i, plus):
         data[dy:dy + h, dx:dx + w, :] = \
             src.data[sy:sy + h, sx:sx + w, :dst.channels]
         st.images[-1].image = dst.replace(data=data)
-    return i + 2
 
 
-# option name -> handler(state, args, index after the option, plus form)
-# -> the index after its arguments
+# option name -> handler(state, its arguments, plus form); their counts
+# are ``option_arity``'s
 _LIST_OPTIONS = {"clone": _list_clone, "delete": _list_delete,
                  "swap": _list_swap, "reverse": _list_reverse,
                  "set": _list_set, "comment": _list_comment,
@@ -2544,11 +3010,10 @@ def _optional_arg(tok: str) -> bool:
 
 
 def unported(tok: str) -> NotImplementedError:
-    """The error for a file name or an option this subset lacks, naming
-    the ROADMAP.md entry that ports it."""
-    if not tok.startswith(("-", "+")) or tok == "-":
-        return NotImplementedError(f"{tok!r}: {_IO_GAP}")
-    return NotImplementedError(f"option {tok!r} {_OPS_GAP}")
+    """The error for an option this port lacks (write masks with
+    ``-region``, ``-bench``, or one the JAX CLI lacks too), naming the
+    ROADMAP.md entry that ports it."""
+    return NotImplementedError(f"option {tok!r} {_CLI_GAP}")
 
 
 def materialize_all(lazies: List[LazyImage]) -> List[Image]:
@@ -2585,3 +3050,54 @@ def materialize_all(lazies: List[LazyImage]) -> List[Image]:
         for j, i in enumerate(idxs):
             lazies[i]._settle(out[j], len(prefix))
     return [li.materialize() for li in lazies]
+
+
+_TOOLS = ("convert", "mogrify", "identify", "compare", "composite",
+          "montage", "conjure", "animate", "display", "stream", "import")
+
+
+def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
+    """The magick/convert command line: ``argv`` (``sys.argv[1:]`` by
+    default) through ``process`` on ``device``.  Returns the exit code; a
+    CLI error, a missing file or a bad value prints ``tmagick: ...`` and
+    returns 1.  The other tools of the JAX CLI (identify, compare, stream,
+    mogrify, composite, montage, conjure, display) raise
+    NotImplementedError."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in _TOOLS:
+        tool = argv.pop(0)
+        if tool != "convert":
+            raise NotImplementedError(f"the {tool} tool {_CLI_GAP}")
+    try:
+        if "-script" in argv:
+            # the JAX main's rule: the options before -script, then the
+            # script's tokens (one line after another, # comments out)
+            i = argv.index("-script")
+            enforce_path(argv[i + 1])
+            with open(argv[i + 1]) as f:
+                script_args = _tokenize_script(f.read())
+            st = process(argv[:i], CLIState(device))
+            process(script_args, st)
+            return 0
+        return process(argv, CLIState(device)).exit_code
+    except (CLIError, FileNotFoundError, ValueError) as e:
+        print(f"tmagick: {e}", file=sys.stderr)
+        return 1
+
+
+def _tokenize_script(text: str) -> List[str]:
+    """magick -script tokenizer (MagickWand/script-token.c): whitespace
+    separated, quotes and # comment lines honored."""
+    import shlex
+
+    out = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        out.extend(shlex.split(line))
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,610 @@
+"""Format registry + read/write entry points.
+
+Port of the part of ``imagemagick_tpu/io/__init__.py`` that the ported
+coders serve: ImageMagick's constitute layer (ReadImage, WriteImage) and
+coder registry.  Filenames may carry an explicit ``fmt:`` prefix,
+otherwise the extension and then the magic bytes decide.
+
+Ported: the pseudo formats (``pseudo.py``), ``mpr:``, ``null:``,
+``mask:`` and ``clip:``, PNM (``pnm.py``), the raw sample formats with
+``-size`` (``extra_coders.py``), the formats Pillow reads and writes
+(``codecs.py``; JPEG through the port's native codec where it builds),
+``info:``/``json:``/``yaml:``/``txt:`` (``identify.py``) and an SVG
+wrapper around a PNG.  Every other format that the magic table, an
+extension or a prefix names raises NotImplementedError naming its
+ROADMAP.md entry, and so do ``url:``-style names, which need a network.
+A decoded image is made on the host and goes to ``device`` once (the
+card unless the caller asks for the CPU); an encoded one comes to the
+host and is quantized there, with the JAX package's expressions.
+
+Where the JAX ``write_image`` writes several images to one name, it
+ignores a ``%d`` in the name for the formats it marks as adjoining and
+writes only the first image of a PNM list; the port expands a ``%d``
+name for every format, as ImageMagick's WriteImages does, and writes
+every image of a PNM list, one after another.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import sys
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..core.geometry import parse_geometry
+from ..core.image import Image
+from ..core.policy import enforce_path
+from . import codecs, coders_r4, extra_coders, pnm, pseudo
+from .codecs import REST_OF_IO
+
+__all__ = ["read_image", "read_images", "write_image", "image_from_blob",
+           "image_to_blob", "detect_format", "supported_read_formats",
+           "supported_write_formats"]
+
+# magic-byte sniffing table (magic.c analog)
+_MAGIC = [
+    (b"\x89PNG\r\n\x1a\n", "png"),
+    (b"\xff\xd8\xff", "jpeg"),
+    (b"GIF87a", "gif"),
+    (b"GIF89a", "gif"),
+    (b"BM", "bmp"),
+    (b"II*\x00", "tiff"),
+    (b"MM\x00*", "tiff"),
+    (b"RIFF", "webp"),
+    (b"id=ImageMagick", "miff"),
+    (b"P1", "pnm"), (b"P2", "pnm"), (b"P3", "pnm"), (b"P4", "pnm"),
+    (b"P5", "pnm"), (b"P6", "pnm"), (b"P7", "pam"), (b"PF", "pfm"), (b"Pf", "pfm"),
+    (b"qoif", "qoi"),
+    (b"8BPS", "psd"),
+    # ICO handled below with a count-field sanity check (the 4-byte
+    # magic alone collides with e.g. 1-wide ART headers)
+    (b"SDPX", "dpx"),
+    (b"XPDS", "dpx"),
+    (b"\x80\x2a\x5f\xd7", "cin"),
+    (b"\xd7\x5f\x2a\x80", "cin"),
+    (b"gimp xcf ", "xcf"),
+    (b"SIMPLE", "fits"),
+    (b"L32F", "fl32"),
+    (b"LBLSIZE=", "vicar"),
+    (b"\x59\xa6\x6a\x95", "sun"),
+    (b"MATLAB 5.0 MAT-file", "mat"),
+    (b"\xab\x01", "viff"),
+    (b"\xb6\xa6\xf2\x08", "vips"),
+    (b"\x08\xf2\xa6\xb6", "vips"),
+    (b"PG ", "pgx"),
+    (b"data:", "inline"),
+    (b"# ImageMagick pixel enumeration", "txt"),
+    (b"srcdocid:", "cals"),
+    (b"\x52\xcc", "rle"),
+    (b"\xc5\xd0\xd3\xc6", "ept"),
+    (b"\xff\x57\x50\x43", "wpg"),
+    (b"iiii", "ipl"),
+    (b"mmmm", "ipl"),
+    (b"TIM2", "tim2"),
+    (b"#PES", "pes"),
+    (b"\xd7\xcd\xc6\x9a", "wmf"),   # placeable metafile key (wmf.c)
+    (b"AT&TFORM", "djvu"),
+    (b"FLIF", "flif"),
+]
+
+
+_PSEUDO = {
+    "xc": lambda arg, w, h, d: pseudo.xc(arg or "white", w or 1, h or 1, d),
+    "canvas": lambda arg, w, h, d: pseudo.xc(arg or "white", w or 1, h or 1,
+                                             d),
+    "gradient": lambda arg, w, h, d: pseudo.gradient(
+        arg or "white-black", w or 256, h or 256, device=d),
+    "radial-gradient": lambda arg, w, h, d: pseudo.radial_gradient(
+        arg or "white-black", w or 256, h or 256, d),
+    "plasma": lambda arg, w, h, d: pseudo.plasma(arg or "", w or 256,
+                                                 h or 256, device=d),
+    "pattern": lambda arg, w, h, d: pseudo.pattern(
+        arg or "checkerboard", w or 256, h or 256, d),
+    "hald": lambda arg, w, h, d: pseudo.hald(int(arg) if arg else 8, d),
+    "logo": lambda arg, w, h, d: pseudo.logo(d),
+    "rose": lambda arg, w, h, d: pseudo.rose(d),
+    "wizard": lambda arg, w, h, d: pseudo.wizard(d),
+    "granite": lambda arg, w, h, d: pseudo.granite(d),
+    "netscape": lambda arg, w, h, d: pseudo.netscape(d),
+    "null": lambda arg, w, h, d: _null_image(w, h, d),
+    "label": lambda arg, w, h, d: pseudo.label(arg or "", w, h,
+                                               _CURRENT_SETTINGS, d),
+    "caption": lambda arg, w, h, d: pseudo.caption(arg or "", w, h,
+                                                   _CURRENT_SETTINGS, d),
+    "tile": lambda arg, w, h, d: pseudo.tile_file(arg, w, h,
+                                                  _CURRENT_SETTINGS, d),
+    "histogram": lambda arg, w, h, d: pseudo.histogram_file(
+        arg, w, h, _CURRENT_SETTINGS, d),
+    "thumbnail": lambda arg, w, h, d: pseudo.thumbnail_file(
+        arg, w, h, _CURRENT_SETTINGS, d),
+    "stegano": lambda arg, w, h, d: pseudo.stegano_file(
+        arg, w, h, _CURRENT_SETTINGS, d),
+    "vid": lambda arg, w, h, d: pseudo.vid_file(arg, w, h,
+                                                _CURRENT_SETTINGS, d),
+}
+# pseudo-coders of the JAX package's other coder modules
+_PSEUDO_OTHER = {"kernel", "pango", "strimg"}
+
+
+def _null_image(w, h, device):
+    img = pseudo.xc("transparent", w or 1, h or 1, device)
+    img.properties["null-separator"] = "1"   # -layers composite marker
+    return img
+
+
+# settings context for pseudo-coders (pointsize/font/fill/background);
+# set per read_images call — the image_info analog label.c reads from.
+_CURRENT_SETTINGS: dict = {}
+
+_NATIVE_EXT = {"miff": "miff", "mif": "miff",
+               "ppm": "pnm", "pgm": "pnm", "pbm": "pnm", "pnm": "pnm",
+               "pam": "pnm", "pfm": "pnm",
+               "ff": "ff", "farbfeld": "ff", "xbm": "xbm", "xpm": "xpm",
+               "svg": "svg", "sixel": "sixel", "six": "sixel",
+               "gray": "raw", "rgb": "raw", "rgba": "raw", "bgr": "raw",
+               "exr": "exr", "hdr": "hdr", "mpc": "mpc"}
+
+# in-memory registry for mpr: (registry.c:457 SetImageRegistry analog)
+_MPR_REGISTRY = {}
+
+_PNM = ("pnm", "ppm", "pgm", "pbm", "pam", "pfm")
+_RAW = ("gray", "rgb", "rgba", "bgr", "bgra", "cmyk", "ycbcr")
+
+# The JAX package's coders outside the ported ones, by the names its
+# magic table, extensions and prefixes give them: each raises here.
+_FORMATS2_READ = {"dpx", "cin", "dcm", "dicom", "xcf", "fits", "fts",
+                  "wbmp", "avs", "mtv", "fl32", "vicar", "vic", "otb",
+                  "fax", "g3", "g4", "mat", "viff", "xv", "rla", "palm",
+                  "pict", "pct",
+                  "aai", "hrz", "scr", "rgf", "txt", "inline", "pgx",
+                  "vips", "mono", "uyvy", "cals", "cal", "art", "sct",
+                  "xwd", "sfw", "pdb", "tim", "cube", "pwp", "mvg", "ttf",
+                  "otf", "cut", "rle", "mac", "pix", "yuv", "bayer",
+                  "ept", "wpg", "ipl", "ftxt", "map", "magick", "tim2",
+                  "uhdr", "jnx", "raw", "pes"}
+_FORMATS2_WRITE = {"dpx", "psd", "pdf", "fits", "fts", "wbmp", "avs", "mtv",
+                   "fl32", "vicar", "vic", "sun", "otb", "mono", "bgra",
+                   "cmyk", "ycbcr", "uyvy", "fax", "g3", "g4", "mat",
+                   "viff", "xv", "rla", "palm", "pict", "pct",
+                   "aai", "hrz", "rgf", "cip", "pgx", "vips", "inline",
+                   "cals", "cal", "art", "xwd", "braille", "brf", "ubrl",
+                   "ubrl6", "isobrl", "isobrl6", "uil", "html", "htm",
+                   "pdb", "tim", "yuv", "bayer", "ps", "ps2", "ps3",
+                   "ept", "ipl", "ftxt", "map", "ashlar", "magick",
+                   "dcx", "cur", "raw", "wpg"}
+_META_PROFILE = {"8bim", "8bimtext", "exif", "app1", "xmp", "icc", "icm",
+                 "iptc", "iptctext"}
+_VIDEO_FMTS = {"mp4", "mkv", "webm", "avi", "mov", "mpeg", "mpg", "wmv"}
+_DELEGATED = {"dot", "gv", "pcl", "xps", "doc", "docx", "odt", "ppt",
+              "pptx", "xls", "xlsx"}
+_URL = ("url", "http", "https", "ftp", "file")
+# formats the JAX package decodes and encodes with coders of its own
+# rather than Pillow (a sniffed "tiff" is checked apart, in _check_tiff)
+_OTHER_DECODE = ({"miff", "ff", "farbfeld", "xbm", "xpm", "svg", "ora",
+                  "kernel", "wmf", "emf", "jbig", "jbg", "bie", "djvu",
+                  "flif", "fpx", "strimg", "exr", "hdr", "dng", "pdf", "ps",
+                  "eps", "text", "sun", "h", "ttc", "ept2", "ept3", "v",
+                  "mpc", "dmr"}
+                 | (_FORMATS2_READ - {"uhdr", "raw"}) | _META_PROFILE)
+_OTHER_ENCODE = ({"miff", "mif", "ff", "farbfeld", "xbm", "xpm", "sixel",
+                  "six", "exr", "hdr", "dng", "shtml", "ept2", "ept3", "h",
+                  "v", "ora", "kernel", "strimg", "debug", "matte", "jbig",
+                  "jbg", "bie", "mpc", "dmr"}
+                 | (_FORMATS2_WRITE - set(_RAW) - {"raw"}) | _META_PROFILE
+                 | _VIDEO_FMTS)
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: this coder is not ported yet: "
+                               f"{REST_OF_IO}")
+
+
+def detect_format(data: bytes) -> Optional[str]:
+    for magic, fmt in _MAGIC:
+        if data[: len(magic)] == magic:
+            if fmt == "webp" and data[8:12] != b"WEBP":
+                continue
+            return fmt
+    if data[:4] == b"\x01\x00\x00\x00" and data[40:44] == b" EMF":
+        return "emf"   # EMR_HEADER iType + dSignature (emf.c IsEMF)
+    if data[:4] == b"\x00\x00\x01\x00" and len(data) > 6:
+        count = data[4] | (data[5] << 8)
+        if 0 < count <= 0x40:
+            return "ico"
+    if data[4:12] in (b"ftypavif", b"ftypheic", b"ftypheix", b"ftypmif1",
+                      b"ftypmsf1", b"ftypheim", b"ftyphevc"):
+        return "avif" if b"avif" in data[4:12] else "heic"
+    if data[:2] == b"\xff\x0a" or \
+            data[:12] == b"\x00\x00\x00\x0cJXL \r\n\x87\n":
+        return "jxl"
+    if data[:4] == b"PK\x03\x04" and b"image/openraster" in data[:128]:
+        return "ora"   # zip whose stored-first mimetype entry is ORA
+    if data[:8] == b"farbfeld":
+        return "ff"
+    if data[:4] == b"\x76\x2f\x31\x01":
+        return "exr"
+    if data[:11] == b"#?RADIANCE\n" or data[:7] == b"#?RGBE\n":
+        return "hdr"
+    head = data[:512].lstrip()
+    if head.startswith(b"/* XPM */"):
+        return "xpm"
+    if head.startswith(b"#define") and b"_bits[]" in data[:4096]:
+        return "xbm"
+    if head.startswith(b"<?xml") and b"<svg" in data[:4096] or head.startswith(b"<svg"):
+        return "svg"
+    if data[:4] == b"%PDF":
+        return "pdf"
+    if data[:2] == b"%!":
+        return "ps"
+    if data[128:132] == b"DICM":
+        return "dcm"
+    if data[:5] == b"SFW95":
+        return "pwp"
+    if data[:3] == b"SFW":
+        return "sfw"
+    if data[:4] in (b"\x00\x01\x00\x00", b"OTTO", b"true", b"ttcf") \
+            and len(data) > 512:
+        return "ttf"
+    if data[60:68] == b"vIMGView":
+        return "pdb"
+    if data[80:82] == b"CT" and len(data) > 2048 and data[:4] != b"\x00\x00\x00\x00":
+        # Scitex CT parameter block (sct.c IsSCT probes offset 80)
+        try:
+            int(float(data[1056:1068].split(b"\x00")[0] or b"x"))
+            return "sct"
+        except ValueError:
+            pass
+    if data[4:8] == b"\x00\x00\x00\x07" and len(data) >= 100:
+        import struct as _s
+
+        if _s.unpack(">I", data[:4])[0] >= 100:
+            return "xwd"
+    return None
+
+
+_PREFIXES = (set(_PSEUDO) | _PSEUDO_OTHER | set(_NATIVE_EXT)
+             | set(codecs._PIL_FORMATS) | _FORMATS2_READ | _FORMATS2_WRITE
+             | {"mpr", "info", "txt", "json", "dng", "mask", "clip", "ora",
+                "debug", "matte", "dmr", "wmf", "emf"}
+             | set(_URL) | _META_PROFILE | _VIDEO_FMTS)
+
+
+def _split_filename(filename: str):
+    """'fmt:rest' prefix split (SetImageInfo filename syntax)."""
+    m = re.match(r"^([A-Za-z][A-Za-z0-9_+-]*):(.*)$", filename)
+    if m and m.group(1).lower() in _PREFIXES:
+        return m.group(1).lower(), m.group(2)
+    return None, filename
+
+
+def read_images(filename: str, size: Optional[str] = None,
+                settings: Optional[dict] = None,
+                device="cuda") -> List[Image]:
+    """The images a name reads, on ``device``: a pseudo format, ``mpr:``,
+    ``mask:``/``clip:`` of a file, ``-`` for stdin, or a file (the raw
+    sample formats need ``size``)."""
+    fmt, rest = _split_filename(str(filename))
+    if rest == "-":   # stdin (cli-pipe.tap semantics)
+        return image_from_blob(sys.stdin.buffer.read(), fmt, device)
+    w = h = None
+    if size:
+        g = parse_geometry(size)
+        w = int(g.width) if g.width else None
+        h = int(g.height) if g.height else None
+    if fmt in _PSEUDO:
+        global _CURRENT_SETTINGS
+        prev = _CURRENT_SETTINGS
+        _CURRENT_SETTINGS = settings or prev
+        try:
+            return [_PSEUDO[fmt](rest, w, h, device)]
+        finally:
+            _CURRENT_SETTINGS = prev
+    if fmt == "mpr":
+        enforce_path(filename)
+        if rest not in _MPR_REGISTRY:
+            raise FileNotFoundError(f"no mpr registry entry {rest!r}")
+        return list(_MPR_REGISTRY[rest])
+    if fmt in ("mask", "clip"):
+        # coders/mask.c:236 / coders/clip.c: decode the underlying file,
+        # then surface the grayscale raster / rasterized 8BIM clip path
+        inner = read_images(rest, size, settings, device)
+        return coders_r4.read_mask(inner) if fmt == "mask" \
+            else coders_r4.read_clip(inner)
+    if fmt in _URL:
+        raise NotImplementedError(
+            f"{filename!r}: reading a URL needs the URL-fetch delegate and "
+            f"a network, which are not ported: {REST_OF_IO}")
+    ext = fmt or os.path.splitext(rest)[1].lstrip(".").lower()
+    if fmt in _PSEUDO_OTHER or ext in _VIDEO_FMTS | _DELEGATED | {
+            "mpc", "dmr"}:
+        raise _unported(f"{ext}:{rest}" if fmt else repr(rest))
+    enforce_path(rest)
+    with open(rest, "rb") as f:
+        data = f.read()
+    if ext in _RAW and w and h:
+        return [extra_coders.decode_raw(data, ext, w, h, device=device)]
+    if ext in ("raw", "r") and w and h:
+        # raw.c: single-channel quantum stream
+        return [extra_coders.decode_raw(data, "gray", w, h, device=device)]
+    if ext in ("mono", "uyvy", "yuv", "bayer", "map") and w and h:
+        raise _unported(ext)
+    return image_from_blob(data, ext, device)
+
+
+def read_image(filename: str, size: Optional[str] = None,
+               device="cuda") -> Image:
+    return read_images(filename, size, device=device)[0]
+
+
+def _check_tiff(data: bytes) -> None:
+    """Raise for the TIFFs that the JAX package reads with coders of its
+    own: DNG raws and samples deeper than 8 bits in a color image (Pillow
+    would narrow them to 8 bits)."""
+    import io as _io
+
+    from PIL import Image as PILImage
+
+    with PILImage.open(_io.BytesIO(data)) as pim:
+        tags = getattr(pim, "tag_v2", {})
+        if 50706 in tags:
+            raise _unported("dng (a TIFF with a DNGVersion tag)")
+        bps = tags.get(258, (8,))
+        bps = bps if isinstance(bps, tuple) else (bps,)
+        if max(bps) > 8 and pim.mode not in ("I;16", "I;16B", "I;16L", "I",
+                                             "F"):
+            raise _unported(f"tiff of {max(bps)}-bit {pim.mode} samples")
+
+
+def image_from_blob(data: bytes, fmt: Optional[str] = None,
+                    device="cuda") -> List[Image]:
+    """The images a blob holds, decoded on the host and moved to
+    ``device`` once."""
+    from ..core.policy import policy
+    from ..core.resource import resources
+
+    sniffed = detect_format(data)
+    use = sniffed or (fmt.lower() if fmt else None)
+    if use is None:
+        raise ValueError("cannot determine image format")
+    policy.enforce("coder", use.upper(), "read")
+    if use in _PNM:
+        images = [pnm.decode(data, device)]
+    elif use in _OTHER_DECODE or use in _VIDEO_FMTS:
+        raise _unported(use)
+    elif use == "uhdr":
+        # Ultra HDR is a JPEG with an embedded gainmap; decode the base
+        images = codecs.decode(data, "jpeg", device)
+    else:
+        if use in ("tiff", "tif"):
+            _check_tiff(data)
+        images = codecs.decode(data, use, device)
+    if use in ("jpeg", "jpg", "png", "tiff", "tif"):
+        from ..core.metadata import extract_metadata
+
+        meta = extract_metadata(data, use)
+        for im in images:
+            for k, v in meta.items():
+                im.properties.setdefault(k, v)
+    for im in images:
+        im.properties.setdefault("format", use.upper())
+        resources.check_image_size(im.width, im.height)
+    return images
+
+
+# WriteImages (constitute.c): formats that hold several frames in a file
+_ADJOIN = {"gif", "tif", "tiff", "miff", "mng", "pdf", "ps", "ps2",
+           "ps3", "webp", "ico", "dcm", "heic", "heif", "avif",
+           "apng", "mpc", "fax", "g3", "g4", "pbm", "pgm", "ppm",
+           "pnm", "pam", "mpeg", "mp4", "avi", "mkv", "mov", "ype",
+           "null", "txt", "json", "yaml", "info"}
+_SCENE = re.compile(r"%0?\d*d")
+
+
+def write_image(image: Union[Image, List[Image]], filename: str,
+                quality: int = 92, depth: Optional[int] = None,
+                settings: Optional[dict] = None) -> None:
+    """Write one image or a list under ``filename``: a file, ``-`` for
+    stdout (looked up at the call), ``mpr:``, ``null:``, ``mask:`` or
+    ``info:``/``json:``/``txt:`` to stdout.  Several images go to one
+    file where the format adjoins them, else to ``%d``-expanded names or
+    ``stem-N.ext``."""
+    fmt, rest = _split_filename(str(filename))
+    images = image if isinstance(image, list) else [image]
+    if fmt == "mpr":
+        enforce_path(filename)
+        _MPR_REGISTRY[rest] = list(images)
+        return
+    if fmt in ("null",):
+        return
+    if fmt in ("dmr", "mpc") or (fmt is None and
+                                 rest.lower().endswith(".mpc")):
+        raise _unported(fmt or "mpc")
+    if fmt == "mask":
+        # coders/mask.c:311 WriteMASKImage: write the image's mask raster
+        # in the format the remaining filename implies
+        write_image([coders_r4.write_mask_image(im) for im in images],
+                    rest, quality=quality, depth=depth)
+        return
+    if fmt in ("info", "json", "yaml", "txt") and rest in ("", "-"):
+        from . import identify as ident
+
+        for im in images:
+            if fmt == "json":
+                print(ident.to_json(im, rest))
+            elif fmt == "txt":
+                print(_enumerate_pixels(im))
+            else:
+                print(ident.describe(im, rest, verbose=True))
+        return
+    if fmt is None:
+        fmt = os.path.splitext(rest)[1].lstrip(".").lower()
+    from ..core.policy import policy as _policy
+
+    _policy.enforce("coder", fmt.upper(), "write")
+    if rest != "-":
+        enforce_path(rest)
+    if len(images) > 1 and rest != "-" and (
+            _SCENE.search(rest) or fmt not in _ADJOIN):
+        if _SCENE.search(rest):
+            names = [_SCENE.sub(lambda m, i=i: ("%" + m.group(0)[1:]) % i,
+                                rest) for i in range(len(images))]
+        else:
+            stem, ext = os.path.splitext(rest)
+            names = [f"{stem}-{i}{ext}" for i in range(len(images))]
+        for im, name in zip(images, names):
+            blob = image_to_blob([im], fmt, quality=quality, depth=depth)
+            with open(name, "wb") as f:
+                f.write(blob)
+        return
+    blob = image_to_blob(images, fmt, quality=quality, depth=depth)
+    if rest == "-":   # stdout (cli-pipe.tap semantics)
+        sys.stdout.buffer.write(blob)
+        sys.stdout.buffer.flush()
+        return
+    with open(rest, "wb") as f:
+        f.write(blob)
+
+
+def _enumerate_pixels(im) -> str:
+    """txt: coder — pixel enumeration (coders/txt.c)."""
+    arr = im.to_numpy()
+    if arr.ndim == 4:
+        arr = arr[0]
+    h, w, c = arr.shape
+    lines = [f"# ImageMagick pixel enumeration: {w},{h},255,srgb"]
+    for y in range(h):
+        for x in range(w):
+            px = arr[y, x]
+            rgb = ",".join(str(int(v * 255 + 0.5)) for v in px[:3])
+            lines.append(f"{x},{y}: ({rgb})")
+    return "\n".join(lines)
+
+
+# IssRGBCompatibleColorspace (colorspace-private.h:1763): colorspaces a
+# raster coder can store verbatim; anything else is transformed to sRGB
+# at write time (e.g. png.c:8283)
+_SRGB_COMPAT = {"srgb", "rgb", "adobe98", "prophoto", "displayp3",
+                "scrgb", "transparent", "gray", "lineargray",
+                "linear-gray", "linear_gray"}
+# formats that persist the colorspace tag (or support CMYK) themselves
+_RAW_CS_FORMATS = {"miff", "mif", "mpc", "info", "json", "yaml", "txt",
+                   "pfm", "null", "ype"}
+
+
+def _to_srgb_for_write(images: List[Image], fmt: str) -> List[Image]:
+    """Each image whose colorspace the format cannot store, converted to
+    sRGB on its device."""
+    out = []
+    for im in images:
+        cs_name = (im.spec.colorspace or "srgb").lower()
+        if cs_name in _SRGB_COMPAT or fmt in _RAW_CS_FORMATS:
+            out.append(im)
+            continue
+        if cs_name == "cmyk" and fmt in ("jpeg", "jpg", "tiff", "tif",
+                                         "psd", "pdf", "eps"):
+            out.append(im)
+            continue
+        from ..ops import colorspace as cs_ops
+
+        nc = im.spec.color_channels
+        color = cs_ops.convert(im.data[..., :nc], cs_name, "srgb")
+        rest = im.data[..., nc:]
+        data = torch.cat([color[..., :3], rest], -1) \
+            if rest.shape[-1] else color[..., :3]
+        out.append(im.replace(data=data,
+                              spec=im.spec.with_(colorspace="srgb")))
+    return out
+
+
+def image_to_blob(image: Union[Image, List[Image]], fmt: str,
+                  quality: int = 92, depth: Optional[int] = None) -> bytes:
+    """The bytes of one image or a list in ``fmt``; the pixels come to the
+    host and are quantized there."""
+    images = image if isinstance(image, list) else [image]
+    fmt = fmt.lower()
+    depth = depth or images[0].spec.depth
+    images = _to_srgb_for_write(images, fmt)
+    if fmt in ("info", "json", "yaml", "txt"):
+        from . import identify as ident
+
+        parts = []
+        for im in images:
+            if fmt == "json":
+                parts.append(ident.to_json(im, ""))
+            elif fmt == "txt":
+                parts.append(_enumerate_pixels(im))
+            else:
+                parts.append(ident.describe(im, "", verbose=True))
+        return ("\n".join(parts) + "\n").encode()
+    if fmt in _PNM:
+        return b"".join(pnm.encode(im, fmt, depth=depth) for im in images)
+    if fmt in _RAW + ("uyvy",):
+        return extra_coders.encode_raw(images[0], fmt, depth=depth or 8)
+    if fmt == "raw":
+        return extra_coders.encode_raw(images[0], "gray", depth=depth)
+    if fmt in _OTHER_ENCODE:
+        raise _unported(fmt)
+    if fmt in ("tiff", "tif") and depth > 8 and len(images) == 1 \
+            and not images[0].profiles:
+        raise _unported("tiff at a depth over 8 (the native deep writer)")
+    if fmt == "svg":
+        # raster-in-SVG wrapper (the reference embeds the raster too
+        # unless a tracing delegate like autotrace is installed)
+        import base64 as _b64
+
+        png = image_to_blob(images[0], "png")
+        w0, h0 = images[0].width, images[0].height
+        return (
+            '<?xml version="1.0" encoding="UTF-8"?>\n'
+            f'<svg xmlns="http://www.w3.org/2000/svg" '
+            f'xmlns:xlink="http://www.w3.org/1999/xlink" '
+            f'width="{w0}" height="{h0}">\n'
+            f'<image width="{w0}" height="{h0}" '
+            f'xlink:href="data:image/png;base64,'
+            f'{_b64.b64encode(png).decode()}"/>\n</svg>\n').encode()
+    return codecs.encode(images, fmt, quality=quality, depth=depth)
+
+
+def _pil_formats(registry: str) -> set:
+    """The names of ``codecs._PIL_FORMATS`` whose Pillow plugin this
+    host's Pillow registers for reading (``OPEN``) or writing
+    (``SAVE``)."""
+    from PIL import Image as PILImage
+
+    PILImage.init()
+    have = getattr(PILImage, registry)
+    return {k for k, v in codecs._PIL_FORMATS.items() if v in have}
+
+
+# Pillow reads these from the blob too (codecs.decode's PIL.Image.open)
+_PIL_READ_EXTRA = {"psd", "pcd", "dcx", "cur", "fli", "flc", "msp",
+                   "pixar", "pxr", "spider", "wal", "gbr", "mpo", "blp",
+                   "icns", "ftc", "ftu"}
+
+
+def supported_read_formats():
+    """The formats the port reads (not the JAX package's list)."""
+    out = (set(_PSEUDO) - {"stegano"} | set(_PNM) | set(_RAW)
+           | {"raw", "r", "mpr", "mask", "clip", "uhdr"}
+           | ((_pil_formats("OPEN") | _PIL_READ_EXTRA) - _OTHER_DECODE
+              - {"heic", "jxl"}))
+    return sorted(out)
+
+
+def supported_write_formats():
+    """The formats the port writes (not the JAX package's list)."""
+    out = (set(_PNM) | set(_RAW) | {"raw", "uyvy", "mpr", "null", "info",
+                                    "json", "txt", "yaml", "mask", "svg"}
+           | (_pil_formats("SAVE") - _OTHER_ENCODE - {"heic", "jxl"}))
+    return sorted(out)
+
+
+def known_write_formats():
+    """The formats the port writes and those the JAX package writes with
+    coders not ported yet (writing one raises NotImplementedError): the
+    names a CLI's last token may carry as an output prefix."""
+    return sorted(set(supported_write_formats()) | _OTHER_ENCODE
+                  | {"heic", "heif", "jxl"})

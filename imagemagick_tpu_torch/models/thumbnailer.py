@@ -104,7 +104,7 @@ def make_flat_step(cfg: ThumbnailerConfig, h: int, w: int, watermark=None,
     batch (pinned host memory copies without waiting), scales it to
     [0, 1], runs K1 once (its plain version for a CPU ``device``) and
     rounds to u8.  Without a watermark ``grayscale`` folds the Rec.709
-    luma row into K1's channel mix.  ``watermark``, an (h, w, 3 or 4)
+    luma row into K1's channel mix.  ``watermark``, an (h, w, c)
     float image in [0, 1] (a tensor or an array), is moved to ``device``
     here, once; K1 then keeps the color channels, the watermark is
     dissolved in at 35 % in the southeast corner, and the gray
@@ -157,21 +157,13 @@ def make_flat_step(cfg: ThumbnailerConfig, h: int, w: int, watermark=None,
 
 
 def read_watermark(path: str) -> np.ndarray:
-    """A watermark file as an (h, w, 3 or 4) float32 array in [0, 1]: an
-    8-bit RGB or RGBA image read with PIL and scaled by 1/255.  The JAX
-    function reads it through ``io/``, which is not ported: any other
-    mode raises, naming its ROADMAP.md entry."""
-    from PIL import Image as PImage
+    """A watermark file as an (h, w, c) float32 array in [0, 1] on the
+    host: any file the port's ``io`` reads, read as the JAX function reads
+    it (``io.read_images(path)[0]``), on the CPU; each step moves it to
+    its device."""
+    from .. import io as iio
 
-    with PImage.open(path) as pim:
-        if pim.mode not in ("RGB", "RGBA"):
-            raise NotImplementedError(
-                f"watermark {path!r} has PIL mode {pim.mode!r}: only 8-bit "
-                "RGB and RGBA are read here; other files need the codecs "
-                "and readers of io/, which are not ported yet: ROADMAP.md "
-                "Queue 1, 'Host layers' (io/)")
-        arr = np.asarray(pim)
-    return arr.astype(np.float32) / np.float32(255.0)
+    return iio.read_images(path, device="cpu")[0].to_numpy()
 
 
 def run(paths: Sequence[str], out_dir: str,
@@ -181,7 +173,7 @@ def run(paths: Sequence[str], out_dir: str,
 
     Pipeline: decode pool -> per-size batches -> device steps with
     ``inflight_depth`` batches in flight -> encode pool.
-    ``watermark_path`` names an 8-bit RGB or RGBA image
+    ``watermark_path`` names an image file of any format the port reads
     (``read_watermark``) that every step dissolves into its thumbnails.
     ``device_drain_wait_s`` is the time the host waited on the card for a
     finished batch; ``overlap_efficiency`` the share of the wall time it

@@ -1379,8 +1379,12 @@ def _load_font_from(font: Optional[str], size: float):
     candidate paths that FreeType opens, else PIL's default font."""
     from PIL import ImageFont
 
+    from ..core.policy import enforce_path
+
     engine = ImageFont.Layout.RAQM if _have_raqm() else \
         ImageFont.Layout.BASIC
+    if font:
+        enforce_path(font)
     candidates = ([font] if font else []) + list(_FONT_PATHS)
     for c in candidates:
         try:

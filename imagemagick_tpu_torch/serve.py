@@ -1,6 +1,14 @@
-"""Serving daemon: device-resident batch sessions over HTTP.
+"""Serving daemon: file conversions and device-resident batch sessions
+over HTTP.
 
-Port of ``imagemagick_tpu/serve.py``'s sessions.  A session holds an
+Port of ``imagemagick_tpu/serve.py``.  ``/convert`` runs the CLI in
+process on the request's bytes, with stdin and stdout swapped for byte
+buffers: the body is decoded on the host, goes to the server's device
+once, runs the option chain there (a chain that K1 covers as one K1
+launch, ``LazyImage.materialize`` -> ``dispatch.try_fused_chain``), and
+comes back to the host to be encoded.  ``/convert`` and ``/identify``
+run under one lock, as in the JAX server, since the readers' settings
+and the ``mpr:`` registry are module globals.  A session holds an
 (N, H, W, C) float32 tensor on the server's device; ``/apply`` runs a CLI
 option chain on the whole batch and keeps the result on the device, so
 repeated applies pay no host<->device transfer.  A chain that K1 covers
@@ -13,22 +21,32 @@ Endpoints (stdlib http.server; no external dependencies):
 
   GET  /healthz                  -> {"ok": true, "platform": "...",
                                      "devices": N}
+  GET  /formats                  -> {"read": [...], "write": [...]}: what
+                                    the port reads and writes
+  POST /convert?args=...&of=png  -> body: image bytes; ``args`` a
+                                    shell-style option string; ``of`` the
+                                    output format
+  POST /identify                 -> body: image bytes -> verbose identify
+                                    text
   POST /session/<name>           -> body: raw pixels, headers
                                     X-Shape: N,H,W,C and X-Dtype: u8|f32
   POST /session/<name>/apply?args=...&keep=0|1
                                  -> runs the options on the session
   GET  /session/<name>           -> the session's pixels as u8 bytes
 
-``/convert``, ``/identify`` and ``/formats`` answer 501: they need the
-codecs and the whole CLI (``io/``).  An option the port's CLI lacks
-answers 501 too; a file name or another bad request, 400; an error of the
-server or the card (a kernel's), 500.
+No request reaches the host's files: ``/convert`` refuses bare tokens
+(file names) and the options that read or write paths (400), as does
+``/apply``, and both run under ``core.policy.no_host_files``, so that a
+path that an option's argument names anyway (a ``-draw`` font, say) is
+refused (400) before it is opened.  An option or a format the port lacks answers 501; another
+bad request, 400; an error of the server or the card (a kernel's), 500.
 
 Run:  python -m imagemagick_tpu_torch.serve [--port 8089] [--device cuda]
 """
 
 from __future__ import annotations
 
+import io
 import json
 import shlex
 import sys
@@ -40,15 +58,69 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from .core.policy import PolicyError, no_host_files
+
 _LOCK = threading.Lock()
-_IO_GAP = ("needs the codecs and the whole CLI (io/), which are not ported "
-           "yet: ROADMAP.md Queue 1, 'Host layers'")
 
 
-def validate_args(args):
-    """Reject option lists that name files or options the port's CLI
-    lacks.  Allowed: parentheses and the CLI's options with their
-    arguments; none of them touches the host filesystem."""
+class _Stdin:
+    """sys.stdin stand-in exposing only .buffer (what the CLI uses)."""
+
+    def __init__(self, data: bytes):
+        self.buffer = io.BytesIO(data)
+
+
+class _Stdout:
+    def __init__(self):
+        self.buffer = io.BytesIO()
+
+    def write(self, s):        # text writes (identify and friends)
+        self.buffer.write(s.encode() if isinstance(s, str) else s)
+
+    def flush(self):
+        pass
+
+
+def _run_cli(argv, body: bytes, device="cuda") -> bytes:
+    """Run the in-process CLI on ``device`` with stdio redirected to byte
+    buffers."""
+    from .cli.main import main as cli_main
+
+    old_in, old_out = sys.stdin, sys.stdout
+    sin, sout = _Stdin(body), _Stdout()
+    try:
+        sys.stdin, sys.stdout = sin, sout
+        rc = cli_main(argv, device=device)
+    finally:
+        sys.stdin, sys.stdout = old_in, old_out
+    if rc != 0:
+        raise ValueError("command failed with exit code %d" % rc)
+    return sout.buffer.getvalue()
+
+
+_MIME = {"png": "image/png", "jpeg": "image/jpeg", "jpg": "image/jpeg",
+         "gif": "image/gif", "webp": "image/webp", "tiff": "image/tiff",
+         "bmp": "image/bmp", "miff": "application/octet-stream"}
+
+# Options that touch the host's files (read or write paths, or take their
+# argument for one) or the process's global state (-limit, -debug): a
+# client that can reach the port must get neither (policy.xml's "path"
+# domain).  The JAX server's list, with -read, -remap and its alias
+# -affinity, -font, -limit and -debug added.
+_DENY_OPTS = {
+    "write", "script", "texture", "profile", "map", "clip-mask", "mask",
+    "read-mask", "write-mask", "encipher", "decipher", "passphrase",
+    "authenticate", "process", "display", "log",
+    "read", "remap", "affinity", "font", "limit", "debug",
+}
+
+
+def _check_args(args, where: str, ops_only: bool) -> None:
+    """Walk an option list as the CLI's ``process`` does
+    (``option_arity``): bare tokens (file names), denied options, unknown
+    options and missing arguments raise ValueError; an option the port
+    lacks, NotImplementedError (and, with ``ops_only``, every option
+    outside the CLI's ``OPS`` table)."""
     from .cli import main as climain
 
     i = 0
@@ -59,15 +131,32 @@ def validate_args(args):
             continue
         if not tok.startswith(("-", "+")) or tok == "-":
             raise ValueError(
-                "filename arguments are not allowed via /apply: %r" % tok)
-        if tok[1:] not in climain.OPS:
+                "filename arguments are not allowed via %s: %r" % (where, tok))
+        if tok[1:] in _DENY_OPTS:
+            raise ValueError("option %r is not allowed via %s "
+                             "(filesystem access)" % (tok, where))
+        if ops_only and tok[1:] not in climain.OPS:
             raise climain.unported(tok)
-        n = climain.OPS[tok[1:]][0]
-        if n == "?":    # one optional argument (-shadow)
-            n = int(i < len(args) and climain._optional_arg(args[i]))
+        n = climain.option_arity(tok, args, i)
+        if n is None:
+            raise ValueError("unknown option %r" % tok)
         if i + n > len(args):
             raise ValueError("missing argument for %r" % tok)
         i += n
+
+
+def validate_convert_args(args):
+    """Reject /convert option lists that name files or options that read
+    or write paths (ValueError), or options the port lacks
+    (NotImplementedError).  Allowed: parentheses and the CLI's other
+    options and settings with their arguments."""
+    _check_args(args, "/convert", ops_only=False)
+
+
+def validate_args(args):
+    """As ``validate_convert_args``, for /apply, which takes only the
+    CLI's image operators (``OPS``), no settings."""
+    _check_args(args, "/apply", ops_only=True)
 
 
 # name -> (N, H, W, C) float32 tensor on the server's device
@@ -172,6 +261,9 @@ def clip_u8(dev: torch.Tensor) -> torch.Tensor:
 
 class Handler(BaseHTTPRequestHandler):
     server_version = "imagemagick-tpu-torch/0.1"
+    # TCP_NODELAY: without it a reply's body, written after its headers,
+    # waits on the client's delayed ACK of them
+    disable_nagle_algorithm = True
 
     def log_message(self, fmt, *args):   # quiet by default
         if self.server.verbose:          # type: ignore[attr-defined]
@@ -202,7 +294,11 @@ class Handler(BaseHTTPRequestHandler):
             self._reply(200, json.dumps({"ok": True, "platform": device.type,
                                          "devices": count}).encode())
         elif url.path == "/formats":
-            self._err(501, "/formats " + _IO_GAP)
+            from . import io as iio
+
+            self._reply(200, json.dumps(
+                {"read": iio.supported_read_formats(),
+                 "write": iio.supported_write_formats()}).encode())
         else:
             self._err(404, "unknown path %s" % url.path)
 
@@ -213,12 +309,32 @@ class Handler(BaseHTTPRequestHandler):
         q = parse_qs(url.query)
         length = int(self.headers.get("Content-Length", "0"))
         body = self.rfile.read(length)
-        if url.path in ("/convert", "/identify"):
-            return self._err(501, url.path + " " + _IO_GAP)
+        device = self.server.device      # type: ignore[attr-defined]
         if not body and not url.path.endswith("/apply"):
             return self._err(400, "empty body")
         try:
-            if url.path.startswith("/session/") and \
+            if url.path == "/convert":
+                args = shlex.split(q.get("args", [""])[0])
+                of = q.get("of", ["png"])[0].lower()
+                validate_convert_args(args)
+                # a word that starts with a letter, so that no option
+                # takes "<of>:-" for its argument; mpr: would outlive the
+                # request
+                if not (of.isalnum() and of[0].isalpha()) or of == "mpr":
+                    return self._err(400, "bad output format %r" % of)
+                with _LOCK, no_host_files():
+                    out = _run_cli(["-", *args, f"{of}:-"], body, device)
+                self._reply(200, out, _MIME.get(of,
+                                                "application/octet-stream"))
+            elif url.path == "/identify":
+                from . import io as iio
+                from .io import identify as ident
+
+                with _LOCK:
+                    img = iio.image_from_blob(body, device=device)[0]
+                    text = ident.describe(img, "request", verbose=True)
+                self._reply(200, text.encode(), "text/plain")
+            elif url.path.startswith("/session/") and \
                     url.path.endswith("/apply"):
                 name = url.path[len("/session/"):-len("/apply")]
                 args = shlex.split(q.get("args", [""])[0])
@@ -227,7 +343,8 @@ class Handler(BaseHTTPRequestHandler):
                 # no global lock: applies from client threads overlap;
                 # concurrent non-keep applies to one session are
                 # last-writer-wins
-                info = _session_apply(name, args, keep=keep)
+                with no_host_files():
+                    info = _session_apply(name, args, keep=keep)
                 self._reply(200, json.dumps(info).encode())
             elif url.path.startswith("/session/"):
                 name = url.path[len("/session/"):]
@@ -238,13 +355,14 @@ class Handler(BaseHTTPRequestHandler):
                 dtype = self.headers.get("X-Dtype", "u8")
                 with _LOCK:
                     info = _session_store(name, body, shape, dtype,
-                                          self.server.device)  # type: ignore[attr-defined]
+                                          device)
                 self._reply(200, json.dumps(info).encode())
             else:
                 self._err(404, "unknown path %s" % url.path)
         except NotImplementedError as exc:
             self._err(501, str(exc))
-        except (ValueError, KeyError, climain.CLIError) as exc:
+        except (ValueError, KeyError, climain.CLIError,
+                PolicyError) as exc:
             self._err(400, "%s: %s" % (type(exc).__name__, exc))
         except Exception as exc:                    # noqa: BLE001
             # the server's or the card's fault (a kernel's error): report
@@ -283,7 +401,8 @@ def main(argv=None):
     ns = ap.parse_args(argv)
     srv = make_server(ns.host, ns.port, ns.verbose, ns.device)
     print(json.dumps({"serving": f"http://{ns.host}:{ns.port}",
-                      "endpoints": ["/healthz", "/session/<name>",
+                      "endpoints": ["/healthz", "/formats", "/convert",
+                                    "/identify", "/session/<name>",
                                     "/session/<name>/apply"]}))
     try:
         srv.serve_forever()

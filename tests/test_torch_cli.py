@@ -182,17 +182,18 @@ def test_materialize_carries_metadata():
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["in.png"], "'Host layers' (io/)"),
-    (["-resize", "10x10", "out.jpg"], "'Host layers' (io/)"),
-    (["-profile", "sRGB.icc"], "'Host layers'"),
-    (["-mask", "mask.png"], "'Host layers'"),
-    (["-encipher", "passphrase"], "'Host layers'"),
-    (["-seed", "4"], "'Host layers'"),
-    (["-layers", "composite"], "'Host layers' (io/)"),
-    (["-clip"], "'Host layers'"),
-    (["-print", "%w"], "'Host layers'"),
-    (["-limit", "memory", "1GB"], "'Host layers'"),
-    (["-affinity", "palette.gif"], "'Host layers' (io/)"),
+    (["-resize", "10x10", "out.miff"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "exr:-"], "'Host layers' (the rest of io/"),
+    (["kernel:unity"], "'Host layers' (the rest of io/"),
+    (["stegano:in.png"], "'Host layers' (the rest of io/"),
+    (["mpc:cache.mpc"], "'Host layers' (the rest of io/"),
+    (["url:http://localhost/a.png"], "'Host layers' (the rest of io/"),
+    (["-region", "4x4+0+0"], "'Host layers'"),
+    (["+region"], "'Host layers'"),
+    (["-bench", "3"], "'Host layers'"),
+    (["-remap", "palette.gif"], "'The palette error-diffusion walks"),
+    (["-dither", "FloydSteinberg", "-map", "palette.gif"],
+     "'The palette error-diffusion walks"),
     (["-unknown-option"], "'Host layers'"),
 ])
 def test_unported_raise_naming_their_entries(argv, entry):
@@ -959,11 +960,14 @@ def test_channel_indices_equal_jax(setting, nch, want):
 
 
 def test_remap_raises_naming_io_and_the_walks():
+    """-remap/-map read their palette through io/ now; with a dither on
+    (the default) they raise naming the palette walks' entry before
+    reading it.  Under +dither they run (test_torch_cli_files.py)."""
     st = tm.CLIState()
     st.images.append(tm.LazyImage(TImage(torch.zeros(8, 8, 3))))
     for opt in ("-remap", "-map"):
         with pytest.raises(NotImplementedError,
-                           match="io/.*palette error-diffusion walks"):
+                           match="riemersma.*palette error-diffusion walks"):
             tm.process([opt, "palette.png"], st)
 
 

@@ -47,7 +47,12 @@ normalize's histogram bin, cuDNN's sums), the random ones on variates
 drawn on the card and handed to the CPU; solarize, stegano and stereo
 are equal; charcoal, the shadow and the polaroid are one K3 launch each.
 The layer operators and the montage are copies and Over blends: within
-1e-5, with equal frame counts, pages and delays.
+1e-5, with equal frame counts, pages and delays.  Files decode onto the
+card equal to their decode on the CPU bit for bit (the host makes the
+float32 pixels) and encode from it to the CPU's bytes; the CLI from files
+(config #1's chain in one K1 launch, config #3's in one K4 launch) and
+the server's /convert (one K1 launch a request) write samples within one
+level of the CPU run's on 99.9 % of them.
 """
 
 import numpy as np
@@ -1426,3 +1431,126 @@ def test_cli_layers_chains_on_card(dev):
         replay, _ = _cli_chain(argv[2:], head.cpu(), "cpu")
         assert got.shape == replay.shape
         assert _selected_apart(got, replay) <= 1e-3
+
+
+def _u8(shape, seed):
+    return (_rand(shape, seed) * 255 + 0.5).astype(np.uint8)
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg", "ppm", "rgb"])
+def test_io_decodes_onto_the_card_as_on_the_cpu(dev, tmp_path, fmt):
+    """A file decoded onto the card equals its decode on the CPU bit for
+    bit (the host makes the float32 pixels, the card receives them once),
+    and its encode from the card gives the CPU's bytes."""
+    import io
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch import io as tio
+
+    arr = _u8((60, 80, 3), 60)
+    if fmt == "rgb":
+        path = str(tmp_path / "x.rgb")
+        arr.tofile(path)
+
+        def read(d):
+            return tio.read_images(path, size="80x60", device=d)[0]
+    else:
+        buf = io.BytesIO()
+        PImage.fromarray(arr).save(buf, {"jpeg": "JPEG", "png": "PNG",
+                                         "ppm": "PPM"}[fmt])
+
+        def read(d):
+            return tio.image_from_blob(buf.getvalue(), fmt, device=d)[0]
+
+    got, want = read(dev), read("cpu")
+    assert got.data.is_cuda and torch.equal(got.data.cpu(), want.data)
+    assert tio.image_to_blob(got, fmt) == tio.image_to_blob(want, fmt)
+
+
+def test_cli_files_on_card(dev, tmp_path):
+    """main(..., device="cuda") from files: config #1's chain on 4 PNGs
+    in one K1 launch, its samples within one level of the CPU run's on
+    99.9 % of them; config #3's chain on 3 PGM pages in one K4 launch,
+    0.1 % of the pixels at most apart."""
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch.cli.main import main
+
+    pngs, pgms = [], []
+    for k in range(4):
+        pngs.append(str(tmp_path / f"in{k}.png"))
+        PImage.fromarray(_u8((96, 128, 3), 61 + k)).save(pngs[-1])
+    for k in range(3):
+        pgms.append(str(tmp_path / f"p{k}.pgm"))
+        PImage.fromarray(_u8((66, 51), 70 + k), "L").save(pgms[-1])
+    chain1 = "-resize 32x32! -gaussian-blur 0x2 -colorspace gray".split()
+    chain3 = ("-auto-threshold otsu -morphology open square:1 -morphology "
+              "close square:1 -edge 1").split()
+    for files, chain, out, kernel in ((pngs, chain1, "o-%d.png", "k1"),
+                                      (pgms, chain3, "q-%d.pbm", "k4")):
+        before = dict(gk.LAUNCHES)
+        assert main(files + chain + [str(tmp_path / ("card" + out))],
+                    device=dev) == 0
+        torch.cuda.synchronize()
+        launched = {k: gk.LAUNCHES[k] - before[k] for k in before}
+        assert launched[kernel] == 1 and sum(launched.values()) == 1
+        assert main(files + chain + [str(tmp_path / ("cpu" + out))],
+                    device="cpu") == 0
+        for k in range(len(files)):
+            a = np.asarray(PImage.open(tmp_path / ("card" + out % k)))
+            b = np.asarray(PImage.open(tmp_path / ("cpu" + out % k)))
+            assert a.shape == b.shape
+            assert np.mean(np.abs(a.astype(int) - b) > 1) <= 1e-3
+
+
+def test_serve_convert_on_card(dev):
+    """POST /convert on a card server: one K1 launch a request, the
+    result within one level of the same request on the CPU; /identify and
+    /formats answer."""
+    import io
+    import json
+    import threading
+    from http.client import HTTPConnection
+    from urllib.parse import quote
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch import serve
+
+    buf = io.BytesIO()
+    PImage.fromarray(_u8((120, 160, 3), 80)).save(buf, "PNG")
+    body = buf.getvalue()
+    chain = "-resize 40x30! -gaussian-blur 0x2 -colorspace gray"
+    srv = serve.make_server(port=0, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def call(method, path, data=None):
+        conn = HTTPConnection("127.0.0.1", srv.server_address[1], timeout=120)
+        try:
+            conn.request(method, path, body=data)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    try:
+        before = dict(gk.LAUNCHES)
+        status, out = call("POST", f"/convert?args={quote(chain)}&of=png",
+                           body)
+        launched = {k: gk.LAUNCHES[k] - before[k] for k in before}
+        assert status == 200
+        assert launched["k1"] == 1 and sum(launched.values()) == 1
+        assert call("POST", "/identify", body)[0] == 200
+        status, formats = call("GET", "/formats")
+        assert status == 200 and "png" in json.loads(formats)["write"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    want = serve._run_cli(["-", *chain.split(), "png:-"], body, "cpu")
+    a = np.asarray(PImage.open(io.BytesIO(out))).astype(int)
+    b = np.asarray(PImage.open(io.BytesIO(want))).astype(int)
+    assert a.shape == b.shape == (30, 40)
+    assert np.mean(np.abs(a - b) > 1) <= 1e-3

@@ -6,7 +6,9 @@ A loopback server on port 0 with its sessions on the CPU; the JAX
 in-process on the same pixels.  On the CPU the JAX apply takes its
 general per-image path (XLA ops, a clip after every op) and the port's
 its fused-batch path (K1's plain version, one clip): fetched u8 pixels
-agree within 1 level on these images."""
+agree within 1 level on these images.  ``/convert``, ``/identify`` and
+``/formats`` are held to the JAX server's ``_run_cli``, ``describe`` and
+validator on the same requests (the tolerances in each test)."""
 
 import importlib
 import json
@@ -46,6 +48,16 @@ def server():
     srv.server_close()
     thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+def _png(arr) -> bytes:
+    import io
+
+    from PIL import Image as PImage
+
+    buf = io.BytesIO()
+    PImage.fromarray(arr).save(buf, "PNG")
+    return buf.getvalue()
 
 
 def _call(port, method, path, body=None, headers=None):
@@ -156,18 +168,22 @@ def test_error_codes_match_jax(server):
         ts._session_apply("nosuch", CHAIN.split())
 
 
-@pytest.mark.parametrize("path", ["/convert?args=-resize%2010x10",
-                                  "/identify"])
+@pytest.mark.parametrize("path", ["/convert?args=-region%2010x10",
+                                  "/convert?args=-resize%2010x10&of=exr"])
 def test_convert_and_identify_answer_501(server, path):
-    status, body = _call(server, "POST", path, b"\xff\xd8")
+    """An option (-region) or an output format (EXR) the port still lacks
+    answers 501, naming its ROADMAP.md entry."""
+    status, body = _call(server, "POST", path, _png(_pixels(9, n=1)[0]))
     assert status == 501
     assert "'Host layers'" in json.loads(body)["error"]
 
 
 def test_apply_args_are_checked(server):
     _store(server, "args", _pixels(5).tobytes())
-    status, body = _apply(server, "args", "-profile sRGB")
+    status, body = _apply(server, "args", "-region 10x10")
     assert status == 501 and "ROADMAP.md Queue 1" in json.loads(body)["error"]
+    status, body = _apply(server, "args", "-profile sRGB.icc")
+    assert status == 400 and "filesystem" in json.loads(body)["error"]
     # an option of one optional argument, with and without it
     assert _apply(server, "args", "-shadow -blue-shift 1.2")[0] == 200
     assert _apply(server, "args", "-shadow 60x2+3+3")[0] == 200
@@ -201,3 +217,162 @@ def test_card_device_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ts.make_server(port=0)
+
+
+# -- /convert, /identify and /formats ---------------------------------------
+
+def _decode(blob) -> np.ndarray:
+    import io
+
+    from PIL import Image as PImage
+
+    return np.asarray(PImage.open(io.BytesIO(blob))).astype(int)
+
+
+@pytest.mark.parametrize("of", ["png", "jpeg", "ppm"])
+def test_convert_matches_jax(server, of):
+    """config #1's chain on a PNG request: the port runs it as one call of
+    K1's plain version, the JAX server as XLA ops that clip after every
+    op: the written samples within 1 level (2 for JPEG, whose encoder
+    turns a 1-level input difference into at most 2)."""
+    body = _png(_pixels(20, n=1)[0])
+    status, out = _call(server, "POST",
+                        f"/convert?args={quote(CHAIN)}&of={of}", body)
+    assert status == 200
+    want = js._run_cli(["-", *CHAIN.split(), f"{of}:-"], body)
+    a, b = _decode(out), _decode(want)
+    assert a.shape == b.shape and a.shape[:2] == (32, 32)
+    assert np.abs(a - b).max() <= (2 if of == "jpeg" else 1)
+
+
+def test_convert_exact_chain_gives_jax_bytes(server):
+    """A chain of copies and exact per-pixel ops gives the JAX server's
+    bytes (PPM: no codec choice on either side)."""
+    body = _png(_pixels(21, n=1)[0])
+    args = "-flip -negate -crop 40x30+3+5"
+    status, out = _call(server, "POST",
+                        f"/convert?args={quote(args)}&of=ppm", body)
+    assert status == 200
+    assert out == js._run_cli(["-", *args.split(), "ppm:-"], body)
+
+
+def test_identify_matches_jax(server):
+    import re
+
+    from imagemagick_tpu import io as jio
+    from imagemagick_tpu.io import identify as jident
+
+    body = _png(_pixels(22, n=1)[0])
+    status, text = _call(server, "POST", "/identify", body)
+    assert status == 200
+    want = jident.describe(jio.image_from_blob(body)[0], "request",
+                           verbose=True)
+    num = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+    got_lines, want_lines = text.decode().splitlines(), want.splitlines()
+    assert len(got_lines) == len(want_lines)
+    for g, w in zip(got_lines, want_lines):
+        if g.startswith("  Version:"):
+            continue
+        assert num.sub("#", g) == num.sub("#", w)
+        for x, y in zip(num.findall(g), num.findall(w)):
+            assert float(x) == pytest.approx(float(y), rel=1e-5, abs=5e-5)
+
+
+def test_formats_lists_what_the_port_reads_and_writes(server):
+    from imagemagick_tpu_torch import io as tio
+
+    status, body = _call(server, "GET", "/formats")
+    assert status == 200
+    got = json.loads(body)
+    assert got == {"read": tio.supported_read_formats(),
+                   "write": tio.supported_write_formats()}
+    assert "png" in got["read"] and "jpeg" in got["write"]
+    assert "miff" not in got["read"] and "miff" not in got["write"]
+
+
+@pytest.mark.parametrize("args", [
+    "-resize 10x10 other.png", "-write /tmp/x.png", "-texture rose.png",
+    "-profile x.icc", "-script s.mgk", "-nosuch-option", "-resize",
+    "+dither -remap x.png", "-read x.png", "-limit memory 0"])
+def test_convert_refuses_files_and_denied_options(server, args):
+    """A file name, an option that reads or writes a path or sets the
+    process's limits, an unknown option or a missing argument: 400, as
+    from the JAX validator (which refuses ``+dither -remap x.png`` only
+    because it takes ``-remap`` for +dither's argument)."""
+    status, body = _call(server, "POST", f"/convert?args={quote(args)}",
+                         _png(_pixels(23, n=1)[0]))
+    assert status == 400
+    with pytest.raises(ValueError):
+        js.validate_convert_args(args.split())
+    with pytest.raises(ValueError):
+        ts.validate_convert_args(args.split())
+
+
+@pytest.mark.parametrize("args", ["-remap {}", "-affinity {}", "-font {}"])
+def test_jax_validator_passes_options_that_read_files(server, tmp_path,
+                                                      args):
+    """The JAX validator lets ``-remap``, its alias ``-affinity`` and
+    ``-font`` name a file of the host; the port refuses them (400)."""
+    path = tmp_path / "palette.png"
+    path.write_bytes(_png(_pixels(26, n=1)[0]))
+    argv = args.format(path).split()
+    js.validate_convert_args(argv)
+    with pytest.raises(ValueError):
+        ts.validate_convert_args(argv)
+    status, body = _call(server, "POST",
+                         f"/convert?args={quote(' '.join(argv))}",
+                         _png(_pixels(23, n=1)[0]))
+    assert status == 400 and "filesystem" in json.loads(body)["error"]
+
+
+@pytest.mark.parametrize("endpoint", ["convert", "apply"])
+def test_paths_inside_arguments_are_refused(server, tmp_path, endpoint):
+    """A path that an allowed option's argument names (a ``-draw`` font)
+    passes the validators but not ``no_host_files``: 400, nothing
+    opened."""
+    font = tmp_path / "x.ttf"
+    font.write_bytes(b"not a font")
+    args = f"-draw \"font '{font}' text 2,10 'a'\""
+    if endpoint == "convert":
+        status, body = _call(server, "POST", f"/convert?args={quote(args)}",
+                             _png(_pixels(27, n=1)[0]))
+    else:
+        _store(server, "paths", _pixels(27).tobytes())
+        status, body = _apply(server, "paths", args)
+    assert status == 400
+    assert "no file of the host" in json.loads(body)["error"]
+
+
+def test_convert_runs_the_list_options(server):
+    """The options that ``process`` runs itself pass the validator with
+    the arguments ``process`` takes (``option_arity``): the JAX validator
+    refuses them as unknown."""
+    args = ("-label x -repage 0x0+0+0 -clone 0 -delete 0 -swap 0,0 -strip "
+            "+repage -comment y -flip")
+    body = _png(_pixels(28, n=1)[0])
+    status, out = _call(server, "POST",
+                        f"/convert?args={quote(args)}&of=ppm", body)
+    assert status == 200
+    assert out == js._run_cli(["-", "-flip", "ppm:-"], body)
+    with pytest.raises(ValueError):
+        js.validate_convert_args(args.split())
+
+
+@pytest.mark.parametrize("of", ["../x", "mpr", "1x"])
+def test_convert_of_must_be_a_word(server, of):
+    """``of`` is a word that starts with a letter and is not ``mpr`` (an
+    entry there would outlive the request)."""
+    status, _ = _call(server, "POST", f"/convert?args=-flip&of={quote(of)}",
+                      _png(_pixels(24, n=1)[0]))
+    assert status == 400
+
+
+def test_replies_go_out_without_waiting_on_delayed_acks(server):
+    """The port's handler sets TCP_NODELAY: a reply's body goes out with
+    its headers instead of waiting on the client's delayed ACK.  The JAX
+    handler leaves Nagle's algorithm on."""
+    assert ts.Handler.disable_nagle_algorithm
+    assert not js.Handler.disable_nagle_algorithm
+    body = _png(_pixels(25, n=1)[0])
+    status, _ = _call(server, "POST", "/convert?args=-flip&of=png", body)
+    assert status == 200

@@ -221,8 +221,10 @@ def test_run_with_watermark_matches_jax(tmp_path, grayscale):
 
 @pytest.mark.parametrize("mode", ["RGB", "RGBA", "L", "LA", "P"])
 def test_read_watermark(tmp_path, mode):
-    """8-bit RGB and RGBA read as the JAX reader reads them (levels over
-    255); any other mode names the io/ entry."""
+    """Every PIL mode reads through the port's io/ as the JAX reader reads
+    it (levels over 255, the same channels); the JAX side's native PNG
+    decoder is turned off, as on a host without libpng, so that both
+    decode with PIL."""
     from PIL import Image as PImage
 
     from imagemagick_tpu import io as jio
@@ -230,11 +232,52 @@ def test_read_watermark(tmp_path, mode):
     path = str(tmp_path / f"wm_{mode}.png")
     _write_watermark(path, 4)
     PImage.open(path).convert(mode).save(path)
-    if mode in ("RGB", "RGBA"):
-        got = tt.read_watermark(path)
-        want = np.asarray(jio.read_images(path)[0].data)
-        assert got.dtype == np.float32 and got.shape == want.shape
-        np.testing.assert_allclose(got, want, atol=1e-7)
-    else:
-        with pytest.raises(NotImplementedError, match="'Host layers'"):
-            tt.read_watermark(path)
+    got = tt.read_watermark(path)
+    want = np.asarray(jio.read_images(path)[0].data)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def _write_deep_watermarks(tmp_path):
+    """A PGM (8-bit gray) and a 16-bit gray PNG watermark of 9x12."""
+    from PIL import Image as PImage
+
+    gray = _watermark(4)[..., 0]
+    pgm = str(tmp_path / "wm.pgm")
+    PImage.fromarray((gray * 255.0 + 0.5).astype(np.uint8), "L").save(pgm)
+    png16 = str(tmp_path / "wm16.png")
+    PImage.fromarray((gray * 65535.0 + 0.5).astype(np.uint16)).save(png16)
+    return {"pgm": pgm, "png16": png16}
+
+
+@pytest.mark.parametrize("kind", ["pgm", "png16"])
+def test_run_with_a_pgm_or_16bit_watermark_matches_jax(tmp_path, kind,
+                                                       monkeypatch):
+    """run() with a PGM and with a 16-bit PNG watermark (one gray channel,
+    which the JAX function reads through its io/ and composites) against
+    the JAX run: the watermarks read equal, and the thumbnails within 2
+    levels after each side's JPEG round trip."""
+    monkeypatch.setattr(jnat, "available", lambda: False)
+    monkeypatch.setattr(tnat, "available", lambda: False)
+    from imagemagick_tpu import io as jio
+
+    wm_path = _write_deep_watermarks(tmp_path)[kind]
+    np.testing.assert_array_equal(
+        tt.read_watermark(wm_path),
+        np.asarray(jio.read_images(wm_path)[0].data))
+    paths = _corpus(tmp_path)
+    kw = dict(thumb_width=32, thumb_height=24, batch_size=2,
+              decode_workers=2, encode_workers=2)
+    got = tt.run(paths, str(tmp_path / "port"), tt.ThumbnailerConfig(**kw),
+                 watermark_path=wm_path, device="cpu")
+    want = jt.run(paths, str(tmp_path / "jax"), jt.ThumbnailerConfig(**kw),
+                  watermark_path=wm_path)
+    assert got["images"] == want["images"] == 6
+    from PIL import Image as PImage
+
+    for p in paths:
+        name = os.path.splitext(os.path.basename(p))[0] + ".jpg"
+        a = np.asarray(PImage.open(tmp_path / "port" / name))
+        b = np.asarray(PImage.open(tmp_path / "jax" / name))
+        assert a.shape == b.shape == (24, 32, 3)
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 2
