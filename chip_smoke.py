@@ -171,6 +171,19 @@ and the serve daemon):
   request, the result within one level of the CPU run's; the request
   wall beside its parts timed apart (host decode, upload, K1, download,
   host encode) and 8 clients at once; /identify and /formats.
+* io_coders — the same 1080x1920x3 frame encoded on the CPU as MIFF (8
+  and 16 bits, zip), MPC, EXR (half and float, zip), farbfeld and a
+  16-bit Bayer DNG: each decoded onto the card equal bit for bit to its
+  decode on the CPU (the DNG, whose demosaic runs on the card, within
+  DNG_TOL; the demosaic alone within DNG_DEMOSAIC_TOL), and encoded from
+  the card to the CPU's bytes, ms an image each; then ``cli.main.main``
+  from MIFF files: 2 frames through ``-resize 50% -gaussian-blur 0x2
+  -colorspace gray`` to EXR (one K1 launch, within EXR_HALF_TOL of the CPU
+  run), 4 16-bit pages through ``-auto-threshold otsu`` to PBM (one K4
+  launch, within 0.1 % of the CPU run's pixels), and a frame through
+  ``-resize 50% -remap pal.png`` under Riemersma and FloydSteinberg (one
+  K1 launch each; the written PNG equal to the remap replayed on the CPU
+  from the card's resize).
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -357,6 +370,7 @@ CLI_DISTORT = ["-resize", "384x256", "-flop", "-background", "white",
                "-distort", "Barrel", "0.05 0.0 0.0", "-bordercolor", "navy",
                "-border", "4"]
 CLI_DISTORT_N1, CLI_DISTORT_N2 = 8, 32
+CLI_DISTORT_ROUNDS = 2  # rounds of its marginal (49 ms an image)
 CLI_DESKEW = ["-deskew", "40%", "-trim", "-shave", "8x8"]
 DESKEW_N, DESKEW_MAX = 16, 3.0
 # fx: one expression of each kind that tests/test_analysis_ops.py covers,
@@ -372,7 +386,9 @@ FX_EXPRS = [("arithmetic", "u/2+0.25"), ("channel suffix", "u.g"),
 FX_TOL = 1e-5           # the card's float32 transcendentals, an ulp apart
 COMPARE_REL = 1e-5      # a float32 metric against its float64 formula
 SSIM_FRAMES = 1         # pairs that ssim's float64 numpy reference covers
-CLI_CHANNEL_ROUNDS = 3  # rounds of chain A's marginal (68 ms an image)
+CLI_CHANNEL_ROUNDS = 2  # rounds of chain A's marginal (68 ms an image)
+CLI_CALL_RUNS = 1       # timed calls of cli_vision's and cli_draw's frame
+                        # chains, after a warm-up (1.3-1.6 s a call)
 QUANT_N = 4             # frames of 1080p for the octree and posterize
 CLI_CHANNEL_A = ["-resize", "256x256", "-channel", "R", "-negate",
                  "-channel", "All", "-channel-fx", "red<=>blue", "-alpha",
@@ -467,6 +483,20 @@ CLI_PAGES = ["-auto-threshold", "otsu", "-morphology", "open", "square:1",
              "-morphology", "close", "square:1", "-edge", "1"]
 SERVE_CONVERT_REQUESTS = 5
 SERVE_CONVERT_ROUNDS = 2   # rounds of SERVE_CLIENTS requests at once
+# io_coders: the second slice's coders and MIFF files through the CLI
+CODER_RUNS = 1         # timed runs of each decode and encode, after a
+                       # warm-up
+CODER_FRAMES = 2       # 1080p MIFF frames through CLI_CODERS
+CODER_PAGES = 4        # 16-bit MIFF pages of H3 x W3 through -auto-threshold
+CLI_CODERS = ["-resize", "50%", "-gaussian-blur", "0x2", "-colorspace",
+              "gray"]
+EXR_HALF_TOL = 1e-3    # K1's 2e-5 can move a half float an ulp: 4.9e-4
+                       # in [0.5, 1)
+DNG_DEMOSAIC_TOL = 1e-6   # cuDNN's and the CPU's float32 sums of <= 9 taps
+DNG_TOL = 2e-5         # that, times the sRGB transfer's slope (at most
+                       # 12.92), and the card's pow an ulp from the CPU's
+REMAP_PALETTE = [[0, 0, 0], [255, 255, 255], [200, 40, 40], [30, 90, 200],
+                 [240, 200, 60], [90, 160, 90]]
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -1713,9 +1743,10 @@ def cli_distort_phase(dev, gen, name_limit: str) -> dict:
     print(f"cli_distort vs the CPU run, {CLI_DISTORT_N2} images of "
           f"{tuple(got.shape[1:])}: {_hold('cli_distort', got, want)}")
     per, rounds = _marginal(lambda d: _cli_run(CLI_DISTORT, d), datas,
-                            CLI_DISTORT_N1, CLI_DISTORT_N2)
+                            CLI_DISTORT_N1, CLI_DISTORT_N2,
+                            CLI_DISTORT_ROUNDS)
     print(f"cli_distort marginal ({CLI_DISTORT_N2}-{CLI_DISTORT_N1} images, "
-          f"median of 5): {per * 1e3:.4f} ms/image = "
+          f"median of {CLI_DISTORT_ROUNDS}): {per * 1e3:.4f} ms/image = "
           f"{H * W / 1e6 / per:.1f} MP/s; rounds "
           f"{[round(m * 1e3, 4) for m in rounds]} ms [{name_limit}]")
     return {"k1": la["k1"]}
@@ -1898,7 +1929,9 @@ def compare_phase(dev, gen, name_limit: str) -> None:
         aa, bb = (a[0], b[0]) if m == "phash" else \
             (a[:ns], b[:ns]) if m in ("ssim", "dssim") else (a, b)
         reset_launches()
+        t0 = time.perf_counter()
         got = float(cm.get_distortion(aa, bb, m))
+        once_ms = (time.perf_counter() - t0) * 1e3
         la = launched()
         require(sum(la.values()) == 0, f"compare {m} launches {la}")
         want = refs[m]
@@ -1910,10 +1943,8 @@ def compare_phase(dev, gen, name_limit: str) -> None:
         else:
             rel = abs(got - want) / max(abs(want), 1e-30)
         require(rel <= COMPARE_REL, f"compare {m}: {got} vs {want}")
-        if m == "phash":     # seconds on the host: time the call above
-            t0 = time.perf_counter()
-            cm.get_distortion(aa, bb, m)
-            ms = (time.perf_counter() - t0) * 1e3
+        if m == "phash":     # seconds on the host: the call above, timed
+            ms = once_ms
         else:
             ms = _call_ms(lambda: cm.get_distortion(aa, bb, m))
         parts.append(f"{m} {got:.7g} (float64 {want:.7g}, rel {rel:.1e}, "
@@ -2398,7 +2429,8 @@ def cli_vision_phase(dev, gen, name_limit: str) -> dict:
     la = launched()
     require(la["k1"] == 1 and la["k3"] == N2 and sum(la.values()) == 1 + N2,
             f"cli_vision frames launches {la}")
-    ms = _call_ms(lambda: _cli_run(CLI_VISION_FRAMES, frames)) / N2
+    ms = _call_ms(lambda: _cli_run(CLI_VISION_FRAMES, frames),
+                  CLI_CALL_RUNS) / N2
     head = [o.data for o in _cli_run(CLI_VISION_FRAMES[:2], frames)]
     err = max_err(torch.stack(head).cpu(), torch.stack(
         [o.data for o in _cli_run(CLI_VISION_FRAMES[:2],
@@ -2437,7 +2469,7 @@ def cli_draw_phase(dev, gen, name_limit: str) -> dict:
     la = launched()
     require(la["k1"] == 1 and sum(la.values()) == 1,
             f"cli_draw launches {la}")
-    ms = _call_ms(lambda: _cli_run(CLI_DRAW, frames)) / N2
+    ms = _call_ms(lambda: _cli_run(CLI_DRAW, frames), CLI_CALL_RUNS) / N2
     head = [o.data for o in _cli_run(CLI_DRAW[:2], frames)]
     err = max_err(torch.stack(head).cpu(), torch.stack(
         [o.data for o in _cli_run(CLI_DRAW[:2], [f.cpu() for f in frames])]))
@@ -3025,6 +3057,190 @@ def serve_convert_phase(dev, gen, name_limit: str, seed: int) -> dict:
     return {"k1": k1}
 
 
+def io_coders_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """io_coders: the second slice's coders at 1080p (each decode onto the
+    card held to the CPU's, each encode from the card to the CPU's bytes,
+    ms an image) and ``cli.main.main`` from MIFF files: the CLI_CODERS
+    chain to EXR (one K1 launch), -auto-threshold otsu on 16-bit pages
+    (one K4 launch) and -remap under two dithers (one K1 launch each)."""
+    import tempfile
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch import native
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.io import dng as tdng
+    from imagemagick_tpu_torch.io import exr as texr
+    from imagemagick_tpu_torch.io import miff as tmiff
+
+    rng = np.random.default_rng(seed + 10)
+    arr = _smooth_u8(rng, 1, IO_H, IO_W, C)[0]
+    src = TImage(arr.astype(np.float32) / 255.0, device="cpu")
+    card_src = TImage(src.data.to(dev), src.spec)
+    encoders = {
+        "miff 8-bit zip": lambda im: tmiff.encode([im], 8, "zip"),
+        "miff 16-bit zip": lambda im: tmiff.encode([im], 16, "zip"),
+        "exr half zip": lambda im: texr.encode(im, True, "zip"),
+        "exr float zip": lambda im: texr.encode(im, False, "zip"),
+        "farbfeld": lambda im: tio.image_to_blob(im, "ff"),
+        "dng 16-bit rggb": lambda im: tio.image_to_blob(im, "dng"),
+    }
+    with tempfile.TemporaryDirectory() as td:
+        mpc_path = os.path.join(td, "frame.mpc")
+        tio.write_image(src, mpc_path)
+
+        def write_mpc(im):
+            out = os.path.join(td, "out.mpc")
+            tio.write_image(im, out)
+            with open(out, "rb") as f:
+                return f.read()
+
+        encoders["mpc"] = write_mpc
+        for name, encode in encoders.items():
+            blob = encode(src)
+            if name == "mpc":
+                def decode(d=dev):
+                    return tio.read_images(mpc_path, device=d)[0]
+            else:
+                def decode(d=dev, b=blob):
+                    return tio.image_from_blob(b, device=d)[0]
+            dec_ms, img = _host_ms(decode, CODER_RUNS)
+            want = decode("cpu")
+            require(img.data.device == torch.device(dev) and
+                    img.data.shape == want.data.shape,
+                    f"io_coders {name}: decoded to {img.data.device}")
+            if name.startswith("dng"):
+                err = max_err(img.data.cpu(), want.data)
+                require(err <= DNG_TOL, f"io_coders {name}: max|d| {err}")
+                held = f"within {err:.3e} of the CPU's decode (bound " \
+                    f"{DNG_TOL})"
+            else:
+                require(torch.equal(img.data.cpu(), want.data),
+                        f"io_coders {name}: the card's decode is not the "
+                        f"CPU's")
+                held = "equal to the CPU's decode"
+            enc_ms, got = _host_ms(lambda: encode(card_src), CODER_RUNS)
+            require(got == blob, f"io_coders {name}: the card's encode is "
+                    f"not the CPU's")
+            print(f"io_coders {name} {IO_H}x{IO_W}x{C} ({len(blob)} bytes): "
+                  f"decode to the card {dec_ms:.4f} ms, encode from it "
+                  f"{enc_ms:.4f} ms (median of {CODER_RUNS} after a "
+                  f"warm-up, host clock); {held}, the encode's bytes the "
+                  f"CPU's [{name_limit}]")
+
+        # the demosaic alone, on a CFA of the frame's extent
+        cfa = rng.random((IO_H, IO_W), dtype=np.float32)
+        pat = np.asarray([[0, 1], [1, 2]], np.int64)
+        wb = np.asarray([1.9, 1.0, 1.4], np.float32)
+        ms, dem = _host_ms(lambda: tdng._demosaic_bilinear(cfa, pat, wb,
+                                                           dev), CODER_RUNS)
+        err = max_err(dem.cpu(), tdng._demosaic_bilinear(cfa, pat, wb,
+                                                         "cpu"))
+        require(err <= DNG_DEMOSAIC_TOL, f"io_coders demosaic max|d| {err}")
+        print(f"io_coders dng demosaic {IO_H}x{IO_W} on the card: "
+              f"{ms:.4f} ms with its upload (median of {CODER_RUNS} after a "
+              f"warm-up), max|d| {err:.3e} from the CPU's (bound "
+              f"{DNG_DEMOSAIC_TOL}, TF32 off) [{name_limit}]")
+
+        # MIFF frames through the CLI: K1, to EXR
+        frames = []
+        for k, a in enumerate(_smooth_u8(rng, CODER_FRAMES, IO_H, IO_W, C)):
+            frames.append(os.path.join(td, f"frame{k}.miff"))
+            with open(frames[-1], "wb") as f:
+                f.write(tio.image_to_blob(TImage(
+                    a.astype(np.float32) / 255.0, device="cpu"), "miff"))
+        out = os.path.join(td, "out")
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(frames + CLI_CODERS + [out + "-%d.exr"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        la1 = launched()
+        require(la1["k1"] == 1 and sum(la1.values()) == 1,
+                f"io_coders MIFF chain launches {la1}")
+        _main_ok(frames + CLI_CODERS + [out + "-cpu-%d.exr"], "cpu")
+        err = 0.0
+        for k in range(CODER_FRAMES):
+            a, b = (tio.read_images(f"{out}{side}-{k}.exr", device="cpu")[0]
+                    .data for side in ("", "-cpu"))
+            require(a.shape == b.shape == (IO_H // 2, IO_W // 2, 1),
+                    f"io_coders EXR output {k} {tuple(a.shape)}")
+            err = max(err, max_err(a, b))
+        require(err <= EXR_HALF_TOL, f"io_coders MIFF chain max|d| {err}")
+        print(f"io_coders cli: {CODER_FRAMES} MIFF frames of {IO_H}x{IO_W}x"
+              f"{C} -> {' '.join(CLI_CODERS)} -> out-%d.exr (half, zip) by "
+              f"main(..., device='cuda'): launches {la1}, {wall:.4f} ms "
+              f"({wall / CODER_FRAMES:.4f} ms an image, first run); max|d| "
+              f"{err:.3e} from the CPU run [{name_limit}]")
+
+        # 16-bit MIFF pages through -auto-threshold otsu: K4, to PBM
+        pages = []
+        for k in range(CODER_PAGES):
+            pages.append(os.path.join(td, f"page{k}.miff"))
+            page = TImage(_page_u8(rng)[..., None].astype(np.float32) / 255,
+                          ImageSpec(colorspace="gray", depth=16),
+                          device="cpu")
+            with open(pages[-1], "wb") as f:
+                f.write(tio.image_to_blob(page, "miff"))
+        argv = ["-auto-threshold", "otsu"]
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(pages + argv + [out + "-page-%d.pbm"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        la4 = launched()
+        require(la4["k4"] == 1 and sum(la4.values()) == 1,
+                f"io_coders MIFF pages launches {la4}")
+        _main_ok(pages + argv + [out + "-cpu-page-%d.pbm"], "cpu")
+        diff = 0.0
+        for k in range(CODER_PAGES):
+            a = np.asarray(PImage.open(f"{out}-page-{k}.pbm"))
+            b = np.asarray(PImage.open(f"{out}-cpu-page-{k}.pbm"))
+            require(a.shape == b.shape == (H3, W3), f"page {k} {a.shape}")
+            diff = max(diff, float(np.mean(a != b)))
+        require(diff <= 1e-3, f"io_coders pages: {diff} apart")
+        print(f"io_coders cli: {CODER_PAGES} 16-bit MIFF pages of {H3}x{W3} "
+              f"-> -auto-threshold otsu -> page-%d.pbm: launches {la4}, "
+              f"{wall:.4f} ms (first run); pixels apart from the CPU run: "
+              f"{diff:.2e} [{name_limit}]")
+
+        # -remap under a dither: the card's resize, the host's octree
+        pal_path = os.path.join(td, "pal.png")
+        PImage.fromarray(np.asarray([REMAP_PALETTE], np.uint8)).save(
+            pal_path)
+        pal = np.asarray(REMAP_PALETTE, np.float32) / np.float32(255)
+        frame = tio.read_images(frames[0], device=dev)[0]
+        resized = _cli_run(["-resize", "50%"], [frame.data], frame.spec)[0]
+        k1_remap = 0
+        for dither, key in (("Riemersma", "riemersma"),
+                            ("FloydSteinberg", "fs")):
+            target = f"{out}-remap-{key}.png"
+            reset_launches()
+            t0 = time.perf_counter()
+            _main_ok([frames[0], "-resize", "50%", "-dither", dither,
+                      "-remap", pal_path, target], dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            la = launched()
+            require(la["k1"] == 1 and sum(la.values()) == 1,
+                    f"io_coders remap {dither} launches {la}")
+            k1_remap += la["k1"]
+            replay = native.octree_remap(resized.to_numpy(), pal, key)
+            want = tio.image_to_blob(TImage(replay, resized.spec,
+                                            device="cpu"), "png")
+            with open(target, "rb") as f:
+                got = f.read()
+            require(got == want, f"io_coders remap {dither}: the written "
+                    f"PNG is not the remap replayed on the CPU")
+            n_colors = len(np.unique(np.asarray(PImage.open(target))
+                                     .reshape(-1, C), axis=0))
+            print(f"io_coders cli: a MIFF frame -> -resize 50% -dither "
+                  f"{dither} -remap pal.png ({len(REMAP_PALETTE)} colors) -> "
+                  f"PNG: launches {la}, {wall:.4f} ms (first run); the PNG "
+                  f"equal to the remap replayed on the CPU from the card's "
+                  f"resize, {n_colors} colors [{name_limit}]")
+    return {"k1": la1["k1"] + k1_remap, "k4": la4["k4"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3270,6 +3486,8 @@ def main() -> None:
     srvc = _timed("serve_convert",
                   lambda: serve_convert_phase(dev, gen, name_limit,
                                               args.seed))
+    coders = _timed("io_coders",
+                    lambda: io_coders_phase(dev, gen, name_limit, args.seed))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -3758,7 +3976,7 @@ def main() -> None:
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
-         srvc["k1"],
+         srvc["k1"] + coders["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -3791,7 +4009,7 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
-         cliv["k4"] + clif["k4"],
+         cliv["k4"] + clif["k4"] + coders["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

@@ -121,10 +121,9 @@ host, ``core/profile.py``); the write masks of ``-mask``,
 argument) and ``-clip``/``-clip-path``, which every option built by
 ``_op_simple`` and the blurs honour, as in the JAX CLI;
 ``-encipher``/``-decipher``; ``-process`` (no modules, a CLIError as in
-the JAX CLI); ``-remap``/``-map``/``-affinity`` under ``+dither`` (the
-native octree library on the host; with a dither they raise, naming the
-palette walks' entry); ``-layers composite`` with its ``null:``
-separator.  ``main(argv, device)`` runs the magick/convert dialect.
+the JAX CLI); ``-remap``/``-map``/``-affinity`` under every dither (the
+native octree library on the host, as in the JAX CLI); ``-layers
+composite`` with its ``null:`` separator.  ``main(argv, device)`` runs the magick/convert dialect.
 Write masks by geometry (``-region``), ``-bench`` and the other tools
 raise NotImplementedError naming their ROADMAP.md entry, 'Host layers'.
 The tags equal the JAX CLI's for the same arguments.
@@ -150,7 +149,7 @@ from ..core.policy import enforce_path
 from ..core.spec import ImageSpec, normalize_colorspace
 
 _CLI_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'Host layers' (the "
-            "rest of io/ and native/, the other tools, -region and -bench)")
+            "rest of io/, the other tools, -region and -bench)")
 
 
 class CLIError(Exception):
@@ -2282,26 +2281,33 @@ def _op_process_module(st, arg, plus):
 
 
 def _op_map(st, arg, plus):
-    """-remap / -map FILE: RemapImage onto the file's colors.  Under
-    ``+dither`` the native octree library snaps each pixel on the host,
-    as in the JAX CLI; with a dither on it raises, naming the palette
-    walks' entry."""
+    """-remap / -map FILE: RemapImage onto the file's colors, as the JAX
+    CLI runs it: the dither setting maps to "none" (+dither, false or
+    empty), "fs" (FloydSteinberg) or "riemersma" (anything else, the
+    default), and the native octree library (``native/riemersma.cpp``)
+    remaps each (H, W, C) frame on the host; the result goes back to the
+    image's device.  A frame that is not (H, W, C) takes
+    ``quantize.remap``, which raises under a dither (the palette walks are
+    not ported).  A library that does not build raises."""
     from .. import io as iio
     from .. import native
-    from ..ops.quantize import REMAP_DITHER_GAP
+    from ..ops import quantize as qz
 
-    meth = st.settings.get("dither", "riemersma").lower()
-    if meth not in ("none", "false", ""):
-        raise NotImplementedError(f"-remap {arg!r} with -dither {meth}: "
-                                  f"{REMAP_DITHER_GAP}")
     pal_img = iio.read_images(arg, device=st.device)[0]
-    pal = pal_img.to_numpy().reshape(-1, pal_img.channels)
+    pal = pal_img.data.reshape(-1, pal_img.channels)
+    pal_np = pal.cpu().numpy().astype(np.float32)
+    meth = st.settings.get("dither", "riemersma").lower()
+    dither = {"none": "none", "false": "none", "": "none",
+              "floydsteinberg": "fs", "fs": "fs"}.get(meth, "riemersma")
     for li, img in _materialized(st):
-        arr = img.to_numpy()
-        if arr.ndim != 3:
-            raise CLIError("-remap takes one image at a time")
-        res = native.octree_remap(arr, np.asarray(pal, np.float32), "none")
-        li.image = img.replace(data=torch.from_numpy(res).to(img.data.device))
+        if img.data.dim() == 3:
+            res = native.octree_remap(img.to_numpy(), pal_np, dither)
+            li.image = img.replace(
+                data=torch.from_numpy(res).to(img.data.device))
+        else:
+            li.image = img.replace(data=qz.remap(
+                img.data, pal[:, :img.channels].to(img.data.device),
+                dither != "none"))
 
 
 def _op_texture(st, path: str) -> None:
@@ -2422,10 +2428,10 @@ def _list_main(what: str) -> None:
         print("\n".join(["uniform", "gaussian", "impulse", "laplacian",
                          "multiplicative", "poisson", "random"]))
     elif w == "delegate":
-        raise NotImplementedError(
-            "-list delegate: the delegates of io/ are not ported yet: "
-            "ROADMAP.md Queue 1, 'Host layers' (the rest of io/ and "
-            "native/)")
+        from ..io.delegates import list_delegates
+
+        for k, v in list_delegates().items():
+            print(f"{k}: {'available' if v else 'missing'}")
     else:
         raise CLIError(f"unknown list type {what!r}")
 

@@ -8,8 +8,9 @@ IsCoderAuthorized at :733).  Policies load from a policy.xml-style file,
 MAGICK_POLICY env pairs, or programmatic set_policy calls; default is the
 reference's open profile (config/policy-open.xml: everything allowed).
 
-Beyond the copy: ``no_host_files`` and ``enforce_path``, with which the
-serve daemon runs a request so that no path it names is opened.
+Beyond the copy: ``no_host_files``, ``enforce_path`` and
+``enforce_program``, with which the serve daemon runs a request so that
+no path it names is opened and no external program (a delegate) runs.
 """
 
 from __future__ import annotations
@@ -108,7 +109,8 @@ def no_host_files():
     """Within the block, on this thread, every path that the caller's
     arguments name (a file to read or write, a font, a profile, a
     passphrase file, a script, an ``mpr:`` entry, which outlives the
-    request) raises PolicyError at ``enforce_path``; stdin and stdout
+    request, an ``mpc:`` cache) raises PolicyError at ``enforce_path``,
+    and every delegate program at ``enforce_program``; stdin and stdout
     (``-``) and the pseudo formats stay open.  The serve daemon runs
     each request so."""
     prev = getattr(_THREAD, "no_files", False)
@@ -124,4 +126,12 @@ def enforce_path(path: str) -> None:
     before a path that a caller named is opened or looked at."""
     if getattr(_THREAD, "no_files", False):
         raise PolicyError(f"{path!r}: no file of the host may be named "
+                          f"here")
+
+
+def enforce_program(name: str) -> None:
+    """Raise PolicyError for running the external program ``name`` (a
+    delegate: ghostscript, ffmpeg, ...) inside ``no_host_files``."""
+    if getattr(_THREAD, "no_files", False):
+        raise PolicyError(f"{name!r}: no program of the host may be run "
                           f"here")

@@ -5,17 +5,27 @@ coders serve: ImageMagick's constitute layer (ReadImage, WriteImage) and
 coder registry.  Filenames may carry an explicit ``fmt:`` prefix,
 otherwise the extension and then the magic bytes decide.
 
-Ported: the pseudo formats (``pseudo.py``), ``mpr:``, ``null:``,
-``mask:`` and ``clip:``, PNM (``pnm.py``), the raw sample formats with
-``-size`` (``extra_coders.py``), the formats Pillow reads and writes
-(``codecs.py``; JPEG through the port's native codec where it builds),
-``info:``/``json:``/``yaml:``/``txt:`` (``identify.py``) and an SVG
-wrapper around a PNG.  Every other format that the magic table, an
-extension or a prefix names raises NotImplementedError naming its
-ROADMAP.md entry, and so do ``url:``-style names, which need a network.
-A decoded image is made on the host and goes to ``device`` once (the
-card unless the caller asks for the CPU); an encoded one comes to the
-host and is quantized there, with the JAX package's expressions.
+Ported: the pseudo formats (``pseudo.py``, with ``kernel:`` and
+``pango:``), ``mpr:``, ``null:``, ``mask:`` and ``clip:``, PNM
+(``pnm.py``), MIFF (``miff.py``), MPC (``mpc.py``), OpenEXR
+(``exr.py``), DNG (``dng.py``), farbfeld, XBM, XPM, sixel (written),
+SVG (read; written as a wrapper around a PNG) and the raw sample
+formats with ``-size`` (``extra_coders.py``), ORA and KERNEL
+(``coders_r4.py``), the formats Pillow reads and writes (``codecs.py``;
+JPEG and PNG through the port's native codecs, HEIF and JPEG XL through
+its ``heifjxl`` library, where they build), ``info:``/``json:``/
+``yaml:``/``txt:`` (``identify.py``), and the delegates
+(``delegates.py``: PS, EPS and PDF through ghostscript, video through
+ffmpeg, ``dot``/``gv``, PCL, XPS, office documents, and dcraw for a DNG
+that the native reader declines).  The coders of ``formats2``,
+``formats3``, ``formats4``, ``coders_r4b`` (JBIG, WMF, the meta
+profiles, ``strimg:``, ``dmr:``), ``emf`` and HDR raise
+NotImplementedError naming their ROADMAP.md entry, and so do
+``url:``-style names, which need a network.  A decoded image is made on
+the host (a DNG's demosaic and an SVG's raster on ``device``) and goes to
+``device`` once (the card unless the caller asks for the CPU); an
+encoded one comes to the host and is quantized there, with the JAX
+package's expressions.
 
 Where the JAX ``write_image`` writes several images to one name, it
 ignores a ``%d`` in the name for the formats it marks as adjoining and
@@ -37,7 +47,8 @@ import torch
 from ..core.geometry import parse_geometry
 from ..core.image import Image
 from ..core.policy import enforce_path
-from . import codecs, coders_r4, extra_coders, pnm, pseudo
+from . import (codecs, coders_r4, delegates, dng, exr, extra_coders, miff,
+               mpc, pnm, pseudo)
 from .codecs import REST_OF_IO
 
 __all__ = ["read_image", "read_images", "write_image", "image_from_blob",
@@ -124,9 +135,14 @@ _PSEUDO = {
         arg, w, h, _CURRENT_SETTINGS, d),
     "vid": lambda arg, w, h, d: pseudo.vid_file(arg, w, h,
                                                 _CURRENT_SETTINGS, d),
+    # coders/kernel.c's inverse, coders/pango.c
+    "kernel": lambda arg, w, h, d: coders_r4.kernel_pseudo(arg or "unity",
+                                                           d),
+    "pango": lambda arg, w, h, d: coders_r4.pango_pseudo(
+        arg or "", w, h, _CURRENT_SETTINGS, d),
 }
-# pseudo-coders of the JAX package's other coder modules
-_PSEUDO_OTHER = {"kernel", "pango", "strimg"}
+# a pseudo-coder of a coder module not ported yet (coders_r4b)
+_PSEUDO_OTHER = {"strimg"}
 
 
 def _null_image(w, h, device):
@@ -178,23 +194,17 @@ _FORMATS2_WRITE = {"dpx", "psd", "pdf", "fits", "fts", "wbmp", "avs", "mtv",
 _META_PROFILE = {"8bim", "8bimtext", "exif", "app1", "xmp", "icc", "icm",
                  "iptc", "iptctext"}
 _VIDEO_FMTS = {"mp4", "mkv", "webm", "avi", "mov", "mpeg", "mpg", "wmv"}
-_DELEGATED = {"dot", "gv", "pcl", "xps", "doc", "docx", "odt", "ppt",
-              "pptx", "xls", "xlsx"}
 _URL = ("url", "http", "https", "ftp", "file")
-# formats the JAX package decodes and encodes with coders of its own
-# rather than Pillow (a sniffed "tiff" is checked apart, in _check_tiff)
-_OTHER_DECODE = ({"miff", "ff", "farbfeld", "xbm", "xpm", "svg", "ora",
-                  "kernel", "wmf", "emf", "jbig", "jbg", "bie", "djvu",
-                  "flif", "fpx", "strimg", "exr", "hdr", "dng", "pdf", "ps",
-                  "eps", "text", "sun", "h", "ttc", "ept2", "ept3", "v",
-                  "mpc", "dmr"}
+# formats that the JAX package decodes and encodes with coder modules not
+# ported yet (formats2, formats3, formats4, coders_r4b, emf) or OpenCV
+# (hdr); a sniffed "tiff" is checked apart, in _check_tiff
+_OTHER_DECODE = ({"wmf", "emf", "jbig", "jbg", "bie", "strimg", "hdr",
+                  "text", "sun", "h", "ttc", "ept2", "ept3", "v", "dmr"}
                  | (_FORMATS2_READ - {"uhdr", "raw"}) | _META_PROFILE)
-_OTHER_ENCODE = ({"miff", "mif", "ff", "farbfeld", "xbm", "xpm", "sixel",
-                  "six", "exr", "hdr", "dng", "shtml", "ept2", "ept3", "h",
-                  "v", "ora", "kernel", "strimg", "debug", "matte", "jbig",
-                  "jbg", "bie", "mpc", "dmr"}
-                 | (_FORMATS2_WRITE - set(_RAW) - {"raw"}) | _META_PROFILE
-                 | _VIDEO_FMTS)
+_OTHER_ENCODE = ({"hdr", "shtml", "ept2", "ept3", "h", "v", "strimg",
+                  "debug", "matte", "jbig", "jbg", "bie", "dmr"}
+                 | (_FORMATS2_WRITE - set(_RAW) - {"raw"}) | _META_PROFILE)
+_OFFICE = ("doc", "docx", "odt", "ppt", "pptx", "xls", "xlsx")
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -313,17 +323,33 @@ def read_images(filename: str, size: Optional[str] = None,
         inner = read_images(rest, size, settings, device)
         return coders_r4.read_mask(inner) if fmt == "mask" \
             else coders_r4.read_clip(inner)
+    if fmt in _PSEUDO_OTHER or fmt == "dmr":
+        raise _unported(f"{fmt}:{rest}")
+    ext = fmt or os.path.splitext(rest)[1].lstrip(".").lower()
+    if ext in _VIDEO_FMTS:
+        # coders/video.c's read side: frames through the ffmpeg delegate
+        path = rest.split("[")[0]
+        enforce_path(path)
+        if os.path.exists(path):
+            return delegates.decode_video_frames(path, device=device)
     if fmt in _URL:
         raise NotImplementedError(
             f"{filename!r}: reading a URL needs the URL-fetch delegate and "
             f"a network, which are not ported: {REST_OF_IO}")
-    ext = fmt or os.path.splitext(rest)[1].lstrip(".").lower()
-    if fmt in _PSEUDO_OTHER or ext in _VIDEO_FMTS | _DELEGATED | {
-            "mpc", "dmr"}:
-        raise _unported(f"{ext}:{rest}" if fmt else repr(rest))
     enforce_path(rest)
+    if (fmt == "mpc" or rest.lower().endswith(".mpc")) and \
+            os.path.exists(rest):
+        return mpc.read_mpc(rest, device)
     with open(rest, "rb") as f:
         data = f.read()
+    if ext in ("dot", "gv"):
+        return delegates.decode_dot(data, device)
+    if ext == "pcl":
+        return delegates.decode_pcl(data, device=device)
+    if ext == "xps":
+        return delegates.decode_xps(data, device=device)
+    if ext in _OFFICE:
+        return delegates.decode_office(data, ext, device)
     if ext in _RAW and w and h:
         return [extra_coders.decode_raw(data, ext, w, h, device=device)]
     if ext in ("raw", "r") and w and h:
@@ -340,17 +366,15 @@ def read_image(filename: str, size: Optional[str] = None,
 
 
 def _check_tiff(data: bytes) -> None:
-    """Raise for the TIFFs that the JAX package reads with coders of its
-    own: DNG raws and samples deeper than 8 bits in a color image (Pillow
-    would narrow them to 8 bits)."""
+    """Raise for the TIFFs that the JAX package reads with its native deep
+    reader (``formats4.decode_tiff16``, not ported yet): samples deeper
+    than 8 bits in a color image, which Pillow would narrow to 8 bits."""
     import io as _io
 
     from PIL import Image as PILImage
 
     with PILImage.open(_io.BytesIO(data)) as pim:
         tags = getattr(pim, "tag_v2", {})
-        if 50706 in tags:
-            raise _unported("dng (a TIFF with a DNGVersion tag)")
         bps = tags.get(258, (8,))
         bps = bps if isinstance(bps, tuple) else (bps,)
         if max(bps) > 8 and pim.mode not in ("I;16", "I;16B", "I;16L", "I",
@@ -370,13 +394,53 @@ def image_from_blob(data: bytes, fmt: Optional[str] = None,
     if use is None:
         raise ValueError("cannot determine image format")
     policy.enforce("coder", use.upper(), "read")
-    if use in _PNM:
+    if use == "miff":
+        images = miff.decode(data, device)
+    elif use in _PNM:
         images = [pnm.decode(data, device)]
-    elif use in _OTHER_DECODE or use in _VIDEO_FMTS:
+    elif use in ("ff", "farbfeld"):
+        images = [extra_coders.decode_farbfeld(data, device)]
+    elif use == "xbm":
+        images = [extra_coders.decode_xbm(data, device)]
+    elif use == "xpm":
+        images = [extra_coders.decode_xpm(data, device)]
+    elif use == "svg":
+        images = [extra_coders.decode_svg(data, device=device)]
+    elif use == "ora":
+        images = coders_r4.decode_ora(data, device)
+    elif use == "kernel":
+        # ReadKERNELImage, the inverse of WriteKERNELImage (coders/
+        # kernel.c): the written 'WxH:v,v,...' text is itself a kernel
+        # spec, read back through the pseudo-coder
+        images = [coders_r4.kernel_pseudo(
+            data.decode("ascii", "replace").strip(), device)]
+    elif use in ("djvu", "flif", "fpx"):
+        # recognized but delegate-library-gated, like an ImageMagick built
+        # without libdjvu, libflif or libfpx
+        raise ValueError(
+            f"DelegateLibrarySupportNotBuiltIn `{use.upper()}'")
+    elif use == "exr":
+        images = [exr.decode(data, device)]
+    elif use in _OTHER_DECODE:
         raise _unported(use)
     elif use == "uhdr":
         # Ultra HDR is a JPEG with an embedded gainmap; decode the base
         images = codecs.decode(data, "jpeg", device)
+    elif use in ("pdf", "ps", "eps"):
+        images = delegates.decode_postscript(data, use, device=device)
+    elif use == "dng":
+        # the native CFA demosaic first; a raw it declines (compressed,
+        # lossy, a vendor raw named .dng) goes to the dcraw delegate
+        # where one is installed (delegates.xml.in:68-70)
+        try:
+            images = [dng.decode_dng(data, device)]
+        except ValueError:
+            if not delegates.has_dcraw():
+                raise
+            images = delegates.decode_dcraw(data, "dng", device)
+    elif use in ("tiff", "tif") and dng.is_dng(data):
+        # DNG shares the TIFF magic: a CFA raw goes to the DNG reader
+        images = [dng.decode_dng(data, device)]
     else:
         if use in ("tiff", "tif"):
             _check_tiff(data)
@@ -419,9 +483,11 @@ def write_image(image: Union[Image, List[Image]], filename: str,
         return
     if fmt in ("null",):
         return
-    if fmt in ("dmr", "mpc") or (fmt is None and
-                                 rest.lower().endswith(".mpc")):
-        raise _unported(fmt or "mpc")
+    if fmt == "dmr":
+        raise _unported(fmt)
+    if fmt == "mpc" or (fmt is None and rest.lower().endswith(".mpc")):
+        mpc.write_mpc(images, rest)
+        return
     if fmt == "mask":
         # coders/mask.c:311 WriteMASKImage: write the image's mask raster
         # in the format the remaining filename implies
@@ -539,12 +605,33 @@ def image_to_blob(image: Union[Image, List[Image]], fmt: str,
             else:
                 parts.append(ident.describe(im, "", verbose=True))
         return ("\n".join(parts) + "\n").encode()
+    if fmt in ("miff", "mif"):
+        return miff.encode(images, depth=16 if depth > 8 else 8,
+                           compression="zip")
     if fmt in _PNM:
         return b"".join(pnm.encode(im, fmt, depth=depth) for im in images)
+    if fmt in ("ff", "farbfeld"):
+        return extra_coders.encode_farbfeld(images[0])
+    if fmt == "xbm":
+        return extra_coders.encode_xbm(images[0])
+    if fmt == "xpm":
+        return extra_coders.encode_xpm(images[0])
+    if fmt in ("sixel", "six"):
+        return extra_coders.encode_sixel(images[0])
     if fmt in _RAW + ("uyvy",):
         return extra_coders.encode_raw(images[0], fmt, depth=depth or 8)
+    if fmt == "exr":
+        return exr.encode(images[0])
+    if fmt == "dng":
+        return dng.encode_dng(images[0])
     if fmt == "raw":
         return extra_coders.encode_raw(images[0], "gray", depth=depth)
+    if fmt == "ora":
+        return coders_r4.encode_ora(images)
+    if fmt == "kernel":
+        return coders_r4.encode_kernel(images[0])
+    if fmt in _VIDEO_FMTS:
+        return coders_r4.encode_video(images, fmt)
     if fmt in _OTHER_ENCODE:
         raise _unported(fmt)
     if fmt in ("tiff", "tif") and depth > 8 and len(images) == 1 \
@@ -585,12 +672,52 @@ _PIL_READ_EXTRA = {"psd", "pcd", "dcx", "cur", "fli", "flc", "msp",
                    "icns", "ftc", "ftu"}
 
 
+def _heifjxl_formats() -> set:
+    """HEIF and JPEG XL where the port's ``heifjxl`` library opens their
+    system libraries (JBIG waits for ``coders_r4b``)."""
+    from .. import native
+
+    out = set()
+    if native.heif_available():
+        out |= {"heic", "heif"}
+    if native.jxl_available():
+        out.add("jxl")
+    return out
+
+
+def _delegate_formats() -> set:
+    """The formats that a delegate installed on this host reads."""
+    out = set()
+    if delegates.has_ghostscript():
+        out |= {"pdf", "ps", "eps"}
+    if delegates.has_ffmpeg():
+        out |= _VIDEO_FMTS
+    if delegates.has_graphviz():
+        out |= {"dot", "gv"}
+    if delegates.has_pcl():
+        out.add("pcl")
+    if delegates.has_xps():
+        out.add("xps")
+    if delegates.has_office():
+        out |= {"doc", "docx", "odt", "pptx", "xlsx"}
+    return out
+
+
+# the port's coders of their own (miff.py, mpc.py, exr.py, dng.py,
+# extra_coders.py, coders_r4.py)
+_CODERS_READ = {"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
+                "xbm", "xpm", "svg", "ora", "kernel"}
+_CODERS_WRITE = {"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
+                 "xbm", "xpm", "sixel", "six", "ora", "kernel"}
+
+
 def supported_read_formats():
     """The formats the port reads (not the JAX package's list)."""
     out = (set(_PSEUDO) - {"stegano"} | set(_PNM) | set(_RAW)
-           | {"raw", "r", "mpr", "mask", "clip", "uhdr"}
+           | {"raw", "r", "mpr", "mask", "clip", "uhdr"} | _CODERS_READ
            | ((_pil_formats("OPEN") | _PIL_READ_EXTRA) - _OTHER_DECODE
-              - {"heic", "jxl"}))
+              - {"heic", "jxl"})
+           | _heifjxl_formats() | _delegate_formats())
     return sorted(out)
 
 
@@ -598,13 +725,17 @@ def supported_write_formats():
     """The formats the port writes (not the JAX package's list)."""
     out = (set(_PNM) | set(_RAW) | {"raw", "uyvy", "mpr", "null", "info",
                                     "json", "txt", "yaml", "mask", "svg"}
-           | (_pil_formats("SAVE") - _OTHER_ENCODE - {"heic", "jxl"}))
+           | _CODERS_WRITE
+           | (_pil_formats("SAVE") - _OTHER_ENCODE - {"heic", "jxl"})
+           | _heifjxl_formats()
+           | (_VIDEO_FMTS if delegates.has_ffmpeg() else set()))
     return sorted(out)
 
 
 def known_write_formats():
     """The formats the port writes and those the JAX package writes with
-    coders not ported yet (writing one raises NotImplementedError): the
-    names a CLI's last token may carry as an output prefix."""
+    coders not ported yet (writing one raises NotImplementedError) or
+    with a codec or delegate missing here: the names a CLI's last token
+    may carry as an output prefix."""
     return sorted(set(supported_write_formats()) | _OTHER_ENCODE
-                  | {"heic", "heif", "jxl"})
+                  | _VIDEO_FMTS | {"heic", "heif", "jxl"})

@@ -6,10 +6,13 @@ libraries per coder).  Codecs stay on the host: a decoded image is made
 float32 there with the JAX module's expression (levels over 255 or 65535)
 and goes to ``device`` once; an encoded one comes to the host and is
 quantized there with the JAX module's expression, so equal pixels give
-equal bytes.  JPEG takes the port's native codec (``native/miniio.cpp``)
-first where it builds, as the JAX bridge does; PNG goes through Pillow
-(the PNG half of ``miniio.cpp`` is not ported), and HEIF and JPEG XL,
-which the JAX package reads through its ``heifjxl`` library, raise.
+equal bytes.  As in the JAX bridge, JPEG and PNG take the port's native
+codecs (``native/miniio.cpp``'s two halves) first where they build, and
+HEIF and JPEG XL the ``heifjxl`` library (``dlopen`` of the system
+libheif and libjxl): a HEIF or JPEG XL blob that it cannot decode falls
+to Pillow, and a write without its encoder raises ValueError.  Each
+native codec is its own library, so one missing system library leaves
+the others working.
 """
 
 from __future__ import annotations
@@ -126,21 +129,35 @@ def _attach_density(img: Image, data: bytes, fmt: str) -> Image:
 
 def decode(data: bytes, fmt: Optional[str] = None, device="cuda"
            ) -> List[Image]:
-    if fmt in ("heic", "heif", "jxl"):
-        raise NotImplementedError(
-            f"{fmt}: the HEIF and JPEG XL codecs (native/heifjxl.cpp) are "
-            f"not ported yet: {REST_OF_IO}")
-    # native fast path (GIL-free libjpeg; see native/miniio.cpp)
-    if fmt in ("jpeg", "jpg"):
-        from .. import native
+    from .. import native
 
-        if native.available():
-            arr = native.decode_jpeg(data)
-            if arr is not None:
-                img = Image(arr.astype(np.float32) / 255.0,
-                            _infer_spec(arr.shape[-1]).with_(depth=8),
-                            device=device)
-                return [_attach_density(img, data, fmt)]
+    # HEIC/JXL: the dlopen layer over the system libheif/libjxl that
+    # coders/heic.c and coders/jxl.c link (Pillow lacks both)
+    if fmt in ("heic", "heif", "jxl"):
+        arr = native.decode_jxl(data) if fmt == "jxl" else \
+            native.decode_heif(data)
+        if arr is not None:
+            return [Image(arr.astype(np.float32) / 255.0,
+                          _infer_spec(arr.shape[-1]).with_(depth=8),
+                          device=device)]
+        # fall through to PIL (a plugin may read it elsewhere)
+    # native fast paths (GIL-free libjpeg and libpng; native/miniio.cpp)
+    if fmt in ("jpeg", "jpg") and native.available():
+        arr = native.decode_jpeg(data)
+        if arr is not None:
+            img = Image(arr.astype(np.float32) / 255.0,
+                        _infer_spec(arr.shape[-1]).with_(depth=8),
+                        device=device)
+            return [_attach_density(img, data, fmt)]
+    if fmt == "png" and native.png_available():
+        res = native.decode_png(data)
+        if res is not None:
+            arr, depth = res
+            scale = 65535.0 if depth == 16 else 255.0
+            img = Image(arr.astype(np.float32) / scale,
+                        _infer_spec(arr.shape[-1]), device=device)
+            img.spec = img.spec.with_(depth=min(depth, 16))
+            return [_attach_density(img, data, fmt)]
     if not HAVE_PIL:
         raise RuntimeError("Pillow unavailable for standard-format decode")
     pim = PILImage.open(_io.BytesIO(data))
@@ -157,8 +174,8 @@ def decode(data: bytes, fmt: Optional[str] = None, device="cuda"
     return frames
 
 
-REST_OF_IO = ("ROADMAP.md Queue 1, 'Host layers' (the rest of io/ and "
-              "native/)")
+REST_OF_IO = ("ROADMAP.md Queue 1, 'Host layers' (the rest of io/: "
+              "formats2, formats3, formats4, coders_r4b, emf and stream)")
 
 _PIL_FORMATS = {
     "png": "PNG", "jpg": "JPEG", "jpeg": "JPEG", "gif": "GIF",
@@ -177,26 +194,36 @@ def encodable_formats():
 def encode(images, fmt: str, quality: int = 92, depth: int = 8) -> bytes:
     if isinstance(images, Image):
         images = [images]
-    if fmt.lower() in ("heic", "heif", "jxl"):
-        raise NotImplementedError(
-            f"{fmt}: the HEIF and JPEG XL codecs (native/heifjxl.cpp) are "
-            f"not ported yet: {REST_OF_IO}")
-    # native fast path: single JPEG frame, no embedded profile
-    if fmt.lower() in ("jpeg", "jpg") and len(images) == 1 \
-            and not images[0].profiles:
-        from .. import native
+    from .. import native
 
-        if native.available():
-            arr = images[0].to_numpy()
-            if arr.ndim == 3:
-                q = (np.clip(arr, 0, 1) * 255.0 + 0.5).astype(np.uint8)
-                if q.shape[-1] == 4:
-                    q = q[..., :3]
-                elif q.shape[-1] == 2:
-                    q = q[..., :1]
-                blob = native.encode_jpeg(q, quality)
-                if blob is not None:
-                    return blob
+    if fmt.lower() in ("heic", "heif", "jxl"):
+        arr = images[0].to_numpy()
+        q = (np.clip(arr, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+        if q.ndim == 2:
+            q = q[..., None]
+        if fmt.lower() == "jxl":
+            blob = native.encode_jxl(q)
+        else:
+            if q.shape[-1] in (1, 2):   # heif interleaved wants RGB(A)
+                q = np.concatenate([np.repeat(q[..., :1], 3, -1),
+                                    q[..., 1:]], -1)
+            blob = native.encode_heif(q, quality)
+        if blob is not None:
+            return blob
+        raise ValueError(
+            f"no {fmt} encoder available (libheif HEVC plugin / libjxl "
+            "missing on this host; format is read-only here)")
+    # native fast paths: one frame, no embedded profile
+    fmt_n = fmt.lower()
+    if fmt_n in ("jpeg", "jpg", "png") and len(images) == 1 \
+            and not images[0].profiles and (
+                native.available() if fmt_n != "png"
+                else native.png_available()):
+        arr = images[0].to_numpy()
+        if arr.ndim == 3:
+            blob = _native_encode(native, arr, fmt_n, quality, depth)
+            if blob is not None:
+                return blob
     if not HAVE_PIL:
         raise RuntimeError("Pillow unavailable for standard-format encode")
     fmt_l = fmt.lower()
@@ -235,6 +262,35 @@ def encode(images, fmt: str, quality: int = 92, depth: int = 8) -> bytes:
     else:
         pil_frames[0].save(buf, format=pil_fmt, **kwargs)
     return buf.getvalue()
+
+
+def _native_encode(native, arr: np.ndarray, fmt: str, quality: int,
+                   depth: int) -> Optional[bytes]:
+    """One (H, W, C) frame through the native JPEG or PNG encoder, with
+    the JAX bridge's channel and depth choices; None where it declines."""
+    if fmt in ("jpeg", "jpg"):
+        q = (np.clip(arr, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+        if q.shape[-1] == 4:
+            q = q[..., :3]
+        elif q.shape[-1] == 2:
+            q = q[..., :1]
+        return native.encode_jpeg(q, quality)
+    if arr.shape[-1] not in (1, 2, 3, 4):
+        return None
+    if arr.shape[-1] == 3 and arr.shape[0] * arr.shape[1] <= 1 << 22 and \
+            (arr[..., 0] == arr[..., 1]).all() and \
+            (arr[..., 1] == arr[..., 2]).all():
+        # png.c auto-reduces equal-channel images to gray
+        arr = arr[..., :1]
+    if depth > 8:
+        q16 = (np.clip(arr, 0, 1) * 65535.0 + 0.5).astype(np.uint16)
+        # png.c ok_to_reduce: drop to 8 bits when every sample is a
+        # 257-multiple (exactly 8-bit)
+        if (q16 % 257 == 0).all():
+            return native.encode_png((q16 // 257).astype(np.uint8), 8)
+        return native.encode_png(q16, 16)
+    q8 = (np.clip(arr, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+    return native.encode_png(q8, 8)
 
 
 def _to_pil(arr: np.ndarray, spec: ImageSpec, pil_fmt: str, depth: int):

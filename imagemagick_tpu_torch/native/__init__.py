@@ -1,28 +1,43 @@
-"""Native host libraries (ctypes over ``miniio.cpp`` and ``riemersma.cpp``).
+"""Native host libraries (ctypes over the C++ sources of this folder).
 
-Port of ``imagemagick_tpu/native/__init__.py``: the JPEG codec that the
-thumbnailer needs (``available``, ``decode_jpeg``, ``decode_jpeg_scaled``,
-``encode_jpeg``) and the octree quantizer with its error-diffusion dithers
-(``riemersma_available``, ``riemersma_posterize``,
-``floyd_steinberg_posterize``, ``octree_quantize``, ``octree_remap``).
-Both sources are the JAX package's, copied.
+Port of ``imagemagick_tpu/native/__init__.py``.  Each library is its own
+``_Library``, so that a missing system library takes down only its own
+formats:
 
-One helper, ``_Library``, builds each source on first use with ``g++``
-into ``imagemagick_tpu_torch/_build/``, under a name that holds a hash of
-the source and the command, and loads it with ``ctypes``.  The compiler
-writes a file of its own, which is then renamed into place, so processes
-that build at once each load a whole library.
+- the JPEG codec, ``miniio.cpp`` built with ``-DMINIIO_NO_PNG`` and
+  linked with ``-ljpeg`` (``available``, ``decode_jpeg``,
+  ``decode_jpeg_scaled``, ``encode_jpeg``);
+- the PNG codec, the same source built with ``-DMINIIO_NO_JPEG`` and
+  linked with ``-lpng`` (``png_available``, ``decode_png``,
+  ``encode_png``);
+- the HEIF and JPEG XL codecs, ``heifjxl.cpp`` linked with ``-ldl``
+  only: it opens ``libheif.so.1`` and ``libjxl.so.0.7`` with ``dlopen``
+  at run time (``heif_available``, ``jxl_available``, ``decode_heif``,
+  ``decode_jxl``, ``encode_heif``, ``encode_jxl``);
+- the JBIG codec, ``jbigio.cpp`` linked with ``-ljbig``
+  (``jbig_available``, ``jbig_decode``, ``jbig_encode``);
+- the octree quantizer with its error-diffusion dithers,
+  ``riemersma.cpp``, which needs only the C++ standard library
+  (``riemersma_available``, ``riemersma_posterize``,
+  ``floyd_steinberg_posterize``, ``octree_quantize``, ``octree_remap``).
 
-The codec is built with ``-O3`` against the system libjpeg and libpng.
-Without ``g++``, libjpeg or libpng its build fails, ``available()`` is
-False and every codec call returns None: callers
-(``models/thumbnailer.py``) then decode with PIL.  The quantizer needs
-only the C++ standard library and is built with the JAX package's
-``g++ -O2 -fPIC -shared`` (no ``-march=native``, no ``-ffast-math``), so
-the same float32 input gives the same bits in both packages.  Its build
-must succeed: if it fails, every quantizer call raises RuntimeError with
-the compiler's message.  The quantizer runs on the host, on float32
-numpy arrays, as in the JAX package.
+The sources are the JAX package's, copied (``miniio.cpp`` with the two
+guards that split it).  One helper, ``_Library``, builds each on first use
+with ``g++`` into ``imagemagick_tpu_torch/_build/``, under a name that
+holds a hash of the source and the command, and loads it with ``ctypes``.
+The compiler writes a file of its own, which is then renamed into place,
+so processes that build at once each load a whole library.
+
+The codecs are built with the JAX package's flags.  Where ``g++`` or a
+codec's system library is missing, its build fails, its ``*available()``
+is False and every call of it returns None, as in the JAX package: the
+callers (``io/codecs.py``, ``io/coders_r4b.py``, ``models/thumbnailer.py``)
+then take PIL or report the format as unavailable.  The quantizer is
+built with the JAX package's ``g++ -O2 -fPIC -shared`` (no
+``-march=native``, no ``-ffast-math``), so the same float32 input gives
+the same bits in both packages.  Its build must succeed: if it fails,
+every quantizer call raises RuntimeError with the compiler's message.
+Everything here runs on the host, on numpy arrays, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -106,7 +121,7 @@ class _Library:
 
 
 # ---------------------------------------------------------------------------
-# The JPEG codec (miniio.cpp)
+# The JPEG codec (miniio.cpp without its PNG half)
 # ---------------------------------------------------------------------------
 
 def _bind_miniio(lib) -> Optional[str]:
@@ -134,12 +149,13 @@ def _bind_miniio(lib) -> Optional[str]:
     return None
 
 
-_MINIIO = _Library("miniio", "miniio.cpp", ("g++", "-O3", "-fPIC", "-shared"),
-                   ("-ljpeg", "-lpng"), _bind_miniio)
+_MINIIO = _Library("miniio", "miniio.cpp",
+                   ("g++", "-O3", "-fPIC", "-shared", "-DMINIIO_NO_PNG"),
+                   ("-ljpeg",), _bind_miniio)
 
 
 def library_path() -> Path:
-    """Where the codec library for this source and command lives."""
+    """Where the JPEG codec's library for this source and command lives."""
     return _MINIIO.path()
 
 
@@ -152,7 +168,8 @@ def available() -> bool:
 
 
 def build_error() -> Optional[str]:
-    """What the compiler said when the codec failed to build, else None."""
+    """What the compiler said when the JPEG codec failed to build, else
+    None."""
     return _MINIIO.error
 
 
@@ -214,6 +231,262 @@ def encode_jpeg(arr: np.ndarray, quality: int = 92) -> Optional[bytes]:
     data = ctypes.string_at(out, size.value)
     lib.miniio_free(out)
     return data
+
+
+# ---------------------------------------------------------------------------
+# The PNG codec (miniio.cpp without its JPEG half)
+# ---------------------------------------------------------------------------
+
+def _bind_miniio_png(lib) -> Optional[str]:
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    c_ip = ctypes.POINTER(ctypes.c_int)
+    lib.miniio_decode_png.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(c_u8p),
+        c_ip, c_ip, c_ip, c_ip]
+    lib.miniio_decode_png.restype = ctypes.c_int
+    lib.miniio_encode_png.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(c_u8p),
+        ctypes.POINTER(ctypes.c_size_t)]
+    lib.miniio_encode_png.restype = ctypes.c_int
+    lib.miniio_free.argtypes = [ctypes.c_void_p]
+    lib.miniio_free.restype = None
+    lib.miniio_abi_version.argtypes = []
+    lib.miniio_abi_version.restype = ctypes.c_int
+    if lib.miniio_abi_version() != ABI_VERSION:
+        return f"ABI version {lib.miniio_abi_version()}, not {ABI_VERSION}"
+    return None
+
+
+_MINIIO_PNG = _Library("miniio_png", "miniio.cpp",
+                       ("g++", "-O3", "-fPIC", "-shared", "-DMINIIO_NO_JPEG"),
+                       ("-lpng",), _bind_miniio_png)
+
+
+def png_available() -> bool:
+    return _MINIIO_PNG.load() is not None
+
+
+def decode_png(data: bytes) -> Optional[Tuple[np.ndarray, int]]:
+    """Decode PNG bytes -> ((H, W, C) uint8 or big-endian uint16 array,
+    bit depth), or None on failure."""
+    lib = _MINIIO_PNG.load()
+    if lib is None:
+        return None
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    depth = ctypes.c_int()
+    rc = lib.miniio_decode_png(data, len(data), ctypes.byref(out),
+                               ctypes.byref(w), ctypes.byref(h),
+                               ctypes.byref(c), ctypes.byref(depth))
+    if rc != 0:
+        return None
+    nbytes = w.value * h.value * c.value * (depth.value // 8)
+    raw = np.ctypeslib.as_array(out, shape=(nbytes,)).copy()
+    lib.miniio_free(out)
+    if depth.value == 16:
+        arr = raw.view(">u2").reshape(h.value, w.value, c.value)
+    else:
+        arr = raw.reshape(h.value, w.value, c.value)
+    return arr, depth.value
+
+
+def encode_png(arr: np.ndarray, bit_depth: int = 8) -> Optional[bytes]:
+    """Encode (H, W, C) uint8 (or uint16 at ``bit_depth`` 16) -> PNG
+    bytes, or None on failure."""
+    lib = _MINIIO_PNG.load()
+    if lib is None:
+        return None
+    if bit_depth == 16:
+        arr = np.ascontiguousarray(arr.astype(">u2"))
+        raw = arr.view(np.uint8)
+    else:
+        arr = np.ascontiguousarray(arr, np.uint8)
+        raw = arr
+    h, w, c = arr.shape[:3]
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    size = ctypes.c_size_t()
+    rc = lib.miniio_encode_png(raw.ctypes.data_as(ctypes.c_char_p),
+                               w, h, c, bit_depth,
+                               ctypes.byref(out), ctypes.byref(size))
+    if rc != 0:
+        return None
+    data = ctypes.string_at(out, size.value)
+    lib.miniio_free(out)
+    return data
+
+
+# ---------------------------------------------------------------------------
+# The HEIF and JPEG XL codecs (heifjxl.cpp: dlopen over the system libheif
+# and libjxl, the libraries coders/heic.c and coders/jxl.c use)
+# ---------------------------------------------------------------------------
+
+def _bind_heifjxl(lib) -> Optional[str]:
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    c_ip = ctypes.POINTER(ctypes.c_int)
+    for name in ("hj_decode_heif", "hj_decode_jxl"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                       ctypes.POINTER(c_u8p), c_ip, c_ip, c_ip]
+        fn.restype = ctypes.c_int
+    lib.hj_encode_heif.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_size_t)]
+    lib.hj_encode_heif.restype = ctypes.c_int
+    lib.hj_encode_jxl.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(c_u8p), ctypes.POINTER(ctypes.c_size_t)]
+    lib.hj_encode_jxl.restype = ctypes.c_int
+    lib.hj_free.argtypes = [ctypes.c_void_p]
+    lib.hj_free.restype = None
+    for name in ("hj_heif_available", "hj_jxl_available", "hj_abi_version"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    if lib.hj_abi_version() != 1:
+        return f"ABI version {lib.hj_abi_version()}, not 1"
+    return None
+
+
+_HEIFJXL = _Library("heifjxl", "heifjxl.cpp",
+                    ("g++", "-O3", "-fPIC", "-shared"), ("-ldl",),
+                    _bind_heifjxl)
+
+
+def heif_available() -> bool:
+    """True where the library builds and ``libheif.so.1`` opens."""
+    lib = _HEIFJXL.load()
+    return bool(lib and lib.hj_heif_available())
+
+
+def jxl_available() -> bool:
+    """True where the library builds and libjxl 0.7 opens."""
+    lib = _HEIFJXL.load()
+    return bool(lib and lib.hj_jxl_available())
+
+
+def _hj_decode(fn_name: str, data: bytes) -> Optional[np.ndarray]:
+    lib = _HEIFJXL.load()
+    if lib is None:
+        return None
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = getattr(lib, fn_name)(data, len(data), ctypes.byref(out),
+                               ctypes.byref(w), ctypes.byref(h),
+                               ctypes.byref(c))
+    if rc != 0:
+        return None
+    n = w.value * h.value * c.value
+    arr = np.ctypeslib.as_array(out, shape=(n,)).copy()
+    lib.hj_free(out)
+    return arr.reshape(h.value, w.value, c.value)
+
+
+def decode_heif(data: bytes) -> Optional[np.ndarray]:
+    """HEIC/HEIF decode -> (H, W, 3|4) uint8, or None."""
+    return _hj_decode("hj_decode_heif", data)
+
+
+def decode_jxl(data: bytes) -> Optional[np.ndarray]:
+    """JPEG XL decode -> (H, W, C) uint8, or None."""
+    return _hj_decode("hj_decode_jxl", data)
+
+
+def _hj_blob(lib, out, size) -> bytes:
+    data = ctypes.string_at(out, size.value)
+    lib.hj_free(out)
+    return data
+
+
+def encode_heif(arr: np.ndarray, quality: int = 75) -> Optional[bytes]:
+    """HEIC encode; None where no HEVC encoder plugin is installed."""
+    lib = _HEIFJXL.load()
+    if lib is None:
+        return None
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w, c = arr.shape
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    size = ctypes.c_size_t()
+    rc = lib.hj_encode_heif(arr.ctypes.data_as(ctypes.c_char_p), w, h, c,
+                            quality, ctypes.byref(out), ctypes.byref(size))
+    return None if rc != 0 else _hj_blob(lib, out, size)
+
+
+def encode_jxl(arr: np.ndarray) -> Optional[bytes]:
+    """JPEG XL encode (libjxl's default effort and distance), or None."""
+    lib = _HEIFJXL.load()
+    if lib is None:
+        return None
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w, c = arr.shape
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    size = ctypes.c_size_t()
+    rc = lib.hj_encode_jxl(arr.ctypes.data_as(ctypes.c_char_p), w, h, c,
+                           ctypes.byref(out), ctypes.byref(size))
+    return None if rc != 0 else _hj_blob(lib, out, size)
+
+
+# ---------------------------------------------------------------------------
+# The JBIG codec (jbigio.cpp over jbig-kit, the library coders/jbig.c uses)
+# ---------------------------------------------------------------------------
+
+def _bind_jbig(lib) -> Optional[str]:
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.jb_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                              ctypes.POINTER(c_u8p),
+                              ctypes.POINTER(ctypes.c_int),
+                              ctypes.POINTER(ctypes.c_int)]
+    lib.jb_decode.restype = ctypes.c_int
+    lib.jb_encode.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(c_u8p),
+                              ctypes.POINTER(ctypes.c_size_t)]
+    lib.jb_encode.restype = ctypes.c_int
+    lib.jb_free.argtypes = [c_u8p]
+    lib.jb_free.restype = None
+    return None
+
+
+_JBIG = _Library("jbigio", "jbigio.cpp", ("g++", "-O2", "-fPIC", "-shared"),
+                 ("-ljbig",), _bind_jbig)
+
+
+def jbig_available() -> bool:
+    return _JBIG.load() is not None
+
+
+def jbig_decode(data: bytes) -> Optional[np.ndarray]:
+    """JBIG blob -> (H, W) uint8 {0, 1} bitmap (1 = black), or None."""
+    lib = _JBIG.load()
+    if lib is None:
+        return None
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    w, h = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.jb_decode(data, len(data), ctypes.byref(out), ctypes.byref(w),
+                       ctypes.byref(h))
+    if rc != 0:
+        return None
+    stride = (w.value + 7) // 8
+    buf = np.ctypeslib.as_array(out, shape=(h.value * stride,)).copy()
+    lib.jb_free(out)
+    bits = np.unpackbits(buf.reshape(h.value, stride), axis=1)
+    return bits[:, :w.value]
+
+
+def jbig_encode(bitmap: np.ndarray) -> Optional[bytes]:
+    """(H, W) {0, 1} bitmap (1 = black) -> JBIG blob, or None."""
+    lib = _JBIG.load()
+    if lib is None:
+        return None
+    bm = np.asarray(bitmap, np.uint8)
+    h, w = bm.shape
+    packed = np.packbits(bm, axis=1).tobytes()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    rc = lib.jb_encode(packed, w, h, ctypes.byref(out), ctypes.byref(n))
+    if rc != 0:
+        return None
+    blob = ctypes.string_at(out, n.value)
+    lib.jb_free(out)
+    return blob
 
 
 # ---------------------------------------------------------------------------

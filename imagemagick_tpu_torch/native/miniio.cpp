@@ -9,7 +9,11 @@
 // thread pool decodes a corpus in parallel while the TPU runs the previous
 // batch — the data-loader half of the 10k-thumbnailer pipeline.
 //
-// Build: g++ -O3 -fPIC -shared miniio.cpp -ljpeg -lpng -o libminiio.so
+// Built twice, so that a missing libpng does not take the JPEG codec down
+// with it, nor a missing libjpeg the PNG codec:
+//   g++ -O3 -fPIC -shared -DMINIIO_NO_PNG miniio.cpp -ljpeg   (the JPEG half)
+//   g++ -O3 -fPIC -shared -DMINIIO_NO_JPEG miniio.cpp -lpng   (the PNG half)
+// Both halves carry the quantum conversions, miniio_free and the ABI version.
 
 #include <cstdint>
 #include <cstdio>
@@ -17,11 +21,16 @@
 #include <cstring>
 #include <csetjmp>
 
+#ifndef MINIIO_NO_JPEG
 #include <jpeglib.h>
+#endif
+#ifndef MINIIO_NO_PNG
 #include <png.h>
+#endif
 
 extern "C" {
 
+#ifndef MINIIO_NO_JPEG
 // ---------------------------------------------------------------------------
 // JPEG
 // ---------------------------------------------------------------------------
@@ -118,6 +127,9 @@ int miniio_encode_jpeg(const uint8_t* pixels, int width, int height,
     return 0;
 }
 
+#endif  // MINIIO_NO_JPEG
+
+#ifndef MINIIO_NO_PNG
 // ---------------------------------------------------------------------------
 // PNG
 // ---------------------------------------------------------------------------
@@ -255,6 +267,8 @@ int miniio_encode_png(const uint8_t* pixels, int width, int height,
     return 0;
 }
 
+#endif  // MINIIO_NO_PNG
+
 // ---------------------------------------------------------------------------
 // Quantum conversion (quantum-import.c/-export.c hot path): u8 <-> f32
 // with stride support, vectorizable tight loops the compiler unrolls.
@@ -283,6 +297,8 @@ void miniio_u16be_to_f32(const uint8_t* in, float* out, size_t n) {
 }
 
 void miniio_free(void* p) { free(p); }
+
+#ifndef MINIIO_NO_JPEG
 
 // DCT-scaled JPEG decode (the reference's -define jpeg:size culture,
 // coders/jpeg.c jpeg_calc_output_dimensions scale selection): pick the
@@ -340,6 +356,8 @@ int miniio_decode_jpeg_scaled(const uint8_t* data, size_t size,
     *channels = c;
     return 0;
 }
+
+#endif  // MINIIO_NO_JPEG
 
 int miniio_abi_version() { return 2; }
 

@@ -34,11 +34,14 @@ Endpoints (stdlib http.server; no external dependencies):
                                  -> runs the options on the session
   GET  /session/<name>           -> the session's pixels as u8 bytes
 
-No request reaches the host's files: ``/convert`` refuses bare tokens
-(file names) and the options that read or write paths (400), as does
-``/apply``, and both run under ``core.policy.no_host_files``, so that a
-path that an option's argument names anyway (a ``-draw`` font, say) is
-refused (400) before it is opened.  An option or a format the port lacks answers 501; another
+No request reaches the host's files or runs a program of the host:
+``/convert`` refuses bare tokens (file names), the options that read or
+write paths and the output formats ``mpr``, ``mpc`` and video (400), as
+does ``/apply``, and ``/convert``, ``/apply`` and ``/identify`` run under
+``core.policy.no_host_files``, so that a path that an option's argument
+names anyway (a ``-draw`` font, say) is refused (400) before it is
+opened, and a body that only a delegate reads (PDF, PostScript, a raw
+that dcraw would take) is refused before the delegate runs.  An option or a format the port lacks answers 501; another
 bad request, 400; an error of the server or the card (a kernel's), 500.
 
 Run:  python -m imagemagick_tpu_torch.serve [--port 8089] [--device cuda]
@@ -59,6 +62,7 @@ import numpy as np
 import torch
 
 from .core.policy import PolicyError, no_host_files
+from .io import _VIDEO_FMTS
 
 _LOCK = threading.Lock()
 
@@ -113,6 +117,12 @@ _DENY_OPTS = {
     "authenticate", "process", "display", "log",
     "read", "remap", "affinity", "font", "limit", "debug",
 }
+
+
+# output formats that a request may not name: mpr: outlives the request,
+# mpc: writes a file of the host, a video format runs ffmpeg (no_host_files
+# refuses the last two again where they are reached)
+_HOST_OF = {"mpr", "mpc"} | _VIDEO_FMTS
 
 
 def _check_args(args, where: str, ops_only: bool) -> None:
@@ -318,9 +328,9 @@ class Handler(BaseHTTPRequestHandler):
                 of = q.get("of", ["png"])[0].lower()
                 validate_convert_args(args)
                 # a word that starts with a letter, so that no option
-                # takes "<of>:-" for its argument; mpr: would outlive the
-                # request
-                if not (of.isalnum() and of[0].isalpha()) or of == "mpr":
+                # takes "<of>:-" for its argument, and none of _HOST_OF
+                if not (of.isalnum() and of[0].isalpha()) or \
+                        of in _HOST_OF:
                     return self._err(400, "bad output format %r" % of)
                 with _LOCK, no_host_files():
                     out = _run_cli(["-", *args, f"{of}:-"], body, device)
@@ -330,7 +340,7 @@ class Handler(BaseHTTPRequestHandler):
                 from . import io as iio
                 from .io import identify as ident
 
-                with _LOCK:
+                with _LOCK, no_host_files():
                     img = iio.image_from_blob(body, device=device)[0]
                     text = ident.describe(img, "request", verbose=True)
                 self._reply(200, text.encode(), "text/plain")

@@ -182,18 +182,17 @@ def test_materialize_carries_metadata():
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["-resize", "10x10", "out.miff"], "'Host layers' (the rest of io/"),
-    (["-resize", "10x10", "exr:-"], "'Host layers' (the rest of io/"),
-    (["kernel:unity"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "out.dpx"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "viff:-"], "'Host layers' (the rest of io/"),
+    (["strimg:hello"], "'Host layers' (the rest of io/"),
     (["stegano:in.png"], "'Host layers' (the rest of io/"),
-    (["mpc:cache.mpc"], "'Host layers' (the rest of io/"),
+    (["jbig:page.jbg"], "'Host layers' (the rest of io/"),
     (["url:http://localhost/a.png"], "'Host layers' (the rest of io/"),
     (["-region", "4x4+0+0"], "'Host layers'"),
     (["+region"], "'Host layers'"),
     (["-bench", "3"], "'Host layers'"),
-    (["-remap", "palette.gif"], "'The palette error-diffusion walks"),
-    (["-dither", "FloydSteinberg", "-map", "palette.gif"],
-     "'The palette error-diffusion walks"),
+    (["-resize", "10x10", "out.xwd"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "out.psd"], "'Host layers' (the rest of io/"),
     (["-unknown-option"], "'Host layers'"),
 ])
 def test_unported_raise_naming_their_entries(argv, entry):
@@ -960,15 +959,20 @@ def test_channel_indices_equal_jax(setting, nch, want):
 
 
 def test_remap_raises_naming_io_and_the_walks():
-    """-remap/-map read their palette through io/ now; with a dither on
-    (the default) they raise naming the palette walks' entry before
-    reading it.  Under +dither they run (test_torch_cli_files.py)."""
-    st = tm.CLIState()
-    st.images.append(tm.LazyImage(TImage(torch.zeros(8, 8, 3))))
-    for opt in ("-remap", "-map"):
+    """-remap/-map read their palette through io/ and run under every
+    dither (the native octree library, test_torch_cli_files.py);
+    ``quantize.remap(..., dither=True)``, which the JAX CLI reaches only
+    where its native library is missing or a frame is not (H, W, C),
+    still raises naming the palette walks' entry."""
+    from imagemagick_tpu_torch.ops import quantize as tq
+
+    x = torch.rand(2, 6, 8, 3, generator=torch.Generator().manual_seed(0))
+    pal = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]])
+    for dither in (True, 1):
         with pytest.raises(NotImplementedError,
-                           match="riemersma.*palette error-diffusion walks"):
-            tm.process([opt, "palette.png"], st)
+                           match="palette error-diffusion walks"):
+            tq.remap(x, pal, dither)
+    assert tuple(tq.remap(x, pal, False).shape) == (2, 6, 8, 3)
 
 
 def test_chain_a_fuses_its_resize_once(monkeypatch):

@@ -260,6 +260,7 @@ def test_stdin_to_stdout_matches_jax(files, monkeypatch):
     d, pngs, _ = files
     monkeypatch.setattr(jnat, "available", lambda: False)
     monkeypatch.setattr(tnat, "available", lambda: False)
+    monkeypatch.setattr(tnat, "png_available", lambda: False)
     body = open(pngs[3], "rb").read()
     outs = []
     for main in (lambda a: tm.main(a, device="cpu"), jm.main):
@@ -316,7 +317,8 @@ def test_informational_options_and_errors(files, capsys):
     d, pngs, _ = files
     assert tm.main(["-list", "format"], device="cpu") == 0
     listed = capsys.readouterr().out
-    assert "PNG          rw" in listed and "MIFF" not in listed
+    assert "PNG          rw" in listed and "MIFF         rw" in listed
+    assert "DPX" not in listed
     for what in ("resource", "policy", "colorspace", "compose", "kernel"):
         tm.main(["-list", what], device="cpu")
         got = capsys.readouterr().out
@@ -367,3 +369,30 @@ def test_files_land_on_the_state_device(files):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             tm.process([pngs[0]], tm.CLIState())
+
+
+@pytest.mark.parametrize("dither", [None, "none", "Riemersma",
+                                    "FloydSteinberg"])
+@pytest.mark.parametrize("opt", ["-remap", "-map"])
+def test_remap_under_each_dither_matches_jax_bytes(files, opt, dither):
+    """-remap/-map FILE under the default dither (Riemersma), +dither's
+    "none", Riemersma and FloydSteinberg: the native octree library on the
+    host on both sides, so the written PNGs are equal byte for byte (both
+    sides' native libpng, or both PIL where it does not build)."""
+    d, pngs, _ = files
+    pal = str(d / "palette.png")
+    PImage.fromarray(np.array([[[0, 0, 0], [255, 255, 255], [200, 40, 40],
+                                [30, 90, 200]]], np.uint8)).save(pal)
+    setting = [] if dither is None else (
+        ["+dither"] if dither == "none" else ["-dither", dither])
+    outs = []
+    for side, main in (("port", lambda a: tm.main(a, device="cpu")),
+                       ("jax", jm.main)):
+        o = str(d / f"{side}-{opt[1:]}-{dither}.png")
+        assert main([pngs[2], *setting, opt, pal, o]) == 0
+        outs.append(open(o, "rb").read())
+    assert outs[0] == outs[1]
+    colors = {tuple(px) for px in _read(d / f"port-{opt[1:]}-{dither}.png")
+              .reshape(-1, 3)}
+    assert colors <= {(0, 0, 0), (255, 255, 255), (200, 40, 40),
+                      (30, 90, 200)}

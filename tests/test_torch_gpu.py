@@ -1554,3 +1554,133 @@ def test_serve_convert_on_card(dev):
     b = np.asarray(PImage.open(io.BytesIO(want))).astype(int)
     assert a.shape == b.shape == (30, 40)
     assert np.mean(np.abs(a - b) > 1) <= 1e-3
+
+
+DNG_DEMOSAIC_CARD_TOL = 1e-6   # cuDNN's and the CPU's sums of <= 9 taps
+DNG_CARD_TOL = 2e-5            # that, times the sRGB transfer's slope
+                               # (at most 12.92), and pow an ulp apart
+
+
+@pytest.mark.parametrize("fmt", ["miff", "miff16", "mpc", "exr", "exr32",
+                                 "ff", "dng"])
+def test_new_coders_decode_onto_the_card_as_on_the_cpu(dev, tmp_path, fmt):
+    """MIFF (8 and 16 bits, zip), MPC, EXR (half and float, zip),
+    farbfeld and a 16-bit Bayer DNG: bytes made on the CPU decode onto the
+    card equal to their decode on the CPU (the DNG's demosaic runs on the
+    card: within DNG_CARD_TOL), and encode from the card to the CPU's
+    bytes."""
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.io import exr as texr
+    from imagemagick_tpu_torch.io import miff as tmiff
+
+    src = TImage(_rand((48, 64, 3), 90), device="cpu")
+    blobs = {"miff": lambda im: tmiff.encode([im], 8, "zip"),
+             "miff16": lambda im: tmiff.encode([im], 16, "zip"),
+             "exr": lambda im: texr.encode(im, True, "zip"),
+             "exr32": lambda im: texr.encode(im, False, "zip"),
+             "ff": lambda im: tio.image_to_blob(im, "ff"),
+             "dng": lambda im: tio.image_to_blob(im, "dng")}
+    if fmt == "mpc":
+        path = str(tmp_path / "x.mpc")
+        tio.write_image(src, path)
+
+        def read(d):
+            return tio.read_images(path, device=d)[0]
+    else:
+        blob = blobs[fmt](src)
+
+        def read(d):
+            return tio.image_from_blob(blob, device=d)[0]
+
+    got, want = read(dev), read("cpu")
+    assert got.data.is_cuda
+    if fmt == "dng":
+        err = float((got.data.cpu() - want.data).abs().max())
+        assert err <= DNG_CARD_TOL, err
+    else:
+        assert torch.equal(got.data.cpu(), want.data)
+    if fmt == "mpc":
+        tio.write_image(got, str(tmp_path / "card.mpc"))
+        assert (tmp_path / "card.mpc").read_bytes() == \
+            open(path, "rb").read()
+    elif fmt != "dng":
+        assert blobs[fmt](got) == blobs[fmt](want)
+    else:
+        assert blobs[fmt](want) == blobs[fmt](TImage(want.data.to(dev)))
+
+
+def test_dng_demosaic_on_the_card(dev):
+    from imagemagick_tpu_torch.io import dng as tdng
+
+    cfa = _rand((135, 242), 91)
+    pat = np.asarray([[0, 1], [1, 2]], np.int64)
+    wb = np.asarray([1.9, 1.0, 1.4], np.float32)
+    got = tdng._demosaic_bilinear(cfa, pat, wb, dev)
+    want = tdng._demosaic_bilinear(cfa, pat, wb, "cpu")
+    assert got.is_cuda
+    err = float((got.cpu() - want).abs().max())
+    assert err <= DNG_DEMOSAIC_CARD_TOL, err
+
+
+@pytest.mark.parametrize("dither", ["Riemersma", "FloydSteinberg", "none"])
+def test_remap_under_each_dither_on_card(dev, tmp_path, dither):
+    """-remap FILE on the card: the native octree library remaps the
+    card's pixels on the host and puts them back on the card; the written
+    file equals the CPU run's."""
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch.cli.main import main
+
+    src, pal = str(tmp_path / "in.png"), str(tmp_path / "pal.png")
+    PImage.fromarray(_u8((60, 80, 3), 92)).save(src)
+    PImage.fromarray(np.array([[[0, 0, 0], [255, 255, 255], [200, 40, 40],
+                                [30, 90, 200]]], np.uint8)).save(pal)
+    setting = ["+dither"] if dither == "none" else ["-dither", dither]
+    outs = []
+    for d in (dev, "cpu"):
+        out = str(tmp_path / f"out-{torch.device(d).type}.png")
+        assert main([src, *setting, "-remap", pal, out], device=d) == 0
+        outs.append(open(out, "rb").read())
+    assert outs[0] == outs[1]
+
+
+def test_cli_from_miff_on_card(dev, tmp_path):
+    """main(..., device="cuda") from MIFF files: a resize chain to EXR in
+    one K1 launch (within one level of the CPU run at 16 bits on 99.9 % of
+    the samples, read back as float), and -auto-threshold otsu on 16-bit
+    MIFF pages in one K4 launch (0.1 % of the pixels at most apart)."""
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.cli.main import main
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec as TSpec
+
+    frames, pages = [], []
+    for k in range(3):
+        frames.append(str(tmp_path / f"f{k}.miff"))
+        with open(frames[-1], "wb") as f:
+            f.write(tio.image_to_blob(TImage(_rand((96, 128, 3), 93 + k),
+                                             device="cpu"), "miff"))
+        pages.append(str(tmp_path / f"p{k}.miff"))
+        page = TImage(_rand((66, 51, 1), 96 + k),
+                      TSpec(colorspace="gray", depth=16), device="cpu")
+        with open(pages[-1], "wb") as f:
+            f.write(tio.image_to_blob(page, "miff"))
+    chain1 = "-resize 50% -gaussian-blur 0x2 -colorspace gray".split()
+    chain3 = "-auto-threshold otsu".split()
+    for files, chain, out, kernel in ((frames, chain1, "o-%d.exr", "k1"),
+                                      (pages, chain3, "q-%d.pbm", "k4")):
+        before = dict(gk.LAUNCHES)
+        assert main(files + chain + [str(tmp_path / ("card" + out))],
+                    device=dev) == 0
+        torch.cuda.synchronize()
+        launched = {k: gk.LAUNCHES[k] - before[k] for k in before}
+        assert launched[kernel] == 1 and sum(launched.values()) == 1
+        assert main(files + chain + [str(tmp_path / ("cpu" + out))],
+                    device="cpu") == 0
+        for k in range(len(files)):
+            a, b = (tio.read_images(str(tmp_path / (side + out % k)),
+                                    device="cpu")[0].data.numpy()
+                    for side in ("card", "cpu"))
+            assert a.shape == b.shape
+            assert np.mean(np.abs(a - b) > 1 / 255) <= 1e-3

@@ -5,8 +5,9 @@ Inputs are made from a seed with numpy and encoded with PIL.  Equal
 pixels must give equal bytes, and equal bytes equal arrays, specs and
 properties.  Both sides must take the same codec: the JPEG cases run
 with both packages' native codecs (where both build) and with
-neither (PIL's), and every PNG case turns the JAX side's native libpng
-off, as on a host without libpng, since the port's PNG goes through PIL.
+neither (PIL's), and every PNG case turns both sides' native libpng off
+(the JAX ``available()``, the port's ``png_available()``), as on a host
+without libpng; ``tests/test_torch_io_coders.py`` holds the native PNG.
 The identify text is held line by line: numbers within 1e-5 relative or
 5e-5 absolute (float32 reductions in another order; the JAX skewness is
 1.6e-5 off float64 here, the port's 1e-6), the rest exactly, but for the Version line, which names the
@@ -78,9 +79,11 @@ def _same_images(got, want):
 @pytest.fixture
 def no_png_native(monkeypatch):
     """The JAX side without its native libpng (and so without its native
-    JPEG too), the port without its native JPEG: both take PIL."""
+    JPEG too), the port without its native JPEG and PNG codecs: both take
+    PIL."""
     monkeypatch.setattr(jnat, "available", lambda: False)
     monkeypatch.setattr(tnat, "available", lambda: False)
+    monkeypatch.setattr(tnat, "png_available", lambda: False)
 
 
 @pytest.fixture(params=["native", "pil"])
@@ -88,6 +91,7 @@ def jpeg_codec(request, monkeypatch):
     if request.param == "pil":
         monkeypatch.setattr(jnat, "available", lambda: False)
         monkeypatch.setattr(tnat, "available", lambda: False)
+        monkeypatch.setattr(tnat, "png_available", lambda: False)
     elif not (tnat.available() and jnat.available()):
         pytest.skip("the native JPEG codecs do not build here")
     return request.param
@@ -183,8 +187,11 @@ def test_pil_formats_encode_and_decode_like_jax(no_png_native, fmt,
     try:
         wimgs = jio.image_from_blob(want, fmt)
     except Exception as e:   # noqa: BLE001 — then the port must raise too
-        with pytest.raises((type(e), NotImplementedError)):
+        # the same exception (each package has its own DelegateError)
+        with pytest.raises(Exception) as raised:
             tio.image_from_blob(got, fmt, device="cpu")
+        assert type(raised.value).__name__ in (type(e).__name__,
+                                               "NotImplementedError")
         return
     _same_images(tio.image_from_blob(got, fmt, device="cpu"), wimgs)
 
@@ -541,12 +548,12 @@ def test_svg_wrapper_matches_jax(no_png_native):
 # -- what the port does not read or write yet -------------------------------
 
 UNPORTED_BLOBS = {
-    "miff": b"id=ImageMagick\nclass=DirectClass\n",
-    "farbfeld": b"farbfeld" + struct.pack(">II", 1, 1) + b"\0" * 8,
-    "exr": b"\x76\x2f\x31\x01" + b"\0" * 64,
-    "svg": b'<svg xmlns="http://www.w3.org/2000/svg" width="4" height="4"/>',
-    "xpm": b"/* XPM */\nstatic char *x[] = {};",
-    "pdf": b"%PDF-1.4\n",
+    "cin": b"\x80\x2a\x5f\xd7" + b"\0" * 64,
+    "xcf": b"gimp xcf v011" + b"\0" * 64,
+    "mat": b"MATLAB 5.0 MAT-file" + b"\0" * 64,
+    "viff": b"\xab\x01" + b"\0" * 64,
+    "wmf": b"\xd7\xcd\xc6\x9a" + b"\0" * 64,
+    "hdr": b"#?RADIANCE\n" + b"\0" * 64,
     "dpx": b"SDPX" + b"\0" * 64,
     "sun": b"\x59\xa6\x6a\x95" + b"\0" * 64,
     "fits": b"SIMPLE  =" + b" " * 64,
@@ -559,13 +566,13 @@ def test_unported_formats_raise_naming_their_entry(kind):
         tio.image_from_blob(UNPORTED_BLOBS[kind], device="cpu")
 
 
-@pytest.mark.parametrize("fmt", ["miff", "exr", "xbm", "farbfeld", "dpx",
-                                 "psd", "pdf", "heic", "jxl", "mpc"])
+@pytest.mark.parametrize("fmt", ["hdr", "viff", "mat", "jbig", "exif", "dpx",
+                                 "psd", "pdf", "sun", "dmr"])
 def test_unported_writers_raise_naming_their_entry(fmt):
     t, _ = _pair(_pixels(94))
     with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.image_to_blob(t, fmt) if fmt != "mpc" else \
-            tio.write_image(t, "x.mpc")
+        tio.image_to_blob(t, fmt) if fmt != "dmr" else \
+            tio.write_image(t, "dmr:x")
 
 
 def _tiff_rgb16(arr) -> bytes:
@@ -676,14 +683,18 @@ def test_metadata_of_a_jpeg_blob_matches_jax(jpeg_codec):
 
 def test_formats_lists_name_only_what_the_port_does():
     reads, writes = tio.supported_read_formats(), tio.supported_write_formats()
-    for fmt in ("png", "jpeg", "ppm", "gray", "gradient", "mpr", "mask"):
+    for fmt in ("png", "jpeg", "ppm", "gray", "gradient", "mpr", "mask",
+                "miff", "exr", "svg", "farbfeld", "xbm", "mpc", "dng"):
         assert fmt in reads
-    for fmt in ("png", "jpeg", "pbm", "rgb", "info", "null", "mpr"):
+    for fmt in ("png", "jpeg", "pbm", "rgb", "info", "null", "mpr", "miff",
+                "exr", "farbfeld", "xbm", "sixel", "ora", "kernel"):
         assert fmt in writes
-    for fmt in ("miff", "exr", "svg", "farbfeld", "heic", "xbm", "dpx"):
+    for fmt in ("dpx", "jbig", "hdr", "wmf"):
         assert fmt not in reads
-    for fmt in ("miff", "exr", "farbfeld", "heic", "xbm", "dpx", "psd"):
+    for fmt in ("dpx", "psd", "jbig", "hdr"):
         assert fmt not in writes
+    assert ("heic" in reads) == tnat.heif_available()
+    assert ("jxl" in writes) == tnat.jxl_available()
 
 
 def test_decode_goes_to_the_device_once(no_png_native, monkeypatch):

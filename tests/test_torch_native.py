@@ -207,3 +207,103 @@ def test_quantizer_inputs_stay_untouched():
     tn.octree_quantize(x, 8)
     tn.riemersma_posterize(x, 4)
     np.testing.assert_array_equal(x, before)
+
+
+# -- the PNG half of miniio.cpp, heifjxl.cpp and jbigio.cpp: each its own
+# library, built from the port's copies; each held to the JAX package's
+# function where its system library loads here
+
+def _need(flag: bool, what: str):
+    if not flag:
+        pytest.skip(f"{what} does not load here")
+
+
+def test_each_codec_is_its_own_library():
+    """The JPEG and PNG halves of miniio.cpp are two libraries (one
+    linked with -ljpeg, the other with -lpng), the HEIF/JPEG XL and JBIG
+    codecs two more, all under _build/; the port's miniio.cpp is the JAX
+    package's with two guards added."""
+    libs = (tn._MINIIO, tn._MINIIO_PNG, tn._HEIFJXL, tn._JBIG)
+    assert len({lib.path() for lib in libs}) == 4
+    assert all(lib.path().parent == tn._OUT for lib in libs)
+    assert tn._MINIIO.libs == ("-ljpeg",) and tn._MINIIO_PNG.libs == \
+        ("-lpng",)
+
+    def code(path):
+        return [ln for ln in path.read_text().splitlines()
+                if ln.strip() and not ln.lstrip().startswith(("//", "#if",
+                                                               "#endif"))]
+
+    for name in ("miniio.cpp", "heifjxl.cpp", "jbigio.cpp"):
+        assert code(tn._HERE / name) == \
+            code(REPO / "imagemagick_tpu" / "native" / name), name
+
+
+def test_a_missing_libpng_leaves_the_jpeg_codec(tmp_path, monkeypatch):
+    monkeypatch.setattr(tn, "_OUT", tmp_path)
+    lib = tn._Library("miniio_png", "miniio.cpp",
+                      ("g++", "-no-such-option"), ("-lpng",),
+                      tn._bind_miniio_png)
+    monkeypatch.setattr(tn, "_MINIIO_PNG", lib)
+    assert not tn.png_available()
+    assert tn.decode_png(b"\x89PNG\r\n\x1a\n") is None
+    assert tn.encode_png(np.zeros((2, 2, 3), np.uint8)) is None
+    _need(tn.available(), "libjpeg")
+    blob = tn.encode_jpeg(_smooth(16, 24), 90)
+    assert tn.decode_jpeg(blob).shape == (16, 24, 3)
+
+
+@pytest.mark.parametrize("channels,depth", [(1, 8), (2, 8), (3, 8), (4, 8),
+                                            (1, 16), (3, 16), (4, 16)])
+def test_png_equals_jax(channels, depth):
+    _need(tn.png_available() and jn.available(), "libpng")
+    rng = np.random.default_rng(channels * depth)
+    top = 65535 if depth == 16 else 255
+    arr = rng.integers(0, top + 1, (19, 27, channels)).astype(
+        np.uint16 if depth == 16 else np.uint8)
+    blob = tn.encode_png(arr, depth)
+    assert blob == jn.encode_png(arr, depth)
+    got, want = tn.decode_png(blob), jn.decode_png(blob)
+    assert got[1] == want[1] == depth
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[0].astype(np.int64), arr)
+
+
+@pytest.mark.parametrize("blob", [b"", b"garbage", b"\xff\xd8\xff\xe0junk"])
+def test_bad_png_returns_none(blob):
+    _need(tn.png_available(), "libpng")
+    assert tn.decode_png(blob) is None
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_jxl_equals_jax(channels):
+    _need(tn.jxl_available() and jn.jxl_available(), "libjxl 0.7")
+    arr = _smooth(21, 30)[..., :channels] if channels <= 3 else \
+        np.concatenate([_smooth(21, 30), _smooth(21, 30, 1)[..., :1]], -1)
+    blob = tn.encode_jxl(arr)
+    assert blob is not None and blob == jn.encode_jxl(arr)
+    np.testing.assert_array_equal(tn.decode_jxl(blob), jn.decode_jxl(blob))
+
+
+def test_heif_equals_jax():
+    _need(tn.heif_available() and jn.heif_available(), "libheif")
+    arr = _smooth(32, 48)
+    blob = jn.encode_heif(arr, 80)
+    if blob is None:                    # no HEVC encoder plugin here
+        assert tn.encode_heif(arr, 80) is None
+        return
+    assert tn.encode_heif(arr, 80) is not None
+    np.testing.assert_array_equal(tn.decode_heif(blob), jn.decode_heif(blob))
+    assert tn.decode_heif(b"garbage") is None
+
+
+@pytest.mark.parametrize("shape", [(9, 13), (32, 64), (5, 1)])
+def test_jbig_equals_jax(shape):
+    _need(tn.jbig_available() and jn.jbig_available(), "libjbig")
+    bm = (np.random.default_rng(shape[0]).random(shape) > 0.6) \
+        .astype(np.uint8)
+    blob = tn.jbig_encode(bm)
+    assert blob == jn.jbig_encode(bm)
+    np.testing.assert_array_equal(tn.jbig_decode(blob), bm)
+    np.testing.assert_array_equal(tn.jbig_decode(blob), jn.jbig_decode(blob))
+    assert tn.jbig_decode(b"garbage") is None

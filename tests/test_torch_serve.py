@@ -169,9 +169,9 @@ def test_error_codes_match_jax(server):
 
 
 @pytest.mark.parametrize("path", ["/convert?args=-region%2010x10",
-                                  "/convert?args=-resize%2010x10&of=exr"])
+                                  "/convert?args=-resize%2010x10&of=dpx"])
 def test_convert_and_identify_answer_501(server, path):
-    """An option (-region) or an output format (EXR) the port still lacks
+    """An option (-region) or an output format (DPX) the port still lacks
     answers 501, naming its ROADMAP.md entry."""
     status, body = _call(server, "POST", path, _png(_pixels(9, n=1)[0]))
     assert status == 501
@@ -287,7 +287,8 @@ def test_formats_lists_what_the_port_reads_and_writes(server):
     assert got == {"read": tio.supported_read_formats(),
                    "write": tio.supported_write_formats()}
     assert "png" in got["read"] and "jpeg" in got["write"]
-    assert "miff" not in got["read"] and "miff" not in got["write"]
+    assert "miff" in got["read"] and "miff" in got["write"]
+    assert "dpx" not in got["read"] and "dpx" not in got["write"]
 
 
 @pytest.mark.parametrize("args", [
@@ -376,3 +377,51 @@ def test_replies_go_out_without_waiting_on_delayed_acks(server):
     body = _png(_pixels(25, n=1)[0])
     status, _ = _call(server, "POST", "/convert?args=-flip&of=png", body)
     assert status == 200
+
+
+def _miff(seed) -> bytes:
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+
+    img = TImage(_pixels(seed, n=1)[0].astype(np.float32) / 255.0,
+                 device="cpu")
+    return tio.image_to_blob(img, "miff")
+
+
+@pytest.mark.parametrize("args,of", [
+    ("-resize 32x32! -gaussian-blur 0x2 -colorspace gray", "exr"),
+    ("-flip -negate", "exr"), ("-flop", "miff"), ("-rotate 90", "ff")])
+def test_convert_of_a_miff_body_answers_the_cli_bytes(server, args, of):
+    """A MIFF request body converted to EXR, MIFF or farbfeld: the
+    server's bytes are the port's CLI run on the CPU, and, for the chains
+    without a fused resize, the JAX server's."""
+    body = _miff(40)
+    status, got = _call(server, "POST",
+                        f"/convert?args={quote(args)}&of={of}", body)
+    assert status == 200, got
+    assert got == ts._run_cli(["-", *args.split(), f"{of}:-"], body, "cpu")
+    if "resize" not in args:
+        assert got == js._run_cli(["-", *args.split(), f"{of}:-"], body)
+
+
+@pytest.mark.parametrize("of", ["mpc", "mp4", "webm", "mpr"])
+def test_convert_refuses_outputs_that_reach_the_host(server, of):
+    """mpc: writes a file of the host and the video formats run ffmpeg:
+    400 before the request runs, and no_host_files refuses them again
+    where they are reached."""
+    status, body = _call(server, "POST", f"/convert?args=-flip&of={of}",
+                         _miff(41))
+    assert status == 400 and "bad output format" in json.loads(body)["error"]
+
+
+@pytest.mark.parametrize("body", [b"%PDF-1.4\n", b"%!PS-Adobe-3.0\n"])
+@pytest.mark.parametrize("path", ["/convert?args=-flip", "/identify"])
+def test_delegate_bodies_are_refused(server, body, path, monkeypatch):
+    """A body that only a delegate reads (ghostscript here) is refused
+    before the program is looked for, even where it is installed."""
+    from imagemagick_tpu_torch.io import delegates as tdel
+
+    monkeypatch.setattr(tdel, "_which", lambda *n: "/bin/true")
+    status, out = _call(server, "POST", path, body)
+    assert status == 400
+    assert "no program of the host" in json.loads(out)["error"]

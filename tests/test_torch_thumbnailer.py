@@ -41,6 +41,7 @@ def codec(request, monkeypatch):
     """Each side's native codec, or neither (both decode with PIL)."""
     if request.param == "pil":
         monkeypatch.setattr(tnat, "available", lambda: False)
+        monkeypatch.setattr(tnat, "png_available", lambda: False)
         monkeypatch.setattr(jnat, "available", lambda: False)
     return request.param
 
@@ -259,6 +260,7 @@ def test_run_with_a_pgm_or_16bit_watermark_matches_jax(tmp_path, kind,
     levels after each side's JPEG round trip."""
     monkeypatch.setattr(jnat, "available", lambda: False)
     monkeypatch.setattr(tnat, "available", lambda: False)
+    monkeypatch.setattr(tnat, "png_available", lambda: False)
     from imagemagick_tpu import io as jio
 
     wm_path = _write_deep_watermarks(tmp_path)[kind]
