@@ -184,6 +184,20 @@ and the serve daemon):
   ``-resize 50% -remap pal.png`` under Riemersma and FloydSteinberg (one
   K1 launch each; the written PNG equal to the remap replayed on the CPU
   from the card's resize).
+* io_formats — the same kind of 1080x1920x3 frame encoded on the CPU as
+  DPX (10 and 16 bits), FITS, AVS, MTV, FL32, VICAR, SUN, MAT, VIFF, RLA,
+  Palm, PICT, PSD and PDF, its gray plane as WBMP, OTB, MONO, G3 and G4,
+  and a 10-bit Cineon file, a 16-bit DICOM and a two-layer GIMP XCF built
+  by hand: each decoded onto the card equal bit for bit to its decode on
+  the CPU, and encoded from the card to the CPU's bytes (PSD and PDF,
+  written only: the bytes), ms an image each; then ``cli.main.main``
+  from their files: 2 10-bit DPX film frames through ``-resize 50%
+  -gaussian-blur 0x2 -colorspace gray`` to DPX (one K1 launch, within
+  one 10-bit code of the CPU run), 4 16-bit DICOM CT slices of 512x512
+  through ``-auto-threshold otsu`` to PBM (one K4 launch; the pages equal
+  to the CPU run's and thresholded at the float64 Otsu bin), and 2 G4
+  fax pages of 2156x1728 through config #3's chain to G4 (one K4 launch,
+  the bytes the CPU run's).
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -228,6 +242,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -334,7 +349,7 @@ EFFECT_TOL = 1e-5   # K3's and cuDNN's float32 sums in another order
 EFFECT_SELECTS = ("adaptive_blur", "adaptive_sharpen", "bilateral_blur",
                   "kuwahara", "rotational_blur")
 SELECT_SHARE = 1e-3
-EFFECT_RUNS = 5
+EFFECT_RUNS = 3
 # composite: every operator on a pair of RGBA frames of config #2's size
 COMPOSITE_N = 2
 COMPOSITE_TOL = 1e-4    # the card's cosf, sqrtf and divisions, and the
@@ -370,7 +385,7 @@ CLI_DISTORT = ["-resize", "384x256", "-flop", "-background", "white",
                "-distort", "Barrel", "0.05 0.0 0.0", "-bordercolor", "navy",
                "-border", "4"]
 CLI_DISTORT_N1, CLI_DISTORT_N2 = 8, 32
-CLI_DISTORT_ROUNDS = 2  # rounds of its marginal (49 ms an image)
+CLI_DISTORT_ROUNDS = 1  # rounds of its marginal (55 ms an image)
 CLI_DESKEW = ["-deskew", "40%", "-trim", "-shave", "8x8"]
 DESKEW_N, DESKEW_MAX = 16, 3.0
 # fx: one expression of each kind that tests/test_analysis_ops.py covers,
@@ -386,7 +401,7 @@ FX_EXPRS = [("arithmetic", "u/2+0.25"), ("channel suffix", "u.g"),
 FX_TOL = 1e-5           # the card's float32 transcendentals, an ulp apart
 COMPARE_REL = 1e-5      # a float32 metric against its float64 formula
 SSIM_FRAMES = 1         # pairs that ssim's float64 numpy reference covers
-CLI_CHANNEL_ROUNDS = 2  # rounds of chain A's marginal (68 ms an image)
+CLI_CHANNEL_ROUNDS = 1  # rounds of chain A's marginal (80 ms an image)
 CLI_CALL_RUNS = 1       # timed calls of cli_vision's and cli_draw's frame
                         # chains, after a warm-up (1.3-1.6 s a call)
 QUANT_N = 4             # frames of 1080p for the octree and posterize
@@ -475,9 +490,9 @@ CLI_LAYERS = [
       "navy,gold", "-cdl", "1.1,0.05,0.9:0.8", "-fft"], 0)]
 # io, cli_files, serve_convert: files in and out on the card
 IO_H, IO_W = 1080, 1920
-IO_RUNS = 5            # timed runs of each part (median)
+IO_RUNS = 2            # timed runs of each part (median)
 CLI_FILES_N1, CLI_FILES_N = 8, 32
-CLI_FILES_ROUNDS = 2   # rounds of the 8-to-32-file marginal
+CLI_FILES_ROUNDS = 1   # rounds of the 8-to-32-file marginal
 CLI_FILES_PAGES = 16
 CLI_PAGES = ["-auto-threshold", "otsu", "-morphology", "open", "square:1",
              "-morphology", "close", "square:1", "-edge", "1"]
@@ -497,6 +512,14 @@ DNG_TOL = 2e-5         # that, times the sRGB transfer's slope (at most
                        # 12.92), and the card's pow an ulp from the CPU's
 REMAP_PALETTE = [[0, 0, 0], [255, 255, 255], [200, 40, 40], [30, 90, 200],
                  [240, 200, 60], [90, 160, 90]]
+# io_formats: formats2's and formats3's coders, and their CLI chains
+FORMAT_FRAMES = 2      # 10-bit DPX frames of IO_H x IO_W through CLI_CODERS
+CT_SLICES, CT_SIZE = 4, 512   # 16-bit DICOM slices through -auto-threshold
+FAX_PAGES = 2          # G4 pages through CLI_PAGES
+FAX_H, FAX_W = 2156, 1728   # a Letter page at T.4 fine resolution
+DPX_CODES = 1          # 10-bit codes the card's DPX chain may move (K1's
+                       # 2e-5 against its plain version can cross a
+                       # rounding edge)
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -3241,6 +3264,324 @@ def io_coders_phase(dev, gen, name_limit: str, seed: int) -> dict:
     return {"k1": la1["k1"] + k1_remap, "k4": la4["k4"]}
 
 
+def _dicom16(px: np.ndarray, intercept: int = -1024) -> bytes:
+    """An explicit-VR little-endian DICOM of 16-bit MONOCHROME2 samples
+    ``px`` with a rescale intercept, as a CT scanner writes one."""
+    def elem(group, el, vr, value):
+        if vr == b"OW":
+            return (struct.pack("<HH2sHI", group, el, vr, 0, len(value))
+                    + value)
+        return struct.pack("<HH2sH", group, el, vr, len(value)) + value
+
+    rows, cols = px.shape
+    return (b"\0" * 128 + b"DICM"
+            + elem(0x0028, 0x0002, b"US", struct.pack("<H", 1))
+            + elem(0x0028, 0x0004, b"CS", b"MONOCHROME2 ")
+            + elem(0x0028, 0x0010, b"US", struct.pack("<H", rows))
+            + elem(0x0028, 0x0011, b"US", struct.pack("<H", cols))
+            + elem(0x0028, 0x0100, b"US", struct.pack("<H", 16))
+            + elem(0x0028, 0x0103, b"US", struct.pack("<H", 0))
+            + elem(0x0028, 0x1052, b"DS", b"%d " % intercept)
+            + elem(0x0028, 0x1053, b"DS", b"1 ")
+            + elem(0x7FE0, 0x0010, b"OW", px.astype("<u2").tobytes()))
+
+
+def _ct_slice(rng, n: int) -> np.ndarray:
+    """An n x n CT slice in stored units (HU + 1024): air, a body
+    ellipse of soft tissue, two bones, noise."""
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n - 0.5
+    hu = np.full((n, n), -1000.0, np.float32)
+    body = (xx / rng.uniform(0.38, 0.45)) ** 2 + \
+        (yy / rng.uniform(0.3, 0.4)) ** 2 < 1
+    hu[body] = rng.uniform(20, 60)
+    for cx in (-0.2, 0.2):
+        hu[(xx - cx) ** 2 + (yy - 0.05) ** 2 < 0.004] = rng.uniform(700,
+                                                                   1200)
+    hu += rng.normal(0, 12, hu.shape).astype(np.float32)
+    return np.clip(hu + 1024, 0, 4095).astype(np.uint16)
+
+
+def _cin10(q: np.ndarray) -> bytes:
+    """A Kodak Cineon file of 10-bit codes ``q`` (h, w, c), filled three
+    to a 32-bit word, as the JAX tests make one."""
+    h, w, c = q.shape
+    head = bytearray(2048)
+    head[0:4] = b"\x80\x2a\x5f\xd7"
+    struct.pack_into(">I", head, 4, 2048)
+    head[193] = c
+    for k in range(c):
+        head[194 + 28 * k + 3] = 10
+        struct.pack_into(">II", head, 194 + 28 * k + 4, w, h)
+    flat = q.reshape(-1).astype(np.uint32)
+    flat = np.concatenate([flat, np.zeros((-len(flat)) % 3, np.uint32)])
+    t = flat.reshape(-1, 3)
+    return bytes(head) + ((t[:, 0] << 22) | (t[:, 1] << 12) | (t[:, 2] << 2)
+                          ).astype(">u4").tobytes()
+
+
+def _xcf_tile_rle(chan: np.ndarray) -> bytes:
+    """One tile channel in XCF's RLE: one long run where it is flat, else
+    literal stretches of up to 127 bytes."""
+    raw = chan.tobytes()
+    if chan.min() == chan.max():
+        return bytes([127]) + struct.pack(">H", len(raw)) + raw[:1]
+    return b"".join(bytes([256 - len(raw[i:i + 127])]) + raw[i:i + 127]
+                    for i in range(0, len(raw), 127))
+
+
+def _xcf2(bottom: np.ndarray, top: np.ndarray, offset, opacity: int) -> bytes:
+    """A GIMP XCF v1 of an RGB layer (``bottom``, the canvas's extent) and
+    an RGBA layer ``top`` over it at ``offset`` (x, y) and ``opacity``
+    (0-255), RLE tiles of 64 x 64."""
+    h, w = bottom.shape[:2]
+    buf = bytearray(b"gimp xcf v001\0" + struct.pack(">III", w, h, 0))
+    buf += struct.pack(">II", 0, 0)
+    table = len(buf)
+    buf += bytes(12)
+    props = [(struct.pack(">II", 6, 4) + struct.pack(">I", opacity) +
+              struct.pack(">II", 15, 8) + struct.pack(">ii", *offset)),
+             b""]
+    for k, (px, ltype) in enumerate(((top, 1), (bottom, 0))):
+        struct.pack_into(">I", buf, table + 4 * k, len(buf))
+        lh, lw, bpp = px.shape
+        buf += struct.pack(">III", lw, lh, ltype)
+        buf += struct.pack(">I", 7) + b"layer%d\0" % k
+        buf += props[k] + struct.pack(">II", 0, 0)
+        buf += struct.pack(">II", len(buf) + 8, 0)        # hierarchy, mask
+        buf += struct.pack(">III", lw, lh, bpp)
+        buf += struct.pack(">II", len(buf) + 8, 0)        # level
+        buf += struct.pack(">II", lw, lh)
+        ntx, nty = -(-lw // 64), -(-lh // 64)
+        tiles = len(buf)
+        buf += bytes(4 * (ntx * nty + 1))
+        for ty in range(nty):
+            for tx in range(ntx):
+                sub = px[ty * 64:(ty + 1) * 64, tx * 64:(tx + 1) * 64]
+                struct.pack_into(">I", buf, tiles + 4 * (ty * ntx + tx),
+                                 len(buf))
+                for ch in range(bpp):
+                    buf += _xcf_tile_rle(np.ascontiguousarray(sub[..., ch]))
+    return bytes(buf)
+
+
+def _fax_page(rng) -> np.ndarray:
+    """A Letter page of FAX_H x FAX_W as a fax machine sends it: white,
+    margins, lines of black word strokes (1.0 white, 0.0 black)."""
+    page = np.ones((FAX_H, FAX_W), np.float32)
+    for y in range(120, FAX_H - 160, 48):
+        x = 100
+        while x < FAX_W - 160:
+            n = int(rng.integers(12, 90))
+            page[y:y + int(rng.integers(18, 26)), x:x + n] = 0.0
+            x += n + int(rng.integers(10, 30))
+    return page
+
+
+def io_formats_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """io_formats: formats2's and formats3's coders at 1080p (each decode
+    onto the card held to the CPU's bit for bit, each encode from the card
+    to the CPU's bytes, ms an image) and ``cli.main.main`` from their
+    files: 10-bit DPX frames through CLI_CODERS to DPX (one K1 launch),
+    16-bit DICOM slices through -auto-threshold otsu to PBM (one K4
+    launch) and G4 fax pages through CLI_PAGES to G4 (one K4 launch)."""
+    import tempfile
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.io import formats2 as f2
+    from imagemagick_tpu_torch.io import formats3 as f3
+
+    rng = np.random.default_rng(seed + 11)
+    arr = _smooth_u8(rng, 1, IO_H, IO_W, C)[0]
+    src = TImage(arr.astype(np.float32) / 255.0, device="cpu")
+    gray = TImage(src.data.mean(-1, keepdim=True),
+                  ImageSpec(colorspace="gray"), device="cpu")
+
+    def blob_of(fmt):
+        return lambda d: tio.image_from_blob(d[0], fmt, device=d[1])[0]
+
+    # name: (encoder or None, decoder of (bytes, device) or None, image)
+    coders = {
+        "dpx 10-bit": (lambda im: f2.encode_dpx(im, 10), blob_of("dpx"), src),
+        "dpx 16-bit": (lambda im: f2.encode_dpx(im, 16), blob_of("dpx"), src),
+        "fits": (f2.encode_fits, blob_of("fits"), src),
+        "avs": (f2.encode_avs, blob_of("avs"), src),
+        "mtv": (f2.encode_mtv, blob_of("mtv"), src),
+        "fl32": (f2.encode_fl32, blob_of("fl32"), src),
+        "vicar": (f2.encode_vicar, blob_of("vicar"), src),
+        "sun": (f2.encode_sun, blob_of("sun"), src),
+        "mat": (lambda im: f3.encode_mat(im, 8), blob_of("mat"), src),
+        "viff": (f3.encode_viff, blob_of("viff"), src),
+        "rla": (f3.encode_rla, blob_of("rla"), src),
+        "palm": (f3.encode_palm, blob_of("palm"), src),
+        "pict": (f3.encode_pict, blob_of("pict"), src),
+        "psd": (lambda im: f2.encode_psd(im, 8), None, src),
+        "pdf": (f2.encode_pdf, None, src),
+        "wbmp": (f2.encode_wbmp, blob_of("wbmp"), gray),
+        "otb": (f2.encode_otb, blob_of("otb"), gray),
+        "mono": (f2.encode_mono, lambda d: f2.decode_mono(
+            d[0], IO_W, IO_H, device=d[1]), gray),
+        "g3": (f2.encode_fax, lambda d: f2.decode_fax(
+            d[0], IO_W, device=d[1]), gray),
+        "g4": (f2.encode_g4_image, lambda d: f2.decode_g4_image(
+            d[0], IO_W, device=d[1]), gray),
+    }
+    q10 = (arr.astype(np.int64) * 1023 + 127) // 255
+    slice_px = _ct_slice(rng, IO_H)[:, :IO_H]
+    top = np.concatenate([arr[:IO_H // 2, :IO_W // 2],
+                          np.full((IO_H // 2, IO_W // 2, 1), 200, np.uint8)],
+                         -1)
+    top[IO_H // 8:IO_H // 4] = (40, 60, 200, 255)
+    read_only = {"cin 10-bit": _cin10(q10),
+                 "dcm 16-bit": _dicom16(np.tile(slice_px, (1, 2))[:, :IO_W]),
+                 "xcf 2 layers": _xcf2(arr, top, (IO_W // 3, IO_H // 5), 180)}
+    card_images = {"src": TImage(src.data.to(dev), src.spec),
+                   "gray": TImage(gray.data.to(dev), gray.spec)}
+    for name in list(coders) + list(read_only):
+        encode, decode, image = coders.get(name, (None, None, None))
+        if name in read_only:
+            blob = read_only[name]
+            decode = blob_of(name.split()[0])
+        else:
+            blob = encode(image)
+        dec_ms = float("nan")
+        if decode is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = decode((blob, dev))
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            want = decode((blob, "cpu"))
+            require(img.data.device == torch.device(dev) and
+                    torch.equal(img.data.cpu(), want.data),
+                    f"io_formats {name}: the card's decode is not the CPU's")
+            shape = tuple(img.data.shape)
+        enc_ms = float("nan")
+        if encode is not None:
+            on_card = card_images["gray" if image is gray else "src"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = encode(on_card)
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            require(got == blob, f"io_formats {name}: the card's encode is "
+                    f"not the CPU's")
+            shape = tuple(image.data.shape)
+        held = ", ".join(
+            what for what, has in (("the decode equal to the CPU's", decode),
+                                   ("the encode's bytes the CPU's", encode))
+            if has is not None)
+        print(f"io_formats {name} {'x'.join(map(str, shape))} ({len(blob)} "
+              f"bytes): decode to the card {dec_ms:.4f} ms, encode from it "
+              f"{enc_ms:.4f} ms (one run each, host clock; nan: not a "
+              f"reader or not a writer); {held} [{name_limit}]")
+
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "out")
+        # (a) film frames: 10-bit DPX through CLI_CODERS, one K1 launch
+        frames = []
+        for k, a in enumerate(_smooth_u8(rng, FORMAT_FRAMES, IO_H, IO_W, C)):
+            frames.append(os.path.join(td, f"frame{k}.dpx"))
+            with open(frames[-1], "wb") as f:
+                f.write(tio.image_to_blob(TImage(
+                    a.astype(np.float32) / 255.0, device="cpu"), "dpx",
+                    depth=16))
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(frames + CLI_CODERS + [out + "-%d.dpx"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        la1 = launched()
+        require(la1["k1"] == 1 and sum(la1.values()) == 1,
+                f"io_formats DPX chain launches {la1}")
+        _main_ok(frames + CLI_CODERS + [out + "-cpu-%d.dpx"], "cpu")
+        codes, moved = 0, 0.0
+        for k in range(FORMAT_FRAMES):
+            a, b = (np.rint(tio.read_images(f"{out}{side}-{k}.dpx",
+                                            device="cpu")[0].data.numpy()
+                            * 1023).astype(np.int64)
+                    for side in ("", "-cpu"))
+            require(a.shape == b.shape == (IO_H // 2, IO_W // 2, 1),
+                    f"io_formats DPX output {k} {a.shape}")
+            codes = max(codes, int(np.abs(a - b).max()))
+            moved = max(moved, float(np.mean(a != b)))
+        require(codes <= DPX_CODES, f"io_formats DPX chain: {codes} codes")
+        print(f"io_formats cli: {FORMAT_FRAMES} 10-bit DPX frames of {IO_H}x"
+              f"{IO_W}x{C} -> {' '.join(CLI_CODERS)} -> out-%d.dpx by "
+              f"main(..., device='cuda'): launches {la1}, {wall:.4f} ms "
+              f"({wall / FORMAT_FRAMES:.4f} ms a frame, first run); at most "
+              f"{codes} 10-bit code from the CPU run (bound {DPX_CODES}), "
+              f"{moved:.2e} of the samples moved [{name_limit}]")
+
+        # (b) CT slices: 16-bit DICOM through -auto-threshold otsu, one K4
+        slices, values = [], []
+        for k in range(CT_SLICES):
+            slices.append(os.path.join(td, f"slice{k}.dcm"))
+            with open(slices[-1], "wb") as f:
+                f.write(_dicom16(_ct_slice(rng, CT_SIZE)))
+            values.append(tio.read_images(slices[-1], device="cpu")[0]
+                          .data.numpy()[..., 0])
+        argv = ["-auto-threshold", "otsu"]
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(slices + argv + [out + "-ct-%d.pbm"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        la4 = launched()
+        require(la4["k4"] == 1 and sum(la4.values()) == 1,
+                f"io_formats DICOM slices launches {la4}")
+        _main_ok(slices + argv + [out + "-cpu-ct-%d.pbm"], "cpu")
+        bins = []
+        for k in range(CT_SLICES):
+            a = np.asarray(PImage.open(f"{out}-ct-{k}.pbm"))
+            b = np.asarray(PImage.open(f"{out}-cpu-ct-{k}.pbm"))
+            require(a.shape == b.shape == (CT_SIZE, CT_SIZE) and
+                    np.array_equal(a, b), f"io_formats slice {k}: the "
+                    f"card's page is not the CPU run's")
+            j = otsu_bin_f64(values[k])
+            t = np.float32(j) * np.float32(1.0 / 255)
+            require(np.array_equal(a, values[k] > t), f"io_formats slice "
+                    f"{k}: not thresholded at the float64 Otsu bin {j}")
+            bins.append(j)
+        print(f"io_formats cli: {CT_SLICES} 16-bit DICOM slices of "
+              f"{CT_SIZE}x{CT_SIZE} -> -auto-threshold otsu -> ct-%d.pbm: "
+              f"launches {la4}, {wall:.4f} ms (first run); pages equal to "
+              f"the CPU run's and thresholded at the float64 Otsu bins "
+              f"{bins} [{name_limit}]")
+
+        # (c) fax pages: G4 through CLI_PAGES to G4, one K4 launch
+        pages = []
+        for k in range(FAX_PAGES):
+            pages.append(os.path.join(td, f"page{k}.g4"))
+            page = TImage(_fax_page(rng)[..., None],
+                          ImageSpec(colorspace="gray", depth=1),
+                          device="cpu")
+            with open(pages[-1], "wb") as f:
+                f.write(tio.image_to_blob(page, "g4"))
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(pages + CLI_PAGES + [out + "-fax-%d.g4"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        la4f = launched()
+        require(la4f["k4"] == 1 and la4f["k1"] == 0,
+                f"io_formats fax pages launches {la4f}")
+        _main_ok(pages + CLI_PAGES + [out + "-cpu-fax-%d.g4"], "cpu")
+        for k in range(FAX_PAGES):
+            with open(f"{out}-fax-{k}.g4", "rb") as f:
+                a = f.read()
+            with open(f"{out}-cpu-fax-{k}.g4", "rb") as f:
+                b = f.read()
+            require(a == b, f"io_formats fax page {k}: the card's G4 bytes "
+                    f"are not the CPU run's")
+            rows = f2.decode_g4_image(a, FAX_W, device="cpu").data.shape[0]
+            require(rows == FAX_H, f"io_formats fax page {k}: {rows} rows")
+        print(f"io_formats cli: {FAX_PAGES} G4 pages of {FAX_H}x{FAX_W} -> "
+              f"{' '.join(CLI_PAGES)} -> fax-%d.g4: launches {la4f}, "
+              f"{wall:.4f} ms (first run); the G4 bytes the CPU run's "
+              f"[{name_limit}]")
+    return {"k1": la1["k1"], "k4": la4["k4"] + la4f["k4"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3488,6 +3829,8 @@ def main() -> None:
                                               args.seed))
     coders = _timed("io_coders",
                     lambda: io_coders_phase(dev, gen, name_limit, args.seed))
+    fmts = _timed("io_formats",
+                  lambda: io_formats_phase(dev, gen, name_limit, args.seed))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -3976,7 +4319,7 @@ def main() -> None:
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
-         srvc["k1"] + coders["k1"],
+         srvc["k1"] + coders["k1"] + fmts["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -4009,7 +4352,7 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
-         cliv["k4"] + clif["k4"] + coders["k4"],
+         cliv["k4"] + clif["k4"] + coders["k4"] + fmts["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

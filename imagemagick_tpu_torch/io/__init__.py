@@ -17,8 +17,11 @@ its ``heifjxl`` library, where they build), ``info:``/``json:``/
 ``yaml:``/``txt:`` (``identify.py``), and the delegates
 (``delegates.py``: PS, EPS and PDF through ghostscript, video through
 ffmpeg, ``dot``/``gv``, PCL, XPS, office documents, and dcraw for a DNG
-that the native reader declines).  The coders of ``formats2``,
-``formats3``, ``formats4``, ``coders_r4b`` (JBIG, WMF, the meta
+that the native reader declines), the film, medical, scientific, print
+and fax formats of ``formats2.py`` (DPX, CIN, DICOM, XCF, FITS, WBMP,
+AVS, MTV, FL32, VICAR, SUN, OTB, MONO with ``-size``, G3 and G4, and the
+PSD and PDF writers) and ``formats3.py`` (MAT, VIFF, RLA, Palm, PICT).
+The coders of ``formats4``, ``coders_r4b`` (JBIG, WMF, the meta
 profiles, ``strimg:``, ``dmr:``), ``emf`` and HDR raise
 NotImplementedError naming their ROADMAP.md entry, and so do
 ``url:``-style names, which need a network.  A decoded image is made on
@@ -47,8 +50,8 @@ import torch
 from ..core.geometry import parse_geometry
 from ..core.image import Image
 from ..core.policy import enforce_path
-from . import (codecs, coders_r4, delegates, dng, exr, extra_coders, miff,
-               mpc, pnm, pseudo)
+from . import (codecs, coders_r4, delegates, dng, exr, extra_coders,
+               formats2, formats3, miff, mpc, pnm, pseudo)
 from .codecs import REST_OF_IO
 
 __all__ = ["read_image", "read_images", "write_image", "image_from_blob",
@@ -195,15 +198,62 @@ _META_PROFILE = {"8bim", "8bimtext", "exif", "app1", "xmp", "icc", "icm",
                  "iptc", "iptctext"}
 _VIDEO_FMTS = {"mp4", "mkv", "webm", "avi", "mov", "mpeg", "mpg", "wmv"}
 _URL = ("url", "http", "https", "ftp", "file")
+
+
+def _one(decode):
+    return lambda data, device: [decode(data, device=device)]
+
+
+# formats2.py's and formats3.py's decoders by name (a MAT file may hold
+# several images)
+_DECODE23 = {
+    "dpx": _one(formats2.decode_dpx), "cin": _one(formats2.decode_cin),
+    "dcm": _one(formats2.decode_dcm), "dicom": _one(formats2.decode_dcm),
+    "xcf": _one(formats2.decode_xcf), "sun": _one(formats2.decode_sun),
+    "fits": _one(formats2.decode_fits), "fts": _one(formats2.decode_fits),
+    "wbmp": _one(formats2.decode_wbmp), "avs": _one(formats2.decode_avs),
+    "mtv": _one(formats2.decode_mtv), "fl32": _one(formats2.decode_fl32),
+    "vicar": _one(formats2.decode_vicar),
+    "vic": _one(formats2.decode_vicar), "otb": _one(formats2.decode_otb),
+    "fax": _one(formats2.decode_fax), "g3": _one(formats2.decode_fax),
+    "g4": _one(formats2.decode_g4_image),
+    "mat": lambda data, device: formats3.decode_mat(data, device),
+    "viff": _one(formats3.decode_viff), "xv": _one(formats3.decode_viff),
+    "vif": _one(formats3.decode_viff), "rla": _one(formats3.decode_rla),
+    "palm": _one(formats3.decode_palm), "pict": _one(formats3.decode_pict),
+    "pct": _one(formats3.decode_pict),
+}
+# their encoders of one image with no options
+_ENCODE23 = {
+    "otb": formats2.encode_otb, "mono": formats2.encode_mono,
+    "fax": formats2.encode_fax, "g3": formats2.encode_fax,
+    "g4": formats2.encode_g4_image, "fits": formats2.encode_fits,
+    "fts": formats2.encode_fits, "wbmp": formats2.encode_wbmp,
+    "avs": formats2.encode_avs, "mtv": formats2.encode_mtv,
+    "fl32": formats2.encode_fl32, "vicar": formats2.encode_vicar,
+    "vic": formats2.encode_vicar, "sun": formats2.encode_sun,
+    "viff": formats3.encode_viff, "xv": formats3.encode_viff,
+    "vif": formats3.encode_viff, "rla": formats3.encode_rla,
+    "palm": formats3.encode_palm, "pict": formats3.encode_pict,
+    "pct": formats3.encode_pict,
+}
+# the names that formats2.py and formats3.py read (``mono`` with -size,
+# in read_images) and write (DPX, PSD, PDF and MAT with options, in
+# image_to_blob)
+_FORMATS23_READ = set(_DECODE23) | {"mono"}
+_FORMATS23_WRITE = set(_ENCODE23) | {"dpx", "psd", "pdf", "mat"}
 # formats that the JAX package decodes and encodes with coder modules not
-# ported yet (formats2, formats3, formats4, coders_r4b, emf) or OpenCV
-# (hdr); a sniffed "tiff" is checked apart, in _check_tiff
+# ported yet (formats4, coders_r4b, emf) or OpenCV (hdr); a sniffed
+# "tiff" is checked apart, in _check_tiff
 _OTHER_DECODE = ({"wmf", "emf", "jbig", "jbg", "bie", "strimg", "hdr",
-                  "text", "sun", "h", "ttc", "ept2", "ept3", "v", "dmr"}
-                 | (_FORMATS2_READ - {"uhdr", "raw"}) | _META_PROFILE)
+                  "text", "h", "ttc", "ept2", "ept3", "v", "dmr"}
+                 | (_FORMATS2_READ - _FORMATS23_READ - {"uhdr", "raw"})
+                 | _META_PROFILE)
 _OTHER_ENCODE = ({"hdr", "shtml", "ept2", "ept3", "h", "v", "strimg",
                   "debug", "matte", "jbig", "jbg", "bie", "dmr"}
-                 | (_FORMATS2_WRITE - set(_RAW) - {"raw"}) | _META_PROFILE)
+                 | (_FORMATS2_WRITE - _FORMATS23_WRITE - set(_RAW)
+                    - {"raw"})
+                 | _META_PROFILE)
 _OFFICE = ("doc", "docx", "odt", "ppt", "pptx", "xls", "xlsx")
 
 
@@ -355,7 +405,9 @@ def read_images(filename: str, size: Optional[str] = None,
     if ext in ("raw", "r") and w and h:
         # raw.c: single-channel quantum stream
         return [extra_coders.decode_raw(data, "gray", w, h, device=device)]
-    if ext in ("mono", "uyvy", "yuv", "bayer", "map") and w and h:
+    if ext == "mono" and w and h:
+        return [formats2.decode_mono(data, w, h, device=device)]
+    if ext in ("uyvy", "yuv", "bayer", "map") and w and h:
         raise _unported(ext)
     return image_from_blob(data, ext, device)
 
@@ -421,6 +473,8 @@ def image_from_blob(data: bytes, fmt: Optional[str] = None,
             f"DelegateLibrarySupportNotBuiltIn `{use.upper()}'")
     elif use == "exr":
         images = [exr.decode(data, device)]
+    elif use in _DECODE23:
+        images = _DECODE23[use](data, device)
     elif use in _OTHER_DECODE:
         raise _unported(use)
     elif use == "uhdr":
@@ -632,6 +686,17 @@ def image_to_blob(image: Union[Image, List[Image]], fmt: str,
         return coders_r4.encode_kernel(images[0])
     if fmt in _VIDEO_FMTS:
         return coders_r4.encode_video(images, fmt)
+    if fmt == "dpx":
+        return formats2.encode_dpx(images[0], bits=10 if depth > 8 else 8)
+    if fmt == "psd":
+        # 8-bit for the readers' sake, as the JAX package writes it
+        return formats2.encode_psd(images[0], depth=8)
+    if fmt == "pdf":
+        return formats2.encode_pdf(images)
+    if fmt == "mat":
+        return formats3.encode_mat(images[0], depth=depth)
+    if fmt in _ENCODE23:
+        return _ENCODE23[fmt](images[0])
     if fmt in _OTHER_ENCODE:
         raise _unported(fmt)
     if fmt in ("tiff", "tif") and depth > 8 and len(images) == 1 \
@@ -667,7 +732,7 @@ def _pil_formats(registry: str) -> set:
 
 
 # Pillow reads these from the blob too (codecs.decode's PIL.Image.open)
-_PIL_READ_EXTRA = {"psd", "pcd", "dcx", "cur", "fli", "flc", "msp",
+_PIL_READ_EXTRA = {"psd", "sun", "pcd", "dcx", "cur", "fli", "flc", "msp",
                    "pixar", "pxr", "spider", "wal", "gbr", "mpo", "blp",
                    "icns", "ftc", "ftu"}
 
@@ -704,11 +769,12 @@ def _delegate_formats() -> set:
 
 
 # the port's coders of their own (miff.py, mpc.py, exr.py, dng.py,
-# extra_coders.py, coders_r4.py)
+# extra_coders.py, coders_r4.py, formats2.py, formats3.py)
 _CODERS_READ = {"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
-                "xbm", "xpm", "svg", "ora", "kernel"}
+                "xbm", "xpm", "svg", "ora", "kernel"} | _FORMATS23_READ
 _CODERS_WRITE = {"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
-                 "xbm", "xpm", "sixel", "six", "ora", "kernel"}
+                 "xbm", "xpm", "sixel", "six", "ora",
+                 "kernel"} | _FORMATS23_WRITE
 
 
 def supported_read_formats():

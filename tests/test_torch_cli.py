@@ -182,8 +182,8 @@ def test_materialize_carries_metadata():
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["-resize", "10x10", "out.dpx"], "'Host layers' (the rest of io/"),
-    (["-resize", "10x10", "viff:-"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "out.aai"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "hrz:-"], "'Host layers' (the rest of io/"),
     (["strimg:hello"], "'Host layers' (the rest of io/"),
     (["stegano:in.png"], "'Host layers' (the rest of io/"),
     (["jbig:page.jbg"], "'Host layers' (the rest of io/"),
@@ -192,7 +192,7 @@ def test_materialize_carries_metadata():
     (["+region"], "'Host layers'"),
     (["-bench", "3"], "'Host layers'"),
     (["-resize", "10x10", "out.xwd"], "'Host layers' (the rest of io/"),
-    (["-resize", "10x10", "out.psd"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "out.vips"], "'Host layers' (the rest of io/"),
     (["-unknown-option"], "'Host layers'"),
 ])
 def test_unported_raise_naming_their_entries(argv, entry):

@@ -1610,6 +1610,31 @@ def test_new_coders_decode_onto_the_card_as_on_the_cpu(dev, tmp_path, fmt):
         assert blobs[fmt](want) == blobs[fmt](TImage(want.data.to(dev)))
 
 
+@pytest.mark.parametrize("fmt", ["dpx", "dcm", "g4"])
+def test_formats_decode_onto_the_card_as_on_the_cpu(dev, fmt):
+    """DPX (10 bits), a 16-bit DICOM and a G4 page: bytes made on the CPU
+    decode onto the card equal to their decode on the CPU, and the card's
+    image encodes to the CPU's bytes (a DICOM is read only: written as
+    DPX)."""
+    from chip_smoke import _dicom16
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+
+    if fmt == "dcm":
+        rng = np.random.default_rng(97)
+        blob = _dicom16(rng.integers(0, 4096, (40, 56)))
+    else:
+        src = TImage(_rand((40, 56, 3 if fmt == "dpx" else 1), 98),
+                     device="cpu")
+        blob = tio.image_to_blob(src, fmt, depth=16)
+    got = tio.image_from_blob(blob, fmt, device=dev)[0]
+    want = tio.image_from_blob(blob, fmt, device="cpu")[0]
+    assert got.data.is_cuda and torch.equal(got.data.cpu(), want.data)
+    out = "dpx" if fmt == "dcm" else fmt
+    assert tio.image_to_blob(got, out, depth=16) == \
+        tio.image_to_blob(want, out, depth=16)
+
+
 def test_dng_demosaic_on_the_card(dev):
     from imagemagick_tpu_torch.io import dng as tdng
 

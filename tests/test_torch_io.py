@@ -548,15 +548,15 @@ def test_svg_wrapper_matches_jax(no_png_native):
 # -- what the port does not read or write yet -------------------------------
 
 UNPORTED_BLOBS = {
-    "cin": b"\x80\x2a\x5f\xd7" + b"\0" * 64,
-    "xcf": b"gimp xcf v011" + b"\0" * 64,
-    "mat": b"MATLAB 5.0 MAT-file" + b"\0" * 64,
-    "viff": b"\xab\x01" + b"\0" * 64,
+    "vips": b"\xb6\xa6\xf2\x08" + b"\0" * 64,
+    "pgx": b"PG ML + 8 4 4\n" + b"\0" * 64,
+    "cals": b"srcdocid: x" + b"\0" * 64,
+    "tim2": b"TIM2" + b"\0" * 64,
     "wmf": b"\xd7\xcd\xc6\x9a" + b"\0" * 64,
     "hdr": b"#?RADIANCE\n" + b"\0" * 64,
-    "dpx": b"SDPX" + b"\0" * 64,
-    "sun": b"\x59\xa6\x6a\x95" + b"\0" * 64,
-    "fits": b"SIMPLE  =" + b" " * 64,
+    "wpg": b"\xff\x57\x50\x43" + b"\0" * 64,
+    "ipl": b"iiii" + b"\0" * 64,
+    "pes": b"#PES0001" + b"\0" * 64,
 }
 
 
@@ -566,8 +566,8 @@ def test_unported_formats_raise_naming_their_entry(kind):
         tio.image_from_blob(UNPORTED_BLOBS[kind], device="cpu")
 
 
-@pytest.mark.parametrize("fmt", ["hdr", "viff", "mat", "jbig", "exif", "dpx",
-                                 "psd", "pdf", "sun", "dmr"])
+@pytest.mark.parametrize("fmt", ["hdr", "aai", "hrz", "jbig", "exif", "vips",
+                                 "pgx", "cals", "xwd", "dmr"])
 def test_unported_writers_raise_naming_their_entry(fmt):
     t, _ = _pair(_pixels(94))
     with pytest.raises(NotImplementedError, match="'Host layers'"):
@@ -689,9 +689,13 @@ def test_formats_lists_name_only_what_the_port_does():
     for fmt in ("png", "jpeg", "pbm", "rgb", "info", "null", "mpr", "miff",
                 "exr", "farbfeld", "xbm", "sixel", "ora", "kernel"):
         assert fmt in writes
-    for fmt in ("dpx", "jbig", "hdr", "wmf"):
+    for fmt in ("dpx", "cin", "dcm", "xcf", "mat", "viff", "g4", "pict"):
+        assert fmt in reads
+    for fmt in ("dpx", "psd", "pdf", "mat", "viff", "g4", "pict", "sun"):
+        assert fmt in writes
+    for fmt in ("aai", "vips", "jbig", "hdr", "wmf"):
         assert fmt not in reads
-    for fmt in ("dpx", "psd", "jbig", "hdr"):
+    for fmt in ("aai", "vips", "jbig", "hdr"):
         assert fmt not in writes
     assert ("heic" in reads) == tnat.heif_available()
     assert ("jxl" in writes) == tnat.jxl_available()

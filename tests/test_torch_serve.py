@@ -169,9 +169,9 @@ def test_error_codes_match_jax(server):
 
 
 @pytest.mark.parametrize("path", ["/convert?args=-region%2010x10",
-                                  "/convert?args=-resize%2010x10&of=dpx"])
+                                  "/convert?args=-resize%2010x10&of=aai"])
 def test_convert_and_identify_answer_501(server, path):
-    """An option (-region) or an output format (DPX) the port still lacks
+    """An option (-region) or an output format (AAI) the port still lacks
     answers 501, naming its ROADMAP.md entry."""
     status, body = _call(server, "POST", path, _png(_pixels(9, n=1)[0]))
     assert status == 501
@@ -288,7 +288,8 @@ def test_formats_lists_what_the_port_reads_and_writes(server):
                    "write": tio.supported_write_formats()}
     assert "png" in got["read"] and "jpeg" in got["write"]
     assert "miff" in got["read"] and "miff" in got["write"]
-    assert "dpx" not in got["read"] and "dpx" not in got["write"]
+    assert "dpx" in got["read"] and "dpx" in got["write"]
+    assert "aai" not in got["read"] and "aai" not in got["write"]
 
 
 @pytest.mark.parametrize("args", [
@@ -396,6 +397,26 @@ def test_convert_of_a_miff_body_answers_the_cli_bytes(server, args, of):
     server's bytes are the port's CLI run on the CPU, and, for the chains
     without a fused resize, the JAX server's."""
     body = _miff(40)
+    status, got = _call(server, "POST",
+                        f"/convert?args={quote(args)}&of={of}", body)
+    assert status == 200, got
+    assert got == ts._run_cli(["-", *args.split(), f"{of}:-"], body, "cpu")
+    if "resize" not in args:
+        assert got == js._run_cli(["-", *args.split(), f"{of}:-"], body)
+
+
+@pytest.mark.parametrize("args,of", [
+    ("-flip -negate", "dpx"), ("-resize 32x32! -colorspace gray", "dpx"),
+    ("-flop", "g4"), ("-rotate 90", "pict")])
+def test_convert_of_a_dpx_body_answers_the_cli_bytes(server, args, of):
+    """A 10-bit DPX request body converted to DPX, G4 or PICT: the
+    server's bytes are the port's CLI run on the CPU, and, for the chains
+    without a fused resize, the JAX server's."""
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+
+    body = tio.image_to_blob(TImage(_pixels(42, n=1)[0].astype(np.float32)
+                                    / 255.0, device="cpu"), "dpx", depth=16)
     status, got = _call(server, "POST",
                         f"/convert?args={quote(args)}&of={of}", body)
     assert status == 200, got
