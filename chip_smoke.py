@@ -198,6 +198,30 @@ and the serve daemon):
   to the CPU run's and thresholded at the float64 Otsu bin), and 2 G4
   fax pages of 2156x1728 through config #3's chain to G4 (one K4 launch,
   the bytes the CPU run's).
+* io_formats4 — the same kind of frame encoded on the CPU as AAI, PGX (8
+  and 16 bits), VIPS (8 and 16 bits), XWD, TIM, PDB, IPL, EPT, 16-bit
+  TIFF (RGB and gray), YUV, Bayer (8 and 16 bits) and UYVY, its
+  thresholded gray plane as CALS and ART: each decoded onto the card
+  equal bit for bit to its decode on the CPU and encoded from the card
+  to the CPU's bytes (YUV's and UYVY's, whose rgb_to_ycbcr runs on the
+  card, within one level); HRZ's resize on the card (within one 6-bit
+  code of the CPU's bytes), MAP's and WPG's 256-colour k-means on the
+  card (the file decodes to its palette indexed by its labels; a
+  270x480 crop's bytes the CPU's), an MVG program of about 20
+  primitives drawn on a 1080x1920 canvas on the card (within draw's
+  1e-6); the small, legacy and text formats at their own sizes (SCR,
+  SCT, SFW, PWP, CUT, RLE, MAC, PIX, TIM2, JNX, PES, TTF, a 33-point
+  CUBE, RGF, INLINE, TXT, FTXT, MAGICK decoded onto the card equal to
+  the CPU's; CIP, UIL, HTML, CUR, ASHLAR, DCX and the braille variants
+  encoded to the CPU's bytes) and a ``stegano:`` read of a watermark
+  hidden on the card; then ``cli.main.main`` from their files: 2 48-bit
+  TIFF frames through ``-resize 50% -gaussian-blur 0x2 -colorspace gray
+  -depth 16`` to 16-bit TIFFs (one K1 launch, within 2 16-bit codes of
+  the CPU run), a 48-bit frame graded through ``-hald-clut`` by a
+  33-point ``.cube`` LUT from the seed (within one 16-bit code), and 2
+  CALS pages of 2156x1728 through config #3's chain to CALS (one K4
+  launch, the bytes the CPU run's, each page's Otsu value on the card
+  the float64 bin).
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -404,7 +428,7 @@ SSIM_FRAMES = 1         # pairs that ssim's float64 numpy reference covers
 CLI_CHANNEL_ROUNDS = 1  # rounds of chain A's marginal (80 ms an image)
 CLI_CALL_RUNS = 1       # timed calls of cli_vision's and cli_draw's frame
                         # chains, after a warm-up (1.3-1.6 s a call)
-QUANT_N = 4             # frames of 1080p for the octree and posterize
+QUANT_N = 2             # frames of 1080p for the octree and posterize
 CLI_CHANNEL_A = ["-resize", "256x256", "-channel", "R", "-negate",
                  "-channel", "All", "-channel-fx", "red<=>blue", "-alpha",
                  "set", "-posterize", "8", "-type", "grayscale"]
@@ -520,6 +544,44 @@ FAX_H, FAX_W = 2156, 1728   # a Letter page at T.4 fine resolution
 DPX_CODES = 1          # 10-bit codes the card's DPX chain may move (K1's
                        # 2e-5 against its plain version can cross a
                        # rounding edge)
+# io_formats4: formats4's coders, and its CLI chains
+DEEP_FRAMES = 2        # 48-bit TIFF frames of IO_H x IO_W through CLI_CODERS
+TIFF16_CODES = 2       # 16-bit codes the card's deep chain may move (K1's
+                       # 2e-5 against its plain version is 1.3 codes)
+GRADE_CODES = 1        # 16-bit codes the card's -hald-clut grade may move
+                       # (its float32 trilinear sums, an ulp apart)
+CUBE_N = 33            # points a side of the grade's .cube LUT
+CALS_PAGES = 2         # CALS pages of FAX_H x FAX_W through CLI_PAGES
+HRZ_CODES = 1          # 6-bit codes HRZ's resize on the card may move
+YCC_LEVELS = 1         # 8-bit levels YUV's and UYVY's rgb_to_ycbcr on the
+                       # card may move (float32 products, an ulp apart)
+SMALL4 = (270, 480)    # TXT, FTXT and MAGICK (their text loops), and the
+                       # crop on which MAP's and WPG's bytes are the CPU's
+MVG4 = ("viewbox 0 0 1920 1080\n"
+        "fill 'navy' rectangle 40,40 600,400\n"
+        "fill 'gold' circle 900,300 900,420\n"
+        "fill 'tomato' ellipse 1400,300 220,120 0,360\n"
+        "stroke 'black' stroke-width 6 line 40,600 1880,640\n"
+        "fill 'seagreen' polygon 200,700 420,1040 60,1000\n"
+        "fill 'none' stroke 'purple' stroke-width 9 "
+        "polyline 600,700 800,1000 1000,720 1200,1010\n"
+        "fill 'orange' stroke 'none' roundrectangle 1300,600 1800,900 40,40\n"
+        "fill 'teal' path 'M 100 450 C 300 350 500 650 700 450 Z'\n"
+        "stroke 'crimson' stroke-width 4 fill 'none' "
+        "bezier 800,500 1000,420 1200,700 1400,520\n"
+        "fill 'skyblue' stroke 'blue' stroke-width 3 "
+        "arc 1500,50 1850,250 30,300\n"
+        "fill 'black' stroke 'none' point 960,540\n"
+        "fill-opacity 0.5 fill 'magenta' rectangle 300,300 1000,800\n"
+        "fill-opacity 1 stroke-dasharray 20,10 stroke 'darkred' "
+        "stroke-width 5 fill 'none' circle 960,540 960,1000\n"
+        "stroke-dasharray none fill 'white' stroke 'black' stroke-width 2 "
+        "circle 200,200 200,260 circle 320,200 320,240 "
+        "line 1880,40 1500,500 rectangle 1000,40 1200,140 "
+        "ellipse 600,980 150,60 0,360 "
+        "polygon 1600,700 1700,640 1760,760 1640,800\n"
+        "translate 100,0 rotate 10 "
+        "fill 'olive' rectangle 1500,950 1700,1050\n")
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -3582,6 +3644,510 @@ def io_formats_phase(dev, gen, name_limit: str, seed: int) -> dict:
     return {"k1": la1["k1"], "k4": la4["k4"] + la4f["k4"]}
 
 
+def _sct_ct(arr: np.ndarray) -> bytes:
+    """A Scitex CT file of ``arr`` (H, W, 3 u8): the 2048-byte parameter
+    block, then each row's separations, padded to an even width."""
+    h, w, c = arr.shape
+    head = bytearray(2048)
+    head[0:8] = b"scan.sct"
+    head[80:82] = b"CT"
+    head[1025] = c
+    head[1026:1028] = (0x07).to_bytes(2, "big")
+    head[1056:1068] = str(h).ljust(12).encode()
+    head[1068:1080] = str(w).ljust(12).encode()
+    rows = np.zeros((h, c, w + (w & 1)), np.uint8)
+    rows[:, :, :w] = arr.transpose(0, 2, 1)
+    return bytes(head) + rows.tobytes()
+
+
+def _sfw_of(jpeg: bytes) -> bytes:
+    """A Seattle FilmWorks SFW of a JPEG: its Huffman tables dropped, its
+    markers scrambled as sfw.c's reader expects, the JFIF id blanked."""
+    from imagemagick_tpu_torch.io import formats4 as f4
+
+    inv = {v: k for k, v in f4._SFW_XLAT.items()}
+    out, i = bytearray(), 0
+    while i < len(jpeg):
+        if jpeg[i] == 0xFF and i + 3 < len(jpeg):
+            m, n = jpeg[i + 1], (jpeg[i + 2] << 8) | jpeg[i + 3]
+            if m == 0xC4:
+                i += 2 + n
+                continue
+            if m == 0xE0:
+                seg = bytearray(jpeg[i:i + 2 + n])
+                seg[1], seg[4:11] = 0xD0, b"\0" * 7
+                out += seg
+                i += 2 + n
+                continue
+            if m in inv:
+                out += bytes([0xFF, inv[m]])
+                i += 2
+                continue
+        out.append(jpeg[i])
+        i += 1
+    out[-2:] = b"\xff\xc9"
+    return b"SFW94A" + bytes(out)
+
+
+def _legacy_files(rng, jpeg: bytes, tile: np.ndarray) -> dict:
+    """Hand-built files of the read-only formats4 coders at their own
+    formats' sizes: a ZX Spectrum screen, Scitex CT, SFW and PWP, Dr Halo
+    CUT, Utah RLE, a MacPaint page, Alias PIX, TIM2, a Garmin JNX tile and
+    a Brother PES design."""
+    h, w = tile.shape[:2]
+    cut = b"".join(struct.pack("<H", 7) + bytes(
+        [0x80 | 100, int(v), 0x03, 10, 20, 30, 0])
+        for v in rng.integers(0, 256, 40))
+    rle = b"\x52\xcc" + struct.pack("<4H", 0, 0, w, h) + \
+        bytes([0x02, 3, 8, 0, 0, 0])
+    body = bytearray()
+    for y in range(h):
+        for p in range(3):
+            body += bytes([0x02, p, 0x45, 0]) + struct.pack("<h", w - 1)
+            body += tile[h - 1 - y, :, p].tobytes() + b"\0" * (w & 1)
+        body += bytes([0x01, 1])
+    rle += bytes(body) + bytes([0x07, 0])
+    mac = bytearray()
+    for _ in range(72 * 720 // 64):
+        mac += bytes([(~(64 - 2)) & 0xFF, int(rng.integers(0, 256))])
+    pix = struct.pack(">5H", w, h, 0, 0, 24) + b"".join(
+        bytes([w]) + tile[y, 0, ::-1].tobytes() for y in range(h))
+    tim2 = tile[..., 0].astype(np.uint16) >> 3
+    words = (tim2 | ((tile[..., 1].astype(np.uint16) >> 3) << 5)
+             | ((tile[..., 2].astype(np.uint16) >> 3) << 10) | 0x8000)
+    ihdr = struct.pack("<3IHH", 48 + 2 * w * h, 0, 2 * w * h, 48, 0)
+    ihdr += bytes([0, 1, 0, 1]) + struct.pack("<HH", w, h) + b"\0" * 24
+    jnx_tile = jpeg[2:]
+    head = struct.pack("<12i", 3, 0, 100, 100, -100, -100, 1, 0, 0, 0, 0, 0)
+    level = struct.pack("<iii", 1, len(head) + 12, 0)
+    entry = struct.pack("<4iHHIi", 50, 60, -50, -60, w, h, len(jnx_tile),
+                        len(head) + 40)
+    pes = bytearray(b"#PES0001" + struct.pack("<i", 0) + b"\0" * 36)
+    pes += bytes([1, 5, 20]) + b"\0" * (532 - 2 - 21)
+    for k in range(400):
+        dx, dy = rng.integers(-40, 41, 2)
+        pes += bytes([int(dx) & 0x7F, int(dy) & 0x7F])
+        if k == 200:
+            pes += bytes([254, 176, 0])
+    pes += b"\xff\x00"
+    return {"scr": rng.integers(0, 256, 6912).astype(np.uint8).tobytes(),
+            "sct": _sct_ct(tile), "sfw": _sfw_of(jpeg),
+            "pwp": b"SFW95" + b"\0" * 8 + _sfw_of(jpeg) * 2,
+            "cut": struct.pack("<HHH", 103, 40, 0) + cut,
+            "rle": rle,
+            "mac": struct.pack("<H", 0) + b"\0" * 510 + bytes(mac),
+            "pix": pix,
+            "tim2": b"TIM2\x04\0\1\0" + b"\0" * 8 + ihdr +
+            words.astype("<u2").tobytes(),
+            "jnx": head + level + entry + jnx_tile, "pes": bytes(pes)}
+
+
+def _font_file():
+    """A TrueType font's bytes: the first at the draw module's paths, else
+    the Aileron Regular that Pillow (10.1 on, with FreeType) embeds for
+    its default font; None where there is neither."""
+    from PIL import ImageFont
+
+    from imagemagick_tpu_torch.ops import draw as tdraw
+
+    for path in tdraw._FONT_PATHS:
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return f.read()
+    got = []
+    real = ImageFont.truetype
+
+    def grab(font, *args, **kw):
+        if isinstance(font, io.BytesIO):
+            got.append(font.getvalue())
+        return real(font, *args, **kw)
+
+    ImageFont.truetype = grab
+    try:
+        ImageFont.load_default(12)
+    except (OSError, TypeError, ImportError):
+        return None
+    finally:
+        ImageFont.truetype = real
+    return got[0] if got else None
+
+
+def _cube_lut(rng, n: int) -> bytes:
+    """A .cube LUT of n points a side from ``rng``: a smooth curve a
+    channel (a gamma and a lift) with a little cross-talk, red fastest."""
+    g = np.linspace(0.0, 1.0, n)
+    gam = rng.uniform(0.8, 1.25, 3)
+    lift = rng.uniform(0.0, 0.05, 3)
+    b, gg, r = np.meshgrid(g, g, g, indexing="ij")
+    rgb = np.stack([r, gg, b], -1)
+    out = lift + (1 - lift) * rgb ** gam
+    out = out + 0.03 * (rgb[..., [1, 2, 0]] - rgb)
+    rows = "\n".join("%.6f %.6f %.6f" % tuple(v)
+                     for v in np.clip(out, 0, 1).reshape(-1, 3))
+    return (f'TITLE "seeded grade"\nLUT_3D_SIZE {n}\n{rows}\n').encode()
+
+
+def io_formats4_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """io_formats4: formats4's coders (the 1080p frame through its raster
+    and video coders, each decode onto the card held to the CPU's bit for
+    bit and each encode from the card to the CPU's bytes; HRZ, YUV, UYVY,
+    MAP, WPG and MVG with their device ops on the card; the small, legacy
+    and text formats at their own sizes; a stegano: read) and
+    ``cli.main.main`` from its files: 48-bit TIFF frames through
+    CLI_CODERS to 16-bit TIFFs (one K1 launch), a 48-bit frame graded by
+    a .cube LUT through -hald-clut, and CALS pages through CLI_PAGES (one
+    K4 launch)."""
+    import tempfile
+
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.policy import no_host_files
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.io import formats4 as f4
+    from imagemagick_tpu_torch.ops import threshold as tth
+    from imagemagick_tpu_torch.ops import visual_effects as tvfx
+
+    rng = np.random.default_rng(seed + 12)
+    arr = _smooth_u8(rng, 1, IO_H, IO_W, C)[0]
+    src = TImage(arr.astype(np.float32) / 255.0,
+                 ImageSpec(colorspace="srgb", depth=16), device="cpu")
+    gray = TImage(src.data.mean(-1, keepdim=True),
+                  ImageSpec(colorspace="gray", depth=16), device="cpu")
+    bilevel = TImage((gray.data > 0.5).to(torch.float32),
+                     ImageSpec(colorspace="gray", depth=1), device="cpu")
+    on_card = {id(im): TImage(im.data.to(dev), im.spec)
+               for im in (src, gray, bilevel)}
+
+    def blob_of(fmt):
+        return lambda b, d: tio.image_from_blob(b, fmt, device=d)[0]
+
+    def sized(decode):
+        return lambda b, d: decode(b, IO_W, IO_H, device=d)
+
+    def ept_tiff(b, d):
+        # the ghostscript delegate refused, as for a served request: the
+        # EPT's TIFF section is read
+        with no_host_files():
+            return tio.image_from_blob(b, "ept", device=d)[0]
+
+    # name: (encoder, decoder of (bytes, device), image, bytes held within
+    # this many levels of the CPU's (None: equal))
+    coders = {
+        "aai": (f4.encode_aai, blob_of("aai"), src, None),
+        "pgx 8-bit": (lambda im: f4.encode_pgx(im, 8), blob_of("pgx"), src,
+                      None),
+        "pgx 16-bit": (lambda im: f4.encode_pgx(im, 16), blob_of("pgx"),
+                       src, None),
+        "vips 8-bit": (lambda im: f4.encode_vips(im, 8), blob_of("vips"),
+                       src, None),
+        "vips 16-bit": (lambda im: f4.encode_vips(im, 16), blob_of("vips"),
+                        src, None),
+        "xwd": (f4.encode_xwd, blob_of("xwd"), src, None),
+        "tim": (f4.encode_tim, blob_of("tim"), src, None),
+        "pdb": (f4.encode_pdb, blob_of("pdb"), src, None),
+        "ipl 16-bit": (lambda im: f4.encode_ipl(im, 16), blob_of("ipl"),
+                       src, None),
+        "ept": (f4.encode_ept, ept_tiff, src, None),
+        "tiff 16-bit rgb": (lambda im: tio.image_to_blob(im, "tiff"),
+                            blob_of("tiff"), src, None),
+        "tiff 16-bit gray": (lambda im: tio.image_to_blob(im, "tiff"),
+                             blob_of("tiff"), gray, None),
+        "yuv": (f4.encode_yuv, sized(f4.decode_yuv), src, YCC_LEVELS),
+        "bayer 8-bit": (lambda im: f4.encode_bayer(im, 8),
+                        sized(f4.decode_bayer), src, None),
+        "bayer 16-bit": (lambda im: f4.encode_bayer(im, 16),
+                         sized(f4.decode_bayer), src, None),
+        "cals": (f4.encode_cals, blob_of("cals"), bilevel, None),
+        "art": (f4.encode_art, blob_of("art"), bilevel, None),
+        "uyvy": (lambda im: tio.image_to_blob(im, "uyvy"),
+                 sized(f4.decode_uyvy), src, YCC_LEVELS),
+    }
+    for name, (encode, decode, image, levels) in coders.items():
+        blob = encode(image)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = decode(blob, dev)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        want = decode(blob, "cpu")
+        require(img.data.device == torch.device(dev) and
+                torch.equal(img.data.cpu(), want.data),
+                f"io_formats4 {name}: the card's decode is not the CPU's")
+        t0 = time.perf_counter()
+        got = encode(on_card[id(image)])
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        if levels is None:
+            require(got == blob, f"io_formats4 {name}: the card's encode "
+                    f"is not the CPU's")
+            held = "the encode's bytes the CPU's"
+        else:
+            a, b = (np.frombuffer(x, np.uint8) for x in (got, blob))
+            apart = int(np.abs(a.astype(np.int64) - b).max())
+            require(a.shape == b.shape and apart <= levels,
+                    f"io_formats4 {name}: {apart} levels from the CPU's")
+            held = (f"the encode's bytes within {apart} level of the "
+                    f"CPU's (bound {levels}), {_share_apart(a, b, 0):.2e} "
+                    f"of them moved")
+        print(f"io_formats4 {name} {'x'.join(map(str, image.data.shape))} "
+              f"({len(blob)} bytes): decode to the card {dec_ms:.4f} ms, "
+              f"encode from it {enc_ms:.4f} ms (one run each, host clock); "
+              f"the decode equal to the CPU's, {held} [{name_limit}]")
+
+    # the device-side writers: HRZ's resize, MAP's and WPG's k-means, MVG
+    card_src = on_card[id(src)]
+    t0 = time.perf_counter()
+    hrz = f4.encode_hrz(card_src)
+    hrz_ms = (time.perf_counter() - t0) * 1e3
+    a, b = (np.frombuffer(x, np.uint8).astype(np.int64)
+            for x in (hrz, f4.encode_hrz(src)))
+    apart = int(np.abs(a - b).max())
+    require(len(a) == 256 * 240 * 3 and apart <= HRZ_CODES,
+            f"io_formats4 hrz: {apart} codes from the CPU's")
+    print(f"io_formats4 hrz from {IO_H}x{IO_W}x{C}: the resize to 256x240 on "
+          f"the card, {hrz_ms:.4f} ms; within {apart} 6-bit code of the "
+          f"CPU's bytes (bound {HRZ_CODES}), {_share_apart(a, b, 0):.2e} of "
+          f"them moved [{name_limit}]")
+    palettes = {}
+    for fmt, encode in (("map", f4.encode_map), ("wpg", f4.encode_wpg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = encode(card_src)
+        ms = (time.perf_counter() - t0) * 1e3
+        if fmt == "map":
+            pal = np.frombuffer(blob, np.uint8, 768).reshape(256, 3)
+            labels = np.frombuffer(blob, np.uint8, IO_H * IO_W, 768)
+            decoded = f4.decode_map(blob, IO_W, IO_H, device=dev)
+            want = pal[labels].reshape(IO_H, IO_W, 3)
+            palettes["map"] = decoded.data
+        else:
+            decoded = f4.decode_wpg(blob, device=dev)
+            want = None
+        require(decoded.data.is_cuda, f"io_formats4 {fmt}: not on the card")
+        if want is not None:
+            require(torch.equal(decoded.data.cpu(), torch.from_numpy(
+                want.astype(np.float32) / 255.0)),
+                f"io_formats4 map: not the palette indexed by the labels")
+        else:
+            require(torch.equal(decoded.data, palettes["map"]),
+                    "io_formats4 wpg: not the MAP file's palette and labels")
+        crop = TImage(src.data[:SMALL4[0], :SMALL4[1]], src.spec,
+                      device="cpu")
+        card_crop = TImage(crop.data.to(dev), crop.spec)
+        require(encode(card_crop) == encode(crop),
+                f"io_formats4 {fmt}: the card's bytes at {SMALL4} are not "
+                f"the CPU's")
+        held = ("decodes to its palette indexed by its labels "
+                f"({len(np.unique(labels))} used)" if fmt == "map" else
+                "decodes to the MAP file's image")
+        print(f"io_formats4 {fmt} {IO_H}x{IO_W}x{C} ({len(blob)} bytes): "
+              f"k-means of 256 colours on the card, encode {ms:.4f} ms (one "
+              f"run, host clock); the file {held}; the bytes of a "
+              f"{SMALL4[0]}x{SMALL4[1]} crop the CPU's [{name_limit}]")
+    t0 = time.perf_counter()
+    mvg = f4.decode_mvg(MVG4.encode(), device=dev)
+    torch.cuda.synchronize()
+    mvg_ms = (time.perf_counter() - t0) * 1e3
+    want = f4.decode_mvg(MVG4.encode(), device="cpu")
+    err, n_off, n_px = _apart(mvg.data.cpu()[None], want.data[None],
+                              DRAW_TOL)
+    require(mvg.data.is_cuda and tuple(mvg.data.shape) == (IO_H, IO_W, C)
+            and err <= DRAW_TOL, f"io_formats4 mvg max|d| {err}")
+    print(f"io_formats4 mvg ({MVG4.count(chr(10))} lines) on a {IO_H}x{IO_W} "
+          f"canvas on the card: {mvg_ms:.4f} ms; max|d| {err:.3e} from the "
+          f"CPU's, {n_off} of {n_px} px apart by more than {DRAW_TOL} "
+          f"[{name_limit}]")
+
+    # the small, fixed-size and text formats at their own sizes
+    from PIL import Image as PImage
+
+    tile = arr[:40, :103]
+    buf = io.BytesIO()
+    PImage.fromarray(arr[:96, :128]).save(buf, "JPEG", quality=90)
+    small = TImage(src.data[:SMALL4[0], :SMALL4[1]],
+                   ImageSpec(colorspace="srgb", depth=8), device="cpu")
+    icon = TImage(src.data[:48, :64], ImageSpec(colorspace="srgb", depth=8),
+                  device="cpu")
+    rgba = TImage(torch.cat([icon.data, gray.data[:48, :64]], -1),
+                  ImageSpec(colorspace="srgb", alpha=True, depth=8),
+                  device="cpu")
+    files = _legacy_files(rng, buf.getvalue(), tile)
+    files["cube"] = _cube_lut(rng, CUBE_N)
+    ttf = _font_file()
+    if ttf is None:
+        print("io_formats4 ttf: skipped: no TrueType font at the draw "
+              "module's paths, and this Pillow embeds none (it has no "
+              "FreeType or predates 10.1)")
+    else:
+        files["ttf"] = ttf
+    # writers with a reader: their bytes decoded too
+    writers = {"rgf": (f4.encode_rgf, icon), "inline": (f4.encode_inline,
+                                                        icon),
+               "txt": (lambda im: tio.image_to_blob(im, "txt"), small),
+               "ftxt": (f4.encode_ftxt, small),
+               "magick": (f4.encode_magick, small),
+               "cip": (f4.encode_cip, icon), "uil": (f4.encode_uil, icon),
+               "html": (f4.encode_html, icon), "cur": (f4.encode_cur, rgba),
+               "ashlar": (lambda im: f4.encode_ashlar([im, icon, im]), icon),
+               "dcx": (lambda im: f4.encode_dcx([im, icon]), icon)}
+    for variant in ("brf", "ubrl", "ubrl6", "isobrl", "isobrl6"):
+        writers[variant] = (lambda im, v=variant: f4.encode_braille(im, v),
+                            icon)
+    readers = {"rgf", "inline", "txt", "ftxt", "magick"}
+    for name, (encode, image) in writers.items():
+        blob = encode(image)
+        t0 = time.perf_counter()
+        got = encode(TImage(image.data.to(dev), image.spec))
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        require(got == blob, f"io_formats4 {name}: the card's encode is not "
+                f"the CPU's")
+        if name in readers:
+            files[name] = blob
+        else:
+            print(f"io_formats4 {name} {'x'.join(map(str, image.data.shape))}"
+                  f" ({len(blob)} bytes): encode from the card {enc_ms:.4f} "
+                  f"ms (one run, host clock); the CPU's bytes [{name_limit}]")
+    for name, blob in files.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = tio.image_from_blob(blob, name, device=dev)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        want = tio.image_from_blob(blob, name, device="cpu")
+        require(len(imgs) == len(want) and all(
+            g.data.is_cuda and torch.equal(g.data.cpu(), w.data)
+            for g, w in zip(imgs, want)),
+            f"io_formats4 {name}: the card's decode is not the CPU's")
+        print(f"io_formats4 {name} ({len(blob)} bytes): decode to the card "
+              f"{dec_ms:.4f} ms, {len(imgs)} image(s) of "
+              f"{'x'.join(map(str, imgs[0].data.shape))} (one run, host "
+              f"clock); equal to the CPU's decode [{name_limit}]")
+
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "out")
+        # stegano: a watermark hidden on the card, read back from a PNG
+        wm = (torch.from_numpy(rng.random((60, 80, 1)) > 0.5)
+              .to(torch.float32))
+        host = tvfx.stegano(on_card[id(src)].data[:SMALL4[0], :SMALL4[1]],
+                            wm.to(dev))
+        png = os.path.join(td, "stamped.png")
+        tio.write_image(TImage(host, ImageSpec(colorspace="srgb")), png)
+        got = tio.read_images("stegano:" + png, "80x60", device=dev)[0]
+        want = tio.read_images("stegano:" + png, "80x60", device="cpu")[0]
+        require(got.data.is_cuda and torch.equal(got.data.cpu(), want.data)
+                and torch.equal(want.data, wm),
+                "io_formats4 stegano: the watermark did not come back")
+        print(f"io_formats4 stegano: an 80x60 watermark hidden by "
+              f"vfx.stegano on the card in a {SMALL4[0]}x{SMALL4[1]} PNG, "
+              f"read back by stegano: onto the card, equal to it and to the "
+              f"CPU's read [{name_limit}]")
+
+        # (a) deep masters: 48-bit TIFFs through CLI_CODERS, one K1 launch
+        frames = []
+        for k, a in enumerate(_smooth_u8(rng, DEEP_FRAMES, IO_H, IO_W, C)):
+            frames.append(os.path.join(td, f"frame{k}.tif"))
+            with open(frames[-1], "wb") as f:
+                f.write(tio.image_to_blob(TImage(
+                    a.astype(np.float32) / 255.0, device="cpu"), "tiff",
+                    depth=16))
+        argv = CLI_CODERS + ["-depth", "16"]
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(frames + argv + [out + "-%d.tif"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        la1 = launched()
+        require(la1["k1"] == 1 and sum(la1.values()) == 1,
+                f"io_formats4 deep chain launches {la1}")
+        _main_ok(frames + argv + [out + "-cpu-%d.tif"], "cpu")
+        codes, moved = 0, 0.0
+        for k in range(DEEP_FRAMES):
+            a, b = (f4.decode_tiff16(open(f"{out}{side}-{k}.tif",
+                                          "rb").read(), device="cpu")
+                    for side in ("", "-cpu"))
+            require(a.spec.depth == 16 and tuple(a.data.shape) ==
+                    (IO_H // 2, IO_W // 2, 1) and a.data.shape ==
+                    b.data.shape, f"io_formats4 deep output {k}: "
+                    f"{tuple(a.data.shape)} at depth {a.spec.depth}")
+            qa, qb = (np.rint(x.data.numpy() * 65535).astype(np.int64)
+                      for x in (a, b))
+            codes = max(codes, int(np.abs(qa - qb).max()))
+            moved = max(moved, float(np.mean(qa != qb)))
+        require(codes <= TIFF16_CODES, f"io_formats4 deep chain: {codes} "
+                f"codes")
+        print(f"io_formats4 cli: {DEEP_FRAMES} 48-bit TIFF frames of {IO_H}x"
+              f"{IO_W}x{C} -> {' '.join(argv)} -> out-%d.tif (16-bit gray) "
+              f"by main(..., device='cuda'): launches {la1}, {wall:.4f} ms "
+              f"({wall / DEEP_FRAMES:.4f} ms a frame, first run); at most "
+              f"{codes} 16-bit codes from the CPU run (bound {TIFF16_CODES}),"
+              f" {moved:.2e} of the samples moved [{name_limit}]")
+
+        # (b) a grade: a 48-bit frame through -hald-clut with a .cube LUT
+        lut = os.path.join(td, "look.cube")
+        with open(lut, "wb") as f:
+            f.write(files["cube"])
+        argv = [frames[0], lut, "-hald-clut", "-depth", "16"]
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(argv + [out + "-graded.tif"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        lag = launched()
+        _main_ok(argv + [out + "-cpu-graded.tif"], "cpu")
+        a, b = (f4.decode_tiff16(open(f"{out}{side}-graded.tif", "rb").read(),
+                                 device="cpu") for side in ("", "-cpu"))
+        require(tuple(a.data.shape) == (IO_H, IO_W, C) and a.spec.depth == 16,
+                f"io_formats4 grade: {tuple(a.data.shape)}")
+        qa, qb = (np.rint(x.data.numpy() * 65535).astype(np.int64)
+                  for x in (a, b))
+        codes = int(np.abs(qa - qb).max())
+        require(codes <= GRADE_CODES, f"io_formats4 grade: {codes} codes")
+        print(f"io_formats4 cli: a 48-bit TIFF frame of {IO_H}x{IO_W}x{C} "
+              f"and a {CUBE_N}-point .cube LUT -> -hald-clut -depth 16 -> "
+              f"out.tif: launches {lag}, {wall:.4f} ms (first run); at most "
+              f"{codes} 16-bit code from the CPU run (bound {GRADE_CODES}), "
+              f"{float(np.mean(qa != qb)):.2e} of the samples moved "
+              f"[{name_limit}]")
+
+        # (c) drawings: CALS pages through CLI_PAGES, one K4 launch
+        pages, values = [], []
+        for k in range(CALS_PAGES):
+            pages.append(os.path.join(td, f"page{k}.cals"))
+            page = TImage(_fax_page(rng)[..., None],
+                          ImageSpec(colorspace="gray", depth=1),
+                          device="cpu")
+            with open(pages[-1], "wb") as f:
+                f.write(tio.image_to_blob(page, "cals"))
+            values.append(tio.read_images(pages[-1], device="cpu")[0].data)
+        reset_launches()
+        t0 = time.perf_counter()
+        _main_ok(pages + CLI_PAGES + [out + "-page-%d.cals"], dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        la4 = launched()
+        require(la4["k4"] == 1 and la4["k1"] == 0,
+                f"io_formats4 CALS pages launches {la4}")
+        _main_ok(pages + CLI_PAGES + [out + "-cpu-page-%d.cals"], "cpu")
+        for k in range(CALS_PAGES):
+            with open(f"{out}-page-{k}.cals", "rb") as f:
+                a = f.read()
+            with open(f"{out}-cpu-page-{k}.cals", "rb") as f:
+                b = f.read()
+            require(a == b, f"io_formats4 CALS page {k}: the card's bytes "
+                    f"are not the CPU run's")
+            rows = f4.decode_cals(a, device="cpu").data.shape
+            require(tuple(rows) == (FAX_H, FAX_W, 1),
+                    f"io_formats4 CALS page {k}: {tuple(rows)}")
+        # each page's Otsu value on the card (outside the counted run)
+        t = tth.auto_threshold_values(torch.stack(values).to(dev), "otsu")
+        bins = [otsu_bin_f64(v.numpy()[..., 0]) for v in values]
+        require(torch.equal(t.cpu(), torch.tensor(
+            [np.float32(j) * np.float32(1.0 / 255) for j in bins])),
+            f"io_formats4 CALS pages: Otsu {t.tolist()} not the float64 "
+            f"bins {bins}")
+        print(f"io_formats4 cli: {CALS_PAGES} CALS pages of {FAX_H}x{FAX_W} "
+              f"-> {' '.join(CLI_PAGES)} -> page-%d.cals: launches {la4}, "
+              f"{wall:.4f} ms (first run); the CALS bytes the CPU run's; "
+              f"Otsu on the card at the float64 bins {bins} [{name_limit}]")
+    return {"k1": la1["k1"] + lag["k1"], "k4": la4["k4"] + lag["k4"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3831,6 +4397,8 @@ def main() -> None:
                     lambda: io_coders_phase(dev, gen, name_limit, args.seed))
     fmts = _timed("io_formats",
                   lambda: io_formats_phase(dev, gen, name_limit, args.seed))
+    fmts4 = _timed("io_formats4",
+                   lambda: io_formats4_phase(dev, gen, name_limit, args.seed))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -4319,7 +4887,7 @@ def main() -> None:
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
-         srvc["k1"] + coders["k1"] + fmts["k1"],
+         srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -4352,7 +4920,8 @@ def main() -> None:
          "source": "imagemagick_tpu_torch/csrc/histogram256.cu",
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
-         cliv["k4"] + clif["k4"] + coders["k4"] + fmts["k4"],
+         cliv["k4"] + clif["k4"] + coders["k4"] + fmts["k4"] +
+         fmts4["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

@@ -20,15 +20,24 @@ ffmpeg, ``dot``/``gv``, PCL, XPS, office documents, and dcraw for a DNG
 that the native reader declines), the film, medical, scientific, print
 and fax formats of ``formats2.py`` (DPX, CIN, DICOM, XCF, FITS, WBMP,
 AVS, MTV, FL32, VICAR, SUN, OTB, MONO with ``-size``, G3 and G4, and the
-PSD and PDF writers) and ``formats3.py`` (MAT, VIFF, RLA, Palm, PICT).
-The coders of ``formats4``, ``coders_r4b`` (JBIG, WMF, the meta
-profiles, ``strimg:``, ``dmr:``), ``emf`` and HDR raise
-NotImplementedError naming their ROADMAP.md entry, and so do
-``url:``-style names, which need a network.  A decoded image is made on
-the host (a DNG's demosaic and an SVG's raster on ``device``) and goes to
-``device`` once (the card unless the caller asks for the CPU); an
-encoded one comes to the host and is quantized there, with the JAX
-package's expressions.
+PSD and PDF writers), ``formats3.py`` (MAT, VIFF, RLA, Palm, PICT) and
+``formats4.py`` (16-bit TIFF both ways, VIPS, CALS, XWD, UYVY, YUV, Bayer
+and MAP with ``-size``, WPG, ``.cube`` LUTs, ``stegano:``, the PS, PS2
+and PS3 writers through the EPS writer, and the rest of its small raster,
+legacy and text formats).  The coders of ``coders_r4b`` (JBIG, WMF, the
+meta profiles, ``strimg:``, ``dmr:``, ``debug:``, ``matte:``), ``emf``
+and HDR raise NotImplementedError naming their ROADMAP.md entry, and so
+do ``url:``-style names, which need a network.  A decoded image is made
+on the host (a DNG's demosaic, an SVG's, a PES's and an MVG's raster on
+``device``) and goes to ``device`` once (the card unless the caller asks
+for the CPU); an encoded one comes to the host and is quantized there,
+with the JAX package's expressions (HRZ's resize, YUV's colour
+conversion and MAP's and WPG's k-means run on the image's device first).
+
+A color TIFF of samples deeper than 8 bits that the native deep reader
+declines (compressed, planar, or in strips that do not follow one
+another) raises ValueError: Pillow would narrow its samples to 8 bits,
+which is what the JAX package does with it.
 
 Where the JAX ``write_image`` writes several images to one name, it
 ignores a ``%d`` in the name for the formats it marks as adjoining and
@@ -51,7 +60,7 @@ from ..core.geometry import parse_geometry
 from ..core.image import Image
 from ..core.policy import enforce_path
 from . import (codecs, coders_r4, delegates, dng, exr, extra_coders,
-               formats2, formats3, miff, mpc, pnm, pseudo)
+               formats2, formats3, formats4, miff, mpc, pnm, pseudo)
 from .codecs import REST_OF_IO
 
 __all__ = ["read_image", "read_images", "write_image", "image_from_blob",
@@ -172,8 +181,8 @@ _MPR_REGISTRY = {}
 _PNM = ("pnm", "ppm", "pgm", "pbm", "pam", "pfm")
 _RAW = ("gray", "rgb", "rgba", "bgr", "bgra", "cmyk", "ycbcr")
 
-# The JAX package's coders outside the ported ones, by the names its
-# magic table, extensions and prefixes give them: each raises here.
+# The names of the JAX package's native coders (formats2.py, formats3.py
+# and formats4.py), which its filename prefixes take.
 _FORMATS2_READ = {"dpx", "cin", "dcm", "dicom", "xcf", "fits", "fts",
                   "wbmp", "avs", "mtv", "fl32", "vicar", "vic", "otb",
                   "fax", "g3", "g4", "mat", "viff", "xv", "rla", "palm",
@@ -242,18 +251,69 @@ _ENCODE23 = {
 # image_to_blob)
 _FORMATS23_READ = set(_DECODE23) | {"mono"}
 _FORMATS23_WRITE = set(_ENCODE23) | {"dpx", "psd", "pdf", "mat"}
+
+
+def _many(decode):
+    return lambda data, device: decode(data, device=device)
+
+
+# formats4.py's decoders by name, with the JAX dispatch's aliases (TXT,
+# INLINE, SFW, TIM, PWP, EPT, IPL, MAGICK, TIM2 and JNX give several
+# images)
+_DECODE4 = {
+    "aai": _one(formats4.decode_aai), "hrz": _one(formats4.decode_hrz),
+    "scr": _one(formats4.decode_scr), "rgf": _one(formats4.decode_rgf),
+    "txt": _one(formats4.decode_txt), "text": _one(formats4.decode_txt),
+    "inline": _many(formats4.decode_inline),
+    "pgx": _one(formats4.decode_pgx), "vips": _one(formats4.decode_vips),
+    "v": _one(formats4.decode_vips), "cals": _one(formats4.decode_cals),
+    "cal": _one(formats4.decode_cals), "art": _one(formats4.decode_art),
+    "sct": _one(formats4.decode_sct), "xwd": _one(formats4.decode_xwd),
+    "sfw": _many(formats4.decode_sfw), "pdb": _one(formats4.decode_pdb),
+    "tim": _many(formats4.decode_tim), "cube": _one(formats4.decode_cube),
+    "pwp": _many(formats4.decode_pwp), "mvg": _one(formats4.decode_mvg),
+    "ttf": _one(formats4.decode_ttf), "otf": _one(formats4.decode_ttf),
+    "ttc": _one(formats4.decode_ttf), "cut": _one(formats4.decode_cut),
+    "rle": _one(formats4.decode_rle), "mac": _one(formats4.decode_mac),
+    "pix": _one(formats4.decode_pix), "ept": _many(formats4.decode_ept),
+    "ept2": _many(formats4.decode_ept), "ept3": _many(formats4.decode_ept),
+    "wpg": _one(formats4.decode_wpg), "ipl": _many(formats4.decode_ipl),
+    "ftxt": _one(formats4.decode_ftxt),
+    "magick": _many(formats4.decode_magick),
+    "h": _many(formats4.decode_magick), "tim2": _many(formats4.decode_tim2),
+    "jnx": _many(formats4.decode_jnx), "pes": _one(formats4.decode_pes),
+}
+# its encoders of one image with no options
+_ENCODE4 = {
+    "aai": formats4.encode_aai, "hrz": formats4.encode_hrz,
+    "rgf": formats4.encode_rgf, "cip": formats4.encode_cip,
+    "inline": formats4.encode_inline, "cals": formats4.encode_cals,
+    "cal": formats4.encode_cals, "art": formats4.encode_art,
+    "xwd": formats4.encode_xwd, "uil": formats4.encode_uil,
+    "html": formats4.encode_html, "htm": formats4.encode_html,
+    "shtml": formats4.encode_html, "pdb": formats4.encode_pdb,
+    "tim": formats4.encode_tim, "yuv": formats4.encode_yuv,
+    "ept": formats4.encode_ept, "ept2": formats4.encode_ept,
+    "ept3": formats4.encode_ept, "map": formats4.encode_map,
+    "ftxt": formats4.encode_ftxt, "magick": formats4.encode_magick,
+    "h": formats4.encode_magick, "cur": formats4.encode_cur,
+    "wpg": formats4.encode_wpg,
+}
+_BRAILLE = ("braille", "brf", "ubrl", "ubrl6", "isobrl", "isobrl6")
+# the -size reads of formats4 (in read_images) and the writers that take
+# the depth or the whole list (in image_to_blob)
+_SIZED4 = {"uyvy": formats4.decode_uyvy, "yuv": formats4.decode_yuv,
+           "bayer": formats4.decode_bayer, "map": formats4.decode_map}
+_FORMATS4_READ = set(_DECODE4) | set(_SIZED4)
+_FORMATS4_WRITE = (set(_ENCODE4) | set(_BRAILLE)
+                   | {"pgx", "vips", "v", "ipl", "bayer", "ashlar", "dcx",
+                      "ps", "ps2", "ps3"})
 # formats that the JAX package decodes and encodes with coder modules not
-# ported yet (formats4, coders_r4b, emf) or OpenCV (hdr); a sniffed
-# "tiff" is checked apart, in _check_tiff
+# ported yet (coders_r4b, emf) or OpenCV (hdr)
 _OTHER_DECODE = ({"wmf", "emf", "jbig", "jbg", "bie", "strimg", "hdr",
-                  "text", "h", "ttc", "ept2", "ept3", "v", "dmr"}
-                 | (_FORMATS2_READ - _FORMATS23_READ - {"uhdr", "raw"})
-                 | _META_PROFILE)
-_OTHER_ENCODE = ({"hdr", "shtml", "ept2", "ept3", "h", "v", "strimg",
-                  "debug", "matte", "jbig", "jbg", "bie", "dmr"}
-                 | (_FORMATS2_WRITE - _FORMATS23_WRITE - set(_RAW)
-                    - {"raw"})
-                 | _META_PROFILE)
+                  "dmr"} | _META_PROFILE)
+_OTHER_ENCODE = ({"hdr", "strimg", "debug", "matte", "jbig", "jbg", "bie",
+                  "dmr"} | _META_PROFILE)
 _OFFICE = ("doc", "docx", "odt", "ppt", "pptx", "xls", "xlsx")
 
 
@@ -407,8 +467,8 @@ def read_images(filename: str, size: Optional[str] = None,
         return [extra_coders.decode_raw(data, "gray", w, h, device=device)]
     if ext == "mono" and w and h:
         return [formats2.decode_mono(data, w, h, device=device)]
-    if ext in ("uyvy", "yuv", "bayer", "map") and w and h:
-        raise _unported(ext)
+    if ext in _SIZED4 and w and h:
+        return [_SIZED4[ext](data, w, h, device=device)]
     return image_from_blob(data, ext, device)
 
 
@@ -418,9 +478,9 @@ def read_image(filename: str, size: Optional[str] = None,
 
 
 def _check_tiff(data: bytes) -> None:
-    """Raise for the TIFFs that the JAX package reads with its native deep
-    reader (``formats4.decode_tiff16``, not ported yet): samples deeper
-    than 8 bits in a color image, which Pillow would narrow to 8 bits."""
+    """Raise ValueError for a TIFF that the native deep reader
+    (``formats4.decode_tiff16``) declined and Pillow would narrow: samples
+    deeper than 8 bits in a color image."""
     import io as _io
 
     from PIL import Image as PILImage
@@ -431,7 +491,22 @@ def _check_tiff(data: bytes) -> None:
         bps = bps if isinstance(bps, tuple) else (bps,)
         if max(bps) > 8 and pim.mode not in ("I;16", "I;16B", "I;16L", "I",
                                              "F"):
-            raise _unported(f"tiff of {max(bps)}-bit {pim.mode} samples")
+            raise ValueError(
+                f"tiff of {max(bps)}-bit {pim.mode} samples: the native "
+                f"deep reader takes only uncompressed interleaved samples "
+                f"in one strip (or in strips that follow one another), and "
+                f"Pillow would narrow these to 8 bits")
+
+
+def _deep_tiff(data: bytes, device) -> Optional[List[Image]]:
+    """The TIFF as ``formats4.decode_tiff16`` reads it, or None where it
+    declines the file."""
+    import struct
+
+    try:
+        return [formats4.decode_tiff16(data, device=device)]
+    except (ValueError, TypeError, IndexError, struct.error):
+        return None
 
 
 def image_from_blob(data: bytes, fmt: Optional[str] = None,
@@ -475,6 +550,8 @@ def image_from_blob(data: bytes, fmt: Optional[str] = None,
         images = [exr.decode(data, device)]
     elif use in _DECODE23:
         images = _DECODE23[use](data, device)
+    elif use in _DECODE4:
+        images = _DECODE4[use](data, device)
     elif use in _OTHER_DECODE:
         raise _unported(use)
     elif use == "uhdr":
@@ -496,9 +573,16 @@ def image_from_blob(data: bytes, fmt: Optional[str] = None,
         # DNG shares the TIFF magic: a CFA raw goes to the DNG reader
         images = [dng.decode_dng(data, device)]
     else:
+        images = None
         if use in ("tiff", "tif"):
-            _check_tiff(data)
-        images = codecs.decode(data, use, device)
+            # the native deep reader first (Pillow narrows 48-bit RGB to
+            # 8 bits); what it declines goes to Pillow, unless Pillow
+            # would narrow it
+            images = _deep_tiff(data, device)
+            if images is None:
+                _check_tiff(data)
+        if images is None:
+            images = codecs.decode(data, use, device)
     if use in ("jpeg", "jpg", "png", "tiff", "tif"):
         from ..core.metadata import extract_metadata
 
@@ -701,7 +785,28 @@ def image_to_blob(image: Union[Image, List[Image]], fmt: str,
         raise _unported(fmt)
     if fmt in ("tiff", "tif") and depth > 8 and len(images) == 1 \
             and not images[0].profiles:
-        raise _unported("tiff at a depth over 8 (the native deep writer)")
+        # Pillow cannot save 48-bit RGB: the native deep writer
+        return formats4.encode_tiff16(images[0])
+    if fmt == "pgx":
+        return formats4.encode_pgx(images[0], depth=16 if depth > 8 else 8)
+    if fmt in ("vips", "v"):
+        return formats4.encode_vips(images[0], depth=depth)
+    if fmt == "ipl":
+        return formats4.encode_ipl(images[0], depth=depth)
+    if fmt == "bayer":
+        return formats4.encode_bayer(images[0], depth=depth)
+    if fmt in _BRAILLE:
+        return formats4.encode_braille(
+            images[0], "ubrl" if fmt == "braille" else fmt)
+    if fmt == "ashlar":
+        return formats4.encode_ashlar(images)
+    if fmt == "dcx":
+        return formats4.encode_dcx(images)
+    if fmt in ("ps", "ps2", "ps3"):
+        # the PostScript levels share the EPS writer (coders/ps2.c, ps3.c)
+        return codecs.encode(images, "eps", quality=quality, depth=depth)
+    if fmt in _ENCODE4:
+        return _ENCODE4[fmt](images[0])
     if fmt == "svg":
         # raster-in-SVG wrapper (the reference embeds the raster too
         # unless a tracing delegate like autotrace is installed)
@@ -769,17 +874,18 @@ def _delegate_formats() -> set:
 
 
 # the port's coders of their own (miff.py, mpc.py, exr.py, dng.py,
-# extra_coders.py, coders_r4.py, formats2.py, formats3.py)
-_CODERS_READ = {"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
-                "xbm", "xpm", "svg", "ora", "kernel"} | _FORMATS23_READ
-_CODERS_WRITE = {"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
-                 "xbm", "xpm", "sixel", "six", "ora",
-                 "kernel"} | _FORMATS23_WRITE
+# extra_coders.py, coders_r4.py, formats2.py, formats3.py, formats4.py)
+_CODERS_READ = ({"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
+                 "xbm", "xpm", "svg", "ora", "kernel"} | _FORMATS23_READ
+                | _FORMATS4_READ)
+_CODERS_WRITE = ({"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
+                  "xbm", "xpm", "sixel", "six", "ora", "kernel"}
+                 | _FORMATS23_WRITE | _FORMATS4_WRITE)
 
 
 def supported_read_formats():
     """The formats the port reads (not the JAX package's list)."""
-    out = (set(_PSEUDO) - {"stegano"} | set(_PNM) | set(_RAW)
+    out = (set(_PSEUDO) | set(_PNM) | set(_RAW)
            | {"raw", "r", "mpr", "mask", "clip", "uhdr"} | _CODERS_READ
            | ((_pil_formats("OPEN") | _PIL_READ_EXTRA) - _OTHER_DECODE
               - {"heic", "jxl"})

@@ -175,7 +175,7 @@ def decode(data: bytes, fmt: Optional[str] = None, device="cuda"
 
 
 REST_OF_IO = ("ROADMAP.md Queue 1, 'Host layers' (the rest of io/: "
-              "formats4, coders_r4b, emf, stream and HDR)")
+              "coders_r4b, emf, stream and HDR)")
 
 _PIL_FORMATS = {
     "png": "PNG", "jpg": "JPEG", "jpeg": "JPEG", "gif": "GIF",

@@ -10,7 +10,8 @@ gradient's distances take their square root in float64, rounded to
 float32 as XLA's correctly rounded ``sqrt`` gives it.  ``plasma:`` is
 made on the host in numpy from its seed, and ``label:``'s text mask and
 ``histogram:``'s bars on the host, as in the JAX module.  ``stegano:``
-needs the formats4 coders, which are not ported yet.
+reads its host image on ``device`` and extracts the watermark with
+``formats4.decode_stegano``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ import torch
 from ..core.color import parse_color
 from ..core.image import Image
 from ..core.spec import ImageSpec
-from .codecs import REST_OF_IO
 
 
 def _rgba(color: str, device) -> torch.Tensor:
@@ -326,11 +326,14 @@ def thumbnail_file(filename: str, width=None, height=None, settings=None,
 
 def stegano_file(filename: str, width=None, height=None, settings=None,
                  device="cuda") -> Image:
-    """stegano: pseudo-coder (coders/stegano.c read side): its decoder
-    lives in the formats4 coders, which are not ported yet."""
-    raise NotImplementedError(
-        f"stegano:{filename}: the formats4 coders are not ported yet: "
-        f"{REST_OF_IO}")
+    """stegano: pseudo-coder (coders/stegano.c read side): extract the
+    LSB watermark from a host image; geometry comes from -size."""
+    from . import formats4, read_images
+
+    if not (width and height):
+        raise ValueError("stegano: requires -size WxH")
+    host = read_images(filename, device=device)[0]
+    return formats4.decode_stegano(host, int(width), int(height), device)
 
 
 def vid_file(pattern: str, width=None, height=None, settings=None,

@@ -182,17 +182,17 @@ def test_materialize_carries_metadata():
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["-resize", "10x10", "out.aai"], "'Host layers' (the rest of io/"),
-    (["-resize", "10x10", "hrz:-"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "out.matte"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "debug:-"], "'Host layers' (the rest of io/"),
     (["strimg:hello"], "'Host layers' (the rest of io/"),
-    (["stegano:in.png"], "'Host layers' (the rest of io/"),
+    (["dmr:repository/image"], "'Host layers' (the rest of io/"),
     (["jbig:page.jbg"], "'Host layers' (the rest of io/"),
     (["url:http://localhost/a.png"], "'Host layers' (the rest of io/"),
     (["-region", "4x4+0+0"], "'Host layers'"),
     (["+region"], "'Host layers'"),
     (["-bench", "3"], "'Host layers'"),
-    (["-resize", "10x10", "out.xwd"], "'Host layers' (the rest of io/"),
-    (["-resize", "10x10", "out.vips"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "out.hdr"], "'Host layers' (the rest of io/"),
+    (["-resize", "10x10", "icc:-"], "'Host layers' (the rest of io/"),
     (["-unknown-option"], "'Host layers'"),
 ])
 def test_unported_raise_naming_their_entries(argv, entry):

@@ -318,7 +318,8 @@ def test_informational_options_and_errors(files, capsys):
     assert tm.main(["-list", "format"], device="cpu") == 0
     listed = capsys.readouterr().out
     assert "PNG          rw" in listed and "MIFF         rw" in listed
-    assert "DPX          rw" in listed and "AAI" not in listed
+    assert "DPX          rw" in listed and "AAI          rw" in listed
+    assert "\nHDR " not in listed and "\nJBIG " not in listed
     for what in ("resource", "policy", "colorspace", "compose", "kernel"):
         tm.main(["-list", what], device="cpu")
         got = capsys.readouterr().out

@@ -1635,6 +1635,50 @@ def test_formats_decode_onto_the_card_as_on_the_cpu(dev, fmt):
         tio.image_to_blob(want, out, depth=16)
 
 
+@pytest.mark.parametrize("fmt", ["tiff", "vips", "cals"])
+def test_formats4_decode_onto_the_card_as_on_the_cpu(dev, fmt):
+    """A 48-bit TIFF (the native deep reader and writer), a 16-bit VIPS
+    and a CALS page: bytes made on the CPU decode onto the card equal to
+    their decode on the CPU, and the card's image encodes to the CPU's
+    bytes."""
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec as TSpec
+
+    c = 1 if fmt == "cals" else 3
+    src = TImage(_rand((40, 56, c), 99), TSpec(
+        colorspace="gray" if c == 1 else "srgb", depth=16), device="cpu")
+    blob = tio.image_to_blob(src, fmt, depth=16)
+    got = tio.image_from_blob(blob, fmt, device=dev)[0]
+    want = tio.image_from_blob(blob, fmt, device="cpu")[0]
+    assert got.data.is_cuda and torch.equal(got.data.cpu(), want.data)
+    assert tio.image_to_blob(got, fmt, depth=16) == \
+        tio.image_to_blob(want, fmt, depth=16)
+
+
+@pytest.mark.parametrize("fmt", ["map", "wpg"])
+def test_palette_writers_run_kmeans_on_the_card(dev, monkeypatch, fmt):
+    """MAP's and WPG's 256-colour k-means takes the card's pixels on the
+    card, and its labels and palette are the CPU's (its sums in float64),
+    so the bytes are equal."""
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.ops import quantize
+
+    seen = []
+    real = quantize.kmeans
+
+    def spy(x, *a, **kw):
+        seen.append(x.device.type)
+        return real(x, *a, **kw)
+
+    monkeypatch.setattr(quantize, "kmeans", spy)
+    arr = _rand((30, 41, 3), 100)
+    got = tio.image_to_blob(TImage(arr, device=dev), fmt)
+    want = tio.image_to_blob(TImage(arr, device="cpu"), fmt)
+    assert seen == ["cuda", "cpu"] and got == want
+
+
 def test_dng_demosaic_on_the_card(dev):
     from imagemagick_tpu_torch.io import dng as tdng
 

@@ -417,9 +417,15 @@ def test_vid_matches_jax(no_png_native, tmp_path):
     np.testing.assert_allclose(_arr(got), _arr(want), atol=2e-6)
 
 
-def test_stegano_raises_naming_its_entry(tmp_path):
-    with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.read_images("stegano:x.png", "8x8", device="cpu")
+def test_stegano_raises_naming_its_entry(no_png_native, tmp_path):
+    """Once unported, now read: a stegano: extraction equal to the JAX
+    one, and without -size the JAX reader's ValueError."""
+    path = str(tmp_path / "host.png")
+    _write_png(path, _pixels(59, h=12, w=15))
+    _same_images(tio.read_images(f"stegano:{path}", "8x8", device="cpu"),
+                 jio.read_images(f"stegano:{path}", "8x8"))
+    with pytest.raises(ValueError, match="-size"):
+        tio.read_images(f"stegano:{path}", device="cpu")
 
 
 # -- mpr:, mask:, null:, clip: ----------------------------------------------
@@ -548,15 +554,9 @@ def test_svg_wrapper_matches_jax(no_png_native):
 # -- what the port does not read or write yet -------------------------------
 
 UNPORTED_BLOBS = {
-    "vips": b"\xb6\xa6\xf2\x08" + b"\0" * 64,
-    "pgx": b"PG ML + 8 4 4\n" + b"\0" * 64,
-    "cals": b"srcdocid: x" + b"\0" * 64,
-    "tim2": b"TIM2" + b"\0" * 64,
     "wmf": b"\xd7\xcd\xc6\x9a" + b"\0" * 64,
     "hdr": b"#?RADIANCE\n" + b"\0" * 64,
-    "wpg": b"\xff\x57\x50\x43" + b"\0" * 64,
-    "ipl": b"iiii" + b"\0" * 64,
-    "pes": b"#PES0001" + b"\0" * 64,
+    "emf": b"\x01\0\0\0" + b"\0" * 36 + b" EMF" + b"\0" * 40,
 }
 
 
@@ -566,8 +566,29 @@ def test_unported_formats_raise_naming_their_entry(kind):
         tio.image_from_blob(UNPORTED_BLOBS[kind], device="cpu")
 
 
-@pytest.mark.parametrize("fmt", ["hdr", "aai", "hrz", "jbig", "exif", "vips",
-                                 "pgx", "cals", "xwd", "dmr"])
+# formats4's files cut short, which were here while formats4 was unported
+TRUNCATED4_BLOBS = {
+    "vips": b"\xb6\xa6\xf2\x08" + b"\0" * 64,
+    "pgx": b"PG ML + 8 4 4\n" + b"\0" * 8,
+    "cals": b"srcdocid: x" + b"\0" * 64,
+    "tim2": b"TIM2" + b"\0" * 64,
+    "wpg": b"\xff\x57\x50\x43" + b"\0" * 64,
+    "ipl": b"iiii" + b"\0" * 64,
+    "pes": b"#PES0001" + b"\0" * 64,
+}
+
+
+@pytest.mark.parametrize("kind", sorted(TRUNCATED4_BLOBS))
+def test_truncated_formats4_blobs_raise_as_jax(kind):
+    blob = TRUNCATED4_BLOBS[kind]
+    with pytest.raises(Exception) as want:
+        jio.image_from_blob(blob)
+    with pytest.raises(want.type):
+        tio.image_from_blob(blob, device="cpu")
+
+
+@pytest.mark.parametrize("fmt", ["hdr", "strimg", "debug", "jbig", "exif",
+                                 "matte", "icc", "xmp", "iptc", "dmr"])
 def test_unported_writers_raise_naming_their_entry(fmt):
     t, _ = _pair(_pixels(94))
     with pytest.raises(NotImplementedError, match="'Host layers'"):
@@ -600,16 +621,17 @@ def _tiff_rgb16(arr) -> bytes:
 
 
 def test_deep_rgb_tiff_and_urls_raise():
-    """A 48-bit RGB TIFF, which the JAX package reads with its own deep
-    reader (Pillow narrows it to 8 bits), raises rather than losing its
-    low bits; so does writing a TIFF at depth 16, and any URL."""
+    """A 48-bit RGB TIFF reads with the native deep reader, as in the JAX
+    package (Pillow would narrow it to 8 bits), and a TIFF at depth 16
+    writes with the native deep writer, both equal to JAX; a URL still
+    raises."""
     blob = _tiff_rgb16(np.random.default_rng(0).integers(0, 65536, (4, 5, 3)))
-    assert jio.image_from_blob(blob)[0].spec.depth == 16
-    with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.image_from_blob(blob, device="cpu")
-    t, _ = _pair(_pixels(95))
-    with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.image_to_blob(t, "tiff", depth=16)
+    want = jio.image_from_blob(blob)
+    assert want[0].spec.depth == 16
+    _same_images(tio.image_from_blob(blob, device="cpu"), want)
+    t, j = _pair(_pixels(95), colorspace="srgb", depth=16)
+    assert tio.image_to_blob(t, "tiff", depth=16) == \
+        jio.image_to_blob(j, "tiff", depth=16)
     with pytest.raises(NotImplementedError, match="network"):
         tio.read_images("http://localhost/x.png", device="cpu")
 
@@ -693,9 +715,13 @@ def test_formats_lists_name_only_what_the_port_does():
         assert fmt in reads
     for fmt in ("dpx", "psd", "pdf", "mat", "viff", "g4", "pict", "sun"):
         assert fmt in writes
-    for fmt in ("aai", "vips", "jbig", "hdr", "wmf"):
+    for fmt in ("aai", "vips", "cals", "uyvy", "stegano"):
+        assert fmt in reads
+    for fmt in ("aai", "vips", "cals", "ps", "wpg"):
+        assert fmt in writes
+    for fmt in ("jbig", "hdr", "wmf", "emf"):
         assert fmt not in reads
-    for fmt in ("aai", "vips", "jbig", "hdr"):
+    for fmt in ("jbig", "hdr", "matte"):
         assert fmt not in writes
     assert ("heic" in reads) == tnat.heif_available()
     assert ("jxl" in writes) == tnat.jxl_available()

@@ -1094,7 +1094,7 @@ def test_formats_lists_name_the_new_coders():
     for fmt in ("dpx", "psd", "pdf", "fits", "mat", "viff", "rla", "palm",
                 "pict", "g3", "g4", "sun", "otb", "vicar"):
         assert fmt in writes
-    for fmt in ("aai", "vips", "cals", "xwd"):
+    for fmt in ("jbig", "hdr", "strimg"):
         assert fmt not in reads and fmt not in writes
 
 
@@ -1155,10 +1155,10 @@ def test_cli_reads_each_prefix_as_jax(tmp_path, prefix, kind):
 
 def test_still_unported_coders_raise_naming_their_entry(tmp_path):
     t, _ = _pair(_pixels(75, 4, 4, 3))
-    for fmt in ("aai", "vips", "cals", "xwd"):
+    for fmt in ("hdr", "jbig", "matte", "strimg"):
         with pytest.raises(NotImplementedError, match="'Host layers'"):
             tio.image_to_blob(t, fmt)
-    raw = tmp_path / "x.uyvy"
-    raw.write_bytes(bytes(32))
+    raw = tmp_path / "x.wmf"
+    raw.write_bytes(b"\xd7\xcd\xc6\x9a" + bytes(32))
     with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.read_images(str(raw), size="4x4", device="cpu")
+        tio.read_images(str(raw), device="cpu")

@@ -169,9 +169,9 @@ def test_error_codes_match_jax(server):
 
 
 @pytest.mark.parametrize("path", ["/convert?args=-region%2010x10",
-                                  "/convert?args=-resize%2010x10&of=aai"])
+                                  "/convert?args=-resize%2010x10&of=matte"])
 def test_convert_and_identify_answer_501(server, path):
-    """An option (-region) or an output format (AAI) the port still lacks
+    """An option (-region) or an output format (MATTE) the port still lacks
     answers 501, naming its ROADMAP.md entry."""
     status, body = _call(server, "POST", path, _png(_pixels(9, n=1)[0]))
     assert status == 501
@@ -289,7 +289,8 @@ def test_formats_lists_what_the_port_reads_and_writes(server):
     assert "png" in got["read"] and "jpeg" in got["write"]
     assert "miff" in got["read"] and "miff" in got["write"]
     assert "dpx" in got["read"] and "dpx" in got["write"]
-    assert "aai" not in got["read"] and "aai" not in got["write"]
+    assert "aai" in got["read"] and "aai" in got["write"]
+    assert "hdr" not in got["read"] and "hdr" not in got["write"]
 
 
 @pytest.mark.parametrize("args", [
@@ -446,3 +447,51 @@ def test_delegate_bodies_are_refused(server, body, path, monkeypatch):
     status, out = _call(server, "POST", path, body)
     assert status == 400
     assert "no program of the host" in json.loads(out)["error"]
+
+
+def _tiff48(seed: int) -> bytes:
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+
+    px = _pixels(seed, n=1)[0].astype(np.float32) / 255.0
+    return tio.image_to_blob(TImage(px, ImageSpec(depth=16), device="cpu"),
+                             "tiff", depth=16)
+
+
+@pytest.mark.parametrize("args,of", [
+    ("-depth 16 -flip", "tiff"), ("-flop", "vips"), ("-negate", "cals"),
+    ("-flip", "xwd"), ("-flip", "braille"), ("-rotate 90", "aai"),
+    ("-flip", "wpg")])
+def test_convert_of_a_deep_tiff_body_answers_the_cli_bytes(server, args, of):
+    """A 48-bit TIFF request body (the native deep reader's) converted to
+    a 16-bit TIFF (the native deep writer's) and to formats4's writers:
+    the server's bytes are the port's CLI run on the CPU and, but for
+    WPG's k-means (ROADMAP.md Queue 3), the JAX server's."""
+    body = _tiff48(43)
+    status, got = _call(server, "POST",
+                        f"/convert?args={quote(args)}&of={of}", body)
+    assert status == 200, got
+    assert got == ts._run_cli(["-", *args.split(), f"{of}:-"], body, "cpu")
+    if of != "wpg":
+        assert got == js._run_cli(["-", *args.split(), f"{of}:-"], body)
+
+
+@pytest.mark.parametrize("line", [
+    "image over 0,0 10,10 '{f}'", "font '{f}'\ntext 2,10 'a'"])
+def test_mvg_body_naming_a_host_file_is_refused(server, tmp_path, line):
+    """An MVG body has no magic, so /convert cannot take it for one (400);
+    read as MVG inside no_host_files, as the daemon runs each request, an
+    image primitive or a font that names a host file is refused."""
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.policy import PolicyError, no_host_files
+
+    host = tmp_path / "x.png"
+    host.write_bytes(_png(_pixels(44, n=1)[0]))
+    body = ("viewbox 0 0 20 20\nfill 'red'\nrectangle 2,2 9,9\n"
+            + line.format(f=host) + "\n").encode()
+    status, out = _call(server, "POST", "/convert?args=-flip", body)
+    assert status == 400
+    with no_host_files():
+        with pytest.raises(PolicyError, match="no file of the host"):
+            tio.image_from_blob(body, "mvg", device="cpu")
