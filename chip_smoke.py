@@ -222,6 +222,30 @@ and the serve daemon):
   CALS pages of 2156x1728 through config #3's chain to CALS (one K4
   launch, the bytes the CPU run's, each page's Otsu value on the card
   the float64 bin).
+* io_stream — the out-of-core tier: an 8-bit P6 scan of 8192x12288x3
+  (100 megapixels, 1.2 GB as float32) from the seed through
+  ``io.stream.convert_streaming`` in bands of 512 rows: (i) blur 0x2,
+  level 5%,95% and unsharp 0x1 to a P6 (K3 once a band for each blur;
+  the peaks of host memory, by tracemalloc, and of card memory, both
+  below the image's float32 size), (ii) blur and level, a banded
+  Lanczos resize to 4096x6144 and unsharp (K3 once an output band for
+  each blur; within one 8-bit code of the in-core route on the card, and
+  a strip of 1024 rows within STREAM_STRIP_TOL of the same ``run_chain``
+  on the CPU); ``models.outofcore.reduce_tiled`` of ``channel_histogram``
+  over ``io.stream.open_rows`` (K4 once a channel a band; the counts
+  equal ``np.bincount`` of the file); a 16-bit MIFF of 1080x1920
+  streamed through negate and level to PNG (8 and 16 bits) and MIFF on
+  the card, within one code of the CPU run, and ``read_stream`` of a P6,
+  a 16-bit and a float MIFF equal to ``read_images``; the last coders
+  decoded onto the card and encoded from it against the CPU (HDR of
+  values up to 16 in RGB and gray, WMF and EMF of about 30 records
+  decoding to 1920x1080 within draw's 1e-6, the META profiles, DMR
+  batches with and without a passphrase, STRIMG, MATTE, DEBUG, JBIG or
+  its ValueError without libjbig, a ``file:`` URL); then
+  ``cli.main.main`` over 4 EMF and 4 WMF files through ``-resize 50%
+  -gaussian-blur 0x2 -colorspace gray`` (one K1 launch) and 4 PNG
+  frames through the same chain into an enciphered ``dmr:`` repository
+  and back (one K1 launch), each within one 8-bit code of the CPU run.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -582,6 +606,18 @@ MVG4 = ("viewbox 0 0 1920 1080\n"
         "polygon 1600,700 1700,640 1760,760 1640,800\n"
         "translate 100,0 rotate 10 "
         "fill 'olive' rectangle 1500,950 1700,1050\n")
+# io_stream: the out-of-core tier on a scan of 100 megapixels, the last
+# coders
+SCAN_H, SCAN_W = 8192, 12288   # an 8-bit P6 of 302 MB, 1.2 GB as float32
+STREAM_BAND = 512
+STREAM_BAND_1080 = 256
+STRIP_ROWS = 1024              # the strip of run (ii) held to the CPU's
+STRIP_Y0 = 3584
+STREAM_STRIP_TOL = 1e-4        # K3's 1e-5 and the resize products' 2e-5,
+                               # through level's 1/0.9 stretch and the
+                               # unsharp's difference added back
+DMR_FRAMES = 4                 # frames of SMALL4 in a DMR resource
+CLI_METAFILES = 4              # EMFs and as many WMFs through CLI_CODERS
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -4148,6 +4184,643 @@ def io_formats4_phase(dev, gen, name_limit: str, seed: int) -> dict:
     return {"k1": la1["k1"] + lag["k1"], "k4": la4["k4"] + lag["k4"]}
 
 
+# -- io_stream: the out-of-core tier and the last coders ----------------------
+
+def _scan_ppm(path: str, seed: int) -> None:
+    """An 8-bit P6 of SCAN_H x SCAN_W x 3 from ``seed``, written a band at
+    a time: a smooth shading across the page (periods of hundreds of
+    pixels), darker text-like blocks and noise of a few levels, as a
+    scanned print looks."""
+    rng = np.random.default_rng(seed + 24)
+    fy, fx = rng.uniform(300.0, 900.0, 2)
+    ph = rng.uniform(0.0, 6.3, C).astype(np.float32)
+    shade_x = (0.35 * 255.0 * np.cos(
+        np.arange(SCAN_W, dtype=np.float32)[:, None] / np.float32(fx)
+        + ph)).astype(np.float32)                          # (W, C)
+    blocks = rng.integers(0, (SCAN_H, SCAN_W), (64, 2))
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (SCAN_W, SCAN_H))
+        for y0 in range(0, SCAN_H, STREAM_BAND):
+            n = min(STREAM_BAND, SCAN_H - y0)
+            shade_y = np.sin(np.arange(y0, y0 + n, dtype=np.float32) /
+                             np.float32(fy))[:, None, None]
+            band = np.float32(127.5) + shade_y * shade_x
+            for by, bx in blocks:
+                if y0 <= by < y0 + n:
+                    band[by - y0:by - y0 + 40, bx:bx + 300] *= 0.4
+            band += rng.integers(-6, 7, band.shape, dtype=np.int8)
+            np.clip(band, 0, 255, out=band)
+            f.write(band.astype(np.uint8).tobytes())
+
+
+def _ppm_body(path: str) -> np.ndarray:
+    """The u8 samples of a P6 written by _scan_ppm or the streaming
+    writer (a three-line header), as a writable array."""
+    data = np.fromfile(path, np.uint8)
+    head = data[:64].tobytes()
+    pos = 0
+    for _ in range(3):
+        pos = head.index(b"\n", pos) + 1
+    return data[pos:]
+
+
+def _stream_run(fn) -> dict:
+    """Run ``fn`` with the launch counts set to 0 just before and read
+    just after, under tracemalloc (numpy's buffers included) and with
+    the card's peak allocation reset: its seconds and both peaks."""
+    import tracemalloc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    host_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    return {"s": secs, "host": host_peak,
+            "card": torch.cuda.max_memory_allocated() - base,
+            "launches": launched()}
+
+
+def _wmf_rec(func: int, params, tail: bytes = b"") -> bytes:
+    body = b"".join(struct.pack("<h", p) if -32768 <= p < 32768
+                    else struct.pack("<H", p & 0xFFFF) for p in params)
+    body += tail + b"\0" * (len(tail) & 1)
+    return struct.pack("<IH", 3 + len(body) // 2, func) + body
+
+
+def _dib24(arr: np.ndarray) -> bytes:
+    """A BITMAPINFOHEADER and the 24-bit bottom-up rows of (h, w, 3) u8."""
+    h, w, _ = arr.shape
+    stride = (w * 3 + 3) & ~3
+    rows = b"".join(arr[y, :, ::-1].tobytes().ljust(stride, b"\0")
+                    for y in range(h - 1, -1, -1))
+    return struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(rows), 0, 0,
+                       0, 0) + rows
+
+
+def _wmf_1080(rng, dib: bool = True) -> tuple:
+    """A placeable WMF that decodes to 1920x1080 at 72 dpi, and its record
+    count: a null and a solid pen, two brushes and a font; a rectangle, a
+    polygon, a polypolygon, an ellipse and a round rect filled; a
+    polyline and two lines stroked; two pixels, TextOut, ExtTextOut and,
+    with ``dib``, a 24-bit DIB stretched 10x."""
+    xy = [int(v) for v in rng.integers(0, 1080, 26)]
+    bmp = _dib24(rng.integers(0, 256, (24, 32, 3), np.uint8))
+    recs = [_wmf_rec(0x020C, [1080, 1920]), _wmf_rec(0x020B, [0, 0]),
+            _wmf_rec(0x02FA, [5, 1, 0, 0x3020, 0x0080]),
+            _wmf_rec(0x02FA, [0, 3, 0, 0x00FF, 0x0000]),
+            _wmf_rec(0x02FC, [0, 0x80C0, 0x0040]),
+            _wmf_rec(0x02FC, [0, 0x2040, 0x00C0]),
+            _wmf_rec(0x02FB, [-40] + [0] * 8, b"Arial\0"),
+            _wmf_rec(0x012D, [0]), _wmf_rec(0x012D, [2]),
+            _wmf_rec(0x012D, [4]), _wmf_rec(0x0209, [0x0000, 0x0080]),
+            _wmf_rec(0x041B, [700, 900, 100, 80]),
+            _wmf_rec(0x0324, [5] + xy[:10]),
+            _wmf_rec(0x0538, [2, 3, 4] + xy[10:24]),
+            _wmf_rec(0x012D, [3]),
+            _wmf_rec(0x0418, [1000, 1800, 600, 1200]),
+            _wmf_rec(0x061C, [60, 90, 1040, 700, 760, 150]),
+            _wmf_rec(0x012D, [1]),
+            _wmf_rec(0x0325, [4, 100, 1000, 500, 700, 900, 1000, 1300, 650]),
+            _wmf_rec(0x0214, [50, 1850]), _wmf_rec(0x0213, [1030, 1100]),
+            _wmf_rec(0x0213, [540, 30]),
+            _wmf_rec(0x041F, [0x00FF, 0x0000, 20, 20]),
+            _wmf_rec(0x041F, [0x0000, 0x00FF, 1060, 1900]),
+            _wmf_rec(0x0521, [11], b"WMF at 1080" +
+                     struct.pack("<hh", 80, 1300)),
+            _wmf_rec(0x0A32, [200, 1300, 7, 0], b"records"),
+            _wmf_rec(0x01F0, [2])]
+    if dib:
+        recs.append(_wmf_rec(0x0F43, [0x20, 0x00CC, 0, 24, 32, 0, 0, 240,
+                                      320, 760, 1500], bmp))
+    body = b"".join(recs) + _wmf_rec(0x0000, [])
+    hdr = struct.pack("<HHHIHIH", 1, 9, 0x300, (18 + len(body)) // 2, 8, 0,
+                      0)
+    ph = (struct.pack("<IH4hH", 0x9AC6CDD7, 0, 0, 0, 1920, 1080, 72) +
+          struct.pack("<IH", 0, 0))
+    return ph + hdr + body, len(recs) + 1
+
+
+def _emr(rtype: int, payload: bytes = b"") -> bytes:
+    size = 8 + len(payload)
+    pad = (-size) % 4
+    return struct.pack("<II", rtype, size + pad) + payload + b"\0" * pad
+
+
+def _emf_1080(rng, dib: bool = True) -> tuple:
+    """An EMF whose frame decodes to 1920x1080 at 96 dpi, and its record
+    count: a null and a solid pen, two brushes, a font; a rectangle, a
+    polygon, a polypolygon, an ellipse and a round rect filled; a
+    polyline, a Bezier, a line and a filled Bezier path; a pixel,
+    ExtTextOutW and, with ``dib``, a 24-bit DIB stretched 8x
+    (StretchDIBits)."""
+    def pts(n):
+        return b"".join(struct.pack("<2h", int(x), int(y)) for x, y in zip(
+            rng.integers(0, 1920, n), rng.integers(0, 1080, n)))
+
+    def poly(rtype, n):
+        return _emr(rtype, struct.pack("<4iI", 0, 0, 1919, 1079, n) + pts(n))
+
+    bmi_bits = _dib24(rng.integers(0, 256, (30, 40, 3), np.uint8))
+    bmi, bits = bmi_bits[:40], bmi_bits[40:]
+    text = "EMF at 1080"
+    emrtext = struct.pack("<2iIII4iI", 1200, 100, len(text), 76, 0, 0, 0, 0,
+                          0, 0)
+    recs = [_emr(38, struct.pack("<IIiiI", 1, 5, 1, 0, 0x802010)),
+            _emr(38, struct.pack("<IIiiI", 5, 0, 3, 0, 0x201080)),
+            _emr(39, struct.pack("<IIII", 2, 0, 0x40C080, 0)),
+            _emr(39, struct.pack("<IIII", 3, 0, 0xC04020, 0)),
+            _emr(82, struct.pack("<Ii", 4, -48) + b"\0" * 24 +
+                 "Arial".encode("utf-16le") + b"\0" * 54),
+            _emr(37, struct.pack("<I", 1)), _emr(37, struct.pack("<I", 2)),
+            _emr(43, struct.pack("<4i", 80, 100, 900, 700)), poly(86, 5),
+            _emr(91, struct.pack("<4iII2I", 0, 0, 1919, 1079, 2, 7, 3, 4) +
+                 pts(7)),
+            _emr(37, struct.pack("<I", 3)),
+            _emr(42, struct.pack("<4i", 1200, 600, 1800, 1000)),
+            _emr(44, struct.pack("<6i", 700, 60, 1100, 500, 120, 80)),
+            _emr(37, struct.pack("<I", 5)), poly(87, 5), poly(85, 7),
+            _emr(27, struct.pack("<2i", 20, 1060)),
+            _emr(54, struct.pack("<2i", 1900, 20)),
+            _emr(59), _emr(27, struct.pack("<2i", 100, 900)), poly(88, 3),
+            _emr(61), _emr(60), _emr(62, struct.pack("<4i", 0, 0, 1919, 1079)),
+            _emr(15, struct.pack("<2iI", 10, 10, 0x0000FF)),
+            _emr(24, struct.pack("<I", 0x000080)),
+            _emr(37, struct.pack("<I", 4)),
+            _emr(84, struct.pack("<4iI2f", 0, 0, 1919, 1079, 1, 1.0, 1.0) +
+                 emrtext + text.encode("utf-16le")),
+            _emr(40, struct.pack("<I", 2))]
+    if dib:
+        recs.append(_emr(81, struct.pack(
+            "<4i6i4I2I2i", 0, 0, 1919, 1079, 1500, 700, 0, 0, 40, 30, 80, 40,
+            120, len(bits), 0, 0x00CC0020, 320, 240) + bmi + bits))
+    body = b"".join(recs) + _emr(14, struct.pack("<3I", 0, 16, 20))
+    head = struct.pack("<4i4iIIIHHIII2i2i", 0, 0, 1919, 1079, 0, 0, 50800,
+                       28575, 0x464D4520, 0x10000, 88 + len(body),
+                       len(recs) + 2, 16, 0, 0, 0, 1920, 1080, 508, 286)
+    return struct.pack("<II", 1, 8 + len(head)) + head + body, len(recs) + 2
+
+
+def _sample_8bim() -> bytes:
+    from imagemagick_tpu_torch.io import coders_r4b as t4b
+
+    iptc = (b"\x1c\x02\x05" + struct.pack(">H", 4) + b"Scan" +
+            b"\x1c\x02\x78" + struct.pack(">H", 12) + b"a caption \xe9&" +
+            b"\x1c\x02\x19" + struct.pack(">H", 6) + b"survey")
+    return t4b._build_8bim([(1028, "", iptc), (2000, "Path", b"\x01\x02abc"),
+                            (1036, "", bytes(range(256)))])
+
+
+def io_stream_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """io_stream: the out-of-core tier on a 100-megapixel scan, and the
+    last coders.  An 8-bit P6 of SCAN_H x SCAN_W x 3 from ``seed``
+    through ``stream.convert_streaming`` (run (i): blur, level, unsharp,
+    shape-preserving, 2 K3 launches a band, both memory peaks under the
+    image's float32 size; run (ii): blur, level, a banded Lanczos resize
+    to half, unsharp, 2 K3 launches an output band, held to the in-core
+    route on the card within one 8-bit code, and a strip of it to the
+    same run_chain on the CPU), ``outofcore.reduce_tiled`` of
+    ``channel_histogram`` over ``stream.open_rows`` (one K4 launch a
+    channel a band, equal to np.bincount); 1080p streams to PNG (8 and
+    16 bits) and MIFF within one code of the CPU's, and ``read_stream``
+    rows equal to ``read_images``; HDR, WMF, EMF, the META profiles,
+    DMR, STRIMG, MATTE, DEBUG, JBIG and ``file:`` URLs decoded onto the
+    card and encoded from it, against the CPU's; then ``cli.main.main``
+    over 4 EMF and 4 WMF files through CLI_CODERS (one K1 launch) and 4
+    PNG frames into and out of a DMR repository (one K1 launch)."""
+    import tempfile
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch import native as tnat
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.io import coders_r4b as t4b
+    from imagemagick_tpu_torch.io import emf as temf
+    from imagemagick_tpu_torch.io import stream as tst
+    from imagemagick_tpu_torch.models import outofcore as toc
+    from imagemagick_tpu_torch.ops import blur as tbl
+    from imagemagick_tpu_torch.ops import enhance as ten
+    from imagemagick_tpu_torch.ops import histogram as thist
+    from imagemagick_tpu_torch.ops import resize as trz
+
+    counts = {"k1": 0, "k3": 0, "k4": 0}
+    full_f32 = SCAN_H * SCAN_W * C * 4
+    band_f32 = STREAM_BAND * SCAN_W * C * 4
+    mp = SCAN_H * SCAN_W / 1e6
+    pre = [("blur", {"sigma": 2.0}), ("level", {"black": 0.05,
+                                               "white": 0.95})]
+    post = [("unsharp", {"sigma": 1.0})]
+    with tempfile.TemporaryDirectory() as td:
+        scan = os.path.join(td, "scan.ppm")
+        t0 = time.perf_counter()
+        _scan_ppm(scan, seed)
+        print(f"io_stream: a {SCAN_H}x{SCAN_W}x{C} P6 scan from the seed "
+              f"({os.path.getsize(scan)} bytes) written in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # (i) the never-resident convert, shape-preserving
+        out1 = os.path.join(td, "out.ppm")
+        r1 = _stream_run(lambda: tst.convert_streaming(
+            scan, out1, ops=pre + post, band_rows=STREAM_BAND, device=dev))
+        bands = -(-SCAN_H // STREAM_BAND)
+        require(r1["launches"]["k3"] == 2 * bands and
+                r1["launches"]["k1"] == 0,
+                f"io_stream (i) launches {r1['launches']}")
+        require(r1["host"] < full_f32 and r1["card"] < full_f32,
+                f"io_stream (i) peaks {r1['host']} / {r1['card']} bytes "
+                f"against the image's {full_f32}")
+        require(os.path.getsize(out1) == os.path.getsize(scan),
+                "io_stream (i): the output's size")
+        counts["k3"] += r1["launches"]["k3"]
+        print(f"io_stream (i) convert_streaming blur 0x2 -> level 5%,95% -> "
+              f"unsharp 0x1, {bands} bands of {STREAM_BAND} rows: "
+              f"{r1['s']:.2f} s = {mp / r1['s']:.1f} MP/s; peaks: host "
+              f"{r1['host'] / 1e6:.1f} MB (tracemalloc), card "
+              f"{r1['card'] / 1e6:.1f} MB (max_memory_allocated), against "
+              f"{full_f32 / 1e6:.1f} MB for the image as float32 and "
+              f"{band_f32 / 1e6:.1f} MB a band; launches "
+              f"{r1['launches']} [{name_limit}]")
+
+        # (ii) the banded resize
+        out2 = os.path.join(td, "out2.ppm")
+        hout, wout = SCAN_H // 2, SCAN_W // 2
+        r2 = _stream_run(lambda: tst.convert_streaming(
+            scan, out2, ops=pre, resize=(hout, wout, "lanczos"),
+            post_ops=post, band_rows=STREAM_BAND, device=dev))
+        obands = -(-hout // STREAM_BAND)
+        require(r2["launches"]["k3"] == 2 * obands and
+                r2["launches"]["k1"] == 0,
+                f"io_stream (ii) launches {r2['launches']}")
+        counts["k3"] += r2["launches"]["k3"]
+        print(f"io_stream (ii) convert_streaming blur -> level -> lanczos "
+              f"{hout}x{wout} -> unsharp, {obands} output bands: "
+              f"{r2['s']:.2f} s = {mp / r2['s']:.1f} MP/s in; peaks: host "
+              f"{r2['host'] / 1e6:.1f} MB, card {r2['card'] / 1e6:.1f} MB "
+              f"(the W operator alone {SCAN_W * wout * 4 / 1e6:.1f} MB "
+              f"float32, on both); launches {r2['launches']} "
+              f"[{name_limit}]")
+
+        # (ii) against the in-core route on the card, quantized as the
+        # writer quantizes
+        reset_launches()
+        t0 = time.perf_counter()
+        x = torch.from_numpy(_ppm_body(scan).reshape(
+            SCAN_H, SCAN_W, C)).to(dev).float() / 255.0
+        x = tbl.gaussian_blur(x, 0.0, 2.0)
+        x = ten.level(x, 0.05, 0.95, 1.0)
+        x = trz.resize(x, hout, wout, "lanczos")
+        x = tbl.unsharp_mask(x, 0.0, 1.0, 1.0, 0.05)
+        q = (x.double() * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
+        incore = q.cpu().numpy().reshape(-1)
+        torch.cuda.synchronize()
+        incore_s = time.perf_counter() - t0
+        counts["k3"] += launched()["k3"]
+        del x, q
+        banded = _ppm_body(out2)
+        require(banded.shape == incore.shape, "io_stream (ii) sizes")
+        codes = int(np.abs(banded.astype(np.int16) - incore).max())
+        require(codes <= 1, f"io_stream (ii): {codes} codes from the "
+                f"in-core route")
+        print(f"io_stream (ii) against the in-core route on the card "
+              f"(gaussian_blur -> level -> resize -> unsharp_mask on the "
+              f"whole image, {incore_s:.2f} s with the read): at most "
+              f"{codes} code apart, {np.mean(banded != incore):.2e} of the "
+              f"samples moved [{name_limit}]")
+        del banded, incore
+
+        # (ii) on a strip: the card's run_chain against the CPU's
+        loader, _ = tst.open_rows(scan)
+
+        def strip(y0, y1):
+            return loader(STRIP_Y0 + y0, STRIP_Y0 + y1)
+
+        kw = dict(resize=(STRIP_ROWS // 2, wout, "lanczos"), post_ops=post,
+                  band_rows=STREAM_BAND)
+        reset_launches()
+        got = toc.run_chain(strip, (STRIP_ROWS, SCAN_W, C), pre, device=dev,
+                            **kw)
+        torch.cuda.synchronize()
+        counts["k3"] += launched()["k3"]
+        t0 = time.perf_counter()
+        want = toc.run_chain(strip, (STRIP_ROWS, SCAN_W, C), pre,
+                             device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(got - want).max())
+        require(err <= STREAM_STRIP_TOL, f"io_stream strip max|d| {err}")
+        print(f"io_stream (ii) on a strip of {STRIP_ROWS} rows: the card's "
+              f"run_chain against the CPU's ({cpu_s:.1f} s): max|d| "
+              f"{err:.3e} (tolerance {STREAM_STRIP_TOL}) [{name_limit}]")
+        del got, want
+
+        # a streaming statistic: K4 over the bands of the file
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = toc.reduce_tiled(
+            loader, SCAN_H, thist.channel_histogram,
+            lambda acc, part: acc + part.astype(np.int64),
+            np.zeros((256, C), np.int64), band_rows=STREAM_BAND, device=dev)
+        torch.cuda.synchronize()
+        hist_s = time.perf_counter() - t0
+        la = launched()
+        require(la["k4"] == C * bands and la["k1"] == 0,
+                f"io_stream reduce_tiled launches {la}")
+        counts["k4"] += la["k4"]
+        body = _ppm_body(scan).reshape(-1, C)
+        for ch in range(C):
+            require(np.array_equal(hist[:, ch], np.bincount(
+                body[:, ch], minlength=256)),
+                f"io_stream: channel {ch}'s histogram is not np.bincount's")
+        del body
+        print(f"io_stream reduce_tiled(open_rows(scan), channel_histogram): "
+              f"{hist_s:.2f} s = {mp / hist_s:.1f} MP/s, {la['k4']} K4 "
+              f"launches ({C} a band); the 256-bin counts equal "
+              f"np.bincount of the file's bytes [{name_limit}]")
+        os.remove(out1)
+        os.remove(out2)
+
+        # the other writers and readers at 1080p
+        rng = np.random.default_rng(seed + 25)
+        arr = _smooth_u8(rng, 1, IO_H, IO_W, C)[0]
+        frame = TImage(arr.astype(np.float32) / 255.0,
+                       ImageSpec(colorspace="srgb", depth=16), device="cpu")
+        files = {"ppm": os.path.join(td, "f.ppm"),
+                 "miff16": os.path.join(td, "f16.miff"),
+                 "miff-float": os.path.join(td, "ff.miff")}
+        PImage.fromarray(arr).save(files["ppm"])
+        from imagemagick_tpu_torch.io import miff as tmiff
+
+        for name, depth in (("miff16", 16), ("miff-float", 32)):
+            with open(files[name], "wb") as f:
+                f.write(tmiff.encode([frame], depth=depth,
+                                     compression="none"))
+        chain = [("negate", {}), ("level", {"black": 0.1, "white": 0.9})]
+        for out, depth in (("o8.png", 8), ("o16.png", 16), ("o.miff", 16)):
+            paths = []
+            for d in (dev, "cpu"):
+                paths.append(os.path.join(td, f"{d}-{out}".replace(":", "")))
+                t0 = time.perf_counter()
+                tst.convert_streaming(files["miff16"], paths[-1], ops=chain,
+                                      band_rows=STREAM_BAND_1080,
+                                      depth=depth, device=d)
+                if d is dev:
+                    ms = (time.perf_counter() - t0) * 1e3
+            a, b = (tio.read_images(p, device="cpu")[0].data.numpy()
+                    for p in paths)
+            top = (1 << depth) - 1
+            qa, qb = (np.round(v * top).astype(np.int64) for v in (a, b))
+            codes = int(np.abs(qa - qb).max())
+            require(a.shape == (IO_H, IO_W, C) and codes <= 1,
+                    f"io_stream 1080p {out}: {codes} codes, {a.shape}")
+            print(f"io_stream 16-bit MIFF {IO_H}x{IO_W}x{C} -> negate -> "
+                  f"level -> {out} ({depth}-bit) on the card: {ms:.1f} ms; "
+                  f"at most {codes} code from the CPU run, "
+                  f"{np.mean(qa != qb):.2e} of the samples moved "
+                  f"[{name_limit}]")
+        for name, path in files.items():
+            rows = []
+            t0 = time.perf_counter()
+            n = tst.read_stream(path, lambda b, y: rows.append(b),
+                                rows_per_batch=STREAM_BAND_1080)
+            ms = (time.perf_counter() - t0) * 1e3
+            want = tio.read_images(path, device="cpu")[0].to_numpy()
+            require(n == IO_H and np.array_equal(np.concatenate(rows), want),
+                    f"io_stream read_stream {name}: not read_images' rows")
+            print(f"io_stream read_stream {name} {IO_H}x{IO_W}x{C}: "
+                  f"{ms:.1f} ms, {len(rows)} batches, the rows equal to "
+                  f"read_images' [{name_limit}]")
+
+        # the coders: decode onto the card and encode from it
+        radiance = TImage(16.0 * (arr.astype(np.float32) / 255.0) ** 2,
+                          ImageSpec(colorspace="rgb", depth=16),
+                          device="cpu")
+        gray_hdr = TImage(radiance.data[..., :1].clone(),
+                          ImageSpec(colorspace="gray", depth=16),
+                          device="cpu")
+        small = TImage(frame.data[:SMALL4[0], :SMALL4[1]].clone(),
+                       ImageSpec(colorspace="srgb", depth=16), device="cpu")
+        rgba = TImage(torch.cat([small.data, small.data[..., 1:2]], -1),
+                      ImageSpec(colorspace="srgb", alpha=True, depth=16),
+                      device="cpu")
+
+        def coder(name, encode, decode, image, hold=None, encodes=True):
+            blob = encode(image)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = decode(blob, dev)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            want = decode(blob, "cpu")
+            require(img.data.device == torch.device(dev),
+                    f"io_stream {name}: not on the card")
+            if hold is None:
+                require(torch.equal(img.data.cpu(), want.data),
+                        f"io_stream {name}: the card's decode is not the "
+                        f"CPU's")
+                held = "the decode equal to the CPU's"
+            else:
+                held = hold(img, want)
+            shape = "x".join(map(str, img.data.shape))
+            if not encodes:
+                print(f"io_stream {name} to {shape} ({len(blob)} bytes): "
+                      f"decode to the card {dec_ms:.4f} ms (one run, host "
+                      f"clock); {held} [{name_limit}]")
+                return img
+            t0 = time.perf_counter()
+            got = encode(TImage(image.data.to(dev), image.spec))
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            require(got == blob, f"io_stream {name}: the card's encode is "
+                    f"not the CPU's")
+            print(f"io_stream {name} {shape} ({len(blob)} bytes): decode to "
+                  f"the card {dec_ms:.4f} ms, encode from it {enc_ms:.4f} ms "
+                  f"(one run each, host clock); {held}, the encode's bytes "
+                  f"the CPU's [{name_limit}]")
+            return img
+
+        def blob_of(fmt):
+            return lambda b, d: tio.image_from_blob(b, fmt, device=d)[0]
+
+        coder("hdr rgb", lambda im: tio.image_to_blob(im, "hdr"),
+              blob_of("hdr"), radiance)
+        coder("hdr gray", lambda im: tio.image_to_blob(im, "hdr"),
+              blob_of("hdr"), gray_hdr)
+        coder("strimg", lambda im: tio.image_to_blob(im, "strimg"),
+              blob_of("strimg"), TImage(frame.data[:1, :200].clone(),
+                     ImageSpec(colorspace="srgb", depth=8), device="cpu"))
+        coder("matte", lambda im: tio.image_to_blob(im, "matte"),
+              blob_of("miff"), rgba)
+        t0 = time.perf_counter()
+        dbg = tio.image_to_blob(TImage(small.data.to(dev), small.spec),
+                                "debug")
+        dbg_ms = (time.perf_counter() - t0) * 1e3
+        require(dbg == tio.image_to_blob(small, "debug"),
+                "io_stream debug: the card's text is not the CPU's")
+        lines = dbg.count(b"\n")
+        print(f"io_stream debug {SMALL4[0]}x{SMALL4[1]}x{C} from the card: "
+              f"{lines} lines ({len(dbg)} bytes) in {dbg_ms:.1f} ms, the "
+              f"CPU's bytes [{name_limit}]")
+        bim = _sample_8bim()
+        metas = {"8bim": bim, "8bimtext": t4b.format_8bimtext(bim).encode(),
+                 "iptc": t4b.iptc_from_8bim(bim),
+                 "iptctext": t4b.format_iptctext(
+                     t4b.iptc_from_8bim(bim)).encode(),
+                 "exif": b"Exif\0\0MM\0*\0\0\0\x08\0\0",
+                 "xmp": b"<?xpacket begin=''?><x:xmpmeta "
+                        b"xmlns:x='adobe:ns:meta/'/>",
+                 "icc": bytes(range(256)) * 2}
+        for fmt, blob in metas.items():
+            img = tio.image_from_blob(blob, fmt, device=dev)[0]
+            out = tio.image_to_blob(img, fmt)
+            require(img.data.is_cuda and img.data.shape == (1, 1, 3) and
+                    out == blob and out == tio.image_to_blob(
+                        tio.image_from_blob(blob, fmt, device="cpu")[0], fmt),
+                    f"io_stream meta {fmt}")
+        print(f"io_stream META {', '.join(metas)}: the 1x1 image on the "
+              f"card, each profile's bytes back unchanged and the CPU's "
+              f"[{name_limit}]")
+        metafiles = {}
+        for name, make in (("wmf", _wmf_1080), ("emf", _emf_1080)):
+            blob, nrec = make(rng)
+            metafiles[name] = blob
+
+            def hold(img, want, name=name):
+                err, n_off, n_px = _apart(img.data, want.data, DRAW_TOL)
+                require(img.data.shape[:2] == (IO_H, IO_W) and
+                        err <= DRAW_TOL, f"io_stream {name} max|d| {err} "
+                        f"{tuple(img.data.shape)}")
+                return (f"{nrec} records; against the CPU's decode max|d| "
+                        f"{err:.3e}, {n_off} of {n_px} px apart by more "
+                        f"than {DRAW_TOL}")
+            coder(name, lambda im, b=blob: b, blob_of(name), frame, hold,
+                  encodes=False)
+        for pp in (None, "a passphrase"):
+            st = {"defines": {"dmr:path": os.path.join(td, "repo")}}
+            if pp:
+                st["defines"]["dmr:passphrase"] = pp
+            batch = [TImage(small.data.to(dev) * (k + 1) / DMR_FRAMES,
+                            small.spec) for k in range(DMR_FRAMES)]
+            t0 = time.perf_counter()
+            tio.write_image(batch, "dmr:image/smoke/batch", settings=st)
+            w_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            back = tio.read_images("dmr:image/smoke/batch", settings=st,
+                                   device=dev)
+            r_ms = (time.perf_counter() - t0) * 1e3
+            cpu = tio.read_images("dmr:image/smoke/batch", settings=st,
+                                  device="cpu")
+            require(len(back) == DMR_FRAMES and all(
+                b.data.is_cuda and torch.equal(b.data.cpu(), c.data)
+                for b, c in zip(back, cpu)), "io_stream dmr")
+            print(f"io_stream dmr {DMR_FRAMES} frames of {SMALL4[0]}x"
+                  f"{SMALL4[1]}x{C} {'with' if pp else 'without'} a "
+                  f"passphrase: write {w_ms:.1f} ms, read onto the card "
+                  f"{r_ms:.1f} ms, equal to the CPU's read [{name_limit}]")
+        if tnat.jbig_available():
+            coder("jbig", lambda im: tio.image_to_blob(im, "jbig"),
+                  blob_of("jbig"), gray_hdr)
+        else:
+            try:
+                tio.image_to_blob(small, "jbig")
+                why = None
+            except ValueError as exc:
+                why = str(exc)
+            require(why is not None and "libjbig" in why,
+                    "io_stream jbig: no ValueError without libjbig")
+            print(f"io_stream jbig: libjbig does not build here: the JAX "
+                  f"ValueError ({why})")
+        png = os.path.join(td, "u.png")
+        PImage.fromarray(arr).save(png)
+        got = tio.read_images("file://" + png, device=dev)[0]
+        require(got.data.is_cuda and torch.equal(
+            got.data.cpu(), tio.read_images(png, device="cpu")[0].data),
+            "io_stream file: URL")
+        print(f"io_stream file:// URL of a {IO_H}x{IO_W} PNG: read onto the "
+              f"card, equal to the file's read [{name_limit}]")
+
+        # (a) metafiles through the CLI, (b) a DMR repository.  A DIB's
+        # composite leaves a 4th channel on the canvas, as the JAX coders
+        # do, which K1's gray mix does not take: the CLI's files carry no
+        # DIB record, so they decode to RGB
+        plain = {"wmf": _wmf_1080(rng, dib=False)[0],
+                 "emf": _emf_1080(rng, dib=False)[0]}
+        names = []
+        for k in range(CLI_METAFILES):
+            for kind in ("emf", "wmf"):
+                names.append(os.path.join(td, f"m{k}.{kind}"))
+                with open(names[-1], "wb") as f:
+                    f.write(plain[kind])
+        outs = {}
+        for d in (dev, "cpu"):
+            out = os.path.join(td, f"meta-{torch.device(d).type}-%d.png")
+            reset_launches()
+            t0 = time.perf_counter()
+            _main_ok(names + CLI_CODERS + [out], d)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            outs[d] = (out, launched(), wall)
+        la = outs[dev][1]
+        # one group: the 8 images share their shape
+        require(la["k1"] == 1, f"io_stream cli metafiles launches {la}")
+        counts["k1"] += la["k1"]
+        codes = 0
+        moved = []
+        for k in range(len(names)):
+            a, b = (np.asarray(PImage.open(outs[d][0] % k), np.int16)
+                    for d in (dev, "cpu"))
+            codes = max(codes, int(np.abs(a - b).max()))
+            moved.append(np.mean(a != b))
+        require(codes <= 1, f"io_stream cli metafiles: {codes} codes")
+        print(f"io_stream cli: {CLI_METAFILES} EMF and {CLI_METAFILES} WMF "
+              f"of {IO_H}x{IO_W} -> {' '.join(CLI_CODERS)} -> out-%d.png: "
+              f"launches {la} (the files without their DIB record: a DIB's "
+              f"composite leaves a 4th channel, as in the JAX coders, which "
+              f"K1's gray mix does not take), {outs[dev][2]:.1f} ms (first "
+              f"run); at most "
+              f"{codes} code from the CPU run, {np.mean(moved):.2e} of the "
+              f"samples moved [{name_limit}]")
+        pngs = []
+        for k in range(CLI_METAFILES):
+            pngs.append(os.path.join(td, f"p{k}.png"))
+            PImage.fromarray(_smooth_u8(rng, 1, IO_H, IO_W, C)[0]).save(
+                pngs[-1])
+        backs = {}
+        for d in (dev, "cpu"):
+            repo = os.path.join(td, f"repo-{torch.device(d).type}")
+            defs = ["-define", f"dmr:path={repo}", "-define",
+                    "dmr:passphrase=smoke"]
+            reset_launches()
+            t0 = time.perf_counter()
+            _main_ok(defs + pngs + CLI_CODERS + ["dmr:image/batch"], d)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            la = launched()
+            out = os.path.join(td, f"back-{torch.device(d).type}-%d.png")
+            _main_ok(defs + ["dmr:image/batch", out], d)
+            backs[d] = (out, la, wall)
+        la = backs[dev][1]
+        require(la["k1"] == 1, f"io_stream cli dmr launches {la}")
+        counts["k1"] += la["k1"]
+        codes = 0
+        for k in range(CLI_METAFILES):
+            a, b = (np.asarray(PImage.open(backs[d][0] % k), np.int16)
+                    for d in (dev, "cpu"))
+            require(a.shape == (IO_H // 2, IO_W // 2), f"dmr {a.shape}")
+            codes = max(codes, int(np.abs(a - b).max()))
+        require(codes <= 1, f"io_stream cli dmr: {codes} codes")
+        print(f"io_stream cli: {CLI_METAFILES} PNG of {IO_H}x{IO_W} -> "
+              f"{' '.join(CLI_CODERS)} -> dmr:image/batch (enciphered) and "
+              f"back: launches {la}, {backs[dev][2]:.1f} ms (first run); "
+              f"at most {codes} code from the CPU run [{name_limit}]")
+    print(f"io_stream launches to add: {counts}")
+    return counts
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4399,6 +5072,8 @@ def main() -> None:
                   lambda: io_formats_phase(dev, gen, name_limit, args.seed))
     fmts4 = _timed("io_formats4",
                    lambda: io_formats4_phase(dev, gen, name_limit, args.seed))
+    strm = _timed("io_stream",
+                  lambda: io_stream_phase(dev, gen, name_limit, args.seed))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -4887,7 +5562,7 @@ def main() -> None:
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
-         srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"],
+         srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"] + strm["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -4911,7 +5586,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
          fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"] + vfx["k3"] +
-         clil["k3"],
+         clil["k3"] + strm["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,
@@ -4921,7 +5596,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
          cliv["k4"] + clif["k4"] + coders["k4"] + fmts["k4"] +
-         fmts4["k4"],
+         fmts4["k4"] + strm["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

@@ -148,8 +148,8 @@ from ..core.image import Image
 from ..core.policy import enforce_path
 from ..core.spec import ImageSpec, normalize_colorspace
 
-_CLI_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'Host layers' (the "
-            "rest of io/, the other tools, -region and -bench)")
+_CLI_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'Host layers' "
+            "(cli/tools.py and the other tools, -region and -bench)")
 
 
 class CLIError(Exception):

@@ -24,15 +24,19 @@ PSD and PDF writers), ``formats3.py`` (MAT, VIFF, RLA, Palm, PICT) and
 ``formats4.py`` (16-bit TIFF both ways, VIPS, CALS, XWD, UYVY, YUV, Bayer
 and MAP with ``-size``, WPG, ``.cube`` LUTs, ``stegano:``, the PS, PS2
 and PS3 writers through the EPS writer, and the rest of its small raster,
-legacy and text formats).  The coders of ``coders_r4b`` (JBIG, WMF, the
-meta profiles, ``strimg:``, ``dmr:``, ``debug:``, ``matte:``), ``emf``
-and HDR raise NotImplementedError naming their ROADMAP.md entry, and so
-do ``url:``-style names, which need a network.  A decoded image is made
-on the host (a DNG's demosaic, an SVG's, a PES's and an MVG's raster on
-``device``) and goes to ``device`` once (the card unless the caller asks
-for the CPU); an encoded one comes to the host and is quantized there,
-with the JAX package's expressions (HRZ's resize, YUV's colour
-conversion and MAP's and WPG's k-means run on the image's device first).
+legacy and text formats), ``coders_r4b.py`` (``strimg:``, DEBUG, MATTE,
+the META profiles with their text grammars, ``dmr:`` repositories, WMF
+and JBIG, where libjbig builds), ``emf.py`` (EMF), Radiance HDR
+(``_rgbe.py``, numpy in place of the JAX package's OpenCV) and
+``url:``/``http:``/``https:``/``ftp:``/``file:`` reads (urllib, under
+the policy's ``delegate`` rights).  ``stream.py`` streams row bands of
+PNM, MIFF and raw files through ``models.outofcore``.  A decoded image is
+made on the host (a DNG's demosaic, an SVG's, a PES's, an MVG's and a
+WMF's or EMF's raster on ``device``) and goes to ``device`` once (the
+card unless the caller asks for the CPU); an encoded one comes to the
+host and is quantized there, with the JAX package's expressions (HRZ's
+resize, YUV's colour conversion and MAP's and WPG's k-means run on the
+image's device first).
 
 A color TIFF of samples deeper than 8 bits that the native deep reader
 declines (compressed, planar, or in strips that do not follow one
@@ -59,9 +63,10 @@ import torch
 from ..core.geometry import parse_geometry
 from ..core.image import Image
 from ..core.policy import enforce_path
-from . import (codecs, coders_r4, delegates, dng, exr, extra_coders,
-               formats2, formats3, formats4, miff, mpc, pnm, pseudo)
-from .codecs import REST_OF_IO
+from ..core.spec import ImageSpec
+from . import (_rgbe, codecs, coders_r4, coders_r4b, delegates, dng, emf,
+               exr, extra_coders, formats2, formats3, formats4, miff, mpc,
+               pnm, pseudo)
 
 __all__ = ["read_image", "read_images", "write_image", "image_from_blob",
            "image_to_blob", "detect_format", "supported_read_formats",
@@ -152,9 +157,9 @@ _PSEUDO = {
                                                            d),
     "pango": lambda arg, w, h, d: coders_r4.pango_pseudo(
         arg or "", w, h, _CURRENT_SETTINGS, d),
+    # strimg.c: the filename string as a 1-row image
+    "strimg": lambda arg, w, h, d: coders_r4b.strimg_pseudo(arg or "", d),
 }
-# a pseudo-coder of a coder module not ported yet (coders_r4b)
-_PSEUDO_OTHER = {"strimg"}
 
 
 def _null_image(w, h, device):
@@ -203,8 +208,7 @@ _FORMATS2_WRITE = {"dpx", "psd", "pdf", "fits", "fts", "wbmp", "avs", "mtv",
                    "pdb", "tim", "yuv", "bayer", "ps", "ps2", "ps3",
                    "ept", "ipl", "ftxt", "map", "ashlar", "magick",
                    "dcx", "cur", "raw", "wpg"}
-_META_PROFILE = {"8bim", "8bimtext", "exif", "app1", "xmp", "icc", "icm",
-                 "iptc", "iptctext"}
+_META_PROFILE = set(coders_r4b._META_PROFILE)
 _VIDEO_FMTS = {"mp4", "mkv", "webm", "avi", "mov", "mpeg", "mpg", "wmv"}
 _URL = ("url", "http", "https", "ftp", "file")
 
@@ -308,18 +312,8 @@ _FORMATS4_READ = set(_DECODE4) | set(_SIZED4)
 _FORMATS4_WRITE = (set(_ENCODE4) | set(_BRAILLE)
                    | {"pgx", "vips", "v", "ipl", "bayer", "ashlar", "dcx",
                       "ps", "ps2", "ps3"})
-# formats that the JAX package decodes and encodes with coder modules not
-# ported yet (coders_r4b, emf) or OpenCV (hdr)
-_OTHER_DECODE = ({"wmf", "emf", "jbig", "jbg", "bie", "strimg", "hdr",
-                  "dmr"} | _META_PROFILE)
-_OTHER_ENCODE = ({"hdr", "strimg", "debug", "matte", "jbig", "jbg", "bie",
-                  "dmr"} | _META_PROFILE)
+_JBIG = ("jbig", "jbg", "bie")
 _OFFICE = ("doc", "docx", "odt", "ppt", "pptx", "xls", "xlsx")
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: this coder is not ported yet: "
-                               f"{REST_OF_IO}")
 
 
 def detect_format(data: bytes) -> Optional[str]:
@@ -385,7 +379,7 @@ def detect_format(data: bytes) -> Optional[str]:
     return None
 
 
-_PREFIXES = (set(_PSEUDO) | _PSEUDO_OTHER | set(_NATIVE_EXT)
+_PREFIXES = (set(_PSEUDO) | set(_NATIVE_EXT)
              | set(codecs._PIL_FORMATS) | _FORMATS2_READ | _FORMATS2_WRITE
              | {"mpr", "info", "txt", "json", "dng", "mask", "clip", "ora",
                 "debug", "matte", "dmr", "wmf", "emf"}
@@ -400,12 +394,36 @@ def _split_filename(filename: str):
     return None, filename
 
 
+def _fetch_url(url: str, timeout: float = 30.0) -> bytes:
+    """Fetch a url:/http:/https:/ftp:/file: blob (the reference's curl
+    delegate, delegates.xml.in:66-67), honoring the policy 'delegate'
+    domain before touching the network (constitute.c:733 analog).
+    Inside ``no_host_files`` every URL is refused before anything is
+    opened (a ``file:`` URL names a host file)."""
+    from urllib.error import URLError
+    from urllib.request import urlopen
+
+    from ..core.policy import enforce_program
+    from ..core.policy import policy as _pol
+
+    scheme = url.split(":", 1)[0].lower()
+    if scheme == "file":
+        enforce_path(url)
+    enforce_program("url")
+    _pol.enforce("delegate", scheme.upper(), "read")
+    try:
+        with urlopen(url, timeout=timeout) as r:
+            return r.read()
+    except URLError as exc:
+        raise IOError(f"url fetch failed for {url!r}: {exc}") from exc
+
+
 def read_images(filename: str, size: Optional[str] = None,
                 settings: Optional[dict] = None,
                 device="cuda") -> List[Image]:
     """The images a name reads, on ``device``: a pseudo format, ``mpr:``,
-    ``mask:``/``clip:`` of a file, ``-`` for stdin, or a file (the raw
-    sample formats need ``size``)."""
+    ``dmr:``, ``mask:``/``clip:`` of a file, a URL, ``-`` for stdin, or a
+    file (the raw sample formats need ``size``)."""
     fmt, rest = _split_filename(str(filename))
     if rest == "-":   # stdin (cli-pipe.tap semantics)
         return image_from_blob(sys.stdin.buffer.read(), fmt, device)
@@ -427,14 +445,15 @@ def read_images(filename: str, size: Optional[str] = None,
         if rest not in _MPR_REGISTRY:
             raise FileNotFoundError(f"no mpr registry entry {rest!r}")
         return list(_MPR_REGISTRY[rest])
+    if fmt == "dmr":
+        # dmr.c:101 ReadDMRImage: repository IRI -> resource
+        return coders_r4b.read_dmr(rest, settings, device)
     if fmt in ("mask", "clip"):
         # coders/mask.c:236 / coders/clip.c: decode the underlying file,
         # then surface the grayscale raster / rasterized 8BIM clip path
         inner = read_images(rest, size, settings, device)
         return coders_r4.read_mask(inner) if fmt == "mask" \
             else coders_r4.read_clip(inner)
-    if fmt in _PSEUDO_OTHER or fmt == "dmr":
-        raise _unported(f"{fmt}:{rest}")
     ext = fmt or os.path.splitext(rest)[1].lstrip(".").lower()
     if ext in _VIDEO_FMTS:
         # coders/video.c's read side: frames through the ffmpeg delegate
@@ -443,15 +462,20 @@ def read_images(filename: str, size: Optional[str] = None,
         if os.path.exists(path):
             return delegates.decode_video_frames(path, device=device)
     if fmt in _URL:
-        raise NotImplementedError(
-            f"{filename!r}: reading a URL needs the URL-fetch delegate and "
-            f"a network, which are not ported: {REST_OF_IO}")
+        # url.c / the curl delegate rule (delegates.xml.in:66-67): the
+        # blob into the normal decode path, under the policy's "delegate"
+        # rights (policy.c:623)
+        target = rest if fmt == "url" else f"{fmt}:{rest}"
+        return image_from_blob(_fetch_url(target), device=device)
     enforce_path(rest)
     if (fmt == "mpc" or rest.lower().endswith(".mpc")) and \
             os.path.exists(rest):
         return mpc.read_mpc(rest, device)
     with open(rest, "rb") as f:
         data = f.read()
+    if ext in _META_PROFILE:
+        # meta.c:1198 ReadMETAImage: the blob as a 1x1 image's profile
+        return [coders_r4b.decode_meta(data, ext, device)]
     if ext in ("dot", "gv"):
         return delegates.decode_dot(data, device)
     if ext == "pcl":
@@ -552,8 +576,19 @@ def image_from_blob(data: bytes, fmt: Optional[str] = None,
         images = _DECODE23[use](data, device)
     elif use in _DECODE4:
         images = _DECODE4[use](data, device)
-    elif use in _OTHER_DECODE:
-        raise _unported(use)
+    elif use == "wmf":
+        images = [coders_r4b.decode_wmf(data, device=device)]
+    elif use == "emf":
+        images = [emf.decode_emf(data, device=device)]
+    elif use in _JBIG:
+        images = [coders_r4b.decode_jbig(data, device)]
+    elif use == "strimg":
+        images = [coders_r4b.strimg_pseudo(
+            data.decode("utf-8", "replace").rstrip("\n"), device)]
+    elif use in _META_PROFILE:
+        images = [coders_r4b.decode_meta(data, use, device)]
+    elif use == "hdr":
+        images = [_decode_hdr(data, device)]
     elif use == "uhdr":
         # Ultra HDR is a JPEG with an embedded gainmap; decode the base
         images = codecs.decode(data, "jpeg", device)
@@ -622,7 +657,8 @@ def write_image(image: Union[Image, List[Image]], filename: str,
     if fmt in ("null",):
         return
     if fmt == "dmr":
-        raise _unported(fmt)
+        coders_r4b.write_dmr(images, rest, settings)
+        return
     if fmt == "mpc" or (fmt is None and rest.lower().endswith(".mpc")):
         mpc.write_mpc(images, rest)
         return
@@ -781,8 +817,18 @@ def image_to_blob(image: Union[Image, List[Image]], fmt: str,
         return formats3.encode_mat(images[0], depth=depth)
     if fmt in _ENCODE23:
         return _ENCODE23[fmt](images[0])
-    if fmt in _OTHER_ENCODE:
-        raise _unported(fmt)
+    if fmt == "hdr":
+        return _encode_hdr(images[0])
+    if fmt == "strimg":
+        return coders_r4b.encode_strimg(images[0])
+    if fmt == "debug":
+        return coders_r4b.encode_debug(images)
+    if fmt == "matte":
+        return coders_r4b.encode_matte(images[0])
+    if fmt in _JBIG:
+        return coders_r4b.encode_jbig(images[0])
+    if fmt in _META_PROFILE:
+        return coders_r4b.encode_meta(images[0], fmt)
     if fmt in ("tiff", "tif") and depth > 8 and len(images) == 1 \
             and not images[0].profiles:
         # Pillow cannot save 48-bit RGB: the native deep writer
@@ -844,7 +890,7 @@ _PIL_READ_EXTRA = {"psd", "sun", "pcd", "dcx", "cur", "fli", "flc", "msp",
 
 def _heifjxl_formats() -> set:
     """HEIF and JPEG XL where the port's ``heifjxl`` library opens their
-    system libraries (JBIG waits for ``coders_r4b``)."""
+    system libraries, and JBIG where its ``jbigio`` library builds."""
     from .. import native
 
     out = set()
@@ -852,6 +898,8 @@ def _heifjxl_formats() -> set:
         out |= {"heic", "heif"}
     if native.jxl_available():
         out.add("jxl")
+    if native.jbig_available():
+        out |= set(_JBIG)
     return out
 
 
@@ -874,12 +922,14 @@ def _delegate_formats() -> set:
 
 
 # the port's coders of their own (miff.py, mpc.py, exr.py, dng.py,
-# extra_coders.py, coders_r4.py, formats2.py, formats3.py, formats4.py)
+# extra_coders.py, coders_r4.py, formats2.py, formats3.py, formats4.py,
+# coders_r4b.py, emf.py, _rgbe.py)
 _CODERS_READ = ({"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
-                 "xbm", "xpm", "svg", "ora", "kernel"} | _FORMATS23_READ
-                | _FORMATS4_READ)
+                 "xbm", "xpm", "svg", "ora", "kernel", "dmr", "wmf", "emf",
+                 "hdr"} | _META_PROFILE | _FORMATS23_READ | _FORMATS4_READ)
 _CODERS_WRITE = ({"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
-                  "xbm", "xpm", "sixel", "six", "ora", "kernel"}
+                  "xbm", "xpm", "sixel", "six", "ora", "kernel", "hdr",
+                  "strimg", "debug", "matte", "dmr"} | _META_PROFILE
                  | _FORMATS23_WRITE | _FORMATS4_WRITE)
 
 
@@ -887,8 +937,7 @@ def supported_read_formats():
     """The formats the port reads (not the JAX package's list)."""
     out = (set(_PSEUDO) | set(_PNM) | set(_RAW)
            | {"raw", "r", "mpr", "mask", "clip", "uhdr"} | _CODERS_READ
-           | ((_pil_formats("OPEN") | _PIL_READ_EXTRA) - _OTHER_DECODE
-              - {"heic", "jxl"})
+           | ((_pil_formats("OPEN") | _PIL_READ_EXTRA) - {"heic", "jxl"})
            | _heifjxl_formats() | _delegate_formats())
     return sorted(out)
 
@@ -898,16 +947,34 @@ def supported_write_formats():
     out = (set(_PNM) | set(_RAW) | {"raw", "uyvy", "mpr", "null", "info",
                                     "json", "txt", "yaml", "mask", "svg"}
            | _CODERS_WRITE
-           | (_pil_formats("SAVE") - _OTHER_ENCODE - {"heic", "jxl"})
+           | (_pil_formats("SAVE") - {"heic", "jxl"})
            | _heifjxl_formats()
            | (_VIDEO_FMTS if delegates.has_ffmpeg() else set()))
     return sorted(out)
 
 
 def known_write_formats():
-    """The formats the port writes and those the JAX package writes with
-    coders not ported yet (writing one raises NotImplementedError) or
-    with a codec or delegate missing here: the names a CLI's last token
-    may carry as an output prefix."""
-    return sorted(set(supported_write_formats()) | _OTHER_ENCODE
-                  | _VIDEO_FMTS | {"heic", "heif", "jxl"})
+    """The formats the port writes and those it writes with a codec or
+    delegate missing here (writing one raises): the names a CLI's last
+    token may carry as an output prefix."""
+    return sorted(set(supported_write_formats()) | _VIDEO_FMTS
+                  | {"heic", "heif", "jxl"} | set(_JBIG))
+
+
+def _decode_hdr(data: bytes, device) -> Image:
+    """Radiance HDR (coders/hdr.c analog): float32 RGB, unclipped, on
+    ``device``."""
+    return Image(_rgbe.decode(data), ImageSpec(colorspace="rgb", depth=16),
+                 device=device)
+
+
+def _encode_hdr(image: Image) -> bytes:
+    """Radiance HDR of the first frame: a gray image's channel written
+    three times (its alpha dropped, as a colour image's is; the JAX
+    function raises IndexError on gray with alpha)."""
+    arr = image.to_numpy().astype(np.float32)
+    if arr.ndim == 4:
+        arr = arr[0]
+    if arr.shape[-1] < 3:
+        arr = np.repeat(arr[..., :1], 3, -1)
+    return _rgbe.encode(arr[..., :3])

@@ -174,9 +174,6 @@ def decode(data: bytes, fmt: Optional[str] = None, device="cuda"
     return frames
 
 
-REST_OF_IO = ("ROADMAP.md Queue 1, 'Host layers' (the rest of io/: "
-              "coders_r4b, emf, stream and HDR)")
-
 _PIL_FORMATS = {
     "png": "PNG", "jpg": "JPEG", "jpeg": "JPEG", "gif": "GIF",
     "bmp": "BMP", "tiff": "TIFF", "tif": "TIFF", "webp": "WEBP",

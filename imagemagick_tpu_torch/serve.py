@@ -36,13 +36,14 @@ Endpoints (stdlib http.server; no external dependencies):
 
 No request reaches the host's files or runs a program of the host:
 ``/convert`` refuses bare tokens (file names), the options that read or
-write paths and the output formats ``mpr``, ``mpc`` and video (400), as
-does ``/apply``, and ``/convert``, ``/apply`` and ``/identify`` run under
-``core.policy.no_host_files``, so that a path that an option's argument
-names anyway (a ``-draw`` font, say) is refused (400) before it is
-opened, and a body that only a delegate reads (PDF, PostScript, a raw
-that dcraw would take) is refused before the delegate runs.  An option or a format the port lacks answers 501; another
-bad request, 400; an error of the server or the card (a kernel's), 500.
+write paths and the output formats ``mpr``, ``mpc``, ``dmr`` and video
+(400), as does ``/apply``, and ``/convert``, ``/apply`` and ``/identify``
+run under ``core.policy.no_host_files``, so that a path that an option's
+argument names anyway (a ``-draw`` font, say) is refused (400) before it
+is opened, and a body that only a delegate reads (PDF, PostScript, a raw
+that dcraw would take) is refused before the delegate runs.  An option
+the port lacks (``-region``, ``-bench``) answers 501; another bad
+request, 400; an error of the server or the card (a kernel's), 500.
 
 Run:  python -m imagemagick_tpu_torch.serve [--port 8089] [--device cuda]
 """
@@ -120,9 +121,9 @@ _DENY_OPTS = {
 
 
 # output formats that a request may not name: mpr: outlives the request,
-# mpc: writes a file of the host, a video format runs ffmpeg (no_host_files
-# refuses the last two again where they are reached)
-_HOST_OF = {"mpr", "mpc"} | _VIDEO_FMTS
+# mpc: and dmr: write files of the host, a video format runs ffmpeg
+# (no_host_files refuses the last three again where they are reached)
+_HOST_OF = {"mpr", "mpc", "dmr"} | _VIDEO_FMTS
 
 
 def _check_args(args, where: str, ops_only: bool) -> None:

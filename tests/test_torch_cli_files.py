@@ -319,7 +319,10 @@ def test_informational_options_and_errors(files, capsys):
     listed = capsys.readouterr().out
     assert "PNG          rw" in listed and "MIFF         rw" in listed
     assert "DPX          rw" in listed and "AAI          rw" in listed
-    assert "\nHDR " not in listed and "\nJBIG " not in listed
+    assert "HDR          rw" in listed and "WMF          r-" in listed
+    from imagemagick_tpu_torch import native as tnat
+
+    assert ("\nJBIG " in listed) == tnat.jbig_available()
     for what in ("resource", "policy", "colorspace", "compose", "kernel"):
         tm.main(["-list", what], device="cpu")
         got = capsys.readouterr().out

@@ -1753,3 +1753,51 @@ def test_cli_from_miff_on_card(dev, tmp_path):
                     for side in ("card", "cpu"))
             assert a.shape == b.shape
             assert np.mean(np.abs(a - b) > 1 / 255) <= 1e-3
+
+
+def test_outofcore_chain_and_metafile_and_hdr_decodes_on_card(dev):
+    """run_chain with a blur, a Lanczos resize and an unsharp on the card:
+    within 2e-5 of the same run on the CPU (K3's sums and the products'
+    float32 dot products in another order), one K3 launch a band for each
+    blur; an EMF and an HDR decode onto the card equal to their decode on
+    the CPU (the EMF's coverage is float64, its canvas made and drawn on
+    the card)."""
+    import struct
+
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.models import outofcore as toc
+
+    img = _rand((300, 96, 3), 101)
+    ops = [("blur", {"sigma": 2.0}), ("level", {"black": 0.05,
+                                               "white": 0.95})]
+    kw = dict(resize=(150, 48, "lanczos"), post_ops=[("unsharp",
+                                                       {"sigma": 1.0})],
+              band_rows=64)
+    before = gk.LAUNCHES["k3"]
+    got = toc.run_chain(img, img.shape, ops, device=dev, **kw)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k3"] - before == 2 * 3      # 3 output bands
+    want = toc.run_chain(img, img.shape, ops, device="cpu", **kw)
+    assert got.shape == want.shape == (150, 48, 3)
+    assert float(np.abs(got - want).max()) <= 2e-5
+
+    def emr(rtype, payload=b""):
+        return struct.pack("<II", rtype, 8 + len(payload)) + payload
+    body = (emr(39, struct.pack("<IIII", 1, 0, 0x0000FF, 0)) +
+            emr(37, struct.pack("<I", 1)) +
+            emr(43, struct.pack("<4i", 10, 10, 50, 30)) +
+            emr(42, struct.pack("<4i", 20, 5, 60, 35)) +
+            emr(14, struct.pack("<3I", 0, 16, 20)))
+    head = struct.pack("<4i4iIIIHHIII2i2i", 0, 0, 63, 39, 0, 0, 1693, 1058,
+                       0x464D4520, 0x10000, 88 + len(body), 7, 16, 0, 0, 0,
+                       1024, 768, 270, 203)
+    emf = struct.pack("<II", 1, 8 + len(head)) + head + body
+    hdr = tio.image_to_blob(TImage(_rand((20, 33, 3), 102) * 8.0,
+                                   device="cpu"), "hdr")
+    for blob in (emf, hdr):
+        card = tio.image_from_blob(blob, device=dev)[0]
+        host = tio.image_from_blob(blob, device="cpu")[0]
+        assert card.data.is_cuda and torch.equal(card.data.cpu(), host.data)
+        assert tio.image_to_blob(card, "hdr") == tio.image_to_blob(host,
+                                                                   "hdr")

@@ -551,7 +551,7 @@ def test_svg_wrapper_matches_jax(no_png_native):
     assert got == want
 
 
-# -- what the port does not read or write yet -------------------------------
+# -- the last coders of io/, which raised before they were ported ----------
 
 UNPORTED_BLOBS = {
     "wmf": b"\xd7\xcd\xc6\x9a" + b"\0" * 64,
@@ -562,8 +562,16 @@ UNPORTED_BLOBS = {
 
 @pytest.mark.parametrize("kind", sorted(UNPORTED_BLOBS))
 def test_unported_formats_raise_naming_their_entry(kind):
-    with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.image_from_blob(UNPORTED_BLOBS[kind], device="cpu")
+    """These blobs, once refused as unported, now give the JAX outcome:
+    the same pixels, or the same exception class."""
+    blob = UNPORTED_BLOBS[kind]
+    try:
+        want = jio.image_from_blob(blob)
+    except Exception as exc:   # noqa: BLE001 — the JAX class is the point
+        with pytest.raises(type(exc)):
+            tio.image_from_blob(blob, device="cpu")
+    else:
+        _same_images(tio.image_from_blob(blob, device="cpu"), want)
 
 
 # formats4's files cut short, which were here while formats4 was unported
@@ -589,11 +597,30 @@ def test_truncated_formats4_blobs_raise_as_jax(kind):
 
 @pytest.mark.parametrize("fmt", ["hdr", "strimg", "debug", "jbig", "exif",
                                  "matte", "icc", "xmp", "iptc", "dmr"])
-def test_unported_writers_raise_naming_their_entry(fmt):
-    t, _ = _pair(_pixels(94))
-    with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.image_to_blob(t, fmt) if fmt != "dmr" else \
-            tio.write_image(t, "dmr:x")
+def test_unported_writers_raise_naming_their_entry(fmt, tmp_path):
+    """These writers, once refused as unported, now give the JAX bytes
+    (DMR: its resource file, and the images read back)."""
+    t, j = _pair(_pixels(94, c=4), colorspace="srgb", alpha=True)
+    for im in (t, j):
+        im.profiles.update({"exif": b"Exif\0\0II*\0", "icc": b"\0icc",
+                            "xmp": b"<x/>", "iptc": b"\x1c\x02\x05\0\x01A"})
+    if fmt == "dmr":
+        for side, mod, im in (("t", tio, t), ("j", jio, j)):
+            mod.write_image(im, "dmr:image/x", settings={
+                "defines": {"dmr:path": str(tmp_path / side)}})
+        res = "image/x/resource.miff"
+        assert (tmp_path / "t" / res).read_bytes() == \
+            (tmp_path / "j" / res).read_bytes()
+        _same_images(tio.read_images("dmr:image/x", settings={"defines": {
+            "dmr:path": str(tmp_path / "t")}}, device="cpu"),
+            jio.read_images("dmr:image/x", settings={"defines": {
+                "dmr:path": str(tmp_path / "j")}}))
+        return
+    if fmt == "jbig" and not tnat.jbig_available():
+        with pytest.raises(ValueError, match="libjbig unavailable"):
+            tio.image_to_blob(t, fmt)
+        return
+    assert tio.image_to_blob(t, fmt) == jio.image_to_blob(j, fmt)
 
 
 def _tiff_rgb16(arr) -> bytes:
@@ -623,8 +650,8 @@ def _tiff_rgb16(arr) -> bytes:
 def test_deep_rgb_tiff_and_urls_raise():
     """A 48-bit RGB TIFF reads with the native deep reader, as in the JAX
     package (Pillow would narrow it to 8 bits), and a TIFF at depth 16
-    writes with the native deep writer, both equal to JAX; a URL still
-    raises."""
+    writes with the native deep writer, both equal to JAX; a URL that
+    names no file raises the JAX IOError."""
     blob = _tiff_rgb16(np.random.default_rng(0).integers(0, 65536, (4, 5, 3)))
     want = jio.image_from_blob(blob)
     assert want[0].spec.depth == 16
@@ -632,8 +659,9 @@ def test_deep_rgb_tiff_and_urls_raise():
     t, j = _pair(_pixels(95), colorspace="srgb", depth=16)
     assert tio.image_to_blob(t, "tiff", depth=16) == \
         jio.image_to_blob(j, "tiff", depth=16)
-    with pytest.raises(NotImplementedError, match="network"):
-        tio.read_images("http://localhost/x.png", device="cpu")
+    for mod, kw in ((jio, {}), (tio, {"device": "cpu"})):
+        with pytest.raises(IOError, match="url fetch failed"):
+            mod.read_images("file:///nonexistent/x.png", **kw)
 
 
 # -- identify ---------------------------------------------------------------
@@ -719,10 +747,11 @@ def test_formats_lists_name_only_what_the_port_does():
         assert fmt in reads
     for fmt in ("aai", "vips", "cals", "ps", "wpg"):
         assert fmt in writes
-    for fmt in ("jbig", "hdr", "wmf", "emf"):
-        assert fmt not in reads
-    for fmt in ("jbig", "hdr", "matte"):
-        assert fmt not in writes
+    for fmt in ("hdr", "wmf", "emf"):
+        assert fmt in reads
+    for fmt in ("hdr", "matte"):
+        assert fmt in writes
+    assert ("jbig" in reads) == ("jbig" in writes) == tnat.jbig_available()
     assert ("heic" in reads) == tnat.heif_available()
     assert ("jxl" in writes) == tnat.jxl_available()
 

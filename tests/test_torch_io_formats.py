@@ -22,6 +22,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from imagemagick_tpu_torch import io as tio
+from imagemagick_tpu_torch import native as tnat
 from imagemagick_tpu_torch.cli import main as tm
 from imagemagick_tpu_torch.core.image import Image as TImage
 from imagemagick_tpu_torch.io import formats2 as t2
@@ -1094,8 +1095,9 @@ def test_formats_lists_name_the_new_coders():
     for fmt in ("dpx", "psd", "pdf", "fits", "mat", "viff", "rla", "palm",
                 "pict", "g3", "g4", "sun", "otb", "vicar"):
         assert fmt in writes
-    for fmt in ("jbig", "hdr", "strimg"):
-        assert fmt not in reads and fmt not in writes
+    for fmt in ("hdr", "strimg"):
+        assert fmt in reads and fmt in writes
+    assert ("jbig" in reads) == ("jbig" in writes) == tnat.jbig_available()
 
 
 # -- the CLI ----------------------------------------------------------------
@@ -1154,11 +1156,20 @@ def test_cli_reads_each_prefix_as_jax(tmp_path, prefix, kind):
 
 
 def test_still_unported_coders_raise_naming_their_entry(tmp_path):
-    t, _ = _pair(_pixels(75, 4, 4, 3))
+    """The coders that were still unported here now write the JAX bytes
+    (MATTE of an image without alpha raises its ValueError, JBIG's where
+    libjbig is missing), and a cut WMF raises the JAX ValueError."""
+    t, j = _pair(_pixels(75, 4, 4, 3))
     for fmt in ("hdr", "jbig", "matte", "strimg"):
-        with pytest.raises(NotImplementedError, match="'Host layers'"):
-            tio.image_to_blob(t, fmt)
+        try:
+            want = jio.image_to_blob(j, fmt)
+        except ValueError as exc:
+            with pytest.raises(ValueError, match=str(exc)[:20]):
+                tio.image_to_blob(t, fmt)
+        else:
+            assert tio.image_to_blob(t, fmt) == want
     raw = tmp_path / "x.wmf"
     raw.write_bytes(b"\xd7\xcd\xc6\x9a" + bytes(32))
-    with pytest.raises(NotImplementedError, match="'Host layers'"):
-        tio.read_images(str(raw), device="cpu")
+    for mod, kw in ((jio, {}), (tio, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="WMF: truncated header"):
+            mod.read_images(str(raw), **kw)

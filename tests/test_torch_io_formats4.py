@@ -888,10 +888,11 @@ def test_formats_lists_name_the_formats4_coders():
     for fmt in ("aai", "vips", "cals", "xwd", "map", "wpg", "braille", "ps",
                 "ps3", "ept", "dcx", "cur", "ashlar", "shtml", "h"):
         assert fmt in writes
-    for fmt in ("jbig", "wmf", "emf", "hdr", "strimg", "exif"):
-        assert fmt not in reads
-    for fmt in ("jbig", "hdr", "strimg", "matte", "debug", "exif"):
-        assert fmt not in writes
+    for fmt in ("wmf", "emf", "hdr", "strimg", "exif"):
+        assert fmt in reads
+    for fmt in ("hdr", "strimg", "matte", "debug", "exif"):
+        assert fmt in writes
+    assert ("jbig" in reads) == ("jbig" in writes) == tnat.jbig_available()
 
 
 # -- deep TIFF --------------------------------------------------------------

@@ -169,10 +169,10 @@ def test_error_codes_match_jax(server):
 
 
 @pytest.mark.parametrize("path", ["/convert?args=-region%2010x10",
-                                  "/convert?args=-resize%2010x10&of=matte"])
+                                  "/convert?args=-bench%202"])
 def test_convert_and_identify_answer_501(server, path):
-    """An option (-region) or an output format (MATTE) the port still lacks
-    answers 501, naming its ROADMAP.md entry."""
+    """An option the port still lacks (-region, -bench) answers 501,
+    naming its ROADMAP.md entry."""
     status, body = _call(server, "POST", path, _png(_pixels(9, n=1)[0]))
     assert status == 501
     assert "'Host layers'" in json.loads(body)["error"]
@@ -290,7 +290,8 @@ def test_formats_lists_what_the_port_reads_and_writes(server):
     assert "miff" in got["read"] and "miff" in got["write"]
     assert "dpx" in got["read"] and "dpx" in got["write"]
     assert "aai" in got["read"] and "aai" in got["write"]
-    assert "hdr" not in got["read"] and "hdr" not in got["write"]
+    assert "hdr" in got["read"] and "hdr" in got["write"]
+    assert "dmr" in got["read"] and "wmf" in got["read"]
 
 
 @pytest.mark.parametrize("args", [
@@ -426,14 +427,76 @@ def test_convert_of_a_dpx_body_answers_the_cli_bytes(server, args, of):
         assert got == js._run_cli(["-", *args.split(), f"{of}:-"], body)
 
 
-@pytest.mark.parametrize("of", ["mpc", "mp4", "webm", "mpr"])
+@pytest.mark.parametrize("of", ["mpc", "mp4", "webm", "mpr", "dmr"])
 def test_convert_refuses_outputs_that_reach_the_host(server, of):
-    """mpc: writes a file of the host and the video formats run ffmpeg:
-    400 before the request runs, and no_host_files refuses them again
-    where they are reached."""
+    """mpc: and dmr: write files of the host and the video formats run
+    ffmpeg: 400 before the request runs, and no_host_files refuses them
+    again where they are reached."""
     status, body = _call(server, "POST", f"/convert?args=-flip&of={of}",
                          _miff(41))
     assert status == 400 and "bad output format" in json.loads(body)["error"]
+
+
+def _metafile_or_hdr(kind: str) -> bytes:
+    """A request body: an EMF or WMF of a few shapes, an HDR of the seed's
+    pixels, or an RGBA MIFF that carries an IPTC profile."""
+    import struct
+
+    from imagemagick_tpu_torch import io as tio
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec as TSpec
+
+    px = _pixels(45, n=1)[0].astype(np.float32) / 255.0
+    if kind == "hdr":
+        return tio.image_to_blob(TImage(px * 4.0, device="cpu"), "hdr")
+    if kind == "miff-rgba":
+        rgba = np.concatenate([px, px[..., :1]], -1)
+        blob = tio.image_to_blob(TImage(rgba, TSpec(alpha=True),
+                                        device="cpu"), "miff")
+        iptc = b"\x1c\x02\x05" + struct.pack(">H", 4) + b"Rose"
+        head, sep, rest = blob.partition(b"\x0c\n:\x1a")
+        return (head + b"profile=iptc\n" + sep +
+                struct.pack(">I", len(iptc)) + iptc + rest)
+    if kind == "wmf":
+        def rec(func, *p):
+            return struct.pack("<IH%dh" % len(p), 3 + len(p), func, *p)
+        recs = (rec(0x020C, 40, 60) + rec(0x02FC, 0, 0x00FF, 0) +
+                rec(0x012D, 0) + rec(0x041B, 30, 50, 5, 5) +
+                rec(0x0418, 38, 58, 20, 20) + rec(0))
+        return (struct.pack("<IH4hH", 0x9AC6CDD7, 0, 0, 0, 60, 40, 72) +
+                struct.pack("<IH", 0, 0) +
+                struct.pack("<HHHIHIH", 1, 9, 0x300, (18 + len(recs)) // 2,
+                            1, 0, 0) + recs)
+
+    def emr(rtype, payload=b""):
+        return struct.pack("<II", rtype, 8 + len(payload)) + payload
+    body = (emr(39, struct.pack("<IIII", 1, 0, 0x0000FF, 0)) +
+            emr(37, struct.pack("<I", 1)) +
+            emr(43, struct.pack("<4i", 10, 10, 50, 30)) +
+            emr(42, struct.pack("<4i", 20, 5, 60, 35)) +
+            emr(14, struct.pack("<3I", 0, 16, 20)))
+    head = struct.pack("<4i4iIIIHHIII2i2i", 0, 0, 63, 39, 0, 0, 1693, 1058,
+                       0x464D4520, 0x10000, 88 + len(body), 7, 16, 0, 0, 0,
+                       1024, 768, 270, 203)
+    return struct.pack("<II", 1, 8 + len(head)) + head + body
+
+
+@pytest.mark.parametrize("kind,args,of", [
+    ("emf", "-flip", "png"), ("wmf", "-negate", "ppm"),
+    ("hdr", "-flop", "hdr"), ("emf", "-flip", "hdr"),
+    ("wmf", "-flop", "debug"), ("miff-rgba", "-flip", "matte"),
+    ("emf", "-flip", "strimg"), ("miff-rgba", "-flop", "iptctext")])
+def test_convert_of_metafile_and_hdr_bodies_answers_the_cli_bytes(
+        server, kind, args, of):
+    """A WMF, EMF, HDR or MIFF request body converted to PNG, PPM, HDR,
+    DEBUG, MATTE, STRIMG or IPTCTEXT: the server's bytes are the port's
+    CLI run on the CPU and the JAX server's."""
+    body = _metafile_or_hdr(kind)
+    status, got = _call(server, "POST",
+                        f"/convert?args={quote(args)}&of={of}", body)
+    assert status == 200, got
+    argv = ["-", *args.split(), f"{of}:-"]
+    assert got == ts._run_cli(argv, body, "cpu") == js._run_cli(argv, body)
 
 
 @pytest.mark.parametrize("body", [b"%PDF-1.4\n", b"%!PS-Adobe-3.0\n"])
