@@ -246,6 +246,34 @@ and the serve daemon):
   -gaussian-blur 0x2 -colorspace gray`` (one K1 launch) and 4 PNG
   frames through the same chain into an enciphered ``dmr:`` repository
   and back (one K1 launch), each within one 8-bit code of the CPU run.
+* cli_tools — the CLI's other tools through ``cli.main.main(...,
+  device="cuda")``: mogrify ``-path -format png`` of 8 PNGs of 512x768x3
+  through config #1's chain (K1 once a file, each output the bytes that
+  convert writes for the file); composite of an RGBA overlay onto a
+  1080p frame (``-gravity center -geometry +10+10``), a montage of 16
+  tiles (``-tile 4x4 -geometry 256x256+4+4``) and an MSL script (read a
+  1080p PNG, resize, blur, write) by conjure, each within one level of
+  the CPU run; compare ``-metric`` rmse, psnr and ncc of two 1080p
+  frames and ``-subimage-search`` of a 64x64 patch in 540x960 (the
+  numbers within 1e-5 of the CPU run's, the exit codes and the offset
+  equal); identify ``-format`` (the CPU's text); stream ``-extract
+  1920x1080+0+0`` of a 3840x2160 PNG (the CPU's bytes); ``-region
+  800x600+100+100 -gaussian-blur 0x2`` on a 1080p frame (one K3 launch,
+  outside equal to the input, inside within EFFECT_TOL of the CPU);
+  ``-bench 5`` of config #1's chain (its Performance line parsed, K1
+  five times); display to a file and as sixel.  Then the palette walks
+  (``csrc/palette_walk.cu``): each entry equal to its plain version bit
+  for bit on 2 x 48x63 frames at C = 1, 3, 4 with 2, 16 and 256
+  entries, inputs in [-0.3, 1.3]; ``remap(..., dither=True)`` of 4 x
+  1080x1920x3 onto 16 and onto 256 entries (one Floyd-Steinberg launch
+  each, timed; its first 8 rows equal the plain walk of the input's
+  first 8 rows, and every pixel is a palette entry); Riemersma on 1 x
+  256x256x3 equal to its plain version, timed.  The plain walks run on
+  CPU copies (the same float32 operations); each walk's bound is its
+  chain of H*W dependent steps, each at the SM cycles that
+  ``pw_step_cycles`` measures for one step at its narrowest (a dependent
+  shared-memory load and five shuffle levels) and the card's top SM clock
+  (``nvidia-smi``), or its bytes or operations where larger.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -279,7 +307,9 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.  It
 needs one CUDA card and fails without one.  The line before the last is
 a JSON object with every kernel's launches on the main path, its largest
 error against the plain version, its times (per call and device-only)
-and its bound; the last line is
+and its bound (the palette walks' rows also name their shapes and the
+plain walk's, which runs on the host); before it, the run's total on
+the host clock; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -289,6 +319,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -618,6 +649,21 @@ STREAM_STRIP_TOL = 1e-4        # K3's 1e-5 and the resize products' 2e-5,
                                # unsharp's difference added back
 DMR_FRAMES = 4                 # frames of SMALL4 in a DMR resource
 CLI_METAFILES = 4              # EMFs and as many WMFs through CLI_CODERS
+# cli_tools
+TOOLS_FILES = 8        # PNGs of H x W x C through mogrify
+TOOLS_TILES = 16       # tiles of the montage
+TOOLS_BENCH = 5        # -bench iterations
+TOOLS_COMPARE_REL = 1e-5   # a metric printed by compare: float32 sums on
+                           # the card in another order than the CPU's
+                           # (ncc's 1 - corr: 1e-5 of corr)
+TOOLS_SEARCH_REL = 1e-4    # the peak of a float32 FFT correlation
+REGION = "800x600+100+100"
+PATCH = 64             # the template -subimage-search finds in 540x960
+WALK_SMALL = (2, 48, 63)    # frames held bit for bit, an odd width
+WALK_N = 4             # 1080p frames through remap(..., dither=True)
+WALK_TOP = 8           # rows held to the plain walk of the input's rows
+WALK_SIDE = 256        # Riemersma's frame, held to its plain version
+STEP_CHAIN = 1 << 16   # dependent steps pw_step_cycles times
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -4821,6 +4867,479 @@ def io_stream_phase(dev, gen, name_limit: str, seed: int) -> dict:
     return counts
 
 
+class _Stdout:
+    """A stdout stand-in whose ``buffer`` collects bytes (the sixel route
+    writes there)."""
+
+    def __init__(self):
+        self.buffer = io.BytesIO()
+
+    def write(self, text):
+        self.buffer.write(text.encode())
+
+    def flush(self):
+        pass
+
+    def isatty(self):
+        return False
+
+
+def _run_main(argv, device):
+    """(exit code, stdout bytes, stderr text) of ``main(argv, device)``."""
+    from imagemagick_tpu_torch.cli.main import main as cli_main
+
+    out, err = _Stdout(), io.StringIO()
+    old = sys.stdout
+    sys.stdout = out
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(list(argv), device=device)
+    finally:
+        sys.stdout = old
+    torch.cuda.synchronize()
+    return rc, out.buffer.getvalue(), err.getvalue()
+
+
+def _png_levels(a: str, b: str) -> int:
+    """The largest difference, in 8-bit levels, of two PNG files' samples
+    (their shapes equal)."""
+    from PIL import Image as PImage
+
+    x = np.asarray(PImage.open(a)).astype(np.int64)
+    y = np.asarray(PImage.open(b)).astype(np.int64)
+    require(x.shape == y.shape, f"{a} {x.shape} against {b} {y.shape}")
+    return int(np.abs(x - y).max())
+
+
+def step_cycles(dev) -> float:
+    """The SM cycles of one palette-walk step at its narrowest (C = 1,
+    K = 32: a shared-memory load of the entry the step before chose, one
+    distance, five shuffle levels), measured by the kernel library's
+    pw_step_cycles over STEP_CHAIN dependent steps on one warp (clock64);
+    the least of three runs after a first."""
+    from imagemagick_tpu_torch import _build
+
+    lib = _build.load()
+    pal = torch.rand(32, device=dev)
+    cycles = torch.zeros(2, dtype=torch.int64, device=dev)
+    runs = []
+    for _ in range(4):
+        _build.check(lib.pw_step_cycles(
+            pal.data_ptr(), STEP_CHAIN, cycles.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "pw_step_cycles")
+        torch.cuda.synchronize(dev)
+        runs.append(int(cycles[0]) / STEP_CHAIN)
+    return min(runs[1:])
+
+
+def walk_bound(n: int, h: int, w: int, c: int, k: int, cycles: float):
+    """A palette walk's least time on the card (ms), what binds it and
+    the SM clock: the larger of its bytes (each input read once, each
+    output written once), its float32 operations (3 a channel an entry a
+    pixel: the distance's subtract, multiply and add) and its chain of
+    h*w dependent steps at ``cycles`` each (``step_cycles``) and the
+    card's top SM clock; the n images run side by side on n SMs.  The
+    chain is a latency, reported under "operations", the contract's word
+    for a bound that is not bytes: dependent operations, each waiting
+    for the one before."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.split()[0])
+    t_chain = h * w * cycles / (mhz * 1e6) * 1e3
+    t_other, by = bound(2 * n * h * w * c * 4 + k * c * 4,
+                        3.0 * n * h * w * c * k)
+    return (t_chain, "operations", mhz) if t_chain >= t_other else \
+        (t_other, by, mhz)
+
+
+def _palette_hits(out: torch.Tensor, pal: torch.Tensor) -> bool:
+    """Whether every pixel of ``out`` is an entry of ``pal``, by a hash of
+    each entry's float32 bits."""
+    def key(v):
+        bits = v.contiguous().view(torch.int32).to(torch.int64)
+        h = torch.zeros(v.shape[:-1], dtype=torch.int64, device=v.device)
+        for i in range(v.shape[-1]):
+            h = h * 1000003 + bits[..., i]
+        return h
+    return bool(torch.isin(key(out), key(pal)).all())
+
+
+def cli_tools_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """cli_tools: the CLI's other tools, -region, -bench and the palette
+    walks on the card.  mogrify -path -format png of TOOLS_FILES PNGs of
+    512x768x3 through config #1's chain (K1 once a file, each output the
+    bytes the port's convert writes for the file); composite of a 1080p
+    destination and an RGBA overlay (-gravity center -geometry +10+10),
+    montage of 16 tiles (-tile 4x4 -geometry 256x256+4+4) and an MSL
+    script (read a 1080p PNG, resize, blur, write) by conjure, each
+    within one level of the CPU run; compare -metric rmse, psnr and ncc
+    of two 1080p frames and -subimage-search of a 64x64 patch in 540x960
+    (numbers and exit codes against the CPU run); identify -format of a
+    1080p frame and stream -extract 1920x1080+0+0 of a 3840x2160 PNG
+    (the CPU's text and bytes); -region 800x600+100+100 -gaussian-blur
+    0x2 on a 1080p frame through K3 (outside equal to the input, inside
+    within EFFECT_TOL of the CPU); -bench 5 of config #1's chain; display
+    to a file and as sixel.  The walks: each kernel equal to its plain
+    version bit for bit on 2 x 48x63 frames at C = 1, 3, 4 and palettes of
+    2, 16, 256 entries, inputs in [-0.3, 1.3]; remap(..., dither=True)
+    of 4 x 1080x1920x3 with 16 and 256 entries (one Floyd-Steinberg
+    launch each; the first WALK_TOP rows equal the plain walk of the
+    input's first rows, every pixel a palette entry); Riemersma on 1 x
+    256x256x3 equal to its plain version.  The plain versions run on CPU
+    copies of the inputs: the same float32 operations."""
+    import tempfile
+
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch.cli import main as tm
+    from imagemagick_tpu_torch.cli import tools as tt
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.ops import quantize as tq
+
+    rng = np.random.default_rng(seed + 25)
+    counts = {"k1": 0, "k3": 0, "walk_fs": 0, "walk_riemersma": 0}
+
+    def frame(h, w, c=3):
+        """Smooth u8 content with texture, so that resamples and blurs
+        have something to do."""
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        base = 0.5 + 0.4 * np.sin(yy / 37.0)[..., None] * np.cos(
+            xx[..., None] / 53.0 + np.arange(c))
+        img = base + 0.05 * rng.standard_normal((h, w, c))
+        return (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+    with tempfile.TemporaryDirectory() as td:
+        def path(name):
+            return os.path.join(td, name)
+
+        # -- mogrify against convert, file by file ----------------------
+        names = []
+        for k in range(TOOLS_FILES):
+            names.append(path(f"m{k}.png"))
+            PImage.fromarray(frame(H, W)).save(names[-1])
+        os.mkdir(path("mog"))
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, _, err = _run_main(["mogrify", "-path", path("mog"), "-format",
+                                "png", *CLI_ARGV, *names], dev)
+        mog_s = time.perf_counter() - t0
+        la = launched()
+        require(rc == 0 and err == "", f"mogrify: {rc} {err}")
+        require(la["k1"] == TOOLS_FILES, f"mogrify K1 launches {la}")
+        counts["k1"] += la["k1"]
+        for k, name in enumerate(names):
+            conv = path(f"c{k}.png")
+            _main_ok([name, *CLI_ARGV, conv], dev)
+            with open(conv, "rb") as f, \
+                    open(os.path.join(path("mog"), f"m{k}.png"), "rb") as g:
+                require(f.read() == g.read(), f"mogrify file {k}: not the "
+                        "bytes convert writes")
+        print(f"cli_tools mogrify {TOOLS_FILES} PNGs of {H}x{W}x{C}: "
+              f"{mog_s * 1e3 / TOOLS_FILES:.1f} ms a file, K1 {la['k1']}, "
+              f"each the bytes of convert's [{name_limit}]")
+
+        # -- composite, montage, conjure against the CPU ------------------
+        PImage.fromarray(frame(IO_H, IO_W)).save(path("dst.png"))
+        PImage.fromarray(frame(256, 384, 4)).save(path("ov.png"))
+        tiles = []
+        for k in range(TOOLS_TILES):
+            tiles.append(path(f"t{k}.png"))
+            PImage.fromarray(frame(300 + 7 * k, 400)).save(tiles[-1])
+        with open(path("s.msl"), "w") as f:
+            f.write(f'<image><read filename="{path("dst.png")}"/>'
+                    f'<resize geometry="50%"/><blur radius="0" sigma="2"/>'
+                    f'<write filename="{path("msl-OUT.png")}"/></image>')
+        with open(path("s.msl")) as f:
+            msl = f.read()
+        runs = {
+            "composite": lambda o: ["composite", "-gravity", "center",
+                                    "-geometry", "+10+10", path("ov.png"),
+                                    path("dst.png"), o],
+            "montage": lambda o: ["montage", *tiles, "-tile", "4x4",
+                                  "-geometry", "256x256+4+4", o],
+            "conjure": None,
+        }
+        for tool, argv in runs.items():
+            outs = {}
+            for d, side in ((dev, "card"), ("cpu", "cpu")):
+                o = path(f"{tool}-{side}.png")
+                if tool == "conjure":
+                    with open(path("s.msl"), "w") as f:
+                        f.write(msl.replace(path("msl-OUT.png"), o))
+                    args = ["conjure", path("s.msl")]
+                else:
+                    args = argv(o)
+                reset_launches()
+                t0 = time.perf_counter()
+                rc, _, err = _run_main(args, d)
+                ms = (time.perf_counter() - t0) * 1e3
+                require(rc == 0 and err == "", f"{tool}: {rc} {err}")
+                if d == dev:
+                    la = launched()
+                    counts["k1"] += la["k1"]
+                    counts["k3"] += la["k3"]
+                    card_ms = ms
+                outs[side] = o
+            lv = _png_levels(outs["card"], outs["cpu"])
+            require(lv <= 1, f"{tool}: {lv} levels from the CPU run")
+            shape = np.asarray(PImage.open(outs["card"])).shape
+            print(f"cli_tools {tool} -> {shape}: {card_ms:.1f} ms on the "
+                  f"card, within {lv} level of the CPU run, launches "
+                  f"{ {k: v for k, v in la.items() if v} } [{name_limit}]")
+
+        # -- compare, identify, stream against the CPU --------------------
+        a = frame(IO_H, IO_W)
+        b = np.clip(a.astype(np.int64) + rng.integers(-3, 4, a.shape), 0,
+                    255).astype(np.uint8)
+        PImage.fromarray(a).save(path("ca.png"))
+        PImage.fromarray(b).save(path("cb.png"))
+        # noise: the unnormalized correlation that similarity_image takes
+        # peaks at the patch only where the frame has no large shading
+        half = rng.integers(0, 256, (IO_H // 2, IO_W // 2, C), np.uint8)
+        PImage.fromarray(half).save(path("half.png"))
+        py, px = IO_H // 6, IO_W // 6
+        PImage.fromarray(half[py:py + PATCH, px:px + PATCH]).save(
+            path("patch.png"))
+        number = re.compile(r"[-+0-9.einf]+")
+        for argv, rel in (
+                (["compare", "-metric", "rmse", path("ca.png"),
+                  path("cb.png")], TOOLS_COMPARE_REL),
+                (["compare", "-metric", "psnr", path("ca.png"),
+                  path("cb.png")], TOOLS_COMPARE_REL),
+                (["compare", "-metric", "ncc", path("ca.png"),
+                  path("cb.png")], TOOLS_COMPARE_REL),
+                (["compare", "-metric", "rmse", path("ca.png"),
+                  path("ca.png")], TOOLS_COMPARE_REL),
+                (["compare", "-subimage-search", path("half.png"),
+                  path("patch.png")], TOOLS_SEARCH_REL)):
+            t0 = time.perf_counter()
+            rc, _, err = _run_main(argv, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            rc_cpu, _, err_cpu = _run_main(argv, "cpu")
+            require(rc == rc_cpu, f"compare {argv[1:3]}: exit {rc} on the "
+                    f"card, {rc_cpu} on the CPU")
+            got = [float(v) for v in number.findall(err.split("@")[0])]
+            want = [float(v) for v in number.findall(err_cpu.split("@")[0])]
+            # ncc prints 1 - corr: its tolerance is relative to corr, so
+            # absolute on d (and on 65535·d, 65535 times it)
+            scale = [65535.0, 1.0] if argv[2] == "ncc" else [0.0, 0.0]
+            require(len(got) == len(want) and all(
+                abs(g - w) <= rel * max(abs(w), sc, 1e-12)
+                for g, w, sc in zip(got, want, scale + [0.0] * len(want))),
+                f"compare {argv[1:3]}: {err!r} against {err_cpu!r}")
+            if "@" in err:
+                require(err.split("@")[1] == err_cpu.split("@")[1] ==
+                        f" {px},{py}\n", f"subimage search: {err!r}, the "
+                        f"CPU {err_cpu!r}")
+            print(f"cli_tools {' '.join(argv[1:3])}: {err.strip()!r} exit "
+                  f"{rc} (the CPU: {err_cpu.strip()!r} exit {rc_cpu}), "
+                  f"{ms:.1f} ms [{name_limit}]")
+        fmt = "%w %h %m %[fx:w*h] %k\\n"
+        rc, out, _ = _run_main(["identify", "-format", fmt, path("ca.png")],
+                               dev)
+        rc_cpu, out_cpu, _ = _run_main(["identify", "-format", fmt,
+                                        path("ca.png")], "cpu")
+        require(rc == rc_cpu == 0 and out == out_cpu and out,
+                f"identify: {out!r} against {out_cpu!r}")
+        print(f"cli_tools identify -format: {out.decode().strip()!r}, the "
+              f"CPU's text [{name_limit}]")
+        PImage.fromarray(frame(2 * IO_H, 2 * IO_W)).save(path("uhd.png"))
+        raws = []
+        for d, side in ((dev, "card"), ("cpu", "cpu")):
+            raw = path(f"s-{side}.raw")
+            t0 = time.perf_counter()
+            rc, _, err = _run_main(["stream", "-extract",
+                                    f"{IO_W}x{IO_H}+0+0", path("uhd.png"),
+                                    raw], d)
+            ms = (time.perf_counter() - t0) * 1e3
+            require(rc == 0 and err == "", f"stream: {rc} {err}")
+            with open(raw, "rb") as f:
+                raws.append(f.read())
+            if d == dev:
+                stream_ms = ms
+        require(raws[0] == raws[1] and len(raws[0]) == IO_H * IO_W * C,
+                "stream: the card's bytes are not the CPU's")
+        print(f"cli_tools stream -extract {IO_W}x{IO_H}+0+0 of "
+              f"{2 * IO_W}x{2 * IO_H}: {stream_ms:.1f} ms, the CPU's "
+              f"{len(raws[0])} bytes [{name_limit}]")
+
+        # -- -region through K3 --------------------------------------------
+        x = torch.from_numpy(a.astype(np.float32) / 255.0)
+        res = {}
+        for d, side in ((dev, "card"), ("cpu", "cpu")):
+            st = tm.CLIState(d)
+            st.images.append(tm.LazyImage(TImage(x.to(d))))
+            reset_launches()
+            t0 = time.perf_counter()
+            tm.process(["-region", REGION, "-gaussian-blur", "0x2"], st)
+            res[side] = tm.materialize_all(st.images)[0].data
+            torch.cuda.synchronize()
+            if d == dev:
+                region_ms = (time.perf_counter() - t0) * 1e3
+                la = launched()
+                require(la["k3"] == 1 and la["k1"] == 0,
+                        f"-region blur launches {la}")
+                counts["k3"] += la["k3"]
+        rw, rh, rx, ry = map(int, re.findall(r"\d+", REGION))
+        inside = torch.zeros(IO_H, IO_W, dtype=torch.bool)
+        inside[ry:ry + rh, rx:rx + rw] = True
+        got = res["card"].cpu()
+        require(torch.equal(got[~inside], x[~inside]),
+                "-region: a pixel outside the region changed")
+        err = max_err(got[inside], res["cpu"][inside])
+        require(err <= EFFECT_TOL and not torch.equal(got[inside],
+                                                      x[inside]),
+                f"-region inside: max|d| {err}")
+        print(f"cli_tools -region {REGION} -gaussian-blur 0x2 on {IO_H}x"
+              f"{IO_W}x{C}: {region_ms:.1f} ms, K3 1, outside equal, inside "
+              f"max|d| {err:.3e} [{name_limit}]")
+
+        # -- -bench ----------------------------------------------------------
+        reset_launches()
+        rc, _, err = _run_main(["-bench", str(TOOLS_BENCH), names[0],
+                                *CLI_ARGV, path("bench.png")], dev)
+        la = launched()
+        m = re.fullmatch(r"Performance\[1\]: (\d+)i ([0-9.]+)ips 1\.000e "
+                         r"([0-9.]+)u \d+:\d{2}\.\d{3}\n", err)
+        require(rc == 0 and m is not None and int(m.group(1)) == TOOLS_BENCH
+                and la["k1"] == TOOLS_BENCH, f"-bench: {rc} {err!r} {la}")
+        counts["k1"] += la["k1"]
+        print(f"cli_tools -bench {TOOLS_BENCH} of config #1's chain on one "
+              f"{H}x{W} PNG: {err.strip()!r} (K1 {la['k1']}) [{name_limit}]")
+
+        # -- display: the file route and the sixel route --------------------
+        keep = tt.DISPLAY_FILE, os.environ.get("IMTPU_SIXEL")
+        try:
+            tt.DISPLAY_FILE = path("display.png")
+            os.environ.pop("IMTPU_SIXEL", None)
+            rc, _, err = _run_main(["display", path("ca.png"), "-negate"],
+                                   dev)
+            require(rc == 0 and err == "display: no sixel terminal; wrote "
+                    f"{tt.DISPLAY_FILE}\n", f"display: {rc} {err!r}")
+            neg = np.asarray(PImage.open(tt.DISPLAY_FILE))
+            require(np.array_equal(neg, 255 - a), "display file: not -negate")
+            os.environ["IMTPU_SIXEL"] = "1"
+            rc, out, err = _run_main(["display", path("ca.png")], dev)
+            rc_cpu, out_cpu, _ = _run_main(["display", path("ca.png")],
+                                           "cpu")
+            shown = round(IO_H * 800 / IO_W) if IO_W > 800 else IO_H
+            bands = -(-shown // 6)
+            require(rc == rc_cpu == 0 and out.startswith(b"\x1bPq") and
+                    out.endswith(b"\x1b\\\n") and out.count(b"-") == bands,
+                    f"display sixel: {rc} {out[:16]!r} {out.count(b'-')}")
+        finally:
+            tt.DISPLAY_FILE = keep[0]
+            if keep[1] is None:
+                os.environ.pop("IMTPU_SIXEL", None)
+            else:
+                os.environ["IMTPU_SIXEL"] = keep[1]
+        print(f"cli_tools display: a file, and {len(out)} bytes of sixel "
+              f"in {bands} bands ({'the' if out == out_cpu else 'not the'} "
+              f"CPU run's bytes) [{name_limit}]")
+
+    # -- the palette walks ---------------------------------------------------
+    small = {}
+    for c in (1, 3, 4):
+        for k in (2, 16, 256):
+            xs = torch.from_numpy((rng.random((*WALK_SMALL, c)) * 1.6 - 0.3)
+                                  .astype(np.float32))
+            pal = torch.from_numpy(rng.random((k, c)).astype(np.float32))
+            for fn in (tq.floyd_steinberg, tq.riemersma):
+                t0 = time.perf_counter()
+                got = fn(xs.to(dev), pal.to(dev))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                want = fn(xs, pal)
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                require(torch.equal(got.cpu(), want),
+                        f"{fn.__name__} C={c} K={k}: not the plain walk")
+                if (c, k) == (3, 16):
+                    small[fn.__name__] = (ms, plain_ms)
+    print(f"walks on {WALK_SMALL[0]} x {WALK_SMALL[1]}x{WALK_SMALL[2]} at "
+          f"C = 1, 3, 4 with 2, 16, 256 entries: both equal to their plain "
+          f"versions; C=3 K=16: {small} (kernel ms, plain ms on the host) "
+          f"[{name_limit}]")
+
+    cycles = step_cycles(dev)
+    print(f"walk step at C = 1, K = 32: {cycles:.2f} SM cycles "
+          f"(pw_step_cycles, {STEP_CHAIN} dependent steps) [{name_limit}]")
+    xb = torch.rand(WALK_N, IO_H, IO_W, C, generator=gen, device=dev)
+    top = xb[:, :WALK_TOP].cpu()
+    fs = {}
+    for k in (16, 256):
+        pal = torch.rand(k, C, generator=gen, device=dev)
+        reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = tq.remap(xb, pal, dither=True)
+        end.record()
+        end.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = start.elapsed_time(end)
+        la = launched()
+        require(la["walk_fs"] == 1 and sum(la.values()) == 1,
+                f"remap dither launches {la}")
+        counts["walk_fs"] += 1
+        t0 = time.perf_counter()
+        want = tq._floyd_steinberg_plain(top, pal.cpu())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((out[:, :WALK_TOP].cpu() - want).abs().max())
+        require(torch.equal(out[:, :WALK_TOP].cpu(), want),
+                f"remap dither K={k}: the first rows are not the plain walk "
+                f"({err})")
+        require(_palette_hits(out, pal), f"remap dither K={k}: a pixel "
+                "that is no palette entry")
+        fs[k] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "launches": la["walk_fs"], "max_abs_err": err,
+                 "bound": walk_bound(WALK_N, IO_H, IO_W, C, k, cycles)}
+        print(f"walk_fs remap(dither=True) {(WALK_N, IO_H, IO_W, C)} onto "
+              f"{k} entries: {ms:.1f} ms ({dev_ms:.1f} ms on CUDA events), "
+              f"bound {fs[k]['bound'][0]:.1f} ms ({fs[k]['bound'][1]}, "
+              f"{fs[k]['bound'][2]:.0f} MHz); plain walk of the first "
+              f"{WALK_TOP} rows {plain_ms:.0f} ms on the host, equal "
+              f"[{name_limit}]")
+    xr = torch.rand(1, WALK_SIDE, WALK_SIDE, C, generator=gen, device=dev)
+    pal = torch.rand(16, C, generator=gen, device=dev)
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    got = tq.riemersma(xr, pal)
+    end.record()
+    end.synchronize()
+    rm_ms = (time.perf_counter() - t0) * 1e3
+    rm_dev = start.elapsed_time(end)
+    rm_launches = launched()["walk_riemersma"]
+    require(rm_launches == 1, "riemersma launches")
+    counts["walk_riemersma"] += 1
+    t0 = time.perf_counter()
+    want = tq.riemersma(xr.cpu(), pal.cpu())
+    rm_plain = (time.perf_counter() - t0) * 1e3
+    rm_err = float((got.cpu() - want).abs().max())
+    require(torch.equal(got.cpu(), want),
+            f"riemersma: not the plain walk ({rm_err})")
+    rm_bound = walk_bound(1, WALK_SIDE, WALK_SIDE, C, 16, cycles)
+    print(f"walk_riemersma {(1, WALK_SIDE, WALK_SIDE, C)} onto 16 entries: "
+          f"{rm_ms:.2f} ms ({rm_dev:.2f} ms on CUDA events), bound "
+          f"{rm_bound[0]:.2f} ms ({rm_bound[1]}); plain {rm_plain:.0f} ms on "
+          f"the host, equal [{name_limit}]")
+    counts["walks"] = {"fs": fs, "fs_small": small["floyd_steinberg"],
+                       "rm": (rm_ms, rm_dev, rm_plain, rm_bound),
+                       "rm_launches": rm_launches, "rm_err": rm_err,
+                       "rm_small": small["riemersma"],
+                       "step_cycles": cycles}
+    return counts
+
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4835,6 +5354,7 @@ def main() -> None:
     from imagemagick_tpu_torch.ops.blur import (gaussian_kernel_1d,
                                                 optimal_kernel_width_2d)
 
+    t_start = time.perf_counter()
     name_limit = card()
     print(name_limit)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5074,6 +5594,8 @@ def main() -> None:
                    lambda: io_formats4_phase(dev, gen, name_limit, args.seed))
     strm = _timed("io_stream",
                   lambda: io_stream_phase(dev, gen, name_limit, args.seed))
+    tools = _timed("cli_tools",
+                   lambda: cli_tools_phase(dev, gen, name_limit, args.seed))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -5562,7 +6084,8 @@ def main() -> None:
          "launches": launches["k1"] + new5["k1"] + new5["k1_wm"] +
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
-         srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"] + strm["k1"],
+         srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"] + strm["k1"] +
+         tools["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -5586,7 +6109,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
          fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"] + vfx["k3"] +
-         clil["k3"] + strm["k3"],
+         clil["k3"] + strm["k3"] + tools["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,
@@ -5632,6 +6155,41 @@ def main() -> None:
          "bound_by": k6c_bound[1], "library_ms": ifft_ms,
          "device_ms": k6c_dev, "library_device_ms": ifft_dev},
     ]
+    walks = tools["walks"]
+    for k, fs in sorted(walks["fs"].items(), reverse=True):
+        kernels.append(
+            {"name": f"palette_walk_fs_k{k}", "route": "cuda",
+             "source": "imagemagick_tpu_torch/csrc/palette_walk.cu",
+             "replaces": "none: imagemagick_tpu/ops/quantize.py:200 "
+                         "(floyd_steinberg, an XLA loop)",
+             "launches": fs["launches"], "max_abs_err": fs["max_abs_err"],
+             "ms": fs["ms"],
+             "plain_ms": fs["plain_ms"], "bound_ms": fs["bound"][0],
+             "bound_by": fs["bound"][1], "library_ms": None,
+             "device_ms": fs["device_ms"], "library_device_ms": None,
+             "shape": [WALK_N, IO_H, IO_W, C, k],
+             "plain_shape": [WALK_N, WALK_TOP, IO_W, C, k],
+             "plain_on": "host", "sm_mhz": fs["bound"][2],
+             "step_cycles": walks["step_cycles"],
+             "small_ms": walks["fs_small"][0],
+             "small_plain_ms": walks["fs_small"][1]})
+    rm_ms, rm_dev, rm_plain, rm_bound = walks["rm"]
+    kernels.append(
+        {"name": "palette_walk_riemersma", "route": "cuda",
+         "source": "imagemagick_tpu_torch/csrc/palette_walk.cu",
+         "replaces": "none: imagemagick_tpu/ops/quantize.py:284 "
+                     "(riemersma, an XLA loop)",
+         "launches": walks["rm_launches"], "max_abs_err": walks["rm_err"],
+         "ms": rm_ms, "plain_ms": rm_plain, "bound_ms": rm_bound[0],
+         "bound_by": rm_bound[1], "library_ms": None,
+         "device_ms": rm_dev, "library_device_ms": None,
+         "shape": [1, WALK_SIDE, WALK_SIDE, C, 16],
+         "plain_shape": [1, WALK_SIDE, WALK_SIDE, C, 16], "plain_on": "host",
+         "sm_mhz": rm_bound[2], "step_cycles": walks["step_cycles"],
+         "small_ms": walks["rm_small"][0],
+         "small_plain_ms": walks["rm_small"][1]})
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s "
+          f"[{name_limit}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

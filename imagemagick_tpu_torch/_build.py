@@ -51,6 +51,12 @@ _SIGNATURES = {
     "k6b_h_mask": [_P] * 8 + [_I] * 4 + [_F, _P],
     # g, out, roots, twiddles, radices (host), P, H, W, passes, stream
     "k6c_w_inverse": [_P] * 5 + [_I] * 4 + [_P],
+    # x, pal, out, scratch, N, H, W, C, K, rows_in_shared, stream
+    "pw_floyd_steinberg": [_P] * 4 + [_I] * 6 + [_P],
+    # x, order, pal, out, N, HW, C, K, decay, stream
+    "pw_riemersma": [_P] * 4 + [_I] * 4 + [_F, _P],
+    # pal, steps, cycles, stream (the walks' step latency, for their bound)
+    "pw_step_cycles": [_P, _I, _P, _P],
 }
 
 _lib = None

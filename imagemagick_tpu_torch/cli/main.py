@@ -123,10 +123,18 @@ argument) and ``-clip``/``-clip-path``, which every option built by
 ``-encipher``/``-decipher``; ``-process`` (no modules, a CLIError as in
 the JAX CLI); ``-remap``/``-map``/``-affinity`` under every dither (the
 native octree library on the host, as in the JAX CLI); ``-layers
-composite`` with its ``null:`` separator.  ``main(argv, device)`` runs the magick/convert dialect.
-Write masks by geometry (``-region``), ``-bench`` and the other tools
-raise NotImplementedError naming their ROADMAP.md entry, 'Host layers'.
-The tags equal the JAX CLI's for the same arguments.
+composite`` with its ``null:`` separator; ``-region``/``+region`` (a
+write mask by gravity-adjusted geometry, built on the image's device);
+``-bench N`` (the rest of the command N times, a ``Performance`` line on
+stderr).  An option neither CLI knows raises the JAX CLI's CLIError,
+``unrecognized option``.
+
+``main(argv, device)`` runs the magick/convert dialect and the JAX CLI's
+other tools by their first word: ``identify``, ``compare`` and
+``stream`` here, ``mogrify``, ``composite``, ``montage``, ``conjure``,
+``display``/``animate`` and ``-bench`` in ``cli/tools.py``; ``import``
+prints the JAX CLI's refusal.  The tags equal the JAX CLI's for the same
+arguments.
 """
 
 from __future__ import annotations
@@ -147,10 +155,6 @@ from ..core.geometry import (parse_geometry, parse_meta_geometry,
 from ..core.image import Image
 from ..core.policy import enforce_path
 from ..core.spec import ImageSpec, normalize_colorspace
-
-_CLI_GAP = ("is not ported yet: ROADMAP.md Queue 1, 'Host layers' "
-            "(cli/tools.py and the other tools, -region and -bench)")
-
 
 class CLIError(Exception):
     pass
@@ -432,8 +436,9 @@ def _masked(fn, setting: str, wmask=None):
     """``fn`` under a -channel mask and a write mask: where ``fn`` keeps
     the shape, the channels outside the -channel mask keep their input
     values, and so do the pixels where the write mask (``wmask``, an
-    (H, W) host array from -mask, -clip or their kin) is not above 0.5
-    (the JAX CLI's ``_op_simple``, ``cli/main.py:438-452``)."""
+    (H, W) host array from -mask, -clip or their kin, or a tensor on the
+    image's device from -region) is not above 0.5 (the JAX CLI's
+    ``_op_simple``, ``cli/main.py:438-452``)."""
 
     def run(x):
         out = fn(x)
@@ -447,7 +452,8 @@ def _masked(fn, setting: str, wmask=None):
             out = torch.where(mask, out, x)
         if wmask is not None and \
                 tuple(wmask.shape[:2]) == tuple(x.shape[-3:-1]):
-            m = torch.from_numpy(np.ascontiguousarray(wmask, np.float32))
+            m = wmask if isinstance(wmask, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(wmask, np.float32))
             out = torch.where(m.to(x.device)[..., None] > 0.5, out, x)
         return out
 
@@ -2253,6 +2259,28 @@ def _op_clip_mask(st, arg, plus):
         _set_mask(li, li.image, m)
 
 
+def _list_region(st, vals, plus):
+    """-region GEOMETRY: a write mask over the gravity-adjusted rectangle
+    (operation.c:3212), built on each image's device, so that later
+    options change only its pixels; +region removes it.  A mask turns off
+    the K1 tags, as in the JAX CLI, so a blur under it runs its op route
+    (K3 on the card)."""
+    from ..ops.composite import gravity_offset
+
+    for li, img in _materialized(st):
+        if plus:
+            _set_mask(li, img, None)
+            continue
+        w, h, x, y = parse_page_geometry(vals[0], img.width, img.height)
+        gx, gy = gravity_offset(st.settings.get("gravity", "northwest"),
+                                img.width, img.height, w, h, x, y)
+        gx, gy = max(gx, 0), max(gy, 0)
+        m = torch.zeros((img.height, img.width), dtype=torch.float32,
+                        device=img.data.device)
+        m[gy:gy + h, gx:gx + w] = 1.0
+        _set_mask(li, img, m)
+
+
 def _read_passphrase(arg: str) -> str:
     import os
 
@@ -2739,6 +2767,7 @@ def _arg(args: List[str], i: int, tok: str, n: int = 1) -> List[str]:
 
 # the options ``process`` runs itself, by their number of arguments
 _INLINE_ARITY = {"size": 1, "read": 1, "script": 1, "extract": 1,
+                 "bench": 1,
                  "texture": 1, "depth": 1, "write": 1, "list": 1,
                  "format": 1, "print": 1, "debug": 1, "limit": 2,
                  "identify": 0, "version": 0, "monitor": 0, "verbose": 0}
@@ -2747,15 +2776,11 @@ _INLINE_ARITY = {"size": 1, "read": 1, "script": 1, "extract": 1,
 def option_arity(tok: str, args: Sequence[str], i: int) -> Optional[int]:
     """How many of the tokens ``args[i:]`` after option ``tok`` are its
     arguments, as ``process`` takes them; None for an option the CLI does
-    not know.  Raises NotImplementedError for an option the port lacks
-    (``-region``, ``-bench``).  The serve daemon's validators walk a
-    request with it, so they count each option's arguments as ``process``
-    does."""
+    not know.  The serve daemon's validators walk a request with it, so
+    they count each option's arguments as ``process`` does."""
     plus = tok.startswith("+")
     name = tok[1:]
     nxt = args[i] if i < len(args) else None
-    if name in ("region", "bench"):
-        raise unported(tok)
     if name in _INLINE_ARITY:
         return _INLINE_ARITY[name]
     if name in _SETTINGS or name in ("define", "geometry"):
@@ -2766,7 +2791,7 @@ def option_arity(tok: str, args: Sequence[str], i: int) -> Optional[int]:
         return 2
     if name in ("label", "comment"):
         return 1
-    if name == "repage":
+    if name in ("repage", "region"):
         return 0 if plus else 1
     if name in ("clone", "delete"):
         # an optional index list; +clone takes none
@@ -2820,7 +2845,7 @@ def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
         name = tok[1:]
         n = option_arity(tok, args, i)
         if n is None:
-            raise unported(tok)
+            raise CLIError(f"unrecognized option {tok!r}")
         vals = _arg(args, i, tok, n)
         i += n
         if name == "exit":
@@ -2880,6 +2905,8 @@ def _inline(st: CLIState, name: str, vals: List[str], args: List[str],
         enforce_path(vals[0])
         with open(vals[0], "r", encoding="utf-8") as fh:
             args[i:i] = shlex.split(fh.read(), comments=True)
+    elif name == "bench":
+        _bench_rest(st, int(vals[0]), args[i:])
     elif name == "extract":
         st.settings["extract"] = vals[0]
     elif name == "texture":
@@ -2918,6 +2945,29 @@ def _inline(st: CLIState, name: str, vals: List[str], args: List[str],
     elif name == "verbose":
         st.settings["verbose"] = "1"
     # -monitor: progress display is a no-op under batch execution
+
+
+def _bench_rest(st, n: int, rest: List[str]) -> None:
+    """-bench N inside a command: the rest of it runs N - 1 times, each in
+    a new state with this one's settings, and then once more in this state
+    (by ``process``, after this returns), as the JAX CLI does
+    (utilities/magick.c -bench).  Prints ``Performance: Ni IPSips
+    SECONDSu`` on stderr over the N - 1 runs.  Where the rest ends in a
+    write, as a command does, each run's time holds the card's work,
+    since a write brings the pixels to the host; the first run holds the
+    kernels' first build, as the JAX CLI's holds XLA's compilation."""
+    import time
+
+    n = max(n, 1)
+    start = time.time()
+    for _ in range(n - 1):
+        sub = CLIState(st.device)
+        sub.settings.update(st.settings)
+        process(list(rest), sub)
+    if n > 1:
+        elapsed = max(time.time() - start, 1e-9)
+        print(f"Performance: {n}i {(n - 1) / elapsed:.3f}ips "
+              f"{elapsed:.3f}u", file=sys.stderr)
 
 
 # -- the list and metadata options the JAX CLI handles in its loop ---------
@@ -3004,7 +3054,8 @@ def _list_copy(st, vals, plus):
 _LIST_OPTIONS = {"clone": _list_clone, "delete": _list_delete,
                  "swap": _list_swap, "reverse": _list_reverse,
                  "set": _list_set, "comment": _list_comment,
-                 "strip": _list_strip, "copy": _list_copy}
+                 "strip": _list_strip, "copy": _list_copy,
+                 "region": _list_region}
 
 
 def _optional_arg(tok: str) -> bool:
@@ -3013,13 +3064,6 @@ def _optional_arg(tok: str) -> bool:
     file name."""
     return not tok.startswith(("-", "+")) and "." not in tok and \
         ":" not in tok
-
-
-def unported(tok: str) -> NotImplementedError:
-    """The error for an option this port lacks (write masks with
-    ``-region``, ``-bench``, or one the JAX CLI lacks too), naming the
-    ROADMAP.md entry that ports it."""
-    return NotImplementedError(f"option {tok!r} {_CLI_GAP}")
 
 
 def materialize_all(lazies: List[LazyImage]) -> List[Image]:
@@ -3063,18 +3107,45 @@ _TOOLS = ("convert", "mogrify", "identify", "compare", "composite",
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
-    """The magick/convert command line: ``argv`` (``sys.argv[1:]`` by
-    default) through ``process`` on ``device``.  Returns the exit code; a
-    CLI error, a missing file or a bad value prints ``tmagick: ...`` and
-    returns 1.  The other tools of the JAX CLI (identify, compare, stream,
-    mogrify, composite, montage, conjure, display) raise
-    NotImplementedError."""
+    """The command line: ``argv`` (``sys.argv[1:]`` by default) on
+    ``device``, as the JAX CLI's ``main`` takes it.  A first word that
+    names a tool runs that tool (``_TOOLS``); anything else is the
+    magick/convert dialect through ``process``, with ``-bench N`` (the
+    whole command N times, ``tools.bench_run``) and ``-script FILE``
+    taken first.  Returns the exit code; a CLI error, a missing file or
+    a bad value prints ``tmagick: ...`` and returns 1."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _TOOLS:
-        tool = argv.pop(0)
-        if tool != "convert":
-            raise NotImplementedError(f"the {tool} tool {_CLI_GAP}")
+    tool = argv.pop(0) if argv and argv[0] in _TOOLS else "magick"
     try:
+        from . import tools
+
+        if tool == "identify":
+            return _identify_main(argv, device)
+        if tool == "compare":
+            return _compare_main(argv, device)
+        if tool == "mogrify":
+            return tools.mogrify_main(argv, device)
+        if tool == "composite":
+            return tools.composite_main(argv, device)
+        if tool == "montage":
+            return tools.montage_main(argv, device)
+        if tool == "conjure":
+            return tools.conjure_main(argv, device)
+        if tool in ("animate", "display"):
+            return tools.display_main(argv, tool == "animate", device)
+        if tool == "stream":
+            return _stream_main(argv, device)
+        if tool == "import":
+            # import.c captures an X11 screen region: there is no X server
+            print("tmagick: import: X11 screen capture is not supported "
+                  "in this headless build (utilities/magick.c:83-99 "
+                  "multicall name)", file=sys.stderr)
+            return 1
+        if "-bench" in argv:
+            i = argv.index("-bench")
+            n = int(argv[i + 1])
+            rest = [a for a in argv[:i] + argv[i + 2:] if a != "-concurrent"]
+            return tools.bench_run(rest, n, device=device)
         if "-script" in argv:
             # the JAX main's rule: the options before -script, then the
             # script's tokens (one line after another, # comments out)
@@ -3103,6 +3174,148 @@ def _tokenize_script(text: str) -> List[str]:
             continue
         out.extend(shlex.split(line))
     return out
+
+
+def _stream_main(argv, device="cuda") -> int:
+    """stream: a region of a file's first frame as raw samples, without
+    the option chain (stream.c): ``-extract GEOMETRY``, ``-storage-type``
+    (``char``, or ``short``/``uint16`` for 16 bits) and ``-map`` (``i``
+    for gray, a map with ``a`` for RGBA where the image has alpha, else
+    RGB) into ``encode_raw``; ``-`` writes stdout."""
+    from .. import io as iio
+    from ..io import extra_coders
+    from ..ops import transform as tf
+
+    extract = None
+    storage = "char"
+    cmap = "rgb"
+    paths = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "-extract":
+            extract = argv[i + 1]
+            i += 2
+        elif a == "-storage-type":
+            storage = argv[i + 1]
+            i += 2
+        elif a == "-map":
+            cmap = argv[i + 1]
+            i += 2
+        elif a.startswith("-"):
+            i += 1
+        else:
+            paths.append(a)
+            i += 1
+    if len(paths) < 2:
+        print("stream: usage: stream input output", file=sys.stderr)
+        return 2
+    img = iio.read_images(paths[0], device=device)[0]
+    if extract:
+        w, h, x, y = parse_page_geometry(extract, img.width, img.height)
+        img = img.replace(data=tf.crop(img.data, x, y, w, h))
+    depth = 16 if storage in ("short", "uint16") else 8
+    fmt = "rgba" if (img.spec.alpha and "a" in cmap.lower()) else \
+        ("gray" if cmap.lower() == "i" or img.channels == 1 else "rgb")
+    blob = extra_coders.encode_raw(img, fmt, depth)
+    if paths[1] == "-":
+        sys.stdout.buffer.write(blob)
+    else:
+        with open(paths[1], "wb") as f:
+            f.write(blob)
+    return 0
+
+
+def _identify_main(argv, device="cuda") -> int:
+    """identify: one line a frame (``io.identify.describe``; ``-verbose``
+    adds the statistics), or ``-format`` text for each frame
+    (``core.properties.interpret``) and a newline at the end."""
+    from .. import io as iio
+    from ..core.properties import interpret
+    from ..io import identify as ident
+
+    verbose = "-verbose" in argv
+    fmt = None
+    paths = []
+    i = 0
+    while i < len(argv):
+        if argv[i] == "-format":
+            fmt = argv[i + 1]
+            i += 2
+        elif argv[i].startswith("-"):
+            i += 1
+        else:
+            paths.append(argv[i])
+            i += 1
+    for p in paths:
+        frames = iio.read_images(p, device=device)
+        for idx, im in enumerate(frames):
+            if fmt:
+                print(interpret(fmt, im, p, idx, len(frames)), end="")
+            else:
+                print(ident.describe(im, p, verbose))
+    if fmt:
+        print()
+    return 0
+
+
+def _compare_main(argv, device="cuda") -> int:
+    """compare A B [DIFF]: the ``-metric`` distortion (rmse by default)
+    on stderr as ``65535·d (d)`` (MEPP: its three numbers; ncc, dpc and
+    phase as ``1 - corr``), exit 1 where it is above 1e-6, and the
+    difference image written to DIFF.  Images of other sizes, or
+    ``-subimage-search``, locate B inside A (``similarity_image``) and
+    print ``score @ x,y``; a B larger than A exits 2."""
+    from .. import io as iio
+    from ..ops import compare as cmp_ops
+
+    metric = "rmse"
+    paths = []
+    i = 0
+    subimage_search = False
+    while i < len(argv):
+        if argv[i] == "-metric":
+            metric = argv[i + 1].lower()
+            i += 2
+        elif argv[i] == "-subimage-search":
+            subimage_search = True
+            i += 1
+        elif argv[i].startswith("-"):
+            i += 1
+        else:
+            paths.append(argv[i])
+            i += 1
+    if len(paths) < 2:
+        print("compare: need two images", file=sys.stderr)
+        return 2
+    a = iio.read_images(paths[0], device=device)[0]
+    b = iio.read_images(paths[1], device=device)[0]
+    if subimage_search or a.data.shape != b.data.shape:
+        if a.height >= b.height and a.width >= b.width:
+            (y, x), surface = cmp_ops.similarity_image(a.data, b.data)
+            score = float(surface.max())
+            print(f"{score:.6g} @ {int(x)},{int(y)}", file=sys.stderr)
+            return 0
+        print("compare: image sizes differ", file=sys.stderr)
+        return 2
+    if metric == "mepp":
+        # MEPP prints "raw (normalized_mean, normalized_max)"
+        # (MagickWand/compare.c:1303-1310)
+        raw, nm, nx = (float(v) for v in
+                       cmp_ops.mean_error_per_pixel(a.data, b.data))
+        print(f"{raw:.6g} ({nm:.6g}, {nx:.6g})", file=sys.stderr)
+        d = raw
+    else:
+        d = float(cmp_ops.get_distortion(a.data, b.data, metric))
+        if metric in ("ncc", "dpc", "phase"):
+            # correlation metrics report 1-corr (MagickWand/compare.c:1253)
+            d = 1.0 - d
+        print(f"{65535.0 * d:.6g} ({d:.6g})", file=sys.stderr)
+    if len(paths) > 2:
+        vis, _ = cmp_ops.compare_images(a.data, b.data, metric)
+        iio.write_image(Image(vis, a.spec), paths[2])
+    # CompareEpsilon (MagickWand/compare.c:1264): dissimilar above 1e-6
+    return 0 if abs(d) <= 1.0e-6 else 1
 
 
 if __name__ == "__main__":

@@ -243,6 +243,14 @@ def checked_device(device, what: str = "Image") -> torch.device:
     return device
 
 
+def host_property(value):
+    """A property as the host sees it: a tensor (-region's write mask,
+    kept on the image's device for the ops) as a numpy array, the form in
+    which text, headers and coders render it; anything else as it is."""
+    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) \
+        else value
+
+
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     """Host pixels as a float32 tensor on ``device``; a CUDA device
     without a card raises rather than leaving the pixels on the CPU."""

@@ -25,6 +25,8 @@ import re
 
 import numpy as np
 
+from .image import host_property
+
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if hasattr(x, "detach") else \
@@ -153,7 +155,7 @@ def interpret(fmt: str, image, filename: str = "", index: int = 0,
                         return str(v)
                 return ""
         # stored property
-        return str(img.properties.get(e, ""))
+        return str(host_property(img.properties.get(e, "")))
 
     out = []
     i = 0

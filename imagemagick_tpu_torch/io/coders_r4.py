@@ -10,8 +10,8 @@ kernel.c, mask.c, clip.c, pango.c and video.c):
 * KERNEL: write ``WxH:`` and the pixels' intensities; ``kernel:SPEC``
   reads a kernel spec back as an image.
 * MASK and CLIP: a mask is kept, as in the JAX package, as the image
-  property ``wand:mask``, an (H, W) array on the host; the clip path is
-  rasterized by the port's ``ops/draw.py`` on the image's device.
+  property ``wand:mask``, an (H, W) array (on the host, or a tensor on
+  the image's device after -region); the clip path is rasterized by the port's ``ops/draw.py`` on the image's device.
 * PANGO: the markup stripped to plain text and rendered by the port's
   ``pseudo.caption``, as the JAX function does without the pango library.
 * video: frames piped as PNGs to ffmpeg (a delegate, ``io/delegates.py``).
@@ -183,7 +183,8 @@ def write_mask_image(image: Image) -> Image:
     m = image.properties.get("wand:mask")
     if m is None:
         raise ValueError("MASK write: ImageDoesNotHaveAMaskChannel")
-    arr = np.asarray(m, np.float32)
+    arr = m.to(torch.float32) if isinstance(m, torch.Tensor) else \
+        np.asarray(m, np.float32)
     if arr.ndim == 2:
         arr = arr[..., None]
     return Image(arr, ImageSpec(colorspace="gray", alpha=False),

@@ -19,6 +19,8 @@ from typing import Dict
 
 import numpy as np
 
+from ..core.image import host_property
+
 _Q = 65535.0   # Q16 quantum scale for display (magick-type.h)
 
 
@@ -114,7 +116,7 @@ def describe(image, filename: str = "", verbose: bool = False) -> str:
     if extra or True:
         lines.append("  Properties:")
         for k in sorted(extra):
-            lines.append(f"    {k}: {extra[k]}")
+            lines.append(f"    {k}: {host_property(extra[k])}")
         lines.append(f"    signature: {info['signature']}")
     npx = w * h
     lines.append("  Tainted: False")
@@ -185,7 +187,8 @@ def as_dict(image, filename: str = "") -> Dict:
             "red primary": (0.64, 0.33), "green primary": (0.3, 0.6),
             "blue primary": (0.15, 0.06), "white point": (0.3127, 0.329)},
         "signature": signature_image(image.data),
-        "properties": dict(image.properties),
+        "properties": {k: host_property(v)
+                       for k, v in image.properties.items()},
     }
 
 

@@ -22,7 +22,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from ..core.image import Image
+from ..core.image import Image, host_property
 from ..core.spec import ImageSpec, normalize_colorspace
 
 _MAGIC = b"id=ImageMagick"
@@ -284,7 +284,7 @@ def _encode_one(arr: np.ndarray, spec: ImageSpec, properties: dict,
         if str(k) in ("quantum-format", "quantum:format", "quality"):
             continue
         if re.match(r"^[A-Za-z][\w:.-]*$", str(k)):
-            head += f"{k}={{{v}}}\n"
+            head += f"{k}={{{host_property(v)}}}\n"
     head += "\x0c\n:\x1a"
     if depth == 8:
         q = (arr * 255.0 + 0.5).astype(np.uint8)

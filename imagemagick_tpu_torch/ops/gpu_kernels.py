@@ -3,7 +3,8 @@
 Counterpart of ``imagemagick_tpu/ops/pallas_kernels.py``.  Holds three
 kernels and the launch counts of every kernel of the package (the wrappers
 of K1, K2 and K2p live in ``fused_pipeline.py`` beside their planners,
-those of K6a-K6c in ``fourier_kernels.py``):
+those of K6a-K6c in ``fourier_kernels.py``, those of the palette walks,
+which replace no Pallas kernel, in ``quantize.py``):
 
 * K3, ``separable_blur`` (``csrc/separable_blur.cu``): the odd-tap
   Gaussian of the blur ops.
@@ -32,7 +33,7 @@ from .. import _build
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"k1": 0, "k2": 0, "k2p": 0, "k3": 0, "k4": 0, "k5": 0, "k6a": 0,
-            "k6b": 0, "k6c": 0}
+            "k6b": 0, "k6c": 0, "walk_fs": 0, "walk_riemersma": 0}
 
 K3_MAX_TAPS = 33
 # K3's generic kernel holds a (32+2r) x (32+2r) x C window and a

@@ -1,13 +1,20 @@
 """Color quantization: k-means, posterize, remap (quantize.c).
 
-Port of ``imagemagick_tpu/ops/quantize.py`` but for its palette
-error-diffusion walks: ``posterize`` (every ``dither`` value), ``kmeans``,
-``kmeans_quantize``, ``kmeans_reference``, ``remap`` without dither,
+Port of ``imagemagick_tpu/ops/quantize.py``: ``posterize`` (every
+``dither`` value), ``kmeans``, ``kmeans_quantize``, ``kmeans_reference``,
+``remap`` (``dither=True`` runs ``floyd_steinberg``), the palette
+error-diffusion walks ``floyd_steinberg`` and ``riemersma``,
 ``_hilbert_order``, ``ordered_posterize``, ``unique_colors_count`` and
-``compress_colormap``.  ``floyd_steinberg`` and ``riemersma`` (per-pixel
-sequential walks over a palette) are not ported yet, and ``remap(...,
-dither=True)``, which calls them, raises NotImplementedError naming their
-ROADMAP.md entry.
+``compress_colormap``.
+
+The walks are sequential along their scan, pixel after pixel, so on the
+card each runs as a kernel of its own (``csrc/palette_walk.cu``, one warp
+an image); their plain versions (``_floyd_steinberg_plain``,
+``_riemersma_plain``) loop over the pixels with the batch as one
+dimension, and repeat the JAX functions' float32 arithmetic op for op:
+both walks are chaotic in their input, so one rounding apart moves every
+later pixel.  The wrappers run the plain version for a CPU tensor and the
+kernel for a CUDA tensor, or raise.
 
 Host work, as in the JAX package: the dithered ``posterize`` and
 ``kmeans_reference``'s seeds run the octree library
@@ -30,17 +37,15 @@ in float32 as JAX computes it (``_seed_indices``).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from .channel import channel_mean
-
-REMAP_DITHER_GAP = (
-    "remap with dither needs the palette error-diffusion walks "
-    "(floyd_steinberg, riemersma), which are not ported yet: ROADMAP.md "
-    "Queue 1, 'The palette error-diffusion walks, with -remap'")
+from .gpu_kernels import LAUNCHES, on_card, stream_of
 
 
 def posterize(img: torch.Tensor, levels: int, dither=False,
@@ -241,9 +246,10 @@ def kmeans_reference(img: torch.Tensor, n_colors: int,
 def remap(img: torch.Tensor, palette: torch.Tensor,
           dither: bool = False) -> torch.Tensor:
     """RemapImage: snap each pixel to the nearest palette entry (the
-    first of equals).  ``dither=True`` raises NotImplementedError."""
+    first of equals); ``dither=True`` diffuses the error
+    (``floyd_steinberg``)."""
     if dither:
-        raise NotImplementedError(REMAP_DITHER_GAP)
+        return floyd_steinberg(img, palette)
     c = img.shape[-1]
     pal = palette.reshape(-1, c)
     labels = torch.argmin(_sq_dist(img.reshape(-1, c), pal), dim=1)
@@ -272,6 +278,221 @@ def _hilbert_order(order: int) -> np.ndarray:
         t //= 4
         s *= 2
     return y * n + x
+
+
+def _nearest(px: torch.Tensor, pal: torch.Tensor) -> torch.Tensor:
+    """(N, C) pixels -> (N, C) nearest palette entries: d2 = Σ_c (pal −
+    px)², summed in channel order, and the first of equal distances (the
+    JAX ``_nearest``, batched)."""
+    diff = pal[None] - px[:, None]
+    sq = diff * diff
+    d2 = sq[..., 0]
+    for c in range(1, sq.shape[-1]):
+        d2 = d2 + sq[..., c]
+    return pal[torch.argmin(d2, dim=1)]
+
+
+def _as_batch(img: torch.Tensor, palette: torch.Tensor):
+    """(N, H, W, C) float32 contiguous view of ``img`` (3-D or 4-D) and
+    its palette as (K, C) on its device."""
+    x = img if img.dim() == 4 else img[None]
+    pal = palette.reshape(-1, img.shape[-1]).to(img.device, img.dtype)
+    return x.contiguous(), pal.contiguous()
+
+
+def _floyd_steinberg_plain(x: torch.Tensor, pal: torch.Tensor
+                           ) -> torch.Tensor:
+    """The Floyd-Steinberg walk's plain version over an (N, H, W, C)
+    batch, the JAX function's arithmetic: a serpentine scan, ``row = inp
+    + below_err``, ``old = row[j] + right_err``, ``new =
+    nearest(clip(old, 0, 1))``, ``err = old − new``; ``right_err`` is set
+    to err·7/16, and err·3/16, err·5/16 and err·1/16 are added to the next
+    row's errors at ``jl``, ``j`` and ``jr`` in that order, ``jl`` and
+    ``jr`` clipped into the row (so at its ends a neighbour's share lands
+    on column ``j``)."""
+    n, h, w, c = x.shape
+    out = torch.empty_like(x)
+    below = torch.zeros((n, w, c), dtype=x.dtype, device=x.device)
+    direction = 1
+    for y in range(h):
+        row = x[:, y] + below
+        below = torch.zeros_like(below)
+        right = torch.zeros((n, c), dtype=x.dtype, device=x.device)
+        for i in range(w):
+            j = i if direction > 0 else w - 1 - i
+            old = row[:, j] + right
+            new = _nearest(old.clamp(0.0, 1.0), pal)
+            err = old - new
+            out[:, y, j] = new
+            right = err * (7.0 / 16.0)
+            jl = min(max(j - direction, 0), w - 1)
+            jr = min(max(j + direction, 0), w - 1)
+            below[:, jl] += err * (3.0 / 16.0)
+            below[:, j] += err * (5.0 / 16.0)
+            below[:, jr] += err * (1.0 / 16.0)
+        direction = -direction
+    return out
+
+
+def floyd_steinberg(img: torch.Tensor, palette: torch.Tensor
+                    ) -> torch.Tensor:
+    """Floyd-Steinberg error diffusion onto ``palette`` (quantize.c:391
+    region) of an (H, W, C) image or an (N, H, W, C) batch, image by
+    image.  Right 7/16; next row left 3/16, center 5/16, right 1/16, on a
+    serpentine scan (``_floyd_steinberg_plain``)."""
+    x, pal = _as_batch(img, palette)
+    if not on_card(x):
+        out = _floyd_steinberg_plain(x, pal)
+    else:
+        out = _walk_fs_kernel(x, pal)
+    return out if img.dim() == 4 else out[0]
+
+
+@lru_cache(maxsize=8)
+def _hilbert_walk(h: int, w: int) -> np.ndarray:
+    """The flat indices of an (h, w) image in Hilbert order (the curve of
+    the smallest power-of-two square that holds it, outside points
+    dropped), as int64."""
+    side_order = max(int(np.ceil(np.log2(max(h, w, 2)))), 1)
+    side = 1 << side_order
+    ys, xs = np.divmod(_hilbert_order(side_order), side)
+    keep = (ys < h) & (xs < w)
+    return (ys[keep] * w + xs[keep]).astype(np.int64)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+           ) -> torch.Tensor:
+    """``a·b + c`` of float32 tensors rounded once to float32, as a fused
+    multiply-add rounds it.  In float64 the product is exact and the sum
+    rounds once more; the two roundings differ from one only where that
+    sum is a float32 midpoint and not the exact value, and there the
+    exact value's side (its TwoSum error) picks the neighbour."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    r64 = r.double()
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(s > r64, inf, -inf)).double()
+    mid = (s != r64) & ((r64 + other) * 0.5 == s)
+    pick = torch.where(e > 0, torch.maximum(r64, other),
+                       torch.minimum(r64, other))
+    return torch.where(mid & (e != 0), pick, r64).float()
+
+
+def riemersma_decay(history: int = 16) -> float:
+    """The error's decay along the curve, as the JAX function computes it
+    (a float64 that float32 arithmetic rounds to float32)."""
+    return float(np.float32(np.exp(np.log(1.0 / history)
+                                   / max(history - 1, 1))))
+
+
+def _riemersma_plain(x: torch.Tensor, pal: torch.Tensor,
+                     order: torch.Tensor, decay: float) -> torch.Tensor:
+    """The Riemersma walk's plain version over an (N, H, W, C) batch, the
+    JAX function's arithmetic: along ``order`` (flat pixel indices), ``v
+    = clip(px + err, 0, 1)``, ``new = nearest(v)``, ``err = (v − new) +
+    err·decay``, the last a fused multiply-add as XLA compiles it on the
+    CPU (``_fma32``)."""
+    n, h, w, c = x.shape
+    flat = x.reshape(n, h * w, c)
+    out = torch.empty_like(flat)
+    err = torch.zeros((n, c), dtype=x.dtype, device=x.device)
+    dk = torch.tensor(decay, dtype=x.dtype, device=x.device)
+    for t in order.tolist():
+        v = (flat[:, t] + err).clamp(0.0, 1.0)
+        new = _nearest(v, pal)
+        out[:, t] = new
+        err = _fma32(err, dk, v - new)
+    return out.reshape(n, h, w, c)
+
+
+def riemersma(img: torch.Tensor, palette: torch.Tensor,
+              history: int = 16) -> torch.Tensor:
+    """Riemersma Hilbert-curve dithering onto ``palette`` (quantize.c:391
+    region) of an (H, W, C) image or an (N, H, W, C) batch, image by
+    image: the pixels in Hilbert order, the error decaying along the
+    curve by ``riemersma_decay(history)`` (``_riemersma_plain``)."""
+    x, pal = _as_batch(img, palette)
+    decay = riemersma_decay(history)
+    if not on_card(x):
+        order = torch.from_numpy(_hilbert_walk(*x.shape[1:3]))
+        out = _riemersma_plain(x, pal, order, decay)
+    else:
+        out = _walk_riemersma_kernel(x, pal, decay)
+    return out if img.dim() == 4 else out[0]
+
+
+# -- the walks' kernel (csrc/palette_walk.cu) --------------------------------
+
+# shared memory a block may use (H100: 227 KB)
+WALK_SMEM = 232448
+WALK_MAX_CHANNELS = 8
+
+
+def _walk_check(x: torch.Tensor, pal: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.float32 or pal.dtype != torch.float32:
+        raise ValueError(f"{what} takes float32, got {x.dtype}, {pal.dtype}")
+    n, h, w, c = x.shape
+    if not 1 <= c <= WALK_MAX_CHANNELS or pal.shape[0] < 1 or \
+            pal.shape[0] * c * 4 > WALK_SMEM or x.numel() >= 2 ** 31:
+        raise ValueError(f"{what}: {tuple(x.shape)} onto a palette of "
+                         f"{tuple(pal.shape)}")
+
+
+def walk_fs_rows_in_shared(w: int, c: int, k: int) -> bool:
+    """Whether the Floyd-Steinberg kernel keeps its two error rows in
+    shared memory beside the palette (else in device memory)."""
+    return (k * c + 2 * w * c) * 4 <= WALK_SMEM
+
+
+def _walk_fs_kernel(x: torch.Tensor, pal: torch.Tensor) -> torch.Tensor:
+    """Launch the Floyd-Steinberg walk: one warp an image."""
+    _walk_check(x, pal, "floyd_steinberg")
+    n, h, w, c = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    k = pal.shape[0]
+    smem_rows = walk_fs_rows_in_shared(w, c, k)
+    scratch = out if smem_rows else torch.empty(
+        (n, 2, w, c), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.pw_floyd_steinberg(
+            x.data_ptr(), pal.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), n, h, w, c, k, int(smem_rows),
+            stream_of(x))
+    _build.check(err, "pw_floyd_steinberg")
+    LAUNCHES["walk_fs"] += 1
+    return out
+
+
+@lru_cache(maxsize=8)
+def _hilbert_walk_on(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """``_hilbert_walk(h, w)`` as int32 on ``device``, uploaded once."""
+    return torch.from_numpy(_hilbert_walk(h, w).astype(np.int32)).to(device)
+
+
+def _walk_riemersma_kernel(x: torch.Tensor, pal: torch.Tensor,
+                           decay: float) -> torch.Tensor:
+    """Launch the Riemersma walk: one warp an image."""
+    _walk_check(x, pal, "riemersma")
+    n, h, w, c = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    order = _hilbert_walk_on(h, w, x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.pw_riemersma(x.data_ptr(), order.data_ptr(),
+                               pal.data_ptr(), out.data_ptr(), n, h * w, c,
+                               pal.shape[0], decay, stream_of(x))
+    _build.check(err, "pw_riemersma")
+    LAUNCHES["walk_riemersma"] += 1
+    return out
 
 
 def ordered_posterize(img: torch.Tensor, levels: int = 2,

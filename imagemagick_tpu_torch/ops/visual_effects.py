@@ -246,6 +246,10 @@ def stereo(left: torch.Tensor, right: torch.Tensor,
     image sampled at (x - x_offset, y - y_offset) through edge virtual
     pixels; green/blue from the right image in place."""
     h, w = left.shape[-3], left.shape[-2]
+    if tuple(right.shape[-3:-1]) != (h, w):
+        # the JAX function's stack raises a ValueError here too
+        raise ValueError(f"stereo: images of {tuple(left.shape)} and "
+                         f"{tuple(right.shape)}")
     ys = torch.clamp(torch.arange(h, device=left.device) - y_offset,
                      0, h - 1)
     xs = torch.clamp(torch.arange(w, device=left.device) - x_offset,

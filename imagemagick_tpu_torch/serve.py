@@ -41,9 +41,10 @@ write paths and the output formats ``mpr``, ``mpc``, ``dmr`` and video
 run under ``core.policy.no_host_files``, so that a path that an option's
 argument names anyway (a ``-draw`` font, say) is refused (400) before it
 is opened, and a body that only a delegate reads (PDF, PostScript, a raw
-that dcraw would take) is refused before the delegate runs.  An option
-the port lacks (``-region``, ``-bench``) answers 501; another bad
-request, 400; an error of the server or the card (a kernel's), 500.
+that dcraw would take) is refused before the delegate runs.  ``-bench``,
+which would run a request's work N times, is an unknown option there,
+as in the JAX server.  A bad request answers 400; an error of the server
+or the card (a kernel's), 500.
 
 Run:  python -m imagemagick_tpu_torch.serve [--port 8089] [--device cuda]
 """
@@ -126,12 +127,15 @@ _DENY_OPTS = {
 _HOST_OF = {"mpr", "mpc", "dmr"} | _VIDEO_FMTS
 
 
-def _check_args(args, where: str, ops_only: bool) -> None:
+# options the CLI runs that a request may not name, refused as unknown
+# (the JAX validator does not know them)
+_UNKNOWN_OPTS = {"bench"}
+
+
+def _check_args(args, where: str) -> None:
     """Walk an option list as the CLI's ``process`` does
     (``option_arity``): bare tokens (file names), denied options, unknown
-    options and missing arguments raise ValueError; an option the port
-    lacks, NotImplementedError (and, with ``ops_only``, every option
-    outside the CLI's ``OPS`` table)."""
+    options and missing arguments raise ValueError."""
     from .cli import main as climain
 
     i = 0
@@ -146,9 +150,8 @@ def _check_args(args, where: str, ops_only: bool) -> None:
         if tok[1:] in _DENY_OPTS:
             raise ValueError("option %r is not allowed via %s "
                              "(filesystem access)" % (tok, where))
-        if ops_only and tok[1:] not in climain.OPS:
-            raise climain.unported(tok)
-        n = climain.option_arity(tok, args, i)
+        n = None if tok[1:] in _UNKNOWN_OPTS else \
+            climain.option_arity(tok, args, i)
         if n is None:
             raise ValueError("unknown option %r" % tok)
         if i + n > len(args):
@@ -157,17 +160,17 @@ def _check_args(args, where: str, ops_only: bool) -> None:
 
 
 def validate_convert_args(args):
-    """Reject /convert option lists that name files or options that read
-    or write paths (ValueError), or options the port lacks
-    (NotImplementedError).  Allowed: parentheses and the CLI's other
-    options and settings with their arguments."""
-    _check_args(args, "/convert", ops_only=False)
+    """Reject /convert option lists that name files, options that read or
+    write paths, or unknown options (ValueError).  Allowed: parentheses
+    and the CLI's other options and settings with their arguments."""
+    _check_args(args, "/convert")
 
 
 def validate_args(args):
-    """As ``validate_convert_args``, for /apply, which takes only the
-    CLI's image operators (``OPS``), no settings."""
-    _check_args(args, "/apply", ops_only=True)
+    """As ``validate_convert_args``, for /apply (the JAX server checks
+    /apply with its /convert validator): a setting runs, and leaves the
+    session as it was."""
+    _check_args(args, "/apply")
 
 
 # name -> (N, H, W, C) float32 tensor on the server's device
@@ -370,8 +373,6 @@ class Handler(BaseHTTPRequestHandler):
                 self._reply(200, json.dumps(info).encode())
             else:
                 self._err(404, "unknown path %s" % url.path)
-        except NotImplementedError as exc:
-            self._err(501, str(exc))
         except (ValueError, KeyError, climain.CLIError,
                 PolicyError) as exc:
             self._err(400, "%s: %s" % (type(exc).__name__, exc))

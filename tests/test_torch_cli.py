@@ -181,34 +181,27 @@ def test_materialize_carries_metadata():
                 {"comment": "x"}, {"icc": b"\0"}, (96, 64, 1, 2), 7)
 
 
-TOOLS_GAP = "'Host layers' (cli/tools.py and the other tools"
-
-
-@pytest.mark.parametrize("argv,entry", [
-    (["identify", "in.png"], TOOLS_GAP),
-    (["compare", "a.png", "b.png", "d.png"], TOOLS_GAP),
-    (["stream", "in.ppm", "out.rgb"], TOOLS_GAP),
-    (["mogrify", "-negate", "in.png"], TOOLS_GAP),
-    (["-region", "4x4+0+0"], "'Host layers'"),
-    (["+region"], "'Host layers'"),
-    (["-bench", "3"], "'Host layers'"),
-    (["composite", "a.png", "b.png", "c.png"], TOOLS_GAP),
-    (["montage", "a.png", "b.png", "m.png"], TOOLS_GAP),
-    (["conjure", "s.msl"], TOOLS_GAP),
-    (["display", "in.png"], TOOLS_GAP),
-    (["-unknown-option"], "'Host layers'"),
-])
-def test_unported_raise_naming_their_entries(argv, entry):
-    """The tools besides convert, write masks by geometry, -bench and an
-    unknown option raise, naming their ROADMAP.md entry."""
-    st = tm.CLIState()
+@pytest.mark.parametrize("argv", [["-unknown-option"], ["+bogus", "x"],
+                                  ["-region-x", "4x4"]])
+def test_unknown_option_is_the_jax_error(argv, capsys):
+    """An option neither CLI knows: ``process`` raises the JAX CLI's
+    CLIError, ``unrecognized option '<tok>'``, and ``main`` prints it
+    after ``tmagick: `` and returns 1, as the JAX ``main`` does."""
+    st = tm.CLIState("cpu")
     st.images.append(tm.LazyImage(TImage(torch.zeros(8, 8, 3))))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1") as e:
-        if argv[0] in tm._TOOLS:
-            tm.main(argv, device="cpu")
-        else:
-            tm.process(argv, st)
-    assert entry in str(e.value)
+    jst = jm.CLIState()
+    jst.images.append(jm.LazyImage(JImage(jnp.zeros((8, 8, 3)))))
+    with pytest.raises(tm.CLIError) as got:
+        tm.process(argv, st)
+    with pytest.raises(jm.CLIError) as want:
+        jm.process(argv, jst)
+    assert str(got.value) == str(want.value) == \
+        f"unrecognized option {argv[0]!r}"
+    assert tm.main(argv, device="cpu") == 1
+    t_err = capsys.readouterr().err
+    assert jm.main(argv) == 1
+    assert t_err == capsys.readouterr().err == \
+        f"tmagick: unrecognized option {argv[0]!r}\n"
 
 
 @pytest.mark.parametrize("argv,what", [
@@ -969,18 +962,21 @@ def test_channel_indices_equal_jax(setting, nch, want):
 def test_remap_raises_naming_io_and_the_walks():
     """-remap/-map read their palette through io/ and run under every
     dither (the native octree library, test_torch_cli_files.py);
-    ``quantize.remap(..., dither=True)``, which the JAX CLI reaches only
-    where its native library is missing or a frame is not (H, W, C),
-    still raises naming the palette walks' entry."""
+    ``quantize.remap(..., dither=True)``, which the JAX CLI reaches where
+    a frame is not (H, W, C), is the Floyd-Steinberg walk: the JAX
+    function's pixels, bit for bit (test_torch_palette_walk.py holds the
+    walks on more cases)."""
     from imagemagick_tpu_torch.ops import quantize as tq
 
-    x = torch.rand(2, 6, 8, 3, generator=torch.Generator().manual_seed(0))
-    pal = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]])
+    jq = importlib.import_module("imagemagick_tpu.ops.quantize")
+    x = np.random.default_rng(0).random((2, 6, 8, 3)).astype(np.float32)
+    pal = np.array([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], np.float32)
     for dither in (True, 1):
-        with pytest.raises(NotImplementedError,
-                           match="palette error-diffusion walks"):
-            tq.remap(x, pal, dither)
-    assert tuple(tq.remap(x, pal, False).shape) == (2, 6, 8, 3)
+        got = tq.remap(torch.from_numpy(x), torch.from_numpy(pal), dither)
+        want = np.asarray(jq.remap(jnp.asarray(x), jnp.asarray(pal), dither))
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert tuple(tq.remap(torch.from_numpy(x), torch.from_numpy(pal),
+                          False).shape) == (2, 6, 8, 3)
 
 
 def test_chain_a_fuses_its_resize_once(monkeypatch):

@@ -52,7 +52,10 @@ card equal to their decode on the CPU bit for bit (the host makes the
 float32 pixels) and encode from it to the CPU's bytes; the CLI from files
 (config #1's chain in one K1 launch, config #3's in one K4 launch) and
 the server's /convert (one K1 launch a request) write samples within one
-level of the CPU run's on 99.9 % of them.
+level of the CPU run's on 99.9 % of them; -region's mask, on the card,
+reaches mask:, MIFF and -print as the CPU's bytes.  The palette walks (Floyd-
+Steinberg and Riemersma) equal their plain versions bit for bit, one
+launch a call, their rows in shared or in device memory.
 """
 
 import numpy as np
@@ -1504,6 +1507,30 @@ def test_cli_files_on_card(dev, tmp_path):
             assert np.mean(np.abs(a.astype(int) - b) > 1) <= 1e-3
 
 
+@pytest.mark.parametrize("out", ["mask:m.png", "r.miff", "r.mpc"])
+def test_region_mask_reaches_the_coders_on_card(dev, tmp_path, capsys, out):
+    """-region's mask lies on the card; mask:, MIFF's header and -print
+    render it as on the CPU (a host array), byte for byte."""
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch.cli.main import main
+
+    src = str(tmp_path / "a.png")
+    PImage.fromarray(_u8((24, 32, 3), 90)).save(src)
+    blobs, texts = [], []
+    for name, side in (("card", dev), ("cpu", "cpu")):
+        (tmp_path / name).mkdir()
+        path = out.replace(":", f":{tmp_path / name}/") if ":" in out \
+            else str(tmp_path / name / out)
+        assert main([src, "-gravity", "center", "-region", "10x6+3+2",
+                     "-negate", "-print", "%[wand:mask]", path],
+                    device=side) == 0
+        texts.append(capsys.readouterr().out)
+        blobs.append(open(path.split(":", 1)[-1], "rb").read())
+    assert blobs[0] == blobs[1] and texts[0] == texts[1]
+    assert "[[0. 0." in texts[0] and "tensor" not in texts[0]
+
+
 def test_serve_convert_on_card(dev):
     """POST /convert on a card server: one K1 launch a request, the
     result within one level of the same request on the CPU; /identify and
@@ -1801,3 +1828,67 @@ def test_outofcore_chain_and_metafile_and_hdr_decodes_on_card(dev):
         assert card.data.is_cuda and torch.equal(card.data.cpu(), host.data)
         assert tio.image_to_blob(card, "hdr") == tio.image_to_blob(host,
                                                                    "hdr")
+
+
+# -- the palette walks (csrc/palette_walk.cu) ---------------------------------
+
+@pytest.mark.parametrize("k", [2, 16, 256])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_palette_walks_match_plain(dev, c, k):
+    """Both walks equal their plain versions bit for bit (the plain
+    version runs on the CPU copy: the same float32 operations), on an odd
+    width and inputs outside [0, 1]; one launch each."""
+    from imagemagick_tpu_torch.ops import quantize as tq
+
+    rng = np.random.default_rng(c * 1000 + k)
+    x = torch.from_numpy((rng.random((2, 24, 31, c)) * 1.6 - 0.3)
+                         .astype(np.float32))
+    pal = torch.from_numpy(rng.random((k, c)).astype(np.float32))
+    for fn, key in ((tq.floyd_steinberg, "walk_fs"),
+                    (tq.riemersma, "walk_riemersma")):
+        before = gk.LAUNCHES[key]
+        got = fn(x.to(dev), pal.to(dev))
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES[key] == before + 1
+        assert torch.equal(got.cpu(), fn(x, pal))
+
+
+def test_floyd_steinberg_rows_in_device_memory_match_plain(dev):
+    """Rows too long for shared memory beside the palette: the kernel
+    keeps its error rows in device memory, with the same bits."""
+    from imagemagick_tpu_torch.ops import quantize as tq
+
+    assert not tq.walk_fs_rows_in_shared(7500, 4, 256)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.random((1, 3, 7500, 4)) * 1.2 - 0.1)
+                         .astype(np.float32))
+    pal = torch.from_numpy(rng.random((256, 4)).astype(np.float32))
+    got = tq.floyd_steinberg(x.to(dev), pal.to(dev))
+    assert torch.equal(got.cpu(), tq.floyd_steinberg(x, pal))
+
+
+def test_remap_with_dither_on_card(dev):
+    """remap(..., dither=True) is one Floyd-Steinberg launch over a batch;
+    the walk is causal in rows, so its first rows equal the plain walk of
+    the input's first rows, and every pixel is a palette entry."""
+    from imagemagick_tpu_torch.ops import quantize as tq
+
+    x = torch.rand(3, 40, 257, 3, generator=torch.Generator().manual_seed(1))
+    pal = torch.rand(16, 3, generator=torch.Generator().manual_seed(2))
+    before = gk.LAUNCHES["walk_fs"]
+    got = tq.remap(x.to(dev), pal.to(dev), dither=True)
+    assert gk.LAUNCHES["walk_fs"] == before + 1
+    assert torch.equal(got[:, :4].cpu(), tq.floyd_steinberg(x[:, :4], pal))
+    hit = (got.reshape(-1, 1, 3) == pal.to(dev)[None]).all(-1).any(-1)
+    assert bool(hit.all())
+
+
+def test_palette_walks_refuse_what_they_do_not_take(dev):
+    from imagemagick_tpu_torch.ops import quantize as tq
+
+    with pytest.raises(ValueError):
+        tq.floyd_steinberg(torch.zeros(1, 4, 4, 9, device=dev),
+                           torch.zeros(2, 9, device=dev))
+    with pytest.raises(ValueError):
+        tq.riemersma(torch.zeros(1, 4, 4, 3, device=dev),
+                     torch.zeros(20000, 3, device=dev))

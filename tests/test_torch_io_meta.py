@@ -36,6 +36,66 @@ jm = importlib.import_module("imagemagick_tpu.cli.main")
 JImage = importlib.import_module("imagemagick_tpu.core.image").Image
 JSpec = importlib.import_module("imagemagick_tpu.core.spec").ImageSpec
 TSpec = importlib.import_module("imagemagick_tpu_torch.core.spec").ImageSpec
+jnative = importlib.import_module("imagemagick_tpu.native")
+
+# The JAX package's native libraries: (library, source, g++ flags before
+# the source, after it, loader, loaded-library attribute, failure flag).
+# Its loaders build in place (``g++ ... -o <library>``) and remember a
+# failure for the life of the process; a test run builds them in every
+# worker at once (tests/test_native_models.py asks for libminiio while
+# it is imported), and a worker that loads another's half-written file
+# writes PNGs through PIL, with other bytes, for the rest of the run.
+_JAX_LIBS = (
+    ("_SO_PATH", "_SRC", ["-O3"], ["-ljpeg", "-lpng"], "_load", "_lib",
+     "_build_failed"),
+    ("_HJ_SO", "_HJ_SRC", ["-O3"], ["-ldl"], "_hj_load", "_hj_lib",
+     "_hj_failed"),
+    ("_RZ_SO", "_RZ_SRC", ["-O2"], [], "_rz_load", "_rz_lib", "_rz_failed"),
+    ("_JB_SO", "_JB_SRC", ["-O2"], ["-ljbig"], "jbig_load", "_jb_lib",
+     "_jb_failed"),
+)
+
+
+def _steady_jax_native_libraries(attempts=3):
+    """Build the JAX package's native libraries once, atomically (a
+    temporary name, then ``os.replace``), under one ``fcntl`` lock that
+    every test worker takes on their directory, and load each in this
+    worker, clearing a failure that an in-place build of another worker
+    left behind.  Runs when this file is collected: every worker collects
+    it before it runs a test, so afterwards no JAX loader builds in place.
+    A library that does not build here stays as its loader finds it."""
+    import fcntl
+    import os
+    import subprocess
+    import time
+
+    fd = os.open(os.path.dirname(jnative.__file__), os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        for so_attr, src_attr, pre, post, load, lib, failed in _JAX_LIBS:
+            so, src = getattr(jnative, so_attr), getattr(jnative, src_attr)
+            for attempt in range(attempts):
+                if getattr(jnative, lib) is not None:
+                    break
+                if attempt or not os.path.exists(so) or \
+                        os.path.getmtime(so) < os.path.getmtime(src):
+                    tmp = f"{so}.{os.getpid()}.tmp"
+                    res = subprocess.run(
+                        ["g++", *pre, "-fPIC", "-shared", src, *post, "-o",
+                         tmp], capture_output=True, timeout=120)
+                    if res.returncode != 0:
+                        if os.path.exists(tmp):
+                            os.remove(tmp)
+                        break
+                    os.replace(tmp, so)
+                setattr(jnative, failed, False)
+                if getattr(jnative, load)() is None:
+                    time.sleep(0.2)
+    finally:
+        os.close(fd)
+
+
+_steady_jax_native_libraries()
 
 
 def _pixels(seed=0, h=5, w=7, c=3, scale=1.0):

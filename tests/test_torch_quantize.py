@@ -185,9 +185,12 @@ def test_remap_equals_jax(channels):
 
 
 def test_remap_with_dither_raises_naming_its_entry():
-    with pytest.raises(NotImplementedError,
-                       match="palette error-diffusion walks"):
-        tq.remap(torch.zeros(4, 4, 3), torch.zeros(2, 3), dither=True)
+    """Once a gap, now the JAX function: remap under a dither is the
+    Floyd-Steinberg walk (more cases in test_torch_palette_walk.py)."""
+    x = _img((4, 4, 3), 12)
+    pal = _img((2, 3), 13)
+    _eq(tq.remap(torch.from_numpy(x), torch.from_numpy(pal), dither=True),
+        jq.remap(jnp.asarray(x), jnp.asarray(pal), dither=True))
 
 
 @pytest.mark.parametrize("order", [0, 1, 2, 3, 5])

@@ -171,17 +171,39 @@ def test_error_codes_match_jax(server):
 @pytest.mark.parametrize("path", ["/convert?args=-region%2010x10",
                                   "/convert?args=-bench%202"])
 def test_convert_and_identify_answer_501(server, path):
-    """An option the port still lacks (-region, -bench) answers 501,
-    naming its ROADMAP.md entry."""
-    status, body = _call(server, "POST", path, _png(_pixels(9, n=1)[0]))
-    assert status == 501
-    assert "'Host layers'" in json.loads(body)["error"]
+    """The options that once answered 501 answer as the JAX server does:
+    ``-region`` runs (a region negated: the JAX server's PPM bytes) and
+    ``-bench`` is an unknown option (400), as the JAX validator has it."""
+    body = _png(_pixels(9, n=1)[0])
+    args = path.split("args=")[1].replace("%20", " ").split()
+    if args[0] == "-region":
+        args = ["-region", "10x10+3+4", "-negate"]
+        status, out = _call(server, "POST",
+                            f"/convert?args={quote(' '.join(args))}&of=ppm",
+                            body)
+        assert status == 200
+        assert out == js._run_cli(["-", *args, "ppm:-"], body)
+        js.validate_convert_args(args)
+        return
+    status, body = _call(server, "POST", path, body)
+    assert status == 400
+    assert "unknown option '-bench'" in json.loads(body)["error"]
+    with pytest.raises(ValueError, match="unknown option '-bench'"):
+        js.validate_convert_args(args)
 
 
 def test_apply_args_are_checked(server):
+    """/apply walks its options as /convert does, as the JAX server's
+    /apply does: ``-region`` and a setting run (a setting leaves the
+    session as it was), ``-bench`` and a path are refused (400)."""
     _store(server, "args", _pixels(5).tobytes())
     status, body = _apply(server, "args", "-region 10x10")
-    assert status == 501 and "ROADMAP.md Queue 1" in json.loads(body)["error"]
+    assert status == 200 and json.loads(body)["shape"] == [N, H, W, C]
+    before = _call(server, "GET", "/session/args")[1]
+    assert _apply(server, "args", "-gravity center")[0] == 200
+    assert _call(server, "GET", "/session/args")[1] == before
+    status, body = _apply(server, "args", "-bench 2 -negate")
+    assert status == 400 and "unknown option" in json.loads(body)["error"]
     status, body = _apply(server, "args", "-profile sRGB.icc")
     assert status == 400 and "filesystem" in json.loads(body)["error"]
     # an option of one optional argument, with and without it
@@ -190,6 +212,22 @@ def test_apply_args_are_checked(server):
     status, body = _apply(server, "args", "-resize 10x10 in.png")
     assert status == 400 and "filename" in json.loads(body)["error"]
     assert _apply(server, "args", "-resize")[0] == 400
+
+
+def test_apply_runs_a_setting_as_jax():
+    """A setting sent to /apply answers 200 in the JAX server too: its
+    validator takes it and ``_session_apply`` runs it, leaving the
+    session's pixels as they were."""
+    raw = _pixels(6)
+    js._session_store("jset", raw.tobytes(), (N, H, W, C), "u8")
+    ts._session_store("tset", raw.tobytes(), (N, H, W, C), "u8", "cpu")
+    for args in (["-gravity", "center"], ["-region", "5x5+1+1"]):
+        js.validate_convert_args(args)
+        ts.validate_args(args)
+        js._session_apply("jset", args)
+        ts._session_apply("tset", args)
+    assert js._session_fetch("jset") == ts._session_fetch("tset") == \
+        raw.tobytes()
 
 
 def test_burst_of_clients_loses_no_connection(server):
