@@ -274,6 +274,16 @@ and the serve daemon):
   ``pw_step_cycles`` measures for one step at its narrowest (a dependent
   shared-memory load and five shuffle levels) and the card's top SM clock
   (``nvidia-smi``), or its bytes or operations where larger.
+* wand — the MagickWand API on the card: a 1080x1920x3 PPM read into a
+  wand, ``resize_image(960, 540)`` and ``gaussian_blur_image(0, 2)``
+  (one K1 launch each) and ``write_image`` to a 16-bit PPM, within K1's
+  tolerance of the same chain on a ``device="cpu"`` wand; ``blur_image``
+  of a frame with a non-opaque alpha (K3), ``auto_threshold_image`` of a
+  page (one K4 launch) and ``remap_image`` of a batch under a dither (one
+  Floyd-Steinberg walk launch), each against the CPU wand; a pixel round
+  trip, ``draw_image``, a ``WandView`` update and a ``PixelIterator``
+  sync on a clone (the original unchanged), and the top-level
+  ``read``/``write``.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -664,6 +674,7 @@ WALK_N = 4             # 1080p frames through remap(..., dither=True)
 WALK_TOP = 8           # rows held to the plain walk of the input's rows
 WALK_SIDE = 256        # Riemersma's frame, held to its plain version
 STEP_CHAIN = 1 << 16   # dependent steps pw_step_cycles times
+WAND_RUNS = 3          # timed runs of the wand phase's chain
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -5340,6 +5351,185 @@ def cli_tools_phase(dev, gen, name_limit: str, seed: int) -> dict:
 
 
 
+def wand_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """wand: the MagickWand API on the card.  A 1080x1920x3 PPM read into
+    a wand on the card, ``resize_image(960, 540)`` then
+    ``gaussian_blur_image(0, 2)`` (one K1 launch each, a tagged method
+    each) and ``write_image`` to a 16-bit PPM; the pixels within K1_TOL of
+    the same chain on a ``device="cpu"`` wand (K1's plain version) and the
+    written samples within one level.  ``blur_image`` of a frame with a
+    non-opaque alpha (K3, within K3_TOL of the CPU wand) and
+    ``auto_threshold_image("otsu")`` of a page (one K4 launch, equal);
+    ``remap_image`` of a 2-frame batch onto 16 entries under a dither
+    (one Floyd-Steinberg walk launch, equal).
+    Then a PixelWand and a pixel round trip, ``draw_image`` of a
+    DrawingWand, a WandView update, a PixelIterator sync, the top-level
+    ``read``/``write``, and a clone whose writes leave the original
+    alone, each against the CPU wand.  Every launch count is set to 0
+    just before the calls it counts."""
+    import tempfile
+
+    import imagemagick_tpu_torch as imt
+    from imagemagick_tpu_torch.core.image import Image as TImage
+    from imagemagick_tpu_torch.core.spec import ImageSpec as TSpec
+    from imagemagick_tpu_torch.wand import api as wa
+
+    rng = np.random.default_rng(seed + 26)
+    counts = {"k1": 0, "k3": 0, "k4": 0, "walk_fs": 0}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        frame = _smooth_u8(rng, 1, IO_H, IO_W, C)[0]
+        src = os.path.join(td, "in.ppm")
+        with open(src, "wb") as f:
+            f.write(f"P6\n{IO_W} {IO_H}\n255\n".encode() + frame.tobytes())
+
+        def chain(device, out):
+            w = wa.new_magick_wand(device=device)
+            w.read_image(src)
+            w.resize_image(960, 540)
+            w.gaussian_blur_image(0.0, 2.0)
+            w.write_image(out)
+            return w
+
+        chain(dev, os.path.join(td, "warm.ppm"))
+        torch.cuda.synchronize()
+        reset_launches()
+        card = chain(dev, os.path.join(td, "card.ppm"))
+        torch.cuda.synchronize()
+        la = launched()
+        require(la["k1"] == 2 and la["k3"] == 0,
+                f"wand chain launches {la}")
+        counts["k1"] += la["k1"]
+        require(card.current.data.is_cuda and
+                tuple(card.current.data.shape) == (540, 960, C),
+                f"wand chain {card.current}")
+        require(bool(torch.isfinite(card.current.data).all()),
+                "wand chain: non-finite pixels")
+        t1 = time.perf_counter()
+        cpu = chain("cpu", os.path.join(td, "cpu.ppm"))
+        cpu_s = time.perf_counter() - t1
+        err = max_err(card.current.data.cpu(), cpu.current.data)
+        a = np.asarray(imt.read(os.path.join(td, "card.ppm"),
+                                device="cpu").to_uint16())
+        b = np.asarray(imt.read(os.path.join(td, "cpu.ppm"),
+                                device="cpu").to_uint16())
+        apart = float(np.mean(np.abs(a.astype(np.int64) - b) > 1))
+        require(err <= K1_TOL and apart == 0.0,
+                f"wand chain vs the CPU wand: {err}, {apart} apart")
+        runs = [_once_ms(lambda: chain(dev, os.path.join(td, "t.ppm")))
+                for _ in range(WAND_RUNS)]
+        print(f"wand chain read_image {IO_H}x{IO_W}x{C} PPM -> resize_image"
+              f"(960, 540) -> gaussian_blur_image(0, 2) -> write_image "
+              f"16-bit PPM: launches {la}; max|d| vs the CPU wand "
+              f"{err:.3e} (tolerance {K1_TOL}), 16-bit samples more than one "
+              f"level apart {apart:.2e}; {statistics.median(runs):.2f} ms a "
+              f"chain (median of {WAND_RUNS}, host decode and encode "
+              f"included), the CPU wand {cpu_s * 1e3:.0f} ms [{name_limit}]")
+
+        # K3: a non-opaque alpha declines the fused offer
+        xa = torch.rand(540, 960, 4, generator=gen, device=dev)
+        xa[..., 3] = 0.25 + 0.5 * xa[..., 3]
+        wk = wa.MagickWand(dev)
+        wk.add_image(TImage(xa, TSpec(alpha=True)))
+        wc = wa.MagickWand("cpu")
+        wc.add_image(TImage(xa.cpu(), TSpec(alpha=True)))
+        reset_launches()
+        wk.blur_image(0.0, 2.0)
+        torch.cuda.synchronize()
+        la3 = launched()
+        require(la3["k3"] >= 1 and la3["k1"] == 0,
+                f"wand blur_image with alpha launches {la3}")
+        counts["k3"] += la3["k3"]
+        wc.blur_image(0.0, 2.0)
+        err3 = max_err(wk.current.data.cpu(), wc.current.data)
+        require(err3 <= K3_TOL, f"wand blur_image with alpha: {err3}")
+
+        # K4: Otsu over a page
+        page = torch.from_numpy(_page_u8(rng)[..., None].astype(np.float32)
+                                / np.float32(255.0))
+        wk = wa.MagickWand(dev)
+        wk.add_image(TImage(page.to(dev)))
+        wc = wa.MagickWand("cpu")
+        wc.add_image(TImage(page))
+        reset_launches()
+        wk.auto_threshold_image("otsu")
+        torch.cuda.synchronize()
+        la4 = launched()
+        require(la4["k4"] == 1, f"wand auto_threshold_image launches {la4}")
+        counts["k4"] += la4["k4"]
+        wc.auto_threshold_image("otsu")
+        require(torch.equal(wk.current.data.cpu(), wc.current.data),
+                "wand auto_threshold_image vs the CPU wand")
+        # the palette walk: remap_image of a batch under a dither
+        frames = torch.rand(2, 96, 128, C, generator=gen, device=dev)
+        pal = torch.rand(4, 4, C, generator=gen, device=dev)   # 16 entries
+        wk, pk = wa.MagickWand(dev), wa.MagickWand(dev)
+        wk.add_image(TImage(frames))
+        pk.add_image(TImage(pal))
+        wc, pc = wa.MagickWand("cpu"), wa.MagickWand("cpu")
+        wc.add_image(TImage(frames.cpu()))
+        pc.add_image(TImage(pal.cpu()))
+        reset_launches()
+        wk.remap_image(pk, True)
+        torch.cuda.synchronize()
+        law = launched()
+        require(law["walk_fs"] == 1, f"wand remap_image launches {law}")
+        counts["walk_fs"] = law["walk_fs"]
+        wc.remap_image(pc, True)
+        require(torch.equal(wk.current.data.cpu(), wc.current.data),
+                "wand remap_image under a dither vs the CPU wand")
+        print(f"wand remap_image of 2x96x128x{C} onto 16 entries under a "
+              f"dither: launches {law}, equal to the CPU wand")
+        print(f"wand blur_image(0, 2) of 540x960x4 with a non-opaque alpha: "
+              f"launches {la3}, max|d| vs the CPU wand {err3:.3e} (tolerance "
+              f"{K3_TOL}); auto_threshold_image(otsu) of a {H3}x{W3} page: "
+              f"launches {la4}, equal to the CPU wand")
+
+        # pixels, drawing, views and iterators, clones, top-level IO
+        sides = {}
+        for key, where in (("card", dev), ("host", "cpu")):
+            w = wa.new_magick_wand(device=where)
+            w.read_image(src)
+            keep = w.current.data.clone()
+            c = w.clone()
+            px = c.get_image_pixel_color(10, 20)
+            px.red, px.blue = 1.0, 0.25
+            c.set_image_pixel_color(10, 20, px)
+            d = wa.DrawingWand()
+            d.set_fill_color(wa.PixelWand("srgba(255,200,0,0.5)"))
+            d.set_stroke_color("navy")
+            d.set_stroke_width(3)
+            d.rectangle(100, 80, 700, 500)
+            d.circle(1200, 600, 1400, 600)
+            c.draw_image(d)
+            wa.WandView(c, 300, 200, 640, 360).update(lambda r: 1.0 - r)
+            it = wa.PixelIterator(c, 0, 700, 64, 4)
+            for row in it:
+                for p in row:
+                    p.green = 0.5
+                it.sync_iterator()
+            require(torch.equal(w.current.data, keep),
+                    f"wand clone's writes reached the original on {where}")
+            out = os.path.join(td, f"io-{key}.ppm")
+            imt.write(c.current, out)
+            back = imt.read(out, device=where)
+            require(back.data.device.type == torch.device(where).type,
+                    f"read lands on {back.data.device}")
+            sides[key] = (c.current.data.cpu(),
+                          back.data.cpu(),
+                          c.get_image_pixel_color(10, 20).get_color())
+        (dc, bc, pc), (dh, bh, ph) = sides["card"], sides["host"]
+        err_io = max_err(dc, dh)
+        require(err_io <= DRAW_TOL and torch.equal(bc, bh) and pc == ph,
+                f"wand pixels/draw/view/iterator vs the CPU wand: {err_io}")
+        print(f"wand pixel round trip, draw_image, WandView.update, "
+              f"PixelIterator sync, clone isolation and read/write on the "
+              f"card: max|d| vs the CPU wand {err_io:.3e} (tolerance "
+              f"{DRAW_TOL}), files equal")
+    print(f"wand phase: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    return counts
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5596,6 +5786,7 @@ def main() -> None:
                   lambda: io_stream_phase(dev, gen, name_limit, args.seed))
     tools = _timed("cli_tools",
                    lambda: cli_tools_phase(dev, gen, name_limit, args.seed))
+    wand = wand_phase(dev, gen, name_limit, args.seed)
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -6085,7 +6276,7 @@ def main() -> None:
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
          srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"] + strm["k1"] +
-         tools["k1"],
+         tools["k1"] + wand["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -6109,7 +6300,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
          fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"] + vfx["k3"] +
-         clil["k3"] + strm["k3"] + tools["k3"],
+         clil["k3"] + strm["k3"] + tools["k3"] + wand["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,
@@ -6119,7 +6310,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
          cliv["k4"] + clif["k4"] + coders["k4"] + fmts["k4"] +
-         fmts4["k4"] + strm["k4"],
+         fmts4["k4"] + strm["k4"] + wand["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,
@@ -6162,7 +6353,9 @@ def main() -> None:
              "source": "imagemagick_tpu_torch/csrc/palette_walk.cu",
              "replaces": "none: imagemagick_tpu/ops/quantize.py:200 "
                          "(floyd_steinberg, an XLA loop)",
-             "launches": fs["launches"], "max_abs_err": fs["max_abs_err"],
+             "launches": fs["launches"] +
+             (wand["walk_fs"] if k == 16 else 0),
+             "max_abs_err": fs["max_abs_err"],
              "ms": fs["ms"],
              "plain_ms": fs["plain_ms"], "bound_ms": fs["bound"][0],
              "bound_by": fs["bound"][1], "library_ms": None,

@@ -7,6 +7,14 @@ imports it or JAX.
 
 Pixels are NHWC float32 in [0, 1] at every public function, on the device
 of the tensor given.
+
+Public surface, as the JAX package's:
+  * ``Image`` / ``ImageSpec`` / ``stack``  — core container (core/)
+  * ``read`` / ``write``                   — files through ``io``
+  * ``imagemagick_tpu_torch.ops``          — the op families
+  * ``imagemagick_tpu_torch.io``           — coders and pseudo formats
+  * ``imagemagick_tpu_torch.wand``         — the MagickWand-style API
+  * ``python -m imagemagick_tpu_torch``    — the magick-compatible CLI
 """
 
 import torch
@@ -19,5 +27,31 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .core.image import Image, stack  # noqa: E402
 from .core.spec import ImageSpec  # noqa: E402
+from .core.geometry import parse_geometry, parse_meta_geometry  # noqa: E402
 
-__all__ = ["Image", "ImageSpec", "stack"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "Image",
+    "ImageSpec",
+    "stack",
+    "parse_geometry",
+    "parse_meta_geometry",
+    "read",
+    "write",
+]
+
+
+def read(path, device="cuda", **kw):
+    """The first image that ``path`` reads (``io.read_image``), on
+    ``device``: the card unless the caller asks for the CPU."""
+    from .io import read_image
+
+    return read_image(path, device=device, **kw)
+
+
+def write(image, path, **kw):
+    """Write one image or a list to ``path`` (``io.write_image``)."""
+    from .io import write_image
+
+    return write_image(image, path, **kw)

@@ -263,6 +263,9 @@ class CLIState:
         self.seed = 0
         self.exit_code = 0
         self.defines: Dict[str, str] = {}
+        # -define tpu:mesh=...: ((dp, sy, sx), min_pixels) or None; a
+        # state is one invocation, so the mesh is too
+        self.shard: Optional[Tuple[Tuple[int, int, int], int]] = None
         self.settings: Dict[str, str] = {
             "background": "white",
             "fill": "black",
@@ -2882,12 +2885,46 @@ def _setting(st: CLIState, name: str, vals: List[str], plus: bool) -> None:
             st.defines.pop(key, None)
         else:
             st.defines[key] = val
+        if key == "tpu:mesh":
+            _set_shard_mesh(st, None if plus else val,
+                            st.defines.get("tpu:shard-threshold"))
+        elif key == "tpu:shard-threshold" and "tpu:mesh" in st.defines:
+            _set_shard_mesh(st, st.defines.get("tpu:mesh"),
+                            None if plus else val)
     elif name == "geometry":
         st.settings["compose-geometry"] = vals[0]
     else:
         st.settings[name] = vals[0]
         if name == "seed":
             st.seed = int(vals[0])
+
+
+def _set_shard_mesh(st: CLIState, spec: Optional[str],
+                    threshold: Optional[str] = None) -> None:
+    """Check (or clear) ``-define tpu:mesh=SYxSX`` (or ``DPxSYxSX``) and
+    ``tpu:shard-threshold`` as the JAX CLI's ``_set_shard_mesh`` does:
+    a wrong number of parts is its CLIError, a part or threshold that is
+    no integer its ValueError, and a mesh of more devices than the port
+    has (the cards for a card run, one for the CPU) its ValueError.  A
+    mesh that fits is recorded in ``st.shard`` and changes nothing else:
+    the port does not shard an image across cards."""
+    if not spec:
+        st.shard = None
+        return
+    parts = [int(p) for p in spec.lower().replace("x", ",").split(",") if p]
+    if len(parts) == 2:
+        dp, (sy, sx) = 1, parts
+    elif len(parts) == 3:
+        dp, sy, sx = parts
+    else:
+        raise CLIError(f"bad tpu:mesh geometry {spec!r} (want SYxSX)")
+    have = torch.cuda.device_count() if st.device.type == "cuda" else 1
+    need = dp * sy * sx
+    if need > have:
+        raise ValueError(f"mesh {dp}x{sy}x{sx} needs {need} devices, "
+                         f"have {have}")
+    minpx = int(threshold) if threshold else 4 * 1024 * 1024
+    st.shard = ((dp, sy, sx), minpx)
 
 
 def _inline(st: CLIState, name: str, vals: List[str], args: List[str],

@@ -934,7 +934,11 @@ _CODERS_WRITE = ({"miff", "mif", "mpc", "exr", "dng", "ff", "farbfeld",
 
 
 def supported_read_formats():
-    """The formats the port reads (not the JAX package's list)."""
+    """The formats the port reads: the JAX package's list, and the names
+    that the JAX package reads but its list leaves out (BGRA, CMYK and
+    YCBCR, which it lists as write-only, and R, given a size; TEXT, TTC,
+    V, VIF, EPT2, EPT3 and H, aliases its reader takes), but not SIX and
+    SIXEL, which the JAX list names and neither package reads back."""
     out = (set(_PSEUDO) | set(_PNM) | set(_RAW)
            | {"raw", "r", "mpr", "mask", "clip", "uhdr"} | _CODERS_READ
            | ((_pil_formats("OPEN") | _PIL_READ_EXTRA) - {"heic", "jxl"})
@@ -943,7 +947,9 @@ def supported_read_formats():
 
 
 def supported_write_formats():
-    """The formats the port writes (not the JAX package's list)."""
+    """The formats the port writes: the JAX package's list, and the
+    aliases that the JAX package writes but its list leaves out (EPT2,
+    EPT3, H, SHTML, V and VIF)."""
     out = (set(_PNM) | set(_RAW) | {"raw", "uyvy", "mpr", "null", "info",
                                     "json", "txt", "yaml", "mask", "svg"}
            | _CODERS_WRITE

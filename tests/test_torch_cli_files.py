@@ -313,7 +313,50 @@ def test_readers_settings_match_jax(files):
             (d / f"c{k}-jax{argv[-1][3:]}").read_bytes(), argv
 
 
+@pytest.mark.parametrize("defines", [
+    ["-define", "tpu:mesh=abc"], ["-define", "tpu:mesh=2"],
+    ["-define", "tpu:mesh=1x2x3x4"], ["-define", "tpu:mesh=x"],
+    ["-define", "tpu:mesh=4x4"], ["-define", "tpu:mesh=2x4x4"],
+    ["-define", "tpu:mesh=1x1", "-define", "tpu:shard-threshold=abc"],
+    ["-define", "tpu:shard-threshold=abc", "-define", "tpu:mesh=1,1"],
+    ["-define", "tpu:mesh=1x1"],
+    ["-define", "tpu:mesh=1x1x1", "-define", "tpu:shard-threshold=100"],
+    ["-define", "tpu:mesh=4x4", "+define", "tpu:mesh"],
+    ["-define", "tpu:mesh="],
+], ids=["abc", "one-part", "four-parts", "x", "4x4", "2x4x4",
+        "bad-threshold", "threshold-first", "fits", "fits-threshold",
+        "cleared", "empty"])
+def test_tpu_mesh_define_fails_as_the_jax_cli_fails(files, capsys,
+                                                     defines):
+    """``-define tpu:mesh`` and ``tpu:shard-threshold`` as the JAX CLI
+    checks them: the exit code and the stderr text, where a mesh's
+    device count names each side's own (the JAX tests' 8 virtual CPU
+    devices, the port's one CPU); a mesh that fits writes the same bytes
+    as no define, and ``+define`` clears the mesh."""
+    d, pngs, _ = files
+    out = []
+    for side, main, have in (("t", lambda a: tm.main(a, device="cpu"), 1),
+                             ("j", jm.main, 8)):
+        o = str(d / f"mesh-{side}.ppm")
+        rc = main([pngs[0]] + defines + ["-negate", o])
+        err = capsys.readouterr().err.replace(f"have {have}", "have N")
+        out.append((rc, err, os.path.exists(o) and
+                    open(o, "rb").read()))
+    assert out[0] == out[1]
+    if out[0][0] == 0:
+        assert tm.main([pngs[0], "-negate", str(d / "plain.ppm")],
+                       device="cpu") == 0
+        assert out[0][2] == (d / "plain.ppm").read_bytes()
+    else:
+        assert out[0][1].startswith("tmagick: ") and out[0][2] is False
+
+
 def test_informational_options_and_errors(files, capsys):
+    """``-list format`` equals the JAX CLI's text but for the lines of the
+    names its list gets wrong (``torch_format_faults``, each shown by a
+    ``test_jax_*`` test); the other registries equal it whole."""
+    from torch_format_faults import RECORDED_FORMATS
+
     d, pngs, _ = files
     assert tm.main(["-list", "format"], device="cpu") == 0
     listed = capsys.readouterr().out
@@ -323,6 +366,19 @@ def test_informational_options_and_errors(files, capsys):
     from imagemagick_tpu_torch import native as tnat
 
     assert ("\nJBIG " in listed) == tnat.jbig_available()
+    assert jm.main(["-list", "format"]) == 0
+    jax_listed = capsys.readouterr().out
+
+    def unrecorded(text):
+        return [ln for ln in text.splitlines()
+                if ln.split()[0] not in RECORDED_FORMATS]
+
+    assert unrecorded(listed) == unrecorded(jax_listed)
+    assert len(unrecorded(listed)) > 150
+    recorded = [ln for ln in listed.splitlines()
+                if ln.split()[0] in RECORDED_FORMATS]
+    assert "BGRA         rw" in recorded and "SHTML        -w" in recorded
+    assert "SIXEL        -w" in recorded and "SIX          -w" in recorded
     for what in ("resource", "policy", "colorspace", "compose", "kernel"):
         tm.main(["-list", what], device="cpu")
         got = capsys.readouterr().out

@@ -55,7 +55,11 @@ the server's /convert (one K1 launch a request) write samples within one
 level of the CPU run's on 99.9 % of them; -region's mask, on the card,
 reaches mask:, MIFF and -print as the CPU's bytes.  The palette walks (Floyd-
 Steinberg and Riemersma) equal their plain versions bit for bit, one
-launch a call, their rows in shared or in device memory.
+launch a call, their rows in shared or in device memory.  The wand's
+resize and Gaussian blur are one K1 launch each, within K1's 2e-5 of the
+same wand chain on the CPU (K1's plain version); its blur of a non-opaque
+alpha is one K3 launch (1e-5), its Otsu threshold one K4 launch (equal);
+a clone's pixel write leaves the original on the card alone.
 """
 
 import numpy as np
@@ -1892,3 +1896,84 @@ def test_palette_walks_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         tq.riemersma(torch.zeros(1, 4, 4, 3, device=dev),
                      torch.zeros(20000, 3, device=dev))
+
+
+def _wand_frame(h, w, c, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 0.5 + 0.4 * np.sin(yy / 23.0)[..., None] * np.cos(
+        xx[..., None] / 31.0 + np.arange(c))
+    return np.clip(base + 0.03 * rng.standard_normal((h, w, c)), 0, 1
+                   ).astype(np.float32)
+
+
+def test_wand_chain_launches_k1_twice_and_matches_the_cpu_wand(dev):
+    from imagemagick_tpu_torch.core.image import Image
+    from imagemagick_tpu_torch.core.spec import ImageSpec
+    from imagemagick_tpu_torch.wand import api as wa
+
+    x = _wand_frame(216, 384, 3, 1)
+    card, cpu = wa.new_magick_wand(device=dev), wa.new_magick_wand("cpu")
+    card.add_image(Image(x, device=dev))
+    cpu.add_image(Image(x, device="cpu"))
+    before = dict(gk.LAUNCHES)
+    card.resize_image(192, 108)
+    card.gaussian_blur_image(0.0, 2.0)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k1"] - before["k1"] == 2
+    assert card.current.data.is_cuda
+    cpu.resize_image(192, 108)
+    cpu.gaussian_blur_image(0.0, 2.0)
+    np.testing.assert_allclose(card.current.data.cpu().numpy(),
+                               cpu.current.data.numpy(), atol=2e-5)
+    # a non-opaque alpha declines the fused offer: K3 blurs it
+    xa = _wand_frame(120, 160, 4, 2)
+    xa[..., 3] = 0.25 + 0.5 * xa[..., 3]
+    card, cpu = wa.MagickWand(dev), wa.MagickWand("cpu")
+    card.add_image(Image(xa, ImageSpec(alpha=True), device=dev))
+    cpu.add_image(Image(xa, ImageSpec(alpha=True), device="cpu"))
+    before = dict(gk.LAUNCHES)
+    card.blur_image(0.0, 1.5)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k3"] > before["k3"] and \
+        gk.LAUNCHES["k1"] == before["k1"]
+    cpu.blur_image(0.0, 1.5)
+    np.testing.assert_allclose(card.current.data.cpu().numpy(),
+                               cpu.current.data.numpy(), atol=1e-5)
+    # Otsu through K4
+    page = _wand_frame(264, 204, 1, 3)
+    card, cpu = wa.MagickWand(dev), wa.MagickWand("cpu")
+    card.add_image(Image(page, device=dev))
+    cpu.add_image(Image(page, device="cpu"))
+    before = gk.LAUNCHES["k4"]
+    card.auto_threshold_image("otsu")
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k4"] == before + 1
+    cpu.auto_threshold_image("otsu")
+    assert torch.equal(card.current.data.cpu(), cpu.current.data)
+
+
+def test_wand_clone_write_and_views_on_card(dev, tmp_path):
+    import imagemagick_tpu_torch as imt
+    from imagemagick_tpu_torch.wand import api as wa
+
+    w = wa.new_magick_wand(device=dev)
+    w.read_image("rose:")
+    assert w.current.data.is_cuda
+    keep = w.current.data.clone()
+    c = w.clone()
+    c.set_image_pixel_color(3, 4, "red")
+    wa.WandView(c, 0, 0, 8, 8).update(lambda r: r * 0.5)
+    it = wa.PixelIterator(c, 0, 10, 5, 2)
+    for row in it:
+        for p in row:
+            p.blue = 1.0
+        it.sync_iterator()
+    assert torch.equal(w.current.data, keep)
+    assert c.current.data.is_cuda
+    assert c.get_image_pixel_color(3, 4).get_color()[:3] == (0.5, 0.0, 0.0)
+    imt.write(c.current, str(tmp_path / "c.ppm"))
+    back = imt.read(str(tmp_path / "c.ppm"), device=dev)
+    assert back.data.is_cuda
+    ref = imt.read(str(tmp_path / "c.ppm"), device="cpu")
+    assert torch.equal(back.data.cpu(), ref.data)

@@ -317,13 +317,23 @@ def test_identify_matches_jax(server):
 
 
 def test_formats_lists_what_the_port_reads_and_writes(server):
+    """The port's lists, which equal the lists the JAX server answers
+    (``imagemagick_tpu/serve.py:304-309``, its io's) but for the names the
+    JAX lists get wrong (``torch_format_faults``)."""
     from imagemagick_tpu_torch import io as tio
+    from torch_format_faults import RECORDED_FORMATS
 
+    jio = importlib.import_module("imagemagick_tpu.io")
     status, body = _call(server, "GET", "/formats")
     assert status == 200
     got = json.loads(body)
     assert got == {"read": tio.supported_read_formats(),
                    "write": tio.supported_write_formats()}
+    recorded = {n.lower() for n in RECORDED_FORMATS}
+    for key, jax_list in (("read", jio.supported_read_formats()),
+                          ("write", jio.supported_write_formats())):
+        assert [f for f in got[key] if f not in recorded] == \
+            [f for f in jax_list if f not in recorded]
     assert "png" in got["read"] and "jpeg" in got["write"]
     assert "miff" in got["read"] and "miff" in got["write"]
     assert "dpx" in got["read"] and "dpx" in got["write"]
