@@ -284,6 +284,24 @@ and the serve daemon):
   trip, ``draw_image``, a ``WandView`` update and a ``PixelIterator``
   sync on a clone (the original unchanged), and the top-level
   ``read``/``write``.
+* magickpp_perl — the Magick++ layer and PerlMagick on the card.  The
+  port's Magick++ library and four programs are built with g++ at once:
+  ``tests/magickpp_demo.cpp`` for the card and for the CPU
+  (``-DMAGICKPP_DEVICE="cpu"``), whose 80 ``key=value`` lines must be
+  equal, and the phase's own C++ chain (``MAGICKPP_CHAIN``) for both: a
+  1080x1920x3 PPM read into ``Magick::Image``, ``resize(960x540)`` and
+  ``gaussianBlur(0, 2)`` (one K1 launch each) and a 16-bit PPM written,
+  a 540x960 RGBA PNG with a non-opaque alpha blurred (K3) and a page's
+  ``autoThreshold(Otsu)`` (K4).  The program sets the launch counts to 0
+  and reads them in its own embedded interpreter around each call; the
+  card's pixels are held to the CPU build's within K1's and K3's
+  tolerances, Otsu equal, the written samples within one level.  A Perl
+  script (Read, Resize, Blur, Write of the same PPM) runs through the
+  port's ``Image::Magick`` with ``$Image::Magick::Device`` 'cuda' and
+  'cpu', its samples within one level; the same JSON requests go to
+  ``rpc_server.serve`` in this process on the card, which counts their
+  launches (K1 twice) and writes the Perl run's file.  Each run's wall
+  and each chain's ms are printed.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -675,6 +693,161 @@ WALK_TOP = 8           # rows held to the plain walk of the input's rows
 WALK_SIDE = 256        # Riemersma's frame, held to its plain version
 STEP_CHAIN = 1 << 16   # dependent steps pw_step_cycles times
 WAND_RUNS = 3          # timed runs of the wand phase's chain
+MPP_RUNS = 3           # timed runs of the Magick++ and Perl chains
+MPP_ALPHA = (540, 960)  # the RGBA frame that the C++ program blurs (K3)
+# The C++ chain of the magickpp_perl phase, built against the port's
+# Magick++ library once for the card and once for the CPU
+# (-DMAGICKPP_DEVICE="cpu").  It counts launches in its own embedded
+# interpreter: gpu_kernels.LAUNCHES set to 0 just before a call, read just
+# after it.  Arguments: the PPM frame, the RGBA PNG, the PGM page, an
+# output folder and the number of timed runs; each result is written
+# there as raw float32 RGBA (``*.f32``), the chain also as a 16-bit PPM.
+MAGICKPP_CHAIN = r"""
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+
+#include <Magick++.h>
+
+#include <algorithm>
+#include <chrono>
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <vector>
+
+using namespace Magick;
+typedef std::chrono::steady_clock Clock;
+
+static std::string py(const char* code, int mode) {
+  PyGILState_STATE g = PyGILState_Ensure();
+  PyObject* d = PyModule_GetDict(PyImport_AddModule("__main__"));
+  PyObject* r = PyRun_String(code, mode, d, d);
+  std::string out;
+  bool ok = r != 0;
+  if (ok) {
+    PyObject* s = PyObject_Str(r);
+    out = PyUnicode_AsUTF8(s);
+    Py_DECREF(s);
+    Py_DECREF(r);
+  } else {
+    PyErr_Print();
+  }
+  PyGILState_Release(g);
+  if (!ok) throw Error(std::string("embedded Python failed: ") + code);
+  return out;
+}
+
+static void reset() { py("_reset()", Py_eval_input); }
+static std::string counts() { return py("_counts()", Py_eval_input); }
+
+static double msSince(Clock::time_point t0) {
+  return std::chrono::duration<double, std::milli>(Clock::now() - t0)
+      .count();
+}
+
+static void dump(const Image& img, const std::string& path) {
+  size_t n = img.columns() * img.rows() * 4;
+  const float* p = img.getConstPixels(0, 0, img.columns(), img.rows());
+  FILE* f = fopen(path.c_str(), "wb");
+  if (!f || fwrite(p, sizeof(float), n, f) != n) throw Error("write " + path);
+  fclose(f);
+}
+
+int main(int argc, char** argv) {
+  if (argc != 6) {
+    fprintf(stderr, "usage: %s FRAME.ppm RGBA.png PAGE.pgm OUTDIR RUNS\n",
+            argv[0]);
+    return 2;
+  }
+  const std::string frame = argv[1], rgba = argv[2], page = argv[3];
+  const std::string out = argv[4];
+  const int runs = atoi(argv[5]);
+  try {
+    InitializeMagick(argv[0]);
+    py("import torch as _torch\n"
+       "from imagemagick_tpu_torch.ops import gpu_kernels as _gk\n"
+       "def _sync():\n"
+       "    if _torch.cuda.is_available():\n"
+       "        _torch.cuda.synchronize()\n"
+       "def _reset():\n"
+       "    _sync()\n"
+       "    for _k in _gk.LAUNCHES:\n"
+       "        _gk.LAUNCHES[_k] = 0\n"
+       "def _counts():\n"
+       "    _sync()\n"
+       "    return dict(_gk.LAUNCHES)\n",
+       Py_file_input);
+    struct Chain {
+      std::string frame;
+      Image operator()(const std::string& to) const {
+        Image img(frame);
+        img.resize(Geometry(960, 540));
+        img.gaussianBlur(0.0, 2.0);
+        img.write(to);
+        return img;
+      }
+    } chain = {frame};
+    chain(out + "/warm.ppm");
+    reset();
+    Image img = chain(out + "/chain16.ppm");
+    printf("launches_chain=%s\n", counts().c_str());
+    std::vector<double> t;
+    for (int i = 0; i < runs; ++i) {
+      Clock::time_point t0 = Clock::now();
+      chain(out + "/timed.ppm");
+      py("_sync()", Py_eval_input);
+      t.push_back(msSince(t0));
+    }
+    std::sort(t.begin(), t.end());
+    printf("chain_ms=%.3f\n", t.empty() ? 0.0 : t[t.size() / 2]);
+    printf("chain_shape=%zux%zu\n", img.columns(), img.rows());
+    dump(img, out + "/chain.f32");
+
+    Image a(rgba);
+    reset();
+    a.blur(0.0, 2.0);
+    printf("launches_alpha=%s\n", counts().c_str());
+    dump(a, out + "/alpha.f32");
+
+    Image p(page);
+    reset();
+    p.autoThreshold(OTSUThresholdMethod);
+    printf("launches_otsu=%s\n", counts().c_str());
+    dump(p, out + "/otsu.f32");
+    return 0;
+  } catch (const Exception& e) {
+    fprintf(stderr, "MagickException: %s\n", e.what());
+    return 1;
+  }
+}
+"""
+# The Perl chain of the magickpp_perl phase: the device, the PPM, the
+# output file and the number of timed runs; it prints the median ms.
+PERL_CHAIN = r"""
+use strict;
+use warnings;
+use Image::Magick;
+use Time::HiRes qw(time);
+my ($device, $src, $out, $runs) = @ARGV;
+$Image::Magick::Device = $device;
+sub chain {
+    my ($to) = @_;
+    my $im = Image::Magick->new;
+    for my $x ($im->Read($src), $im->Resize(geometry => '960x540'),
+               $im->Blur(radius => 0, sigma => 2), $im->Write($to)) {
+        die "$x\n" if $x;
+    }
+}
+chain("$out.warm.ppm");
+my @t;
+for (1 .. $runs) {
+    my $t0 = time;
+    chain($out);
+    push @t, (time - $t0) * 1000;
+}
+@t = sort { $a <=> $b } @t;
+printf "perl_chain_ms=%.3f\n", $t[int(@t / 2)];
+"""
 # config #4
 N4, H4, W4 = 1, 2160, 4096
 NOISE = 0.01
@@ -5530,6 +5703,229 @@ def wand_phase(dev, gen, name_limit: str, seed: int) -> dict:
     return counts
 
 
+def _keys(stdout: str) -> dict:
+    return dict(ln.split("=", 1) for ln in stdout.splitlines() if "=" in ln)
+
+
+def _wall(cmd, cwd, env, label: str, name_limit: str, note: str = ""):
+    """Run ``cmd`` to its end (at most 300 s); its wall is printed, and a
+    nonzero exit fails the phase with its error text."""
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       cwd=cwd, env=env)
+    wall = time.perf_counter() - t0
+    print(f"magickpp_perl {label}: exit {r.returncode}, wall {wall:.2f} s"
+          f"{note} [{name_limit}]")
+    require(r.returncode == 0, f"{label} failed:\n{r.stdout}\n{r.stderr}")
+    return r
+
+
+def _f32(path: str, h: int, w: int) -> torch.Tensor:
+    return torch.from_numpy(np.fromfile(path, np.float32).reshape(h, w, 4))
+
+
+def _u16_ppm(path: str) -> np.ndarray:
+    import imagemagick_tpu_torch as imt
+
+    return np.asarray(imt.read(path, device="cpu").to_uint16()).astype(
+        np.int64)
+
+
+def magickpp_perl_phase(dev, gen, name_limit: str, seed: int) -> dict:
+    """magickpp_perl: the Magick++ layer and PerlMagick on the card (the
+    module docstring says what it runs).  The C++ programs count their
+    own launches in their embedded interpreters; the Perl chain's
+    requests are counted by ``rpc_server.serve`` in this process."""
+    import ast
+    import io as _io
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image as PILImage
+
+    from imagemagick_tpu_torch.native.magickpp import build as mpp
+    from imagemagick_tpu_torch.wand import rpc_server
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep +
+               os.environ.get("PYTHONPATH", ""), IMTPU_PYTHON=sys.executable)
+    rng = np.random.default_rng(seed + 27)
+    counts = {"k1": 0, "k3": 0, "k4": 0}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        frame = _smooth_u8(rng, 1, IO_H, IO_W, C)[0]
+        src = os.path.join(td, "frame.ppm")
+        with open(src, "wb") as f:
+            f.write(f"P6\n{IO_W} {IO_H}\n255\n".encode() + frame.tobytes())
+        ah, aw = MPP_ALPHA
+        rgba = _smooth_u8(rng, 1, ah, aw, 4)[0]
+        rgba[..., 3] = 64 + rgba[..., 3] // 2          # alpha 0.25-0.75
+        rgba_path = os.path.join(td, "alpha.png")
+        PILImage.fromarray(rgba, "RGBA").save(rgba_path)
+        page_path = os.path.join(td, "page.pgm")
+        with open(page_path, "wb") as f:
+            f.write(f"P5\n{W3} {H3}\n255\n".encode() +
+                    _page_u8(rng).tobytes())
+        chain_src = os.path.join(td, "chain.cpp")
+        with open(chain_src, "w") as f:
+            f.write(MAGICKPP_CHAIN)
+        demo = os.path.join(root, "tests", "magickpp_demo.cpp")
+
+        # the library, then the four programs at once
+        tb = time.perf_counter()
+        mpp.build()
+        exe = {key: os.path.join(td, key) for key in
+               ("demo_card", "demo_cpu", "chain_card", "chain_cpu")}
+        jobs = [(demo, exe["demo_card"], None), (demo, exe["demo_cpu"], "cpu"),
+                (chain_src, exe["chain_card"], None),
+                (chain_src, exe["chain_cpu"], "cpu")]
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            for fut in [pool.submit(mpp.compile_program, *j) for j in jobs]:
+                fut.result()
+        print(f"magickpp_perl build: the library and 4 programs "
+              f"{time.perf_counter() - tb:.2f} s (g++)")
+
+        # the runs that are not timed on the card, at once: the demo on
+        # the card and on the CPU, the C++ and the Perl chain on the CPU;
+        # then the card's two chains alone, timed
+        script = os.path.join(td, "chain.pl")
+        with open(script, "w") as f:
+            f.write(PERL_CHAIN)
+        lib = os.path.join(root, "imagemagick_tpu_torch", "bindings", "perl")
+        perl_out = {where: os.path.join(td, f"perl-{where}.ppm")
+                    for where in ("cuda", "cpu")}
+        dirs = {}
+        for key in exe:
+            dirs[key] = os.path.join(td, key + "_out")
+            os.mkdir(dirs[key])
+
+        def chain_cmd(key):
+            return [exe[key], src, rgba_path, page_path, dirs[key],
+                    str(MPP_RUNS)]
+
+        def perl_cmd(where):
+            return ["perl", f"-I{lib}", script, where, src, perl_out[where],
+                    str(MPP_RUNS)]
+
+        untimed = {"demo_card": ([exe["demo_card"], dirs["demo_card"]],
+                                 dirs["demo_card"]),
+                   "demo_cpu": ([exe["demo_cpu"], dirs["demo_cpu"]],
+                                dirs["demo_cpu"]),
+                   "chain_cpu": (chain_cmd("chain_cpu"), dirs["chain_cpu"]),
+                   "perl_cpu": (perl_cmd("cpu"), td)}
+        # two host threads each, so that the four share the host's cores
+        env2 = dict(env, OMP_NUM_THREADS="2")
+        with ThreadPoolExecutor(len(untimed)) as pool:
+            futs = {key: pool.submit(_wall, cmd, cwd, env2, key, name_limit,
+                                     " (beside the other untimed runs, two "
+                                     "host threads each)")
+                    for key, (cmd, cwd) in untimed.items()}
+            runs = {key: _keys(fut.result().stdout)
+                    for key, fut in futs.items()}
+        require(len(runs["demo_cpu"]) == 80 and
+                runs["demo_card"] == runs["demo_cpu"],
+                f"magickpp demo keys differ: {runs}")
+        print("magickpp demo: the card's 80 key=value lines equal the CPU "
+              "build's")
+        kh, dh = runs["chain_cpu"], dirs["chain_cpu"]
+        dc = dirs["chain_card"]
+        kc = _keys(_wall(chain_cmd("chain_card"), dc, env, "chain_card",
+                         name_limit).stdout)
+        la = {k: ast.literal_eval(kc[f"launches_{k}"])
+              for k in ("chain", "alpha", "otsu")}
+        require(la["chain"]["k1"] == 2 and la["chain"]["k3"] == 0,
+                f"Magick++ chain launches {la['chain']}")
+        require(la["alpha"]["k3"] >= 1 and la["alpha"]["k1"] == 0,
+                f"Magick++ blur with alpha launches {la['alpha']}")
+        require(la["otsu"]["k4"] == 1, f"Magick++ Otsu launches {la['otsu']}")
+        counts["k1"] += la["chain"]["k1"]
+        counts["k3"] += la["alpha"]["k3"]
+        counts["k4"] += la["otsu"]["k4"]
+        require(kc["chain_shape"] == kh["chain_shape"] == "960x540",
+                f"Magick++ chain shape {kc['chain_shape']}")
+        got, want = (_f32(os.path.join(x, "chain.f32"), 540, 960)
+                     for x in (dc, dh))
+        err = max_err(got, want)
+        require(bool(torch.isfinite(got).all()), "Magick++ chain non-finite")
+        apart = float(np.mean(np.abs(
+            _u16_ppm(os.path.join(dc, "chain16.ppm")) -
+            _u16_ppm(os.path.join(dh, "chain16.ppm"))) > 1))
+        require(err <= K1_TOL and apart == 0.0,
+                f"Magick++ chain vs the CPU build: {err}, {apart} apart")
+        err3 = max_err(*(_f32(os.path.join(x, "alpha.f32"), ah, aw)
+                         for x in (dc, dh)))
+        require(err3 <= K3_TOL, f"Magick++ blur with alpha: {err3}")
+        require(torch.equal(*(_f32(os.path.join(x, "otsu.f32"), H3, W3)
+                              for x in (dc, dh))),
+                "Magick++ Otsu vs the CPU build")
+        print(f"magickpp chain Image({IO_H}x{IO_W}x{C} PPM) -> resize(960x540)"
+              f" -> gaussianBlur(0, 2) -> write 16-bit PPM: launches "
+              f"{la['chain']}, {kc['chain_ms']} ms a chain on the card "
+              f"(median of {MPP_RUNS}, host decode and encode included; the "
+              f"CPU build {kh['chain_ms']} ms on two threads beside the "
+              f"untimed runs); "
+              f"max|d| vs the CPU build "
+              f"{err:.3e} (tolerance {K1_TOL}), 16-bit samples more than one "
+              f"level apart {apart:.2e}; blur(0, 2) of {ah}x{aw}x4 with a "
+              f"non-opaque alpha: launches {la['alpha']}, max|d| {err3:.3e} "
+              f"(tolerance {K3_TOL}); autoThreshold(Otsu) of a {H3}x{W3} "
+              f"page: launches {la['otsu']}, equal [{name_limit}]")
+
+        # PerlMagick: the script on the card (the CPU run is done)
+        perl_ms = {"cpu": runs["perl_cpu"]["perl_chain_ms"],
+                   "cuda": _keys(_wall(perl_cmd("cuda"), td, env,
+                                       "perl_cuda", name_limit).stdout)[
+                                           "perl_chain_ms"]}
+        apart_pl = float(np.mean(np.abs(
+            _u16_ppm(os.path.join(td, "perl-cuda.ppm")) -
+            _u16_ppm(os.path.join(td, "perl-cpu.ppm"))) > 1))
+        require(apart_pl == 0.0, f"Perl chain vs the CPU: {apart_pl} apart")
+        # the same requests as the Perl module sends, served here on the
+        # card with the launch counts around them
+        served = os.path.join(td, "served.ppm")
+        reqs = [{"id": 1, "op": "new"},
+                {"id": 2, "op": "pm", "wand": 1, "method": "Read",
+                 "kwargs": {"filename": src}},
+                {"id": 3, "op": "pm", "wand": 1, "method": "Resize",
+                 "kwargs": {"geometry": "960x540"}},
+                {"id": 4, "op": "pm", "wand": 1, "method": "Blur",
+                 "kwargs": {"radius": 0, "sigma": 2}},
+                {"id": 5, "op": "pm", "wand": 1, "method": "Write",
+                 "kwargs": {"filename": served}},
+                {"id": 6, "op": "quit"}]
+        replies = _io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        rpc_server.serve(_io.StringIO("".join(json.dumps(q) + "\n"
+                                              for q in reqs)),
+                         replies, device=dev)
+        torch.cuda.synchronize()
+        lp = launched()
+        got = [json.loads(ln) for ln in replies.getvalue().splitlines()]
+        require(all("error" not in g for g in got) and len(got) == 6,
+                f"rpc_server replies {got}")
+        require(lp["k1"] == 2 and lp["k3"] == 0,
+                f"rpc_server chain launches {lp}")
+        counts["k1"] += lp["k1"]
+        with open(served, "rb") as a, \
+                open(os.path.join(td, "perl-cuda.ppm"), "rb") as b:
+            require(a.read() == b.read(),
+                    "the served requests wrote another file than Perl")
+        print(f"perl chain Read({IO_H}x{IO_W}x{C} PPM) -> Resize(960x540) -> "
+              f"Blur(0, 2) -> Write 16-bit PPM through Image::Magick: "
+              f"{perl_ms['cuda']} ms a chain on the card (median of "
+              f"{MPP_RUNS}, host decode, encode and the pipe included; on "
+              f"the CPU {perl_ms['cpu']} ms on two threads beside the "
+              f"untimed runs); 16-bit "
+              f"samples more than one "
+              f"level apart from the CPU run {apart_pl:.2e}; its requests "
+              f"served in this process: launches {lp}, the same file "
+              f"[{name_limit}]")
+    print(f"magickpp_perl phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}")
+    return counts
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5787,6 +6183,7 @@ def main() -> None:
     tools = _timed("cli_tools",
                    lambda: cli_tools_phase(dev, gen, name_limit, args.seed))
     wand = wand_phase(dev, gen, name_limit, args.seed)
+    mpp = magickpp_perl_phase(dev, gen, name_limit, args.seed)
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -6276,7 +6673,7 @@ def main() -> None:
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
          srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"] + strm["k1"] +
-         tools["k1"] + wand["k1"],
+         tools["k1"] + wand["k1"] + mpp["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -6300,7 +6697,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
          fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"] + vfx["k3"] +
-         clil["k3"] + strm["k3"] + tools["k3"] + wand["k3"],
+         clil["k3"] + strm["k3"] + tools["k3"] + wand["k3"] + mpp["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,
@@ -6310,7 +6707,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
          cliv["k4"] + clif["k4"] + coders["k4"] + fmts["k4"] +
-         fmts4["k4"] + strm["k4"] + wand["k4"],
+         fmts4["k4"] + strm["k4"] + wand["k4"] + mpp["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

@@ -59,7 +59,13 @@ launch a call, their rows in shared or in device memory.  The wand's
 resize and Gaussian blur are one K1 launch each, within K1's 2e-5 of the
 same wand chain on the CPU (K1's plain version); its blur of a non-opaque
 alpha is one K3 launch (1e-5), its Otsu threshold one K4 launch (equal);
-a clone's pixel write leaves the original on the card alone.
+a clone's pixel write leaves the original on the card alone.  A
+Magick++ program built for the card (the default device) resizes and
+blurs in one K1 launch each, counted in its own embedded interpreter,
+within 2e-5 of the same program built for the CPU; the PerlMagick
+server on the card answers a Read, Resize, Blur session in two K1
+launches, its pixel within 2e-5 and its written 16-bit samples within
+one level of the same session on the CPU.
 """
 
 import numpy as np
@@ -1977,3 +1983,137 @@ def test_wand_clone_write_and_views_on_card(dev, tmp_path):
     assert back.data.is_cuda
     ref = imt.read(str(tmp_path / "c.ppm"), device="cpu")
     assert torch.equal(back.data.cpu(), ref.data)
+
+
+# A Magick++ program: a PPM resized and blurred (K1 twice), its launches
+# counted in its own embedded interpreter, its pixels dumped as float32
+MAGICKPP_PROGRAM = r"""
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+
+#include <Magick++.h>
+
+#include <cstdio>
+#include <string>
+
+using namespace Magick;
+
+static std::string py(const char* code) {
+  PyGILState_STATE g = PyGILState_Ensure();
+  PyObject* d = PyModule_GetDict(PyImport_AddModule("__main__"));
+  PyObject* r = PyRun_String(code, Py_eval_input, d, d);
+  std::string out = "error";
+  if (r) {
+    PyObject* s = PyObject_Str(r);
+    out = PyUnicode_AsUTF8(s);
+    Py_DECREF(s);
+    Py_DECREF(r);
+  } else {
+    PyErr_Print();
+  }
+  PyGILState_Release(g);
+  return out;
+}
+
+int main(int argc, char** argv) {
+  try {
+    InitializeMagick(argv[0]);
+    py("__import__('imagemagick_tpu_torch.ops.gpu_kernels').ops"
+       ".gpu_kernels.LAUNCHES.update(k1=0)");
+    Image img(argv[1]);
+    img.resize(Geometry(240, 135));
+    img.gaussianBlur(0.0, 2.0);
+    printf("k1=%s\n", py("(__import__('torch').cuda.synchronize() if "
+                         "__import__('torch').cuda.is_available() else 0,"
+                         " __import__('imagemagick_tpu_torch.ops.gpu_kernels')"
+                         ".ops.gpu_kernels.LAUNCHES['k1'])[1]").c_str());
+    const float* p = img.getConstPixels(0, 0, img.columns(), img.rows());
+    FILE* f = fopen(argv[2], "wb");
+    fwrite(p, sizeof(float), img.columns() * img.rows() * 4, f);
+    fclose(f);
+    return 0;
+  } catch (const Exception& e) {
+    fprintf(stderr, "MagickException: %s\n", e.what());
+    return 1;
+  }
+}
+"""
+
+
+def _ppm(path, h, w, seed):
+    frame = (_wand_frame(h, w, 3, seed) * 255 + 0.5).astype(np.uint8)
+    path.write_bytes(f"P6\n{w} {h}\n255\n".encode() + frame.tobytes())
+
+
+def test_magickpp_chain_on_card_matches_the_cpu_build(dev, tmp_path):
+    """The same Magick++ program built for the card and for the CPU
+    (``-DMAGICKPP_DEVICE="cpu"``): on the card its resize and Gaussian
+    blur are one K1 launch each, counted in its embedded interpreter, and
+    its pixels lie within K1's 2e-5 of the CPU build's."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from imagemagick_tpu_torch.native.magickpp import build
+
+    root = Path(__file__).resolve().parent.parent
+    src = tmp_path / "chain.cpp"
+    src.write_text(MAGICKPP_PROGRAM)
+    _ppm(tmp_path / "in.ppm", 270, 480, 5)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    out = {}
+    for key, device in (("card", None), ("cpu", "cpu")):
+        exe = build.compile_program(str(src), str(tmp_path / key), device)
+        r = subprocess.run([exe, str(tmp_path / "in.ppm"),
+                            str(tmp_path / f"{key}.f32")], capture_output=True,
+                           text=True, timeout=300, env=env, cwd=str(tmp_path))
+        assert r.returncode == 0, r.stderr
+        out[key] = (r.stdout, np.fromfile(tmp_path / f"{key}.f32",
+                                          np.float32).reshape(135, 240, 4))
+    assert "k1=2" in out["card"][0] and "k1=0" in out["cpu"][0]
+    np.testing.assert_allclose(out["card"][1], out["cpu"][1], atol=2e-5)
+
+
+def test_rpc_server_session_on_card(dev, tmp_path):
+    """The PerlMagick server on the card: Read, Resize and Blur (one K1
+    launch each), a pixel within K1's 2e-5 of the same session on the
+    CPU, the written 16-bit samples within one level."""
+    import io
+    import json
+
+    import imagemagick_tpu_torch as imt
+    from imagemagick_tpu_torch.wand import rpc_server
+
+    _ppm(tmp_path / "in.ppm", 270, 480, 6)
+    replies = {}
+    for where in (dev, "cpu"):
+        key = torch.device(where).type
+        reqs = [{"id": 1, "op": "new"},
+                {"id": 2, "op": "pm", "wand": 1, "method": "Read",
+                 "kwargs": {"filename": str(tmp_path / "in.ppm")}},
+                {"id": 3, "op": "pm", "wand": 1, "method": "Resize",
+                 "kwargs": {"geometry": "240x135"}},
+                {"id": 4, "op": "pm", "wand": 1, "method": "Blur",
+                 "kwargs": {"radius": 0, "sigma": 2}},
+                {"id": 5, "op": "get", "wand": 1,
+                 "attrs": ["width", "height", "pixel[100,60]"]},
+                {"id": 6, "op": "pm", "wand": 1, "method": "Write",
+                 "kwargs": {"filename": str(tmp_path / f"{key}.ppm")}},
+                {"id": 7, "op": "quit"}]
+        out = io.StringIO()
+        before = gk.LAUNCHES["k1"]
+        rpc_server.serve(io.StringIO("".join(json.dumps(q) + "\n"
+                                             for q in reqs)), out,
+                         device=where)
+        torch.cuda.synchronize()
+        replies[key] = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        assert all("error" not in r for r in replies[key])
+        assert gk.LAUNCHES["k1"] - before == (2 if key == "cuda" else 0)
+    (wc, hc, pc), (wh, hh, ph) = (replies[k][4]["result"]
+                                  for k in ("cuda", "cpu"))
+    assert (wc, hc) == (wh, hh) == (240, 135)
+    np.testing.assert_allclose(pc, ph, atol=2e-5)
+    a, b = (np.asarray(imt.read(str(tmp_path / f"{k}.ppm"),
+                                device="cpu").to_uint16()).astype(np.int64)
+            for k in ("cuda", "cpu"))
+    assert int(np.abs(a - b).max()) <= 1
