@@ -302,6 +302,16 @@ and the serve daemon):
   ``rpc_server.serve`` in this process on the card, which counts their
   launches (K1 twice) and writes the Perl run's file.  Each run's wall
   and each chain's ms are printed.
+* parallel — ``parallel/`` and ``models/gigapixel.py``, each mesh one
+  card named several times: config #2's batch on a 2x2x2 mesh through
+  the sharded blur (K3 once a block), histograms (K4 once a block),
+  statistics, resize, open, median and Otsu (K4 once a block), each held
+  to the unsharded op; K1 on each block of a dp = 4 mesh (config #1's
+  batch); ``process_gigapixel`` of one 32768x32768x3 image on a 1x2x2
+  mesh (K3 once a block), its seams and borders held to the unsharded
+  math and its statistics to float64, with its time, MP/s and peak card
+  memory; the CLI's ``-define tpu:mesh``; an NCCL group of one through
+  ``init_distributed``; ``dryrun_multichip(8)``.
 
 It builds the kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card, at the main paths' shapes
@@ -695,6 +705,15 @@ STEP_CHAIN = 1 << 16   # dependent steps pw_step_cycles times
 WAND_RUNS = 3          # timed runs of the wand phase's chain
 MPP_RUNS = 3           # timed runs of the Magick++ and Perl chains
 MPP_ALPHA = (540, 960)  # the RGBA frame that the C++ program blurs (K3)
+PAR_TOL = 1e-5          # the sharded blur, resize and gigapixel against
+                        # K3's plain version and the unsharded resize:
+                        # float32 sums in another order
+PAR_RUNS = 5            # timed runs of the sharded blur and its unsharded op
+K1_DP_TOL = 1e-6        # K1 on a dp block against one call on the batch
+GIGA = 32768            # the gigapixel: one GIGA x GIGA x 3 float32 image
+GIGA_SIGMA = 2.0        # its blur: 17 taps, halos 8 wide
+GIGA_RUNS = 3           # timed runs of process_gigapixel (median)
+GIGA_BAND = 64          # rows or columns of each seam and border band
 # The C++ chain of the magickpp_perl phase, built against the port's
 # Magick++ library once for the card and once for the CPU
 # (-DMAGICKPP_DEVICE="cpu").  It counts launches in its own embedded
@@ -5926,6 +5945,349 @@ def magickpp_perl_phase(dev, gen, name_limit: str, seed: int) -> dict:
     return counts
 
 
+def _giga_region(sa, y0: int, y1: int, x0: int, x1: int) -> torch.Tensor:
+    """Rows y0:y1 and columns x0:x1 of image 0 of a ShardedArray split
+    over sy and sx, read from its blocks."""
+    _, bh, bw, _ = sa.blocks[0, 0, 0].shape
+    rows = []
+    for iy in range(sa.blocks.shape[1]):
+        a, b = max(y0, iy * bh), min(y1, (iy + 1) * bh)
+        if a >= b:
+            continue
+        cols = []
+        for ix in range(sa.blocks.shape[2]):
+            c, d = max(x0, ix * bw), min(x1, (ix + 1) * bw)
+            if c < d:
+                cols.append(sa.blocks[0, iy, ix][0, a - iy * bh:b - iy * bh,
+                                                 c - ix * bw:d - ix * bw])
+        rows.append(torch.cat(cols, 1))
+    return torch.cat(rows, 0)
+
+
+def _giga_band_err(img: torch.Tensor, out, taps, y0: int, y1: int, x0: int,
+                   x1: int) -> float:
+    """The largest difference between the sharded pipeline's output over
+    rows y0:y1, columns x0:x1 and the unsharded math (K3's plain version,
+    ``_separable_blur_plain``, then the unsharp) on that band's input
+    with a halo of the blur's radius (cut at the image's border, where
+    the edge pad is the global one)."""
+    from imagemagick_tpu_torch.ops.gpu_kernels import _separable_blur_plain
+
+    r = (len(taps) - 1) // 2
+    hgt, wid = img.shape[0], img.shape[1]
+    a, b = max(0, y0 - r), min(hgt, y1 + r)
+    c, d = max(0, x0 - r), min(wid, x1 + r)
+    blur = _separable_blur_plain(img[a:b, c:d][None].contiguous(),
+                                 taps)[0][y0 - a:y1 - a, x0 - c:x1 - c]
+    x = img[y0:y1, x0:x1]
+    want = torch.sub(x, blur).mul_(1.0).add_(x).clamp_(0.0, 1.0)
+    return max_err(_giga_region(out, y0, y1, x0, x1), want)
+
+
+def parallel_phase(dev, name_limit: str, seed: int) -> dict:
+    """parallel: ``parallel/`` (mesh, halo exchange, sharded ops),
+    ``models/gigapixel.py``, the CLI's ``-define tpu:mesh`` and the dry
+    run, on one card named several times in each mesh (every exchange
+    and reduction runs on it).  (1) Config #2's batch (8 x 1080x1920x3)
+    on ``make_mesh(2, 2, 2, devices=[cuda:0] * 8)``: blur sigma 2 (K3 on
+    each of the 8 blocks), histograms of 256 (K4 on each block) and 64
+    bins, the statistics, a Lanczos resize to 540x960, open square:1,
+    median r 1 and Otsu on the gray batch (K4 on each block), each held
+    to the port's unsharded op on the card (resize within PAR_TOL, the
+    rest equal; the statistics to float64 within 1e-5 and 1e-4); the
+    blur to K3's plain version within PAR_TOL, the 256-bin histogram and
+    Otsu's thresholds to K4's plain version, exactly.  (2) K1 on each block of a dp = 4 mesh: config #1's batch,
+    held to one unsharded ``fused_resize_pipeline`` call within
+    K1_DP_TOL.  (3) ``process_gigapixel`` of one GIGA x GIGA x 3 image
+    from a seeded card generator, sigma GIGA_SIGMA, on a 1x2x2 mesh (K3
+    once a block): bands GIGA_BAND wide across each seam and along each
+    border held to K3's plain version and the unsharp within PAR_TOL, the
+    statistics to
+    float64 sums taken band by band; its time (median of GIGA_RUNS), MP/s
+    and peak card memory.  (4) The CLI: ``-define tpu:mesh=1x1 -define
+    tpu:shard-threshold=1024 -gaussian-blur 0x2 -auto-threshold otsu`` on
+    a PNG writes the bytes of the run without the defines and counts one
+    ``sharded`` run; ``tpu:mesh=2x2`` fails as the JAX CLI fails on one
+    device.  (5) An NCCL group of one (``init_distributed``): the
+    statistics and a histogram through its ``all_reduce`` equal the
+    results without the group; the group is destroyed.  (6)
+    ``dryrun_multichip(8)``, whose default devices name the card eight
+    times.  Every launch count is
+    set to 0 just before each main-path call and read just after; the
+    comparisons' launches are not counted."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch.models import gigapixel as gp
+    from imagemagick_tpu_torch.ops import blur as bl
+    from imagemagick_tpu_torch.ops import dispatch
+    from imagemagick_tpu_torch.ops import fused_pipeline as fp
+    from imagemagick_tpu_torch.ops import gpu_kernels as gk
+    from imagemagick_tpu_torch.ops import morphology as mo
+    from imagemagick_tpu_torch.ops import resize as rz
+    from imagemagick_tpu_torch.ops import statistic as stx
+    from imagemagick_tpu_torch.ops import threshold as th
+    from imagemagick_tpu_torch.ops.enhance import grayscale
+    from imagemagick_tpu_torch.parallel import mesh as pm
+    from imagemagick_tpu_torch.parallel import spatial as sp
+    from imagemagick_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 28)
+    counts = {"k1": 0, "k3": 0, "k4": 0}
+    t0 = time.perf_counter()
+
+    def main_path(fn):
+        """fn() with every launch count set to 0 just before it and read
+        just after; its K1, K3 and K4 launches join ``counts``."""
+        for key in gk.LAUNCHES:
+            gk.LAUNCHES[key] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: gk.LAUNCHES[k] for k in counts}
+        for k in counts:
+            counts[k] += got[k]
+        return out, got
+
+    # -- (1) the spatial ops on config #2's batch --------------------------
+    mesh8 = pm.make_mesh(2, 2, 2, devices=[dev] * 8)
+    batch = torch.rand((N2, H2, W2, C), generator=gen, device=dev)
+    xs = pm.device_put(batch, pm.batch_sharding(mesh8))
+    taps = bl.gaussian_kernel_1d(0.0, SIGMA)
+    out, ln = main_path(lambda: sp.sharded_gaussian_blur(mesh8, SIGMA)(xs))
+    require(ln["k3"] == 8 and out.shape == batch.shape,
+            f"sharded blur launches {ln}")
+    err = max_err(out.gather(), gk._separable_blur_plain(batch, taps))
+    require(err <= PAR_TOL, f"sharded blur max|d| {err}")
+    blur_ms, unsharded_ms = median_ms(
+        lambda: sp.sharded_gaussian_blur(mesh8, SIGMA)(xs),
+        lambda: bl._separable_conv(batch, taps, "edge"), runs=PAR_RUNS)
+    print(f"parallel: sharded blur sigma {SIGMA} on 2x2x2 blocks of "
+          f"{tuple(xs.blocks[0, 0, 0].shape)}: max|d| {err:.3e} vs K3's "
+          f"plain version ({len(taps)} taps), launches {ln}; {blur_ms:.4f} ms against "
+          f"{unsharded_ms:.4f} ms unsharded [{name_limit}]")
+
+    hist, ln = main_path(lambda: sp.sharded_histogram(mesh8, 256)(xs))
+    want = gk.histogram256_plain(batch.reshape(-1, W2 * C)).to(
+        torch.int64).sum(0)
+    require(ln["k4"] == 8 and torch.equal(hist.to(torch.int64), want),
+            f"sharded histogram 256: launches {ln}")
+    hist64, _ = main_path(lambda: sp.sharded_histogram(mesh8, 64)(xs))
+    a = batch.cpu().numpy()
+    idx = np.clip((a * np.float32(63) + np.float32(0.5)).astype(np.int32),
+                  0, 63)
+    require(np.array_equal(hist64.cpu().numpy().astype(np.int64),
+                           np.bincount(idx.ravel(), minlength=64)),
+            "sharded histogram 64 against numpy")
+    (mean, std, mn, mx), _ = main_path(lambda: sp.sharded_statistics(mesh8)(xs))
+    b64 = batch.to(torch.float64)
+    err_mean = max_err(mean.double(), b64.mean((0, 1, 2)))
+    err_std = max_err(std.double(), b64.std((0, 1, 2), unbiased=False))
+    del b64
+    require(err_mean <= 1e-5 and err_std <= 1e-4 and
+            torch.equal(mn, batch.amin((0, 1, 2))) and
+            torch.equal(mx, batch.amax((0, 1, 2))),
+            f"sharded statistics {err_mean} {err_std}")
+    rsz, _ = main_path(lambda: sp.sharded_resize(
+        mesh8, (H2, W2), (H2 // 2, W2 // 2), "lanczos")(xs))
+    err_rz = max_err(rsz.gather(), rz.resize(batch, H2 // 2, W2 // 2,
+                                             "lanczos"))
+    require(err_rz <= PAR_TOL, f"sharded resize max|d| {err_rz}")
+    opened, _ = main_path(lambda: sp.sharded_morphology(
+        mesh8, "open", "square:1")(xs))
+    require(torch.equal(opened.gather(),
+                        mo.morphology(batch, "open", "square:1")),
+            "sharded open")
+    med, _ = main_path(lambda: sp.sharded_median(mesh8, 1)(xs))
+    require(torch.equal(med.gather(), stx.median_filter(batch, 1)),
+            "sharded median")
+    gray = grayscale(batch)
+    otsu, ln = main_path(lambda: sp.sharded_otsu_threshold(mesh8)(gray))
+    inten = gray[..., 0:1]
+    plain_t = th._otsu(gk.histogram256_plain(inten.reshape(
+        N2 * H2, W2)).to(torch.int64).reshape(N2, H2, 256).sum(1))
+    require(ln["k4"] == 8 and torch.equal(otsu.gather(),
+                                          th.auto_threshold(gray, "otsu"))
+            and torch.equal(otsu.gather(), (inten > plain_t.reshape(
+                -1, 1, 1, 1)).to(gray.dtype)),
+            f"sharded otsu: launches {ln}")
+    del inten
+    print(f"parallel: histograms 256 (K4 x 8, against its plain version) "
+          f"and 64 (against numpy) equal; statistics "
+          f"mean {err_mean:.3e} std {err_std:.3e} vs float64, min/max "
+          f"equal; lanczos to {H2 // 2}x{W2 // 2} max|d| {err_rz:.3e}; open "
+          f"square:1, median r 1 and Otsu (K4 x 8) on the gray batch equal "
+          f"to the unsharded ops (Otsu also to its plain-K4 thresholds)")
+    del xs, out, rsz, opened, med, gray, otsu
+
+    # -- (2) K1 on each block of a dp = 4 mesh ------------------------------
+    mesh4 = pm.make_mesh(4, 1, 1, devices=[dev] * 4)
+    b1 = torch.rand((N, H, W, C), generator=gen, device=dev)
+
+    def k1_block(b):
+        return fp.fused_resize_pipeline(b, HOUT, WOUT, "lanczos", SIGMA, GRAY)
+
+    k1out, ln = main_path(lambda: sp.halo_map(k1_block, mesh4, 0, 0)(b1))
+    require(ln["k1"] == 4, f"K1 over dp launches {ln}")
+    err_k1 = max_err(k1out.gather(), k1_block(b1))
+    require(err_k1 <= K1_DP_TOL, f"K1 over dp max|d| {err_k1}")
+    print(f"parallel: K1 on each of 4 dp blocks of {(N, H, W, C)}: "
+          f"launches {ln}, max|d| {err_k1:.3e} vs one unsharded call")
+    del b1, k1out
+
+    # -- (3) the gigapixel --------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    img = torch.rand((GIGA, GIGA, C), generator=gen, device=dev)
+    gmesh = pm.make_mesh(1, 2, 2, devices=[dev] * 4)
+
+    def giga():
+        return gp.process_gigapixel(img, mesh=gmesh, sigma=GIGA_SIGMA)
+
+    (gout, gstats), ln = main_path(giga)
+    require(ln["k3"] == 4 and gout.shape == (1, GIGA, GIGA, C),
+            f"gigapixel launches {ln}, shape {gout.shape}")
+    del gout
+    times, pipe_ms, stat_ms = [], [], []
+    for _ in range(GIGA_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gout, gstats = giga()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        del gout
+        t = time.perf_counter()
+        gout = gp.sharded_pipeline(gmesh, GIGA_SIGMA)(img[None])
+        torch.cuda.synchronize()
+        pipe_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        gp.sharded_global_stats(gmesh)(gout)
+        torch.cuda.synchronize()
+        stat_ms.append((time.perf_counter() - t) * 1e3)
+        if len(times) < GIGA_RUNS:
+            del gout
+    peak = torch.cuda.max_memory_allocated(dev)
+    g_ms = statistics.median(times)
+    mpix = GIGA * GIGA / 1e6
+    gtaps = bl.gaussian_kernel_1d(0.0, GIGA_SIGMA)
+    half, band = GIGA // 2, GIGA_BAND
+    seam = 0.0
+    for y0 in (0, half - band // 2, GIGA - band):
+        seam = max(seam, _giga_band_err(img, gout, gtaps, y0, y0 + band, 0,
+                                        GIGA))
+    for x0 in (0, half - band // 2, GIGA - band):
+        seam = max(seam, _giga_band_err(img, gout, gtaps, 0, GIGA, x0,
+                                        x0 + band))
+    require(seam <= PAR_TOL, f"gigapixel seams max|d| {seam}")
+    s = torch.zeros(C, dtype=torch.float64, device=dev)
+    s2 = torch.zeros(C, dtype=torch.float64, device=dev)
+    gmn = torch.full((C,), 2.0, device=dev)
+    gmx = torch.full((C,), -1.0, device=dev)
+    for y0 in range(0, GIGA, 1024):
+        rows = _giga_region(gout, y0, y0 + 1024, 0, GIGA)
+        r64 = rows.to(torch.float64)
+        s += r64.sum((0, 1))
+        s2 += (r64 * r64).sum((0, 1))
+        gmn = torch.minimum(gmn, rows.amin((0, 1)))
+        gmx = torch.maximum(gmx, rows.amax((0, 1)))
+    n = float(GIGA * GIGA)
+    m64 = s / n
+    sd64 = torch.sqrt(s2 / n - m64 * m64)
+    err_gm = float(np.abs(gstats["mean"] - m64.cpu().numpy()).max())
+    err_gs = float(np.abs(gstats["std"] - sd64.cpu().numpy()).max())
+    require(err_gm <= 1e-5 and err_gs <= 1e-4 and
+            np.array_equal(gstats["min"], gmn.cpu().numpy()) and
+            np.array_equal(gstats["max"], gmx.cpu().numpy()),
+            f"gigapixel statistics {err_gm} {err_gs}")
+    g_bound = bound(3 * 4 * img.numel(), 2 * 2 * len(gtaps) * img.numel())
+    print(f"parallel: gigapixel {GIGA}x{GIGA}x{C} float32 on a 1x2x2 mesh, "
+          f"sigma {GIGA_SIGMA} ({len(gtaps)} taps), launches {ln}: "
+          f"process_gigapixel {g_ms:.1f} ms = {mpix / g_ms * 1e3:.1f} MP/s "
+          f"(median of {GIGA_RUNS}: {[round(t, 1) for t in times]}), "
+          f"pipeline {statistics.median(pipe_ms):.1f} ms, statistics "
+          f"{statistics.median(stat_ms):.1f} ms, bound {g_bound[0]:.2f} ms "
+          f"({g_bound[1]}: the input read twice, the output once); peak "
+          f"card memory {peak / 2 ** 30:.2f} GiB; seams and borders max|d| "
+          f"{seam:.3e}; statistics mean {err_gm:.3e} std {err_gs:.3e} vs "
+          f"float64 bands, min/max equal [{name_limit}]")
+    del img, gout
+    torch.cuda.empty_cache()
+
+    # -- (4) the CLI's -define tpu:mesh -------------------------------------
+    rng = np.random.default_rng(seed + 28)
+    with tempfile.TemporaryDirectory() as td:
+        src = os.path.join(td, "in.png")
+        PImage.fromarray(_smooth_u8(rng, 1, IO_H, IO_W, C)[0]).save(src)
+        chain = ["-gaussian-blur", "0x2", "-auto-threshold", "otsu"]
+        plain, sharded = os.path.join(td, "plain.png"), \
+            os.path.join(td, "sharded.png")
+        rc, _, err = _run_main([src] + chain + [plain], dev)
+        require(rc == 0, f"CLI plain run: {err}")
+        before = dispatch.COUNTS["sharded"]
+        (rc, _, err), ln = main_path(lambda: _run_main(
+            [src, "-define", "tpu:mesh=1x1", "-define",
+             "tpu:shard-threshold=1024"] + chain + [sharded], dev))
+        # the blur is the tagged prefix (one K1 launch, as in the JAX
+        # CLI); the rest, Otsu, runs split over the mesh (K4)
+        require(rc == 0 and dispatch.COUNTS["sharded"] == before + 1 and
+                ln["k1"] == 1 and ln["k4"] == 1,
+                f"CLI sharded run: rc {rc} launches {ln} {err}")
+        with open(plain, "rb") as f1, open(sharded, "rb") as f2:
+            require(f1.read() == f2.read(), "CLI sharded bytes")
+        rc, _, err = _run_main([src, "-define", "tpu:mesh=2x2"] + chain +
+                               [os.path.join(td, "x.png")], dev)
+        need = f"mesh 1x2x2 needs 4 devices, have {torch.cuda.device_count()}"
+        require(torch.cuda.device_count() >= 4 or
+                (rc == 1 and need in err), f"tpu:mesh=2x2: rc {rc} {err}")
+    print(f"parallel: CLI -define tpu:mesh=1x1 on {IO_H}x{IO_W}: one sharded "
+          f"run, launches {ln}, the bytes of the run without it; "
+          f"tpu:mesh=2x2: rc {rc}, {err.strip()}")
+
+    # -- (5) an NCCL group of one -------------------------------------------
+    mesh1 = pm.make_mesh(1, 2, 2, devices=[dev] * 4)
+    x4 = pm.device_put(batch[:1], pm.batch_sharding(mesh1))
+    alone = sp.sharded_statistics(mesh1)(x4)
+    alone_h = sp.sharded_histogram(mesh8, 256)(batch)
+    require(not mesh1.grouped and not mesh8.grouped, "meshes before the "
+            "group")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    n_dev = pm.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        require(n_dev == torch.cuda.device_count() and
+                dist.get_backend() == "nccl", f"init_distributed {n_dev}")
+        # meshes made under the group: their reductions all_reduce
+        gmesh1 = pm.make_mesh(1, 2, 2, devices=[dev] * 4)
+        gmesh8 = pm.make_mesh(2, 2, 2, devices=[dev] * 8)
+        require(gmesh1.grouped and gmesh8.grouped, "meshes under the group")
+        (grouped, grouped_h), _ = main_path(lambda: (
+            sp.sharded_statistics(gmesh1)(batch[:1]),
+            sp.sharded_histogram(gmesh8, 256)(batch)))
+        require(all(torch.equal(a_, b_) for a_, b_ in zip(alone, grouped))
+                and torch.equal(alone_h, grouped_h),
+                "statistics through the NCCL all_reduce")
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel: NCCL group of one ({n_dev} device): "
+          f"statistics and histogram through all_reduce equal the results "
+          f"without the group; group destroyed")
+    del batch, x4
+
+    # -- (6) the dry run ----------------------------------------------------
+    # its default devices: this process's cards in turn (cuda:0 x 8 here)
+    _, ln = main_path(lambda: dryrun_multichip(8))
+    print(f"parallel: dryrun_multichip(8) on its default devices "
+          f"({torch.cuda.device_count()} card(s) named in turn), launches "
+          f"{ln}")
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}")
+    return counts
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6184,6 +6546,8 @@ def main() -> None:
                    lambda: cli_tools_phase(dev, gen, name_limit, args.seed))
     wand = wand_phase(dev, gen, name_limit, args.seed)
     mpp = magickpp_perl_phase(dev, gen, name_limit, args.seed)
+    par = _timed("parallel", lambda: parallel_phase(dev, name_limit,
+                                                    args.seed))
     k1_err = max(k1_err, new5["k1_err"])
 
     # == config #2: blur -> unsharp -> sRGB<->Lab ===========================
@@ -6673,7 +7037,7 @@ def main() -> None:
          cli1["k1"] + serve1["k1"] + tone["k1"] + clie["k1"] + clid["k1"] +
          clich["k1"] + cliv["k1"] + clidr["k1"] + clil["k1"] + clif["k1"] +
          srvc["k1"] + coders["k1"] + fmts["k1"] + fmts4["k1"] + strm["k1"] +
-         tools["k1"] + wand["k1"] + mpp["k1"],
+         tools["k1"] + wand["k1"] + mpp["k1"] + par["k1"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -6697,7 +7061,8 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:38",
          "launches": launches["k3"] + launches2["k3"] + cli1["k3"] +
          fx["k3"] + clie["k3"] + vis["k3"] + cliv["k3"] + vfx["k3"] +
-         clil["k3"] + strm["k3"] + tools["k3"] + wand["k3"] + mpp["k3"],
+         clil["k3"] + strm["k3"] + tools["k3"] + wand["k3"] + mpp["k3"] +
+         par["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None,
@@ -6707,7 +7072,7 @@ def main() -> None:
          "replaces": "imagemagick_tpu/ops/pallas_kernels.py:351",
          "launches": launches3f["k4"] + launches3o["k4"] + tone["k4"] +
          cliv["k4"] + clif["k4"] + coders["k4"] + fmts["k4"] +
-         fmts4["k4"] + strm["k4"] + wand["k4"] + mpp["k4"],
+         fmts4["k4"] + strm["k4"] + wand["k4"] + mpp["k4"] + par["k4"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": histc_ms,

@@ -9,7 +9,14 @@ prefix of the chains of a group of same-shape images runs as ONE K1
 launch (``materialize_all`` -> ``dispatch.try_fused_batch``), a single
 image's tagged prefix as one launch (``LazyImage.materialize`` ->
 ``dispatch.try_fused_chain``), and the rest as PyTorch ops on the
-images' device, eagerly, image by image: there is no jit and no mesh.
+images' device, eagerly, image by image: there is no jit.  Under
+``-define tpu:mesh=SYxSX`` (or ``DPxSYxSX``) a single image of at least
+``tpu:shard-threshold`` pixels that the mesh divides runs the rest with
+its pixels split into the mesh's blocks (``parallel/``): the ops with a
+sharded form (``-gaussian-blur``/``-blur``, ``-morphology`` of a bounded
+method, ``-median``/``-statistic``, ``-resize`` and ``-auto-threshold
+otsu``) on the blocks, any other on the gathered image on the mesh's
+first device.
 ``-auto-threshold`` materializes every image and thresholds each group
 of same-shape images with one launch of kernel K4.
 
@@ -172,12 +179,15 @@ class LazyImage:
     and the remainder as PyTorch ops.
     """
 
-    __slots__ = ("image", "pending", "_shape")
+    __slots__ = ("image", "pending", "_shape", "shard")
 
     def __init__(self, image: Image, pending=None):
         self.image = image
         self.pending = list(pending or [])
         self._shape = None  # (h, w) after pending ops; None = unchanged
+        # (mesh, min_pixels) of the state's -define tpu:mesh, or None;
+        # ``process`` sets it before each option
+        self.shard = None
 
     @property
     def height(self) -> int:
@@ -225,7 +235,9 @@ class LazyImage:
             data, consumed = res
         rest = ops[consumed:]
         if rest:
-            data = _run_ops(data, rest)
+            mesh = _shard_mesh(self.shard, data, rest)
+            data = _run_ops(data, rest) if mesh is None else \
+                _run_sharded(data, rest, mesh)
         return self._settle(data)
 
 
@@ -247,6 +259,113 @@ def _run_ops(data: torch.Tensor, ops) -> torch.Tensor:
     return data
 
 
+def _cli_spec():
+    """How the CLI splits one (1, H, W, C) image over a mesh: rows over
+    sy, columns over sx, copies along dp (the JAX CLI's P("sy", "sx",
+    None))."""
+    from ..parallel.mesh import P
+
+    return P(None, "sy", "sx", None)
+
+
+def _sharded_form(fn, form):
+    """Mark the op ``fn`` with its sharded form: ``form(mesh, shape)``
+    returns a function over a (1, H, W, C) image split ``_cli_spec()``
+    (a ShardedArray or a tensor), or None where the op cannot run on
+    that shape's blocks."""
+    fn.sharded = form
+    return fn
+
+
+def _halo_fits(mesh, shape, hy: int, hx: int) -> bool:
+    """Whether blocks of ``shape`` on ``mesh`` are at least as tall and
+    wide as the halos an op takes from their neighbours."""
+    sy, sx = mesh.shape["sy"], mesh.shape["sx"]
+    return (sy == 1 or shape[1] // sy >= hy) and \
+        (sx == 1 or shape[2] // sx >= hx)
+
+
+def _shard_mesh(shard, data: torch.Tensor, ops):
+    """The mesh a chain's remainder runs split over, or None: a
+    ``-define tpu:mesh`` is set, ``data`` is one (H, W, C) image of at
+    least the threshold's pixels that the mesh divides (the JAX CLI's
+    ``_auto_shard_sharding``), and an op of the remainder has a sharded
+    form."""
+    if data.dim() != 3 or not _fits_mesh(shard, int(data.shape[0]),
+                                         int(data.shape[1])):
+        return None
+    if not any(getattr(fn, "sharded", None) for fn, _, _ in ops):
+        return None
+    return shard[0]
+
+
+def _fits_mesh(shard, h: int, w: int) -> bool:
+    """Whether an h x w image runs split over the ``-define tpu:mesh``
+    (``shard``, or None): at least the threshold's pixels, and the mesh
+    divides it."""
+    if shard is None:
+        return False
+    mesh, minpx = shard
+    return h * w >= minpx and h % mesh.shape["sy"] == 0 and \
+        w % mesh.shape["sx"] == 0
+
+
+def _run_sharded(data: torch.Tensor, ops, mesh) -> torch.Tensor:
+    """Run a chain's remainder with the image split over ``mesh``: an op
+    with a sharded form runs on the blocks, any other on the image
+    gathered on the mesh's first device.  The result goes back to
+    ``data``'s device.  Counts one ``sharded`` and one ``op`` run."""
+    from ..ops import dispatch as _dispatch
+    from ..parallel.mesh import ShardedArray
+
+    _dispatch.COUNTS["op"] += 1
+    _dispatch.COUNTS["sharded"] += 1
+    x = data[None]
+    sy, sx = mesh.shape["sy"], mesh.shape["sx"]
+    for fn, _, _ in ops:
+        form = getattr(fn, "sharded", None)
+        run = None
+        if form is not None and (isinstance(x, ShardedArray) or
+                                 (x.shape[1] % sy == 0 and
+                                  x.shape[2] % sx == 0)):
+            run = form(mesh, tuple(x.shape))
+        if run is not None:
+            x = run(x)
+        else:
+            x = (x.gather() if isinstance(x, ShardedArray) else x)[0]
+            x = fn(x)[None]
+    x = x.gather() if isinstance(x, ShardedArray) else x
+    return x[0].to(data.device)
+
+
+def _blur_form(taps):
+    """The sharded form of a clipped separable blur by ``taps``."""
+    from ..parallel import spatial as sp
+
+    r = (len(taps) - 1) // 2
+
+    def form(mesh, shape):
+        if not _halo_fits(mesh, shape, r, r):
+            return None
+        blur = sp._sharded_separable(mesh, taps, _cli_spec())
+        return lambda x: sp._pointwise(blur(x),
+                                       lambda t: t.clamp(0.0, 1.0))
+
+    return form
+
+
+def _statistic_form(stat: str, w: int, h: int):
+    """The sharded form of ``statistic(x, stat, w, h)``."""
+    from ..parallel import spatial as sp
+
+    def form(mesh, shape):
+        if not _halo_fits(mesh, shape, h // 2, w // 2):
+            return None
+        return sp.sharded_statistic(mesh, stat, w, h, _cli_spec())
+
+    return form
+
+
 class CLIState:
     """The interpreter's state: the image list, the settings, and the
     device that read files and pseudo images go to (the card unless the
@@ -263,9 +382,9 @@ class CLIState:
         self.seed = 0
         self.exit_code = 0
         self.defines: Dict[str, str] = {}
-        # -define tpu:mesh=...: ((dp, sy, sx), min_pixels) or None; a
-        # state is one invocation, so the mesh is too
-        self.shard: Optional[Tuple[Tuple[int, int, int], int]] = None
+        # -define tpu:mesh=...: (parallel.mesh.Mesh, min_pixels) or None;
+        # a state is one invocation, so the mesh is too
+        self.shard: Optional[Tuple[object, int]] = None
         self.settings: Dict[str, str] = {
             "background": "white",
             "fill": "black",
@@ -328,6 +447,7 @@ def _op_resize(st, arg, plus, op="resize"):
             rf = filt if filt not in ("undefined", "", None) else \
                 rz._default_filter(ch, cw, h, w, alpha)
             tag = ("resize", (h, w, rf))
+            fn = _sharded_form(fn, _resize_form(h, w, filt, alpha))
         elif op == "scale":
             fn = lambda x, h=h, w=w: rz.scale(x, h, w)
             tag = ("resize", (h, w, "box"))
@@ -341,6 +461,28 @@ def _op_resize(st, arg, plus, op="resize"):
             if not alpha and not ((cw // w) > 2 and (ch // h) > 2):
                 tag = ("resize", (h, w, tf_))
         li.push(fn, new_shape=(h, w), tag=tag)
+
+
+def _resize_form(h: int, w: int, filt: str, alpha: bool):
+    """The sharded form of ``resize(x, h, w, filt, has_alpha=alpha)``: the
+    filter ``resize`` would pick for the shape, as dense operators split
+    over the blocks.  None for the point filter (an identity where the
+    size stays) and where a filter's support is wider than a block."""
+    from ..ops import resize as rz
+    from ..parallel import spatial as sp
+
+    def form(mesh, shape):
+        f = filt if filt not in ("undefined", "", None) else \
+            rz._default_filter(shape[1], shape[2], h, w, alpha)
+        if f.lower() == "point":
+            return None
+        try:
+            return sp.sharded_resize(mesh, (shape[1], shape[2]), (h, w), f,
+                                     alpha, _cli_spec())
+        except ValueError:      # a support halo wider than one block
+            return None
+
+    return form
 
 
 def _op_magnify(st, arg, plus):
@@ -372,10 +514,19 @@ def _op_blur(fname: str, rule: str):
         tag = None if plus or s <= 0 or vp != "edge" or any_mask or \
             _channel_indices(setting, 4) is not None else \
             ("gblur", (float(r), float(s), rule))
+        # the blocks' halos repeat the image's edge: a sharded form for
+        # the 'edge' virtual pixel without a mask
+        shardable = s > 0 and vp == "edge" and \
+            _channel_indices(setting, 4) is None
+        taps = bl.gaussian_kernel_1d(r, s) if fname == "blur" else \
+            bl.gaussian_blur_taps(r, s)
         for li in st.images:
-            li.push(_masked(lambda x: fn(x, radius=r, sigma=s,
-                                         virtual_pixel=vp),
-                            setting, _wmask(li)), tag=tag)
+            op = _masked(lambda x: fn(x, radius=r, sigma=s,
+                                      virtual_pixel=vp),
+                         setting, _wmask(li))
+            if shardable and _wmask(li) is None:
+                op = _sharded_form(op, _blur_form(taps))
+            li.push(op, tag=tag)
 
     return handler
 
@@ -499,11 +650,23 @@ def _op_auto_threshold(st, arg, plus):
     """-auto-threshold: each image materialized, then one launch of K4
     for the histograms of each group of same-shape images; every image
     is thresholded at its own value (``threshold.auto_threshold`` of a
-    batch).  The result is a gray image that keeps the properties, as in
-    the JAX CLI."""
+    batch).  Under ``-define tpu:mesh`` an image that the mesh takes
+    (``_fits_mesh``) gets Otsu lazily instead, so that it runs split over
+    the mesh with the chain before it (one ``sharded`` run).  The result
+    is a gray image that keeps the properties, as in the JAX CLI."""
     from ..ops import threshold as th
 
-    imgs = materialize_all(st.images)
+    lazy = [li for li in st.images if arg.lower() == "otsu" and
+            li.image.data.dim() == 3 and
+            _fits_mesh(st.shard, li.height, li.width)]
+    for li in lazy:
+        li.push(_sharded_form(
+            lambda x: th.auto_threshold(x[None], arg)[0], _otsu_form))
+        img = li.materialize()
+        li.image = Image(img.data, ImageSpec(colorspace="gray"),
+                         img.properties)
+    rest = [li for li in st.images if all(li is not o for o in lazy)]
+    imgs = materialize_all(rest)
     groups: Dict[tuple, List[int]] = {}
     for i, img in enumerate(imgs):
         key = (tuple(img.data.shape), img.data.device)
@@ -512,8 +675,15 @@ def _op_auto_threshold(st, arg, plus):
         out = th.auto_threshold(torch.stack([imgs[i].data for i in idxs]),
                                 arg)
         for j, i in enumerate(idxs):
-            st.images[i].image = Image(out[j], ImageSpec(colorspace="gray"),
-                                       imgs[i].properties)
+            rest[i].image = Image(out[j], ImageSpec(colorspace="gray"),
+                                  imgs[i].properties)
+
+
+def _otsu_form(mesh, shape):
+    """The sharded form of ``-auto-threshold otsu``."""
+    from ..parallel import spatial as sp
+
+    return sp.sharded_otsu_threshold(mesh, _cli_spec())
 
 
 _GEOMINFO_RE = re.compile(
@@ -699,9 +869,19 @@ def _selective_args(a):
     return kw
 
 
-def _median_args(st, a, p):
-    w = 2 * int(float(a)) + 1
-    return {"stat": "median", "width": w, "height": w}
+def _op_median(st, arg, plus):
+    """-median R: the median over a (2R+1)^2 window, under the -channel
+    mask and the write mask; without a mask it has a sharded form."""
+    from ..ops import statistic as stx
+
+    w = 2 * int(float(arg)) + 1
+    setting = st.settings.get("channel", "default")
+    for li in st.images:
+        op = _masked(lambda x: stx.statistic(x, "median", w, w), setting,
+                     _wmask(li))
+        if _wmask(li) is None and _channel_indices(setting, 4) is None:
+            op = _sharded_form(op, _statistic_form("median", w, w))
+        li.push(op)
 
 
 def _op_statistic(st, arg, plus):
@@ -714,7 +894,8 @@ def _op_statistic(st, arg, plus):
     w = int(g.width or 3) if g else 3
     h = int(g.height or w) if g else 3
     for li in st.images:
-        li.push(lambda x: stx.statistic(x, stat, w, h))
+        li.push(_sharded_form(lambda x: stx.statistic(x, stat, w, h),
+                              _statistic_form(stat, w, h)))
 
 
 def _op_evaluate(st, arg, plus):
@@ -1845,9 +2026,37 @@ def _op_morphology(st, arg, plus):
         method, _, it = method.partition(":")
         iters = int(it)
     vp = st.settings["virtual-pixel"]
+    form = _morphology_form(method, kernel, iters, vp)
     for li in st.images:
-        li.push(lambda x: mo.morphology(x, method, kernel, iterations=iters,
-                                        virtual_pixel=vp))
+        op = lambda x: mo.morphology(x, method, kernel, iterations=iters,
+                                     virtual_pixel=vp)
+        li.push(op if form is None else _sharded_form(op, form))
+
+
+def _morphology_form(method: str, kernel: str, iters: int, vp: str):
+    """The sharded form of ``-morphology method:iters kernel``
+    (``parallel.spatial.sharded_morphology``, which equals
+    ``morphology``), or None: a bounded method, at least one iteration
+    (fewer converge), and for convolve and correlate, which read the
+    virtual pixel beyond the border, the 'edge' one the blocks repeat."""
+    from ..ops import morphology as mo
+    from ..parallel import spatial as sp
+
+    m = method.lower().replace("-", "").replace("_", "")
+    if iters < 1 or m not in sp._METHOD_PRIMS and m not in sp._METHOD_DIFFS:
+        return None
+    if m in ("convolve", "correlate") and vp != "edge":
+        return None
+    kernels = mo.get_kernel(kernel)
+    ry = max(k.shape[0] // 2 for k in kernels)
+    rx = max(k.shape[1] // 2 for k in kernels)
+
+    def form(mesh, shape):
+        if not _halo_fits(mesh, shape, ry, rx):
+            return None
+        return sp.sharded_morphology(mesh, m, kernel, iters, _cli_spec())
+
+    return form
 
 
 def _op_convolve(st, arg, plus):
@@ -2564,7 +2773,7 @@ OPS: Dict[str, Tuple[int, Callable]] = {
                                      lambda st, a, p: _selective_args(a))),
     # rank filters and value maps
     "statistic": (2, _op_statistic),
-    "median": (1, _op_simple("statistic", "statistic", _median_args)),
+    "median": (1, _op_median),
     "evaluate": (2, _op_evaluate),
     "function": (2, _op_function),
     # list operators
@@ -2823,6 +3032,8 @@ def process(args: Sequence[str], st: Optional[CLIState] = None) -> CLIState:
     while i < len(args):
         tok = args[i]
         i += 1
+        for li in st.images:
+            li.shard = st.shard
         if tok == "(":
             st.stack.append(st.images)
             st.images = []
@@ -2901,13 +3112,16 @@ def _setting(st: CLIState, name: str, vals: List[str], plus: bool) -> None:
 
 def _set_shard_mesh(st: CLIState, spec: Optional[str],
                     threshold: Optional[str] = None) -> None:
-    """Check (or clear) ``-define tpu:mesh=SYxSX`` (or ``DPxSYxSX``) and
+    """Set (or clear) ``-define tpu:mesh=SYxSX`` (or ``DPxSYxSX``) and
     ``tpu:shard-threshold`` as the JAX CLI's ``_set_shard_mesh`` does:
     a wrong number of parts is its CLIError, a part or threshold that is
     no integer its ValueError, and a mesh of more devices than the port
-    has (the cards for a card run, one for the CPU) its ValueError.  A
-    mesh that fits is recorded in ``st.shard`` and changes nothing else:
-    the port does not shard an image across cards."""
+    has (``parallel.mesh.local_devices`` of the state's device: the cards
+    for a card run, one for the CPU) make_mesh's ValueError.  The mesh
+    and the threshold (4 Mi pixels by default) go to ``st.shard``, which
+    ``LazyImage.materialize`` reads (``_shard_mesh``)."""
+    from ..parallel import mesh as pm
+
     if not spec:
         st.shard = None
         return
@@ -2918,13 +3132,9 @@ def _set_shard_mesh(st: CLIState, spec: Optional[str],
         dp, sy, sx = parts
     else:
         raise CLIError(f"bad tpu:mesh geometry {spec!r} (want SYxSX)")
-    have = torch.cuda.device_count() if st.device.type == "cuda" else 1
-    need = dp * sy * sx
-    if need > have:
-        raise ValueError(f"mesh {dp}x{sy}x{sx} needs {need} devices, "
-                         f"have {have}")
+    mesh = pm.make_mesh(dp, sy, sx, devices=pm.local_devices(st.device))
     minpx = int(threshold) if threshold else 4 * 1024 * 1024
-    st.shard = ((dp, sy, sx), minpx)
+    st.shard = (mesh, minpx)
 
 
 def _inline(st: CLIState, name: str, vals: List[str], args: List[str],

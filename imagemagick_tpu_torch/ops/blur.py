@@ -219,14 +219,20 @@ def gaussian_blur(img: torch.Tensor, radius: float = 0.0, sigma: float = 1.0,
     """
     if abs(sigma) < _EPSILON:
         return img
+    return _separable_conv(img, gaussian_blur_taps(radius, sigma),
+                           virtual_pixel).clamp(0.0, 1.0)
+
+
+def gaussian_blur_taps(radius: float, sigma: float) -> np.ndarray:
+    """The 1-D taps of ``gaussian_blur``'s two passes: the sampled,
+    sum-normalized Gaussian of GetOptimalKernelWidth2D's width."""
     width = optimal_kernel_width_2d(radius, sigma)
     s = _sigma_safe(sigma)
     j = (width - 1) // 2
     xs = np.arange(-j, j + 1, dtype=np.float64)
     k = np.exp(-(xs * xs) / (2.0 * s * s))
     k /= k.sum()
-    return _separable_conv(img, k.astype(np.float32),
-                           virtual_pixel).clamp(0.0, 1.0)
+    return k.astype(np.float32)
 
 
 def unsharp_mask(img: torch.Tensor, radius: float = 0.0, sigma: float = 1.0,

@@ -19,7 +19,10 @@ its build or its launch propagates to the caller.  So ``COUNTS`` has no
 ``error`` count.  It counts ``fused``, each chain or batch that ran as one
 K1 launch (here), and ``op``, each lazy chain remainder that ran as
 PyTorch ops (counted by the CLI's ``LazyImage``); the JAX CLI's ``pallas``
-and ``xla`` counts are these two.
+and ``xla`` counts are these two.  ``sharded`` counts each remainder that
+ran with its image split over a ``-define tpu:mesh`` mesh (the JAX CLI's
+``gspmd``); such a chain counts one ``op`` too, as the JAX CLI's counts
+one ``xla``.
 
 Plans and device operands are cached per (shape, chain, device), so
 repeated requests pay host planning and the operator upload once.
@@ -36,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 # dispatch outcome counter (inspected by tests and tooling)
-COUNTS = {"fused": 0, "op": 0}
+COUNTS = {"fused": 0, "op": 0, "sharded": 0}
 
 _MAX_DIM = 4096          # dense host-side operator composition bound
 _MAX_CHANNELS = 4

@@ -144,7 +144,8 @@ def test_grouped_batch_is_one_fused_call(monkeypatch):
     before = dict(tdsp.COUNTS)
     out = tm.materialize_all(ts.images)
     assert seen == [(4, 64, 96, 3)]
-    assert tdsp.COUNTS == {"fused": before["fused"] + 1, "op": before["op"]}
+    assert tdsp.COUNTS == {"fused": before["fused"] + 1, "op": before["op"],
+                           "sharded": before["sharded"]}
     assert all(tuple(o.data.shape) == (32, 32, 1) for o in out)
     assert all(o.spec.colorspace == "gray" for o in out)
     assert all(not li.pending for li in ts.images)
@@ -160,7 +161,8 @@ def test_declined_chain_counts_op(n):
     tm.process(ARGVS[6], ts)
     before = dict(tdsp.COUNTS)
     got = tm.materialize_all(ts.images)
-    assert tdsp.COUNTS == {"fused": before["fused"], "op": before["op"] + 1}
+    assert tdsp.COUNTS == {"fused": before["fused"], "op": before["op"] + 1,
+                           "sharded": before["sharded"]}
     want = jm.materialize_all(js.images)
     for g, w in zip(got, want):
         assert tuple(g.data.shape) == tuple(w.data.shape) == (32, 32, 1)
@@ -366,7 +368,8 @@ def test_thumbnail_chain_fuses_its_prefix_once(monkeypatch):
     out = tm.materialize_all(ts.images)
     assert seen == [(4, 48, 72, 3)]
     assert tdsp.COUNTS == {"fused": before["fused"] + 1,
-                           "op": before["op"] + 4}
+                           "op": before["op"] + 4,
+                           "sharded": before["sharded"]}
     assert all(tuple(o.data.shape) == (21, 32, 3) for o in out)
     # each image's rest saw only its own pixels: auto-level stretched
     # every image to [0, 1] before the later ops
@@ -519,7 +522,8 @@ def test_effect_chain_fuses_its_resize_once(monkeypatch):
     out = tm.materialize_all(ts.images)
     assert seen == [(4, 48, 72, 3)]
     assert tdsp.COUNTS == {"fused": before["fused"] + 1,
-                           "op": before["op"] + 4}
+                           "op": before["op"] + 4,
+                           "sharded": before["sharded"]}
     assert blurs == [(1, 21, 32, 3)] * 4
     assert all(tuple(o.data.shape) == (21, 32, 3) for o in out)
 

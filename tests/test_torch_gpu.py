@@ -65,7 +65,13 @@ blurs in one K1 launch each, counted in its own embedded interpreter,
 within 2e-5 of the same program built for the CPU; the PerlMagick
 server on the card answers a Read, Resize, Blur session in two K1
 launches, its pixel within 2e-5 and its written 16-bit samples within
-one level of the same session on the CPU.
+one level of the same session on the CPU.  The sharded ops on a mesh
+that names the card eight times launch K3 and K4 once a block and equal
+the unsharded ops on the card (the blur, the resize and the gigapixel
+pipeline within 1e-5, the rest exactly; the statistics within 1e-5 and
+1e-4 of float64); K1 on each dp block equals one call within 1e-6; the
+CLI under ``-define tpu:mesh=1x1`` writes the bytes of the run without
+it.
 """
 
 import numpy as np
@@ -2117,3 +2123,101 @@ def test_rpc_server_session_on_card(dev, tmp_path):
                                 device="cpu").to_uint16()).astype(np.int64)
             for k in ("cuda", "cpu"))
     assert int(np.abs(a - b).max()) <= 1
+
+
+def test_sharded_ops_on_card_match_the_unsharded_ops(dev):
+    from imagemagick_tpu_torch.models import gigapixel as gp
+    from imagemagick_tpu_torch.ops import blur as bl
+    from imagemagick_tpu_torch.ops import resize as rz
+    from imagemagick_tpu_torch.ops import threshold as th
+    from imagemagick_tpu_torch.ops.enhance import grayscale
+    from imagemagick_tpu_torch.parallel import mesh as pm
+    from imagemagick_tpu_torch.parallel import spatial as sp
+
+    mesh = pm.make_mesh(2, 2, 2, devices=[dev] * 8)
+    x = torch.from_numpy(_rand((4, 96, 128, 3), 28)).to(dev)
+    xs = pm.device_put(x, pm.batch_sharding(mesh))
+    before = dict(gk.LAUNCHES)
+    blur = sp.sharded_gaussian_blur(mesh, 2.0)(xs).gather()
+    hist = sp.sharded_histogram(mesh, 256)(xs)
+    otsu = sp.sharded_otsu_threshold(mesh)(grayscale(x)).gather()
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k3"] - before["k3"] == 8
+    assert gk.LAUNCHES["k4"] - before["k4"] == 16
+    taps = bl.gaussian_kernel_1d(0.0, 2.0)
+    assert float((blur - gk._separable_blur_plain(x, taps)).abs().max()) \
+        <= 1e-5
+    assert torch.equal(hist.to(torch.int64), gk.histogram256_plain(
+        x.reshape(-1, 128 * 3)).to(torch.int64).sum(0))
+    assert torch.equal(otsu, th.auto_threshold(grayscale(x), "otsu"))
+    mean, std, mn, mx = sp.sharded_statistics(mesh)(xs)
+    x64 = x.double()
+    assert float((mean.double() - x64.mean((0, 1, 2))).abs().max()) <= 1e-5
+    assert float((std.double() - x64.std((0, 1, 2), unbiased=False))
+                 .abs().max()) <= 1e-4
+    assert torch.equal(mn, x.amin((0, 1, 2)))
+    assert torch.equal(mx, x.amax((0, 1, 2)))
+    rsz = sp.sharded_resize(mesh, (96, 128), (48, 64), "lanczos")(xs)
+    assert float((rsz.gather() - rz.resize(x, 48, 64, "lanczos"))
+                 .abs().max()) <= 1e-5
+    img = torch.from_numpy(_rand((256, 384, 3), 29)).to(dev)
+    out, stats = gp.process_gigapixel(
+        img, mesh=pm.make_mesh(1, 2, 2, devices=[dev] * 4), sigma=2.0)
+    b = gk._separable_blur_plain(img[None], taps)
+    want = (img[None] + (img[None] - b)).clamp(0.0, 1.0)
+    assert float((out.gather() - want).abs().max()) <= 1e-5
+    assert abs(float(stats["mean"][0]) - float(want[..., 0].double()
+                                                .mean())) <= 1e-5
+
+
+@pytest.mark.parametrize("method,spec,iterations", [
+    ("dilate", "Corners", 1), ("dilate", "Ring:2,3", 1),
+    ("edge", "square:1", 2), ("convolve", "Gaussian:1x1", 1)])
+def test_sharded_morphology_on_card_equals_morphology(dev, method, spec,
+                                                      iterations):
+    from imagemagick_tpu_torch.ops import morphology as mo
+    from imagemagick_tpu_torch.parallel import mesh as pm
+    from imagemagick_tpu_torch.parallel import spatial as sp
+
+    mesh = pm.make_mesh(2, 2, 2, devices=[dev] * 8)
+    x = torch.from_numpy(_rand((4, 32, 48, 3), 31)).to(dev)
+    got = sp.sharded_morphology(mesh, method, spec, iterations)(x).gather()
+    assert torch.equal(got, mo.morphology(x, method, spec,
+                                          iterations=iterations))
+
+
+def test_fused_kernel_on_each_dp_block(dev):
+    from imagemagick_tpu_torch.parallel import mesh as pm
+    from imagemagick_tpu_torch.parallel import spatial as sp
+
+    mesh = pm.make_mesh(4, 1, 1, devices=[dev] * 4)
+    x = torch.from_numpy(_rand((8, 64, 128, 3), 17)).to(dev)
+
+    def local(block):
+        return fp.fused_resize_pipeline(block, 32, 32, "lanczos", 1.0)
+
+    before = gk.LAUNCHES["k1"]
+    out = sp.halo_map(local, mesh, 0, 0)(x).gather()
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["k1"] - before == 4
+    assert float((out - local(x)).abs().max()) <= 1e-6
+
+
+def test_cli_tpu_mesh_on_card_writes_the_unsharded_bytes(dev, tmp_path):
+    from PIL import Image as PImage
+
+    from imagemagick_tpu_torch.cli.main import main as cli_main
+
+    src = tmp_path / "in.png"
+    PImage.fromarray((_rand((96, 128, 3), 30) * 255).astype(np.uint8)
+                     ).save(src)
+    chain = ["-gaussian-blur", "0x2", "-auto-threshold", "otsu"]
+    assert cli_main([str(src)] + chain + [str(tmp_path / "a.png")],
+                    device=dev) == 0
+    before = dispatch.COUNTS["sharded"]
+    assert cli_main([str(src), "-define", "tpu:mesh=1x1", "-define",
+                     "tpu:shard-threshold=1024"] + chain +
+                    [str(tmp_path / "b.png")], device=dev) == 0
+    assert dispatch.COUNTS["sharded"] == before + 1
+    assert (tmp_path / "a.png").read_bytes() == \
+        (tmp_path / "b.png").read_bytes()
